@@ -1,0 +1,97 @@
+"""The port stands alone: no module of vlut_tpu_torch, and not chip_smoke.py,
+imports JAX or the JAX package; entry points refuse to run without a GPU
+unless the CPU is asked for; chip_smoke.py fails without a GPU or without
+the repository beside it."""
+
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import vlut_tpu_torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+TINY_REAL = ROOT / "tests" / "fixtures" / "tiny_real"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, runpy, sys
+import vlut_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(vlut_tpu_torch.__path__,
+                                                "vlut_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+runpy.run_path("chip_smoke.py", run_name="chip_smoke")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "vlut_tpu"))
+print(len(names), "modules;", "imported:", bad)
+sys.exit(1 if bad or len(names) < 20 else 0)
+"""
+
+
+def test_no_jax_imports():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_load_checkpoint_needs_gpu_or_cpu_asked(no_cuda):
+    from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_checkpoint(TINY_REAL)
+    cfg, model, _ = load_checkpoint(TINY_REAL, device="cpu")
+    assert model.device.type == "cpu"
+
+
+def test_cli_needs_gpu_or_cpu_asked(no_cuda):
+    from vlut_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["batched", "--model", str(TINY_REAL), "-p", "a", "-np", "1",
+                  "-n", "1"])
+
+
+def test_flagship_needs_gpu_or_cpu_asked(no_cuda):
+    from vlut_tpu_torch.bench import flagship
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        flagship.run("tiny", n_layers=1)
+    out = flagship.run("tiny", device="cpu", n_layers=1, reps=1, np_slots=2,
+                       prompt_len=8, n_lo=1, n_hi=2)
+    assert out["device"] == "cpu" and out["n_layers"] == 1
+
+
+def test_init_params_fast_needs_gpu_or_cpu_asked(no_cuda):
+    from vlut_tpu_torch.config import PRESETS
+    from vlut_tpu_torch.models.transformer import init_params_fast
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params_fast(PRESETS["tiny"])
+    assert init_params_fast(PRESETS["tiny"], device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
+def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, alone):
+    if alone:
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    else:
+        if torch.cuda.is_available():
+            pytest.skip("a GPU is present: chip_smoke.py would run")
+        cwd = ROOT
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_package_is_the_checkouts():
+    assert pathlib.Path(vlut_tpu_torch.__file__).parents[1] == ROOT
