@@ -10,11 +10,22 @@ Phases (any failure exits non-zero; none is skipped):
      and the card's lower bound for the same work (kernel and library call
      timed inside a CUDA graph, so the time is the device's);
   3. the flagship: llama3_8b_158 at full width and depth, prefill 32 x 128
-     plus greedy batched decode (vlut_tpu_torch/bench/flagship.py);
+     plus greedy batched decode (vlut_tpu_torch/bench/flagship.py), with the
+     composed decode attention (row write #5 + PyTorch) and the fused one
+     (#7);
   4. real weights: tests/fixtures/tiny_real through the port's ``batched``
      path on the card and on the CPU; the greedy tokens must be identical;
-  5. one JSON line of every kernel with its launches on the paths of phases
-     3 and 4, then the card, then ``{"ok": true, "device": ...}`` last.
+  5. the slot engine at the flagship's full width: 32 slots, ctx 2048, 48
+     greedy requests of 64-1500 prompt tokens (vlut_tpu_torch/bench/
+     engine.py), with the bf16 and the q8 cache, each with the fused and
+     the composed decode attention (the A/B of ms per decode step);
+  6. tiny_real through the engine on the card and on the CPU, bf16 and q8
+     cache: identical greedy tokens;
+  7. the completion server over the flagship engine (tiny_real's tokenizer
+     for text): 8 concurrent /completion requests, one streaming, must
+     answer 200 with the tokens of a direct Engine.run;
+  8. one JSON line of every kernel with its launches on the paths of phases
+     3-7, then the card, then ``{"ok": true, "device": ...}`` last.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.  It imports nothing of JAX.
@@ -31,9 +42,11 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (dense): HBM3 bandwidth and int8 tensor rate
+# H100 SXM data-sheet peaks (dense): HBM3 bandwidth, int8 tensor rate and
+# float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -87,8 +100,9 @@ def library_ms(fn, iters: int = 20) -> float | None:
         return None
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = INT8_OPS_PER_S) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -340,7 +354,117 @@ def phase_kernels(dev) -> dict:
     record("write_rows_pair", shape=f"pair B={b} S={s} Hkv={h} hd={d} bf16",
            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
            library_ms=lib_ms, max_abs_err=0.0)
+    del kc, vc, wk, wv, one, w1
+    decode_attention_kernels(dev, gen, record)
     return results
+
+
+ATT_RTOL = ATT_ATOL = 2e-5
+
+
+def decode_attention_kernels(dev, gen, record) -> None:
+    """#7 and #8 at the flagship engine's shapes (B 32, S 2048, 8 KV heads
+    of 32 query heads, hd 128), starts spread over 64-1900, without and
+    with a 512-row window.  Cache rows, codes and scales must equal the
+    plain version's; the attention output is float32 summed in another
+    order, held to rtol and atol 2e-5."""
+    import torch
+    import torch.nn.functional as F
+
+    from vlut_tpu_torch.ops import decode_attention as da
+    from vlut_tpu_torch.runtime.kv_cache import dequantize_kv, quantize_kv
+
+    b, s, hkv, g, hd = 32, 2048, 8, 4, 128
+    h = hkv * g
+    scale = hd ** -0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    start = torch.linspace(64, 1900, b, device=dev).round().to(torch.int32)
+    start = start[torch.randperm(b, generator=gen, device=dev)]
+    q, kn, vn = randn(b, 1, h, hd), randn(b, 1, hkv, hd), randn(b, 1, hkv, hd)
+    kf, vf = randn(b, s, hkv, hd), randn(b, s, hkv, hd)
+    kq, ksc = quantize_kv(kf)
+    vq, vsc = quantize_kv(vf)
+    rows_idx = torch.arange(s, device=dev)[None, :]
+
+    def check(name, got, want, caches):
+        torch.cuda.synchronize()
+        for mine, theirs in caches:
+            if not torch.equal(mine, theirs):
+                fail(f"{name}: cache rows differ from the plain version")
+        err = (got - want).abs()
+        if bool((err > ATT_ATOL + ATT_RTOL * want.abs()).any()):
+            fail(f"{name}: attention beyond tolerance (max {float(err.max())})")
+        return float(err.max())
+
+    for window in (0, 512):
+        visible = rows_idx < start.long()[:, None]
+        if window:
+            visible &= rows_idx > (start.long()[:, None] - window)
+        rows = int(visible.sum())  # visible cache rows over all slots
+        ops = 4.0 * rows * h * hd
+        out_b = b * h * hd * 4
+        mask = visible[:, None, None, :]
+        suffix = "" if window == 0 else "_window"
+        shape = (f"B={b} S={s} H={h} Hkv={hkv} hd={hd} window={window} "
+                 f"rows={rows}")
+
+        # #7: bf16 cache
+        kc, vc = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+        kw, vw = kc.clone(), vc.clone()
+        want = da.decode_attention_plain(q, kn, vn, kw, vw, start, window,
+                                         scale=scale)
+        got = da.decode_attention(q, kn, vn, kc, vc, start, window,
+                                  scale=scale)
+        err = check("decode_attention" + suffix, got, want,
+                    ((kc, kw), (vc, vw)))
+        ms = cuda_ms(lambda: da.decode_attention(q, kn, vn, kc, vc, start,
+                                                 window, scale=scale),
+                     graph=True)
+        plain_ms = cuda_ms(lambda: da.decode_attention_plain(
+            q, kn, vn, kw, vw, start, window, scale=scale), iters=3, warmup=1)
+        qb = q.transpose(1, 2).to(torch.bfloat16)
+        kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+        lib_ms = library_ms(lambda: F.scaled_dot_product_attention(
+            qb, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True))
+        nbytes = rows * hkv * hd * 2 * 2 + out_b * 2 + b * hkv * hd * 2 * 4
+        b_ms, by = bound_ms(nbytes, ops, F32_OPS_PER_S)
+        record("decode_attention" + suffix, shape=shape + " bf16", ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+               library_ms=lib_ms, max_abs_err=err,
+               library="scaled_dot_product_attention(enable_gqa) over the "
+               "bf16 rows")
+        del kc, vc, kw, vw, kt, vt
+
+        # #8: int8 codes + float32 scales
+        kc, vc, ks, vs = kq.clone(), vq.clone(), ksc.clone(), vsc.clone()
+        ref = [t.clone() for t in (kc, vc, ks, vs)]
+        want = da.decode_attention_int8_plain(q, kn, vn, *ref, start, window,
+                                              scale=scale)
+        got = da.decode_attention_int8(q, kn, vn, kc, vc, ks, vs, start,
+                                       window, scale=scale)
+        err = check("decode_attention_int8" + suffix, got, want,
+                    zip((kc, vc, ks, vs), ref))
+        ms = cuda_ms(lambda: da.decode_attention_int8(
+            q, kn, vn, kc, vc, ks, vs, start, window, scale=scale), graph=True)
+        plain_ms = cuda_ms(lambda: da.decode_attention_int8_plain(
+            q, kn, vn, *ref, start, window, scale=scale), iters=3, warmup=1)
+        kd = dequantize_kv(kc, ks, torch.bfloat16).transpose(1, 2)
+        vd = dequantize_kv(vc, vs, torch.bfloat16).transpose(1, 2)
+        lib_ms = library_ms(lambda: F.scaled_dot_product_attention(
+            qb, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True))
+        nbytes = (rows * hkv * (hd + 4) * 2 + out_b * 2
+                  + b * hkv * hd * 4 * 2 + b * hkv * (hd + 4) * 2)
+        b_ms, by = bound_ms(nbytes, ops, F32_OPS_PER_S)
+        record("decode_attention_int8" + suffix, shape=shape + " int8",
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+               library_ms=lib_ms, max_abs_err=err,
+               library="scaled_dot_product_attention(enable_gqa) over the "
+               "cache dequantized to bf16 beforehand")
+        del kc, vc, ks, vs, ref, kd, vd
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -366,6 +490,7 @@ def main() -> None:
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from vlut_tpu_torch.ops import _build, kv_update, ternary_gemm as tg
+    from vlut_tpu_torch.ops import decode_attention as da
 
     # 1. build
     t0 = time.time()
@@ -387,27 +512,41 @@ def main() -> None:
         "ternary_gemm_fused_quant": tg.ternary_gemm_fused_quant,
         "ternary_gemm_tiled": tg.ternary_gemm_tiled,
         "write_rows_pair": kv_update.write_rows_pair,
+        "decode_attention": da.decode_attention,
+        "decode_attention_int8": da.decode_attention_int8,
     }
+    launches: dict[str, dict[str, int]] = {}
 
     def reset():
         for f in counters.values():
             f.launches = 0
 
-    def read():
-        return {name: f.launches for name, f in counters.items()}
+    def read(path: str, expect: tuple[str, ...]) -> dict[str, int]:
+        """The counts of the path just driven; fails if a kernel the path
+        runs was launched no time."""
+        got = {name: f.launches for name, f in counters.items()}
+        launches[path] = got
+        for name in expect:
+            if got[name] == 0:
+                fail(f"{path} path never launched {name}")
+        return got
 
-    # 3. flagship at full width and depth
+    # 3. flagship at full width and depth, composed then fused attention
     from vlut_tpu_torch.bench import flagship
 
-    reset()
-    fl = flagship.run("llama3_8b_158", device=dev)
-    launches_flagship = read()
-    print(json.dumps({"phase": "flagship", **fl, "card": card}), flush=True)
-    for name in ("ternary_gemm_decode", "ternary_gemm_tiled",
-                 "write_rows_pair"):
-        if launches_flagship[name] == 0:
-            fail(f"flagship path never launched {name}")
-    torch.cuda.empty_cache()
+    built = flagship.build_model("llama3_8b_158", dev)
+    ab: dict[str, dict[str, float]] = {}
+    for mode, attn_kernel in (("composed", "write_rows_pair"),
+                              ("fused", "decode_attention")):
+        reset()
+        fl = flagship.run("llama3_8b_158", device=dev, decode_attn=mode,
+                          built=built)
+        got = read(f"flagship_{mode}", ("ternary_gemm_decode",
+                                        "ternary_gemm_tiled", attn_kernel))
+        ab.setdefault("flagship_batched_S184", {})[mode] = fl["ms_per_step"]
+        print(json.dumps({"phase": "flagship", **fl, "launches": got,
+                          "card": card}), flush=True)
+        torch.cuda.empty_cache()
 
     # 4. real weights: tiny_real on the card and on the CPU
     from vlut_tpu_torch.cli import run_batched
@@ -418,9 +557,13 @@ def main() -> None:
     cfg, gpu_model, _ = load_checkpoint(fixture, device="cuda")
     _, cpu_model, _ = load_checkpoint(fixture, device="cpu")
     reset()
-    toks_gpu = run_batched(gpu_model, cfg, ids, 4, 12, temp=0.0).cpu()
-    launches_real = read()
-    toks_cpu = run_batched(cpu_model, cfg, ids, 4, 12, temp=0.0)
+    toks_gpu = run_batched(gpu_model, cfg, ids, 4, 12, temp=0.0,
+                           decode_attn="composed").cpu()
+    launches_real = read("tiny_real_batched", (
+        "ternary_gemm_decode", "ternary_gemm_fused_quant",
+        "ternary_gemm_tiled", "write_rows_pair"))
+    toks_cpu = run_batched(cpu_model, cfg, ids, 4, 12, temp=0.0,
+                           decode_attn="composed")
     same = torch.equal(toks_gpu, toks_cpu)
     print(json.dumps({"phase": "tiny_real", "prompt_tokens": len(ids),
                       "slots": 4, "n": 12, "tokens_gpu": toks_gpu[0].tolist(),
@@ -428,11 +571,74 @@ def main() -> None:
                       "launches": launches_real}), flush=True)
     if not same:
         fail("tiny_real greedy tokens differ between the card and the CPU")
-    for name, n in launches_real.items():
-        if n == 0:
-            fail(f"tiny_real batched path never launched {name}")
 
-    # 5. summary
+    # 5. the slot engine at the flagship's full width
+    from vlut_tpu_torch.bench import engine as bench_engine
+
+    engine_out = {}
+    for cache in ("bf16", "q8"):
+        for mode in ("fused", "composed"):
+            attn_kernel = {("bf16", "fused"): "decode_attention",
+                           ("q8", "fused"): "decode_attention_int8"}.get(
+                               (cache, mode), "write_rows_pair")
+            reset()
+            out = bench_engine.run(
+                device=dev, built=built, kv_quant=cache == "q8",
+                decode_attn=mode, profile_steps=4 if cache == "bf16" else 0,
+                check_paths=mode == "fused")
+            got = read(f"engine_{cache}_{mode}", (
+                "ternary_gemm_decode", "ternary_gemm_tiled", attn_kernel))
+            engine_out[(cache, mode)] = out.pop("outputs")
+            ab.setdefault(f"engine_{cache}_ctx2048", {})[mode] = out[
+                "decode_ms_per_step"]
+            print(json.dumps({"phase": "engine", **out, "launches": got,
+                              "card": card}), flush=True)
+            torch.cuda.empty_cache()
+    agree = {}
+    for cache in ("bf16", "q8"):
+        pairs = [a == b for x, y in zip(engine_out[(cache, "fused")],
+                                        engine_out[(cache, "composed")])
+                 for a, b in zip(x, y)]
+        agree[cache] = sum(pairs) / len(pairs)
+    print(json.dumps({"phase": "decode_attn_ab", "ms_per_step": ab,
+                      "fused_vs_composed_token_agreement": agree,
+                      "card": card}), flush=True)
+
+    # 6. tiny_real through the engine on the card and on the CPU
+    from vlut_tpu_torch.runtime.engine import Engine, Request
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+
+    texts = [b"The little model", b"reads the lines", b"of its own repo.",
+             b"The", b"little model reads the lines of its own repo.", b"re"]
+    for cache in ("bf16", "q8"):
+        outs = {}
+        for device, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+            eng = Engine(cfg, model, n_slots=4, max_len=256,
+                         kv_quant=cache == "q8")
+            reqs = [Request(prompt=[2] + list(t), max_new_tokens=12,
+                            sampler=SamplerParams(temperature=0.0))
+                    for t in texts]
+            if device == "cuda":
+                reset()
+            eng.run(reqs)
+            if device == "cuda":
+                got = read(f"tiny_real_engine_{cache}", (
+                    "decode_attention" if cache == "bf16"
+                    else "decode_attention_int8",))
+            outs[device] = [r.output for r in reqs]
+        same = outs["cuda"] == outs["cpu"]
+        print(json.dumps({"phase": "tiny_real_engine", "cache": cache,
+                          "tokens_gpu": outs["cuda"][0],
+                          "tokens_cpu": outs["cpu"][0], "identical": same,
+                          "launches": got}), flush=True)
+        if not same:
+            fail(f"tiny_real engine ({cache}) tokens differ between the card "
+                 "and the CPU")
+
+    # 7. the completion server over the flagship engine
+    server_phase(built, fixture, card, reset, read)
+
+    # 8. summary
     replaces = {
         "ternary_gemm_decode": ("vlut_tpu_torch/csrc/ternary_gemm.cu",
                                 "vlut_tpu/ops/pallas_gemm.py:676"),
@@ -442,19 +648,22 @@ def main() -> None:
                                "vlut_tpu/ops/pallas_gemm.py:223"),
         "write_rows_pair": ("vlut_tpu_torch/csrc/kv_update.cu",
                             "vlut_tpu/ops/kv_update.py:76"),
+        "decode_attention": ("vlut_tpu_torch/csrc/decode_attention.cu",
+                             "vlut_tpu/ops/decode_attention.py:486"),
+        "decode_attention_int8": ("vlut_tpu_torch/csrc/decode_attention.cu",
+                                  "vlut_tpu/ops/decode_attention.py:378"),
     }
     kernels = []
     for name, (source, rep) in replaces.items():
         k = kern[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": rep,
-            "launches": launches_flagship[name] + launches_real[name],
+            "launches": sum(path[name] for path in launches.values()),
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         })
-    print(json.dumps({"launches": {"flagship": launches_flagship,
-                                   "tiny_real": launches_real},
+    print(json.dumps({"launches": launches,
                       "timed_shapes": {n: k["shapes"] for n, k in kern.items()},
                       "seconds": time.time() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -462,6 +671,91 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def server_phase(built, fixture, card, reset, read) -> None:
+    """8 concurrent greedy /completion requests (one streaming) to the port's
+    server over the flagship model; every answer must be 200, carry the
+    tokens of a direct Engine.run of the same prompts, and the server must
+    count no error.  The engine loop starts once all 8 are queued, and the
+    direct run takes them in the server's queue order, so both prefill the
+    same groups (the random flagship amplifies float rounding, which
+    differs between batch shapes, into other tokens)."""
+    import concurrent.futures as cf
+    import http.client
+
+    from vlut_tpu_torch.runtime.engine import Engine, Request
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+    from vlut_tpu_torch.serving.server import serve
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    cfg, model = built
+    tok = Tokenizer(fixture)
+    texts = [f"Request {i}: " + "the little model reads its own repo. "
+             * (1 + 3 * i) for i in range(8)]
+    n_new = 16
+    reset()
+    engine = Engine(cfg, model, n_slots=8, max_len=2048)
+    httpd, state = serve(engine, tok, port=0, start_engine=False)
+    hostport = ("127.0.0.1", httpd.server_address[1])
+
+    def post(i):
+        conn = http.client.HTTPConnection(*hostport, timeout=600)
+        body = {"prompt": texts[i], "n_predict": n_new, "temperature": 0.0,
+                "ignore_eos": True, "return_tokens": True, "stream": i == 0}
+        conn.request("POST", "/completion", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        raw = r.read().decode()
+        conn.close()
+        if r.status != 200:
+            return r.status, None
+        if i == 0:
+            events = [json.loads(line[6:]) for line in raw.splitlines()
+                      if line.startswith("data: ") and line != "data: [DONE]"]
+            return r.status, events[-1].get("tokens")
+        return r.status, json.loads(raw)["tokens"]
+
+    try:
+        t0 = time.time()
+        with cf.ThreadPoolExecutor(8) as ex:
+            pending = [ex.submit(post, i) for i in range(8)]
+            while len(engine.queue) < 8 and time.time() - t0 < 120:
+                time.sleep(0.01)
+            order = [list(r.prompt) for r in engine.queue]
+            state.start()
+            answers = [f.result() for f in pending]
+        wall = time.time() - t0
+        conn = http.client.HTTPConnection(*hostport, timeout=60)
+        conn.request("GET", "/metrics")
+        metrics = conn.getresponse().read().decode()
+        conn.close()
+    finally:
+        state.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        if state.thread.ident is not None:
+            state.thread.join(timeout=60)
+    got = read("server", ("ternary_gemm_decode", "decode_attention"))
+    direct = [Request(prompt=p, max_new_tokens=n_new,
+                      sampler=SamplerParams(temperature=0.0)) for p in order]
+    Engine(cfg, model, n_slots=8, max_len=2048).run(direct)
+    by_prompt = {tuple(r.prompt): r.output for r in direct}
+    errors = [float(line.split()[-1]) for line in metrics.splitlines()
+              if line.startswith("vlut_requests_errors_total")]
+    same = [toks == by_prompt.get(tuple(tok.encode(t)))
+            for (_, toks), t in zip(answers, texts)]
+    print(json.dumps({"phase": "server", "requests": len(answers),
+                      "status": [a[0] for a in answers],
+                      "tokens_equal_direct": same, "wall_s": wall,
+                      "requests_errors_total": errors, "launches": got,
+                      "card": card}), flush=True)
+    if any(a[0] != 200 for a in answers):
+        fail(f"server answered {[a[0] for a in answers]}")
+    if errors != [0.0]:
+        fail(f"server counted errors: {errors}")
+    if not all(same):
+        fail("server tokens differ from a direct Engine.run")
 
 
 if __name__ == "__main__":

@@ -123,3 +123,92 @@ def test_kv_writer_matches_plain(dev, dtype):
     kv_update._write_plain(w1, vu, start)
     kv_update.write_rows(one, vu, start)
     assert torch.equal(one, w1)
+
+
+def _attn_inputs(dev, b, s, hkv, g, hd, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *sh: torch.randn(sh, generator=gen, device=dev)  # noqa: E731
+    start = torch.randint(0, s, (b,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    start[0], start[-1] = 0, s - 1
+    return (rn(b, 1, hkv * g, hd), rn(b, 1, hkv, hd), rn(b, 1, hkv, hd),
+            rn(b, s, hkv, hd), rn(b, s, hkv, hd), start)
+
+
+# Attention outputs are float32 sums taken in another order than the plain
+# version's dense softmax (per-warp online softmax, then a merge), so they
+# are held to rtol 1e-5 and atol 1e-5; cache rows, codes and scales must be
+# bit-exact.
+ATT_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [0, 37])
+@pytest.mark.parametrize("hkv,g,hd", [(8, 4, 128), (2, 1, 128), (4, 8, 256),
+                                      (2, 2, 256)])
+def test_decode_attention_matches_plain(dev, hkv, g, hd, window):
+    from vlut_tpu_torch.ops import decode_attention as da
+
+    q, kn, vn, kf, vf, start = _attn_inputs(dev, 5, 300, hkv, g, hd, seed=g)
+    kc, vc = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+    kw, vw = kc.clone(), vc.clone()
+    want = da.decode_attention_plain(q, kn, vn, kw, vw, start, window,
+                                     scale=hd ** -0.5)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, kn, vn, kc, vc, start, window,
+                              scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    torch.testing.assert_close(got, want, **ATT_TOL)
+    assert torch.equal(kc, kw) and torch.equal(vc, vw)
+
+
+@pytest.mark.parametrize("window", [0, 37])
+@pytest.mark.parametrize("hkv,g,hd", [(8, 4, 128), (2, 1, 128), (4, 8, 256)])
+def test_decode_attention_int8_matches_plain(dev, hkv, g, hd, window):
+    from vlut_tpu_torch.ops import decode_attention as da
+    from vlut_tpu_torch.runtime.kv_cache import quantize_kv
+
+    q, kn, vn, kf, vf, start = _attn_inputs(dev, 5, 300, hkv, g, hd, seed=9)
+    (kc, ksc), (vc, vsc) = quantize_kv(kf), quantize_kv(vf)
+    ref = [t.clone() for t in (kc, vc, ksc, vsc)]
+    want = da.decode_attention_int8_plain(q, kn, vn, *ref, start, window,
+                                          scale=hd ** -0.5)
+    before = da.decode_attention_int8.launches
+    got = da.decode_attention_int8(q, kn, vn, kc, vc, ksc, vsc, start,
+                                   window, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert da.decode_attention_int8.launches == before + 1
+    torch.testing.assert_close(got, want, **ATT_TOL)
+    for mine, theirs in zip((kc, vc, ksc, vsc), ref):
+        assert torch.equal(mine, theirs)
+
+
+def test_quantize_kv_same_on_card_and_cpu(dev):
+    from vlut_tpu_torch.runtime.kv_cache import quantize_kv
+
+    x = torch.randn((64, 8, 128), generator=torch.Generator().manual_seed(1))
+    x = x * torch.rand((64, 8, 1), generator=torch.Generator().manual_seed(2))
+    qc, sc = quantize_kv(x)
+    qg, sg = quantize_kv(x.to(dev))
+    assert torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8"])
+def test_engine_tiny_real_card_equals_cpu(dev, q8):
+    import pathlib
+
+    from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+    from vlut_tpu_torch.runtime.engine import Engine, Request
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+
+    path = pathlib.Path(__file__).parent / "fixtures" / "tiny_real"
+    outs = []
+    for device in ("cuda", "cpu"):
+        cfg, model, _ = load_checkpoint(path, device=device)
+        eng = Engine(cfg, model, n_slots=4, max_len=256, kv_quant=q8)
+        reqs = [Request(prompt=[2] + list(p), max_new_tokens=12,
+                        sampler=SamplerParams(temperature=0.0))
+                for p in (b"The little model", b"reads", b"its own repo.")]
+        eng.run(reqs)
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]

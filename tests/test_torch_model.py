@@ -123,9 +123,10 @@ def _close(got: torch.Tensor, want) -> None:
     assert err <= 2e-2 * np.abs(want).max(), err
 
 
+@pytest.mark.parametrize("decode_attn", ["fused", "composed"])
 @pytest.mark.parametrize("fused", [False, True], ids=["stacked", "fused"])
 @pytest.mark.parametrize("name", ["tiny", "tiny_bitnet", "tiny_real"])
-def test_prefill_decode_generate_match_jax(name, fused):
+def test_prefill_decode_generate_match_jax(name, fused, decode_attn):
     cfg_j, params, cfg, model = _models(name, fused)
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
@@ -157,7 +158,8 @@ def test_prefill_decode_generate_match_jax(name, fused):
         with torch.inference_mode():
             tl, tc = tt.forward(model, cfg,
                                 torch.from_numpy(cur[:, None]).long(),
-                                torch.from_numpy(p).long(), tc)
+                                torch.from_numpy(p).long(), tc,
+                                decode_attn=decode_attn)
         _close(tl, jl)
         cur = np.asarray(jl)[:, 0, :v].argmax(-1)
         np.testing.assert_array_equal(tl[:, 0, :v].argmax(-1).numpy(), cur)
@@ -169,7 +171,8 @@ def test_prefill_decode_generate_match_jax(name, fused):
         params, jc, jnp.asarray(last, jnp.int32), jnp.asarray(lens),
         jax_stack_params([JaxSamplerParams(temperature=0.0)] * B),
         jax.random.PRNGKey(0))
-    got, cache = make_generate_fn(cfg, N_STEPS, features=())(
+    got, cache = make_generate_fn(cfg, N_STEPS, features=(),
+                                  decode_attn=decode_attn)(
         model, tc, torch.from_numpy(last), torch.from_numpy(lens).long(),
         sampling.stack_params([sampling.SamplerParams(temperature=0.0)] * B))
     assert cache is tc  # the cache is updated in place
@@ -251,8 +254,15 @@ def test_temperature_sampling_distribution():
 
 
 def test_unported_sampler_transforms_raise():
+    """The sampler chain is ported (a top-k feature set builds), and what of
+    sampling is still to port, grammar constraints, raises."""
+    from vlut_tpu_torch.runtime.engine import Engine, Request
+
+    make_generate_fn(PRESETS["tiny"], 2, features=("top_k", "sampling"))
+    model = tt.init_params(PRESETS["tiny"], seed=0)
+    eng = Engine(PRESETS["tiny"], model, n_slots=1, max_len=32)
     with pytest.raises(NotImplementedError):
-        make_generate_fn(PRESETS["tiny"], 2, features=("top_k", "sampling"))
+        eng.submit(Request(prompt=[1, 2], grammar=object()))
 
 
 def test_unported_config_raises():
@@ -272,6 +282,7 @@ def test_char_tokenizer_matches_hf():
     ours = CharWordLevel(TINY_REAL)
     for text in ("The little model", "a<0x01>b, ü\n", ""):
         assert ours.encode(text) == hf.encode(text, add_special_tokens=True)
-    ids = list(range(256)) + [72, 1, 10]
+    ids = list(range(256)) + [72, 1, 10, 300, 128000]  # two out of vocab
     assert ours.decode(ids) == hf.decode(ids, skip_special_tokens=False)
     assert ours.eos_token_id == hf.eos_token_id
+    assert ours.bos_token_id == hf.bos_token_id

@@ -51,12 +51,16 @@ def test_load_checkpoint_needs_gpu_or_cpu_asked(no_cuda):
     assert model.device.type == "cpu"
 
 
-def test_cli_needs_gpu_or_cpu_asked(no_cuda):
+@pytest.mark.parametrize("argv", [
+    ["batched", "-p", "a", "-np", "1", "-n", "1"],
+    ["generate", "-p", "a", "-n", "1"],
+    ["serve", "--port", "0"],
+], ids=["batched", "generate", "serve"])
+def test_cli_needs_gpu_or_cpu_asked(no_cuda, argv):
     from vlut_tpu_torch import cli
 
     with pytest.raises(RuntimeError, match="--device cpu"):
-        cli.main(["batched", "--model", str(TINY_REAL), "-p", "a", "-np", "1",
-                  "-n", "1"])
+        cli.main(argv[:1] + ["--model", str(TINY_REAL)] + argv[1:])
 
 
 def test_flagship_needs_gpu_or_cpu_asked(no_cuda):

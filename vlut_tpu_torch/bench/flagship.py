@@ -8,7 +8,7 @@ an n = 40 run (each after a fresh prefill, best of ``reps``), which cancels
 the fixed per-run costs.  Device times come from CUDA events.
 
     python -m vlut_tpu_torch.bench.flagship [--layers L] [--device cpu]
-        [--profile]
+        [--decode-attn fused|composed] [--profile]
 
 prints one JSON line with prefill ms, ms per decode step and tokens/s
 (and, with ``--profile``, the device time of one decode run by kernel).
@@ -79,10 +79,13 @@ def _elapsed_ms(dev: torch.device, fn):
 def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
         reps: int = 3, seed: int = 0, np_slots: int = NP_SLOTS,
         prompt_len: int = PROMPT_LEN, n_lo: int = N_LO,
-        n_hi: int = N_HI, profile: bool = False) -> dict:
+        n_hi: int = N_HI, profile: bool = False,
+        decode_attn: str = "fused", built=None) -> dict:
+    """``built``: a (cfg, model) pair from :func:`build_model` to reuse;
+    ``decode_attn``: the decode step's attention path (``forward``)."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    cfg, model = build_model(preset, dev, n_layers, seed)
+    cfg, model = built or build_model(preset, dev, n_layers, seed)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -111,7 +114,8 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
     lengths = torch.full((np_slots,), prompt_len, device=dev)
     decode_ms = {}
     for n in (n_lo, n_hi):
-        gen = make_generate_fn(cfg, n_steps=n, features=features_of(samplers))
+        gen = make_generate_fn(cfg, n_steps=n, features=features_of(samplers),
+                               decode_attn=decode_attn)
         _, cache = prefill()
         toks, _ = gen(model, cache, last, lengths, sp)  # warm-up
         best = float("inf")
@@ -128,13 +132,15 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
     prof = None
     if profile and dev.type == "cuda":
         gen = make_generate_fn(cfg, n_steps=n_lo,
-                               features=features_of(samplers))
+                               features=features_of(samplers),
+                               decode_attn=decode_attn)
         _, cache = prefill()
         prof = profile_decode(lambda: gen(model, cache, last, lengths, sp),
                               n_lo)
     return {
         "preset": preset,
         "n_layers": cfg.n_layers,
+        "decode_attn": decode_attn,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "setup_s": setup_s,
@@ -191,12 +197,15 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--preset", default="llama3_8b_158")
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--decode-attn", choices=("fused", "composed"),
+                    default="fused")
     ap.add_argument("--profile", action="store_true",
                     help="also break one n=8 decode run down by kernel "
                     "(torch.profiler; GPU only)")
     args = ap.parse_args(argv)
     print(json.dumps(run(args.preset, args.device, args.layers,
-                         profile=args.profile)))
+                         profile=args.profile,
+                         decode_attn=args.decode_attn)))
 
 
 if __name__ == "__main__":

@@ -1,11 +1,19 @@
 """Command-line entry point of the port.
 
+  python -m vlut_tpu_torch.cli generate --model DIR -p PROMPT [-n N]
+      [--ctx N] [--cache-type bf16|q8] [--head-type bf16|q8]
+      [--decode-attn fused|composed] [sampler flags] [-l TOKEN:BIAS]
+      [--seed S] [--device cpu]
+  python -m vlut_tpu_torch.cli serve --model DIR [--port 8080] [--slots 8]
+      [--ctx 4096] [--cache-type bf16|q8] [--decode-attn fused|composed]
+      [--device cpu]
   python -m vlut_tpu_torch.cli batched --model DIR -p PROMPT -np N -n N
       [--temp T] [--repeat-penalty R] [--seed S] [--device cpu]
 
-``batched`` is the shared-prompt np-way fan-out (the JAX package's
-``vlut-tpu batched``): one prompt prefilled into np slots, then n decode
-steps per slot.  It runs on the GPU unless ``--device cpu`` is given.
+``generate`` serves one request through the slot engine; ``serve`` starts
+the completion server; ``batched`` is the shared-prompt np-way fan-out (one
+prompt prefilled into np slots, then n decode steps per slot).  Each runs
+on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ import torch
 
 def run_batched(model, cfg, ids: list[int], np_parallel: int, n_predict: int,
                 temp: float = 0.5, repeat_penalty: float = 1.5,
-                seed: int = 0) -> torch.Tensor:
+                seed: int = 0, decode_attn: str = "fused") -> torch.Tensor:
     """Prefill ``ids`` into ``np_parallel`` slots and generate ``n_predict``
     tokens per slot; returns (np, n_predict) token ids.  As in the JAX
     package, the argmax of the prefill logits seeds decoding and is not part
@@ -44,7 +52,8 @@ def run_batched(model, cfg, ids: list[int], np_parallel: int, n_predict: int,
                               repeat_penalty=repeat_penalty) for i in range(b)]
     last = torch.argmax(logits[:, 0, : cfg.vocab_size], dim=-1)
     gen = make_generate_fn(cfg, n_steps=n_predict,
-                           features=features_of(samplers))
+                           features=features_of(samplers),
+                           decode_attn=decode_attn)
     out, _ = gen(model, cache, last, torch.full((b,), t, device=dev),
                  stack_params(samplers, device=dev), seed)
     return out
@@ -69,9 +78,107 @@ def cmd_batched(args) -> None:
           f"{model.device}]", file=sys.stderr)
 
 
+def sampler_from_args(args):
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+
+    bias = []
+    for spec in args.logit_bias or ():
+        t, _, b = spec.partition(":")
+        bias.append((int(t), float(b)))
+    return SamplerParams(
+        temperature=args.temp, top_k=args.top_k, top_p=args.top_p,
+        min_p=args.min_p, typical_p=args.typical,
+        dynatemp_range=args.dynatemp_range,
+        dynatemp_exponent=args.dynatemp_exp,
+        xtc_p=args.xtc_probability, xtc_t=args.xtc_threshold,
+        top_n_sigma=args.top_nsigma,
+        mirostat_tau=(args.mirostat_ent if args.mirostat else 0.0),
+        mirostat_eta=args.mirostat_lr,
+        repeat_penalty=args.repeat_penalty,
+        presence_penalty=args.presence_penalty,
+        frequency_penalty=args.frequency_penalty,
+        dry_multiplier=args.dry_multiplier, dry_base=args.dry_base,
+        dry_allowed_length=args.dry_allowed_length,
+        logit_bias=tuple(bias), seed=args.seed,
+    )
+
+
+def cmd_generate(args) -> None:
+    """One request through the slot engine (the JAX package's engine branch
+    of ``vlut-tpu generate``)."""
+    from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+    from vlut_tpu_torch.runtime.engine import Engine, Request
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    cfg, model, _ = load_checkpoint(args.model, device=args.device)
+    tok = Tokenizer(args.model)
+    eng = Engine(cfg, model, n_slots=1, max_len=args.ctx,
+                 kv_quant=args.cache_type == "q8",
+                 head_quant=args.head_type == "q8",
+                 decode_attn=args.decode_attn)
+    stop = (tok.eos_id,) if tok.eos_id is not None else ()
+    req = Request(prompt=tok.encode(args.prompt),
+                  max_new_tokens=args.n_predict,
+                  sampler=sampler_from_args(args), stop_tokens=stop)
+    t0 = time.time()
+    eng.run([req])
+    dt = time.time() - t0
+    print(tok.decode(req.output))
+    print(f"\n[{len(req.output)} tokens, {len(req.output) / dt:.1f} tok/s | "
+          f"{eng.perf.summary()} | {model.device}]", file=sys.stderr)
+
+
+def _generate_parser(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model", required=True)
+    p.add_argument("-p", "--prompt", required=True)
+    p.add_argument("-n", "--n-predict", type=int, default=128)
+    p.add_argument("--ctx", type=int, default=4096)
+    p.add_argument("--temp", type=float, default=0.8)
+    p.add_argument("--top-k", type=int, default=40)
+    p.add_argument("--top-p", type=float, default=0.95)
+    p.add_argument("--min-p", type=float, default=0.0)
+    p.add_argument("--typical", type=float, default=1.0)
+    p.add_argument("--dynatemp-range", type=float, default=0.0)
+    p.add_argument("--dynatemp-exp", type=float, default=1.0)
+    p.add_argument("--xtc-probability", type=float, default=0.0)
+    p.add_argument("--xtc-threshold", type=float, default=0.1)
+    p.add_argument("--top-nsigma", type=float, default=0.0)
+    p.add_argument("--mirostat", type=int, default=0, choices=(0, 2),
+                   help="0=off, 2=mirostat v2")
+    p.add_argument("--mirostat-ent", type=float, default=5.0,
+                   help="mirostat target entropy tau")
+    p.add_argument("--mirostat-lr", type=float, default=0.1,
+                   help="mirostat learning rate eta")
+    p.add_argument("--repeat-penalty", type=float, default=1.0)
+    p.add_argument("--presence-penalty", type=float, default=0.0)
+    p.add_argument("--frequency-penalty", type=float, default=0.0)
+    p.add_argument("--dry-multiplier", type=float, default=0.0)
+    p.add_argument("--dry-base", type=float, default=1.75)
+    p.add_argument("--dry-allowed-length", type=int, default=2)
+    p.add_argument("-l", "--logit-bias", action="append", default=[],
+                   metavar="TOKEN:BIAS")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--cache-type", choices=("bf16", "q8"), default="bf16")
+    p.add_argument("--head-type", choices=("bf16", "q8"), default="bf16",
+                   help="output head precision (q8 halves head bandwidth)")
+    p.add_argument("--decode-attn", choices=("fused", "composed"),
+                   default="fused",
+                   help="decode attention: one fused kernel per layer, or "
+                   "a row write and PyTorch attention")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+
+
 def main(argv: list[str] | None = None) -> None:
+    from vlut_tpu_torch.serving.server import add_server_args, run_from_args
+
     ap = argparse.ArgumentParser(prog="python -m vlut_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("generate", help="one request through the slot engine")
+    _generate_parser(p)
+    p.set_defaults(fn=cmd_generate)
+    p = sub.add_parser("serve", help="the completion server")
+    add_server_args(p)
+    p.set_defaults(fn=run_from_args)
     p = sub.add_parser("batched", help="shared-prompt np-way fan-out")
     p.add_argument("--model", required=True)
     p.add_argument("-p", "--prompt", required=True)

@@ -40,6 +40,7 @@ from vlut_tpu_torch.models.dims import (
     scatter_cols,
     scatter_rows,
 )
+from vlut_tpu_torch.ops import decode_attention as dattn
 from vlut_tpu_torch.ops.kv_update import write_rows_pair
 from vlut_tpu_torch.ops.matmul import ternary_matmul, ternary_matmul_fused
 from vlut_tpu_torch.ops.packing import (
@@ -51,9 +52,16 @@ from vlut_tpu_torch.ops.packing import (
 from vlut_tpu_torch.ops.quant import quantize_activations, true_div
 from vlut_tpu_torch.ops.ternary_gemm import RECIP_127
 from vlut_tpu_torch.ops.rope import apply_rope, rope_table
-from vlut_tpu_torch.runtime.kv_cache import max_len_of, new_cache
+from vlut_tpu_torch.runtime.kv_cache import (
+    dequantize_kv,
+    is_quantized,
+    max_len_of,
+    new_cache,
+    quantize_kv,
+)
 
-ATTN_CHUNK = 1024  # the JAX package switches to chunked attention past this
+ATTN_CHUNK = 1024  # switch to online-softmax chunking past this KV length
+DECODE_ATTN = ("fused", "composed")
 
 # config fields this port implements; any other field must keep its default
 _SUPPORTED_FIELDS = {
@@ -464,10 +472,12 @@ def unstack_layers(model: TransformerLM, cfg: ModelConfig) -> TransformerLM:
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int | None = None,
-                  dtype=torch.bfloat16, device="cpu") -> dict:
+                  dtype=torch.bfloat16, device="cpu",
+                  quantized: bool = False) -> dict:
     plan = make_plan(cfg)
     return new_cache(cfg.n_layers, batch, max_len or cfg.max_seq_len,
-                     cfg.n_kv_heads, plan.hd_p, dtype=dtype, device=device)
+                     cfg.n_kv_heads, plan.hd_p, dtype=dtype, device=device,
+                     quantized=quantized)
 
 
 # --- forward ---------------------------------------------------------------------
@@ -482,50 +492,154 @@ def _rms(x: torch.Tensor, weight: torch.Tensor, eps: float,
     return out.to(x.dtype)
 
 
-def _attention(q, k, v, q_pos, k_pos, hd_logical, scale=0.0):
-    """Causal GQA attention, dense softmax over the whole key range.
-    q (B, T, H, hd), k/v (B, S, Hkv, hd); returns float32 (B, T, H, hd)."""
+def _attention(q, k, v, q_pos, k_pos, hd_logical, scale=0.0, k_scale=None,
+               v_scale=None):
+    """Causal GQA attention.  q (B, T, H, hd), k/v (B, S, Hkv, hd); returns
+    float32 (B, T, H, hd).
+
+    k_scale/v_scale (B, S, Hkv): deferred int8-KV dequantization; the codes
+    stay int8 and the per-row scales fold into the scores (scores·ks) and
+    the probabilities (p·vs).  Short KV takes one dense softmax; past
+    ``ATTN_CHUNK`` keys it streams chunks through an online softmax
+    (:func:`_attention_chunked`, which takes dequantized values)."""
     if k.shape[1] > ATTN_CHUNK:
-        raise NotImplementedError(
-            f"KV length {k.shape[1]} > {ATTN_CHUNK} needs the chunked "
-            "attention path, which is not ported yet")
+        if k_scale is not None:
+            k = dequantize_kv(k, k_scale)
+            v = dequantize_kv(v, v_scale)
+        return _attention_chunked(q, k, v, q_pos, k_pos, hd_logical, scale)
     b, t, h, hd = q.shape
     hkv = k.shape[2]
     qf = q.to(torch.float32) * (scale or 1.0 / math.sqrt(hd_logical))
     qf = qf.reshape(b, t, hkv, h // hkv, hd)
     scores = torch.einsum("bthgd,bshd->bhgts", qf, k.to(torch.float32))
+    if k_scale is not None:
+        # true scores = q · (codes * ks) == (q · codes) * ks
+        scores = scores * k_scale.to(torch.float32).permute(0, 2, 1)[
+            :, :, None, None, :]
     kp = k_pos[:, None, None, None, :]
     qp = q_pos[:, None, None, :, None]
     mask = (kp <= qp) & (kp >= 0)
     scores = scores.masked_fill(~mask, -1e30)
     p = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        # out = p · (codes * vs) == (p * vs) · codes
+        p = p * v_scale.to(torch.float32).permute(0, 2, 1)[:, :, None, None, :]
     out = torch.einsum("bhgts,bshd->bthgd", p, v.to(torch.float32))
     return out.reshape(b, t, h, v.shape[-1])
 
 
-class _SlotKV:
-    """Cache IO of layer i: rows are written in place (one kernel launch
-    for the K and V row of every slot at T == 1)."""
+def _attention_chunked(q, k, v, q_pos, k_pos, hd_logical, scale=0.0,
+                       chunk=ATTN_CHUNK):
+    """Online-softmax attention over KV chunks (same semantics as the dense
+    path; O(T * chunk) live scores instead of O(T * S))."""
+    b, t, h, hd = q.shape
+    hkv, s = k.shape[2], k.shape[1]
+    g = h // hkv
+    qf = q.to(torch.float32) * (scale or 1.0 / math.sqrt(hd_logical))
+    qf = qf.reshape(b, t, hkv, g, hd)
+    qp = q_pos[:, None, None, :, None]
+    m = torch.full((b, hkv, g, t), -math.inf, device=q.device)
+    l = torch.zeros((b, hkv, g, t), device=q.device)
+    acc = torch.zeros((b, hkv, g, t, v.shape[-1]), device=q.device)
+    for off in range(0, s, chunk):
+        kc = k[:, off:off + chunk].to(torch.float32)
+        vc = v[:, off:off + chunk].to(torch.float32)
+        kp = k_pos[:, off:off + chunk][:, None, None, None, :]
+        sc = torch.einsum("bthgd,bshd->bhgts", qf, kc)
+        masked = ~((kp <= qp) & (kp >= 0))
+        sc.masked_fill_(masked, -1e30)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = sc.sub_(m_new[..., None]).exp_().masked_fill_(masked, 0.0)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgts,bshd->bhgtd", p, vc)
+        m = m_new
+        del sc, p
+    out = acc / torch.clamp(l, min=1e-30)[..., None]  # (b, hkv, g, t, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, v.shape[-1])
 
-    def __init__(self, cache: dict, i: int):
-        self.cache, self.i = cache, i
+
+class _SlotKV:
+    """Cache IO of layer i, in place.
+
+    Without ``slots`` the forward's rows are the cache's slots; with
+    ``slots`` (m,) they are those slots of the cache (a batched prefill):
+    their rows are written in place and only those slots are read back.
+    """
+
+    def __init__(self, cache: dict, i: int, slots: torch.Tensor | None):
+        self.cache, self.i, self.slots = cache, i, slots
+        self.quant = is_quantized(cache)
+
+    def _layer(self, name: str) -> torch.Tensor:
+        return self.cache[name][self.i]
+
+    def _names(self):
+        return ("k", "v", "k_scale", "v_scale") if self.quant else ("k", "v")
 
     def update(self, k, v, start):
-        kc, vc = self.cache["k"][self.i], self.cache["v"][self.i]
-        k, v = k.to(kc.dtype), v.to(vc.dtype)
-        if k.shape[1] == 1:
-            write_rows_pair(kc, vc, k, v, start)
+        """Write the new rows; returns (k, v, k_scale, v_scale) to attend
+        over (scales None for a bf16 cache)."""
+        if self.quant:
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            rows = (k, v, ks, vs)
         else:
-            b, t = k.shape[:2]
-            rows = start[:, None] + torch.arange(t, device=k.device)
-            slot = torch.arange(b, device=k.device)[:, None]
-            kc[slot, rows] = k
-            vc[slot, rows] = v
-        return kc, vc
+            kc = self._layer("k")
+            rows = (k.to(kc.dtype), v.to(kc.dtype))
+        arrs = [self._layer(n) for n in self._names()]
+        b, t = k.shape[:2]
+        if t == 1 and self.slots is None:
+            for a in range(0, len(arrs), 2):
+                write_rows_pair(arrs[a], arrs[a + 1], rows[a], rows[a + 1],
+                                start)
+        else:
+            s = arrs[0].shape[1]
+            idx = (self.slots if self.slots is not None
+                   else torch.arange(b, device=k.device))[:, None]
+            # pad tokens of a prefill bucket may run past the cache: they
+            # land on the scratch row S-1, which never holds a live row
+            pos = torch.clamp(start[:, None] + torch.arange(t, device=k.device),
+                              max=s - 1)
+            for arr, u in zip(arrs, rows):
+                arr[idx, pos] = u
+        if self.slots is not None:
+            arrs = [a[self.slots] for a in arrs]
+        return tuple(arrs) + ((None, None) if not self.quant else ())
+
+    def fused_attend(self, q, k, v, start, window, scale):
+        """KV row write + attention in one kernel launch (#7 for a bf16
+        cache, #8 for an int8 one); the cache is read once in its storage
+        type."""
+        if self.quant:
+            return dattn.decode_attention_int8(
+                q, k, v, self._layer("k"), self._layer("v"),
+                self._layer("k_scale"), self._layer("v_scale"), start, window,
+                scale=scale)
+        return dattn.decode_attention(q, k, v, self._layer("k"),
+                                      self._layer("v"), start, window,
+                                      scale=scale)
+
+
+def _fused_attn_ok(cfg: ModelConfig, plan: DimPlan, t: int,
+                   kvio: _SlotKV | None, decode_attn: str) -> bool:
+    """The decode-attention gate: one token per slot over the whole cache,
+    a model whose attention the kernels compute (no ALiBi, sinks, softcap,
+    chunked windows or bidirectional attention), and the kernels' head
+    shapes."""
+    return (
+        decode_attn == "fused"
+        and kvio is not None and kvio.slots is None and t == 1
+        and getattr(cfg, "pos_embed", "rope") != "alibi"
+        and not getattr(cfg, "attn_sinks", False)
+        and not cfg.attn_logit_softcap
+        and getattr(cfg, "swa_type", "window") != "chunked"
+        and getattr(cfg, "causal_attn", True)
+        and dattn.supports(cfg.n_heads, cfg.n_kv_heads, plan.hd_p)
+    )
 
 
 def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, cos, sin,
-                safe_pos, k_pos, write_start):
+                safe_pos, rope_pos, k_pos, write_start, decode_attn):
     b, t = x.shape[:2]
     hd_p, eps, d = plan.hd_p, cfg.rms_eps, cfg.d_model
     proj = lp.proj
@@ -538,12 +652,19 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, cos, sin,
     else:
         h = _rms(x, lp.attn_norm, eps, d)
         q, k, v = proj["wq"](h), proj["wk"](h), proj["wv"](h)
-    q = apply_rope(q.reshape(b, t, -1, hd_p), safe_pos, cos, sin)
-    k = apply_rope(k.reshape(b, t, -1, hd_p), safe_pos, cos, sin)
+    q = apply_rope(q.reshape(b, t, -1, hd_p), rope_pos, cos, sin)
+    k = apply_rope(k.reshape(b, t, -1, hd_p), rope_pos, cos, sin)
     v = v.reshape(b, t, -1, hd_p)
-    if kvio is not None:
-        k, v = kvio.update(k, v, write_start)
-    att = _attention(q, k, v, safe_pos, k_pos, plan.hd, scale=cfg.attn_scale)
+    if _fused_attn_ok(cfg, plan, t, kvio, decode_attn):
+        att = kvio.fused_attend(
+            q, k, v, write_start, 0,
+            cfg.attn_scale or 1.0 / math.sqrt(plan.hd))
+    else:
+        k_sc = v_sc = None
+        if kvio is not None:
+            k, v, k_sc, v_sc = kvio.update(k, v, write_start)
+        att = _attention(q, k, v, safe_pos, k_pos, plan.hd,
+                         scale=cfg.attn_scale, k_scale=k_sc, v_scale=v_sc)
     # chunk-pad into wo's packed-K layout (a no-op when chunk == chunk_p)
     att = att.reshape(b, t, plan.tp_pack, plan.wo_chunk)
     if plan.wo_chunk_p != plan.wo_chunk:
@@ -575,10 +696,15 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, cos, sin,
 
 
 def run_layers(layers, x, positions, kv: dict | None, *, cfg: ModelConfig,
-               plan: DimPlan, cos, sin):
-    """Run the layer stack (either tree) over x (B, T, D)."""
+               plan: DimPlan, cos, sin, slots: torch.Tensor | None = None,
+               decode_attn: str = "fused"):
+    """Run the layer stack (either tree) over x (B, T, D).  With ``slots``
+    the B rows are those slots of the cache ``kv``."""
     b = positions.shape[0]
     safe_pos = torch.clamp(positions, min=0)
+    # the rope gather clamps past the table as JAX's gather does (only pad
+    # tokens of a prefill bucket reach there)
+    rope_pos = torch.clamp(safe_pos, max=cos.shape[0] - 1)
     if kv is not None:
         s = max_len_of(kv)
         k_pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
@@ -587,9 +713,10 @@ def run_layers(layers, x, positions, kv: dict | None, *, cfg: ModelConfig,
         k_pos, write_start = positions, None
     for i in range(len(layers)):
         x = _layer_step(
-            x, layers[i], _SlotKV(kv, i) if kv is not None else None,
+            x, layers[i], _SlotKV(kv, i, slots) if kv is not None else None,
             cfg=cfg, plan=plan, cos=cos, sin=sin, safe_pos=safe_pos,
-            k_pos=k_pos, write_start=write_start,
+            rope_pos=rope_pos, k_pos=k_pos, write_start=write_start,
+            decode_attn=decode_attn,
         )
     return x, kv
 
@@ -614,18 +741,27 @@ def forward(
     kv_cache: dict | None = None,
     *,
     logits_at: torch.Tensor | None = None,  # (B,) per-row index into T
+    slots: torch.Tensor | None = None,  # (B,) cache slot of each row
+    decode_attn: str = "fused",
 ) -> tuple[torch.Tensor, dict | None]:
     """Returns (float32 logits (B, T', V_padded), kv_cache updated in place).
 
     With a cache, the T new tokens of row b occupy cache rows
-    positions[b, 0] ... positions[b, 0] + T - 1.
+    positions[b, 0] ... positions[b, 0] + T - 1 of slot b, or of slot
+    ``slots[b]`` when given.  ``decode_attn`` picks the attention of a
+    one-token step over the whole cache: ``"fused"`` runs the KV row write
+    and the attention as one kernel (#7/#8), ``"composed"`` writes the row
+    (#5) and attends in PyTorch.
     """
+    if decode_attn not in DECODE_ATTN:
+        raise ValueError(f"decode_attn must be one of {DECODE_ATTN}")
     b = tokens.shape[0]
     plan = params.plan
     x = params.embed[tokens]
     x, kv_cache = run_layers(params.layers, x, positions, kv_cache, cfg=cfg,
                              plan=plan, cos=params.rope_cos,
-                             sin=params.rope_sin)
+                             sin=params.rope_sin, slots=slots,
+                             decode_attn=decode_attn)
     x = _rms(x, params.final_norm, cfg.rms_eps, cfg.d_model)
     if logits_at is not None:
         x = x[torch.arange(b, device=x.device), logits_at][:, None]

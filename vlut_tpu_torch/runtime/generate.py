@@ -2,7 +2,8 @@
 
 The JAX package runs the n decode steps as one jitted ``lax.scan``; here
 they are a Python loop of eager forward calls.  Capturing the step in a
-CUDA graph is later work.
+CUDA graph is later work.  As there, no penalties in this path (no token
+window is passed to the sampler).
 """
 
 from __future__ import annotations
@@ -13,16 +14,12 @@ import torch
 
 from vlut_tpu_torch.config import ModelConfig
 from vlut_tpu_torch.models.transformer import forward
-from vlut_tpu_torch.runtime.sampling import (
-    NEG_INF,
-    check_features,
-    row_generators,
-    sample,
-)
+from vlut_tpu_torch.runtime.sampling import NEG_INF, row_generators, sample
 
 
 def make_generate_fn(cfg: ModelConfig, n_steps: int,
-                     features: tuple[str, ...] | None = None) -> Callable:
+                     features: tuple[str, ...] | None = None,
+                     decode_attn: str = "fused") -> Callable:
     """f(params, cache, last_tokens, lengths, sp, seed) -> ((B, n_steps)
     tokens, cache), generating exactly n_steps tokens per row.
 
@@ -30,19 +27,19 @@ def make_generate_fn(cfg: ModelConfig, n_steps: int,
     the cache is updated in place.
     """
     features = () if features is None else tuple(features)
-    check_features(features)
+    draws = "sampling" in features or "mirostat" in features
 
     @torch.inference_mode()
     def generate(params, cache, last_tokens, lengths, sp, seed: int = 0):
         b = last_tokens.shape[0]
         dev = last_tokens.device
-        gens = (row_generators(sp, seed, dev) if "sampling" in features
-                else None)
+        gens = row_generators(sp, seed, dev) if draws else None
         at = torch.zeros((b,), dtype=torch.long, device=dev)
         tokens, lens, out = last_tokens, lengths, []
         for _ in range(n_steps):
             logits, cache = forward(params, cfg, tokens[:, None],
-                                    lens[:, None], cache, logits_at=at)
+                                    lens[:, None], cache, logits_at=at,
+                                    decode_attn=decode_attn)
             logits = logits[:, 0].to(torch.float32)
             v = logits.shape[-1]
             if v != cfg.vocab_size:

@@ -42,9 +42,13 @@ class CharWordLevel:
         self.special = {s: self.vocab[s] for s in special}
         self._split = (re.compile("(" + "|".join(map(re.escape, special)) + ")")
                        if special else None)
-        eos = cfg.get("eos_token")
-        self.eos_token_id = self.vocab.get(
-            eos["content"] if isinstance(eos, dict) else eos)
+        def special_id(name):
+            tok = cfg.get(name)
+            return self.vocab.get(tok["content"] if isinstance(tok, dict)
+                                  else tok)
+
+        self.eos_token_id = special_id("eos_token")
+        self.bos_token_id = special_id("bos_token")
 
     def encode(self, text: str, add_special_tokens: bool = True) -> list[int]:
         parts = self._split.split(text) if self._split else [text]
@@ -57,8 +61,11 @@ class CharWordLevel:
         return ids
 
     def decode(self, ids: list[int], skip_special_tokens: bool = False) -> str:
-        return " ".join(self.inv[i] for i in ids if not (
-            skip_special_tokens and self.inv[i] in self.special))
+        """Ids outside the vocabulary are skipped, as the Hugging Face
+        tokenizer skips them."""
+        pieces = (self.inv.get(int(i)) for i in ids)
+        return " ".join(p for p in pieces if p is not None and not (
+            skip_special_tokens and p in self.special))
 
 
 class Tokenizer:
@@ -79,3 +86,7 @@ class Tokenizer:
     @property
     def eos_id(self) -> int | None:
         return self.tk.eos_token_id
+
+    @property
+    def bos_id(self) -> int | None:
+        return self.tk.bos_token_id
