@@ -24,8 +24,28 @@ Phases (any failure exits non-zero; none is skipped):
   7. the completion server over the flagship engine (tiny_real's tokenizer
      for text): 8 concurrent /completion requests, one streaming, must
      answer 200 with the tokens of a direct Engine.run;
-  8. one JSON line of every kernel with its launches on the paths of phases
-     3-7, then the card, then ``{"ok": true, "device": ...}`` last.
+  8. the kernel microbenchmark (vlut_tpu_torch/bench/kernels.py) at the
+     llama3_8b shapes, M 32 and 256: i2/i1 through #3, TQ2_0/TQ1_0 through
+     #9, one JSON line per row;
+  9. the end-to-end benches (vlut_tpu_torch/bench/e2e.py): bench_sweep of
+     llama3_8b_158 at full width and depth in i2 and in i1 (pp 512, tg 32,
+     batch 1 and 32) and one batched_bench (npp 128, ntg 32, npl 32);
+ 10. perplexity of tiny_real over the first 1,024 bytes of SURVEY.md
+     (window 128) on the card and on the CPU (relative 1e-4), and the
+     quantized-vs-dequant KL on the card (mean < 0.05, top-1 > 0.95);
+ 11. tiny_real requantized to i1 (convert/quantize.py) gives the i2
+     model's greedy ``batched`` tokens on the card; ``inspect`` of both;
+ 12. one JSON line of every kernel with its launches on the paths of phases
+     3-11, then the card, then ``{"ok": true, "device": ...}`` last.
+
+Phase 2 also holds #9 (the TQ2_0/TQ1_0 GEMM) against its plain version at
+the llama3_8b shapes (dxd, dxff, ffxd) for both formats at M 32 and 256:
+the float32 sum runs in the same order in both, so they must be equal bit
+for bit (max |err| 0).  It then checks, without timing them, the kernels
+at the shapes the later phases give them: #1 at every flagship projection
+in i2 and i1 at M 1 and 32 (the e2e benches' decode), #3 bit-exact in i2
+and i1 at the microbenchmark's lanes (M 32 and 256) and at the e2e
+prefills (M 512 and 16384), and #7 at the e2e benches' caches.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.  It imports nothing of JAX.
@@ -151,25 +171,16 @@ def phase_kernels(dev) -> dict:
     from vlut_tpu_torch.ops import kv_update, ternary_gemm as tg
     from vlut_tpu_torch.ops.quant import quantize_activations
     from vlut_tpu_torch.ops.packing import (
-        TRITS_PER_BYTE, DEFAULT_BLOCK, padded_k, unpack_fields)
+        TRITS_PER_BYTE, DEFAULT_BLOCK, padded_k, random_packed_bytes,
+        unpack_fields)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     results = {}
 
     def rand_packed(k, n, fmt):
-        r = TRITS_PER_BYTE[fmt]
-        shape = (padded_k(k, fmt) // r, n)
-        if fmt == "i1":
-            return torch.randint(0, 243, shape, generator=gen, device=dev,
-                                 dtype=torch.int32).to(torch.uint8)
-        c = torch.randint(0, 81, shape, generator=gen, device=dev,
-                          dtype=torch.int32)
-        out = torch.zeros_like(c)
-        for q in range(4):
-            out |= (c % 3) << (2 * q)
-            c = c // 3
-        return out.to(torch.uint8)
+        return random_packed_bytes(
+            (padded_k(k, fmt) // TRITS_PER_BYTE[fmt], n), fmt, gen, dev)
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -193,6 +204,56 @@ def phase_kernels(dev) -> dict:
         print(json.dumps({"phase": "kernels", "kernel": name, **kw}),
               flush=True)
 
+    def decode_case(label, m, k, n, mode, sub, has_res, fmt):
+        """#1's inputs at one projection, held against its plain version;
+        returns the inputs, the call's keywords and the largest error."""
+        packed = rand_packed(k, n, fmt)
+        ws = torch.full((n,), 0.05, device=dev)
+        if mode == "plain":
+            x1 = randn(m, k, dtype=torch.float32)
+        elif mode == "silu_mul":
+            gu = randn(m, 2 * k)
+            x1 = gu[:, :k]
+        else:
+            x1 = randn(m, k)
+        kw = dict(x2=gu[:, k:] if mode == "silu_mul" else None,
+                  norm_g=(torch.rand(k, generator=gen, device=dev) + 0.5
+                          if mode == "norm" or sub else None),
+                  residual=randn(m, n) if has_res else None, fmt=fmt,
+                  kb=DEFAULT_BLOCK[fmt], k=k, mode=mode, sub_norm=sub,
+                  norm_n=k, eps=1e-5, out_dtype=torch.bfloat16)
+        got = tg.ternary_gemm_decode(x1, packed, ws, **kw)
+        x2, g, res = kw["x2"], kw["norm_g"], kw["residual"]
+        xq_p, xs_p = tg.decode_prologue(x1, x2, g, mode, sub, k, 1e-5)
+        want = tg._gemm_plain(xq_p, xs_p, packed, ws, fmt, DEFAULT_BLOCK[fmt],
+                              k, res, torch.bfloat16)
+        torch.cuda.synchronize()
+        if mode == "plain":
+            err = float((got.float() - want.float()).abs().max())
+            if err != 0.0:
+                fail(f"decode {label}: integer path differs ({err})")
+        else:
+            kp = packed.shape[0] * TRITS_PER_BYTE[fmt]
+            codes_k = tg.prologue_codes(x1, x2, g, mode, sub, k, 1e-5, fmt,
+                                        DEFAULT_BLOCK[fmt], kp)[0][:, :k]
+            err = check_float_prologue(f"decode {label}", got, want, codes_k,
+                                       xq_p, xs_p, ws, res)
+        return x1, packed, ws, kw, xq_p, err
+
+    def tiled_case(label, m, k, n, fmt):
+        """#3's inputs at one shape, bit-exact against its plain version."""
+        kb = DEFAULT_BLOCK[fmt]
+        packed = rand_packed(k, n, fmt)
+        ws = torch.full((n,), 0.05, device=dev)
+        xq, xs = quantize_activations(randn(m, k))
+        got = tg.ternary_gemm_tiled(xq, packed, xs, ws, fmt=fmt, kb=kb, k=k)
+        want = tg._gemm_plain(xq, xs, packed, ws, fmt, kb, k, None,
+                              torch.float32)
+        err = float((got - want).abs().max())
+        if err != 0.0:
+            fail(f"tiled {label}: differs ({err})")
+        return packed, ws, xq, xs, err
+
     # --- #1 fused decode projection: one decode layer of the flagship -------
     m = 32
     # (label, K, N, mode, sub_norm, residual?, fmt, in the flagship layer?)
@@ -205,38 +266,10 @@ def phase_kernels(dev) -> dict:
         ("down_subnorm", 14336, 4096, "silu_mul", True, True, "i2", False),
     ]
     for label, k, n, mode, sub, has_res, fmt, main_path in shapes:
-        packed = rand_packed(k, n, fmt)
-        ws = torch.full((n,), 0.05, device=dev)
-        if mode == "plain":
-            x1 = randn(m, k, dtype=torch.float32)
-        elif mode == "silu_mul":
-            gu = randn(m, 2 * k)
-            x1 = gu[:, :k]
-        else:
-            x1 = randn(m, k)
-        x2 = gu[:, k:] if mode == "silu_mul" else None
-        g = (torch.rand(k, generator=gen, device=dev) + 0.5
-             if mode == "norm" or sub else None)
-        res = randn(m, n) if has_res else None
-        od = torch.bfloat16
-        kw = dict(x2=x2, norm_g=g, residual=res, fmt=fmt,
-                  kb=DEFAULT_BLOCK[fmt], k=k, mode=mode, sub_norm=sub,
-                  norm_n=k, eps=1e-5, out_dtype=od)
-        got = tg.ternary_gemm_decode(x1, packed, ws, **kw)
-        xq_p, xs_p = tg.decode_prologue(x1, x2, g, mode, sub, k, 1e-5)
-        want = tg._gemm_plain(xq_p, xs_p, packed, ws, fmt, DEFAULT_BLOCK[fmt],
-                              k, res, od)
-        torch.cuda.synchronize()
-        if mode == "plain":
-            err = float((got.float() - want.float()).abs().max())
-            if err != 0.0:
-                fail(f"decode {label}: integer path differs ({err})")
-        else:
-            kp = packed.shape[0] * TRITS_PER_BYTE[fmt]
-            codes_k = tg.prologue_codes(x1, x2, g, mode, sub, k, 1e-5, fmt,
-                                        DEFAULT_BLOCK[fmt], kp)[0][:, :k]
-            err = check_float_prologue(f"decode {label}", got, want, codes_k,
-                                       xq_p, xs_p, ws, res)
+        x1, packed, ws, kw, xq_p, err = decode_case(label, m, k, n, mode, sub,
+                                                    has_res, fmt)
+        x2, g, res, od = (kw["x2"], kw["norm_g"], kw["residual"],
+                          kw["out_dtype"])
         rot = Rotation(packed)
         ms = cuda_ms(lambda: tg.ternary_gemm_decode(x1, rot.next(), ws, **kw),
                      graph=True)
@@ -259,6 +292,7 @@ def phase_kernels(dev) -> dict:
                f"{'+sub' if sub else ''}{'+res' if has_res else ''}",
                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                library_ms=lib_ms, max_abs_err=err, eager_ms=eager_ms)
+        del rot, w8
 
     # --- #4 fused-quant GEMM: the unfused tree's projections at M = 32 ------
     for label, k, n in (("wq", 4096, 4096), ("wk", 4096, 1024),
@@ -296,16 +330,7 @@ def phase_kernels(dev) -> dict:
                              ("down", 14336, 4096, "i2"),
                              ("qkv_i1", 4096, 6144, "i1")):
         kb = DEFAULT_BLOCK[fmt]
-        packed = rand_packed(k, n, fmt)
-        ws = torch.full((n,), 0.05, device=dev)
-        xq, xs = quantize_activations(randn(m, k))
-        got = tg.ternary_gemm_tiled(xq, packed, xs, ws, fmt=fmt, kb=kb, k=k)
-        want = tg._gemm_plain(xq, xs, packed, ws, fmt, kb, k, None,
-                              torch.float32)
-        err = float((got - want).abs().max())
-        if err != 0.0:
-            fail(f"tiled {label}: differs ({err})")
-        del want
+        packed, ws, xq, xs, err = tiled_case(label, m, k, n, fmt)
         ms = cuda_ms(lambda: tg.ternary_gemm_tiled(xq, packed, xs, ws, fmt=fmt,
                                                    kb=kb, k=k), iters=5,
                      graph=True)
@@ -356,7 +381,129 @@ def phase_kernels(dev) -> dict:
            library_ms=lib_ms, max_abs_err=0.0)
     del kc, vc, wk, wv, one, w1
     decode_attention_kernels(dev, gen, record)
+    tq_kernels(dev, gen, record)
+
+    # --- the other paths' shapes, checked and not timed ---------------------
+    def checked(name, shape, err):
+        agg = results[name]
+        agg["max_abs_err"] = max(agg["max_abs_err"], err)
+        agg.setdefault("checked", []).append(shape)
+        print(json.dumps({"phase": "kernels_check", "kernel": name,
+                          "shape": shape, "max_abs_err": err}), flush=True)
+
+    # #1 in the e2e benches' decode: every flagship projection, i2 and i1,
+    # at batch 1 and 32
+    for fmt in ("i2", "i1"):
+        for m in (1, 32):
+            for label, k, n, mode, sub, has_res, _, _ in shapes[:4]:
+                err = decode_case(label, m, k, n, mode, sub, has_res, fmt)[-1]
+                checked("ternary_gemm_decode",
+                        f"{label} M={m} {k}->{n} {fmt} {mode}", err)
+    # #3 in the microbenchmark's i2/i1 lanes (llama3_8b dxd, dxff, ffxd at
+    # M 32 and 256) and in the e2e benches' prefills (pp 512 at batch 1 and
+    # 32: M 512 and 16384)
+    lanes = [(tag, m, k, n) for tag, k, n in (("dxd", 4096, 4096),
+                                              ("dxff", 4096, 14336),
+                                              ("ffxd", 14336, 4096))
+             for m in (32, 256)]
+    lanes += [(label, m, k, n) for label, k, n, *_ in shapes[:4]
+              for m in (512, 16384)]
+    for fmt in ("i2", "i1"):
+        for label, m, k, n in lanes:
+            err = tiled_case(label, m, k, n, fmt)[-1]
+            checked("ternary_gemm_tiled", f"{label} M={m} {k}->{n} {fmt}",
+                    err)
+            torch.cuda.empty_cache()
+    # #7 in the e2e benches' decode: bench_sweep's tg from an empty cache
+    # (S 552) at batch 1 and 32, batched_bench's after a 128-token prefill
+    for b, s, first in ((1, 552, 0), (1, 552, 31), (32, 552, 0),
+                        (32, 168, 128)):
+        err = attention_case(dev, gen, b, s, first)
+        checked("decode_attention", f"B={b} S={s} start={first}+", err)
     return results
+
+
+def attention_case(dev, gen, b: int, s: int, first: int) -> float:
+    """#7 at the llama3_8b heads (8 KV heads of 32, hd 128), slot i at start
+    first + i, against its plain version (rows equal, output to rtol and
+    atol 2e-5)."""
+    import torch
+
+    from vlut_tpu_torch.ops import decode_attention as da
+
+    hkv, h, hd = 8, 32, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    start = first + torch.arange(b, device=dev, dtype=torch.int32)
+    q, kn, vn = randn(b, 1, h, hd), randn(b, 1, hkv, hd), randn(b, 1, hkv, hd)
+    kc = randn(b, s, hkv, hd).to(torch.bfloat16)
+    vc = randn(b, s, hkv, hd).to(torch.bfloat16)
+    kw, vw = kc.clone(), vc.clone()
+    want = da.decode_attention_plain(q, kn, vn, kw, vw, start, 0,
+                                     scale=hd ** -0.5)
+    got = da.decode_attention(q, kn, vn, kc, vc, start, 0, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    if not (torch.equal(kc, kw) and torch.equal(vc, vw)):
+        fail(f"decode_attention B={b} S={s}: cache rows differ")
+    err = (got - want).abs()
+    if bool((err > ATT_ATOL + ATT_RTOL * want.abs()).any()):
+        fail(f"decode_attention B={b} S={s}: beyond tolerance "
+             f"(max {float(err.max())})")
+    return float(err.max())
+
+
+def tq_kernels(dev, gen, record) -> None:
+    """#9 at the microbenchmark's llama3_8b shapes, tq2 and tq1, M 32 and
+    256, with the bench's tile choice bk = 2048.  Kernel and plain version
+    sum in the same float order: bit-exact.  The library yardstick is one
+    float16 ``torch.matmul`` of the int8 codes with the weight dequantized
+    to float16 beforehand (trits times the block scale; codes and scales
+    are exact in float16)."""
+    import torch
+
+    from vlut_tpu_torch.bench.kernels import rand_packed
+    from vlut_tpu_torch.ops import tq
+
+    for fmt in ("tq2", "tq1"):
+        for label, k, n in (("dxd", 4096, 4096), ("dxff", 4096, 14336),
+                            ("ffxd", 14336, 4096)):
+            packed = rand_packed(fmt, k, n, gen, dev)
+            scales = (torch.rand((k // tq.QK, n), generator=gen, device=dev)
+                      * 0.06 + 0.01).to(torch.float16)
+            wf = (tq.tq_trits(packed, fmt).to(torch.float16)
+                  * scales.repeat_interleave(tq.QK, dim=0))
+            rot = Rotation(packed)
+            wrot = Rotation(wf)
+            for m in (32, 256):
+                xq = torch.randint(-127, 128, (m, k), generator=gen,
+                                   device=dev, dtype=torch.int32).to(torch.int8)
+                xs = torch.rand((m, 1), generator=gen, device=dev) * 0.01
+                got = tq.tq_gemm(xq, packed, scales, xs, fmt=fmt, bk=2048)
+                want = tq.tq_gemm_plain(xq, packed, scales, xs, fmt=fmt,
+                                        bk=2048)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if not torch.equal(got, want):
+                    fail(f"tq_gemm {fmt} {label} M={m}: differs from the "
+                         f"plain version (max {err})")
+                ms = cuda_ms(lambda: tq.tq_gemm(xq, rot.next(), scales, xs,
+                                                fmt=fmt, bk=2048), graph=True)
+                plain_ms = cuda_ms(lambda: tq.tq_gemm_plain(
+                    xq, packed, scales, xs, fmt=fmt, bk=2048), iters=2,
+                    warmup=1)
+                xh = xq.to(torch.float16)
+                lib_ms = library_ms(lambda: torch.matmul(xh, wrot.next()))
+                b_ms, by = bound_ms(bench_bytes(fmt, m, k, n), 2 * m * k * n)
+                record("tq_gemm", shape=f"{label} M={m} {k}->{n} {fmt}",
+                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                       library_ms=lib_ms, max_abs_err=err,
+                       library="float16 torch.matmul of the codes and the "
+                       "weight dequantized to float16 beforehand")
+                del want, got
+            del rot, wrot, wf
+            torch.cuda.empty_cache()
 
 
 ATT_RTOL = ATT_ATOL = 2e-5
@@ -491,6 +638,7 @@ def main() -> None:
 
     from vlut_tpu_torch.ops import _build, kv_update, ternary_gemm as tg
     from vlut_tpu_torch.ops import decode_attention as da
+    from vlut_tpu_torch.ops import tq
 
     # 1. build
     t0 = time.time()
@@ -514,6 +662,7 @@ def main() -> None:
         "write_rows_pair": kv_update.write_rows_pair,
         "decode_attention": da.decode_attention,
         "decode_attention_int8": da.decode_attention_int8,
+        "tq_gemm": tq.tq_gemm,
     }
     launches: dict[str, dict[str, int]] = {}
 
@@ -638,7 +787,12 @@ def main() -> None:
     # 7. the completion server over the flagship engine
     server_phase(built, fixture, card, reset, read)
 
-    # 8. summary
+    # 8-11. the microbenchmark, the end-to-end benches, perplexity and
+    # requantization
+    tools_phases(dev, built, fixture, card, reset, read,
+                 (cfg, gpu_model, cpu_model, ids, toks_gpu))
+
+    # 12. summary
     replaces = {
         "ternary_gemm_decode": ("vlut_tpu_torch/csrc/ternary_gemm.cu",
                                 "vlut_tpu/ops/pallas_gemm.py:676"),
@@ -652,6 +806,8 @@ def main() -> None:
                              "vlut_tpu/ops/decode_attention.py:486"),
         "decode_attention_int8": ("vlut_tpu_torch/csrc/decode_attention.cu",
                                   "vlut_tpu/ops/decode_attention.py:378"),
+        "tq_gemm": ("vlut_tpu_torch/csrc/tq_gemm.cu",
+                    "vlut_tpu/ops/tq.py:182"),
     }
     kernels = []
     for name, (source, rep) in replaces.items():
@@ -665,12 +821,140 @@ def main() -> None:
         })
     print(json.dumps({"launches": launches,
                       "timed_shapes": {n: k["shapes"] for n, k in kern.items()},
+                      "checked_shapes": {n: k["checked"] for n, k in kern.items()
+                                         if "checked" in k},
                       "seconds": time.time() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def bench_bytes(fmt: str, m: int, k: int, n: int) -> int:
+    """Bytes a microbenchmark lane must move: x, the packed weights (and
+    the TQ scales, or the i2/i1 channel scales), the row scales and the
+    float32 output."""
+    from vlut_tpu_torch.ops import tq
+    from vlut_tpu_torch.ops.packing import TRITS_PER_BYTE, padded_k
+
+    if fmt in tq.ROWS_PER_BLOCK:
+        nb = -(-k // tq.QK)
+        return (m * nb * tq.QK + nb * tq.ROWS_PER_BLOCK[fmt] * n
+                + 2 * nb * n + 4 * m + 4 * m * n)
+    np_ = -(-n // 128) * 128
+    return (m * k + padded_k(k, fmt) // TRITS_PER_BYTE[fmt] * np_
+            + 4 * np_ + 4 * m + 4 * m * np_)
+
+
+def tools_phases(dev, built, fixture, card, reset, read, real) -> None:
+    """Phases 8-11: the tools of the reference's evaluation loop on the
+    card."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vlut_tpu_torch import cli
+    from vlut_tpu_torch.bench import e2e, kernels
+    from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+    from vlut_tpu_torch.convert.quantize import requantize
+    from vlut_tpu_torch.eval.perplexity import logits_compare, perplexity
+    from vlut_tpu_torch.models.transformer import forward
+
+    # 8. the kernel microbenchmark: i2/i1 vs TQ2_0/TQ1_0
+    reset()
+    rows = kernels.main(["-m", "llama3_8b", "-ns", "32,256", "--fmt",
+                         "i2,i1,tq2,tq1"])
+    got = read("bench", ("ternary_gemm_tiled", "tq_gemm"))
+    for r in rows:
+        b_ms, by = bound_ms(bench_bytes(r["fmt"], r["m"], r["k"], r["n"]),
+                            2 * r["m"] * r["k"] * r["n"])
+        print(json.dumps({"phase": "bench", **r, "bound_us": b_ms * 1e3,
+                          "bound_by": by, "card": card}), flush=True)
+    print(json.dumps({"phase": "bench", "launches": got}), flush=True)
+    torch.cuda.empty_cache()
+
+    # 9. the end-to-end benches at full width and depth, i2 then i1
+    i1 = e2e._load_model(None, "llama3_8b_158", "i1", dev)
+    for fmt, model in (("i2", built), ("i1", i1)):
+        reset()
+        out = e2e.bench_sweep(preset="llama3_8b_158", fmt=fmt,
+                              n_prompt=(512,), n_gen=(32,), batch=(1, 32),
+                              repeats=2, device=dev, built=model)
+        got = read(f"bench_sweep_{fmt}", ("ternary_gemm_tiled",
+                                          "ternary_gemm_decode",
+                                          "decode_attention"))
+        for r in out:
+            print(json.dumps({"phase": "bench_sweep", "fmt": fmt, **r,
+                              "card": card}), flush=True)
+        print(json.dumps({"phase": "bench_sweep", "fmt": fmt,
+                          "launches": got}), flush=True)
+        torch.cuda.empty_cache()
+    del i1
+    torch.cuda.empty_cache()
+    reset()
+    out = e2e.batched_bench(preset="llama3_8b_158", npp=(128,), ntg=(32,),
+                            npl=(32,), device=dev, built=built)
+    got = read("batched_bench", ("ternary_gemm_tiled", "ternary_gemm_decode",
+                                 "decode_attention"))
+    for r in out:
+        print(json.dumps({"phase": "batched_bench", **r, "card": card}),
+              flush=True)
+    torch.cuda.empty_cache()
+
+    # 10. perplexity of tiny_real, card vs CPU, and the lossless check
+    cfg, gpu_model, cpu_model, prompt, toks_i2 = real
+    text = np.frombuffer((ROOT / "SURVEY.md").read_bytes()[:1024],
+                         np.uint8).astype(np.int32)
+    reset()
+    ppl_gpu = perplexity(gpu_model, cfg, text, window=128)
+    cmp = logits_compare(gpu_model, cfg, text, "auto", "dequant", window=128)
+    got = read("ppl", ("ternary_gemm_tiled",))
+    ppl_cpu = perplexity(cpu_model, cfg, text, window=128)
+    rel = abs(ppl_gpu["ppl"] - ppl_cpu["ppl"]) / ppl_cpu["ppl"]
+    print(json.dumps({"phase": "ppl", "tokens": ppl_gpu["tokens"],
+                      "window": 128, "ppl_gpu": ppl_gpu["ppl"],
+                      "ppl_cpu": ppl_cpu["ppl"], "rel_diff": rel,
+                      "quantized_vs_dequant": cmp, "launches": got,
+                      "card": card}), flush=True)
+    if rel > 1e-4:
+        fail(f"tiny_real ppl differs between the card and the CPU ({rel})")
+    if not (cmp["kl_mean"] < 0.05 and cmp["top1_agreement"] > 0.95):
+        fail(f"quantized vs dequant out of bounds: {cmp}")
+
+    # 11. requantize tiny_real to i1: the same greedy tokens on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        dst = pathlib.Path(tmp) / "tiny_real_i1"
+        requantize(fixture, dst, "i1")
+        cfg1, model1, _ = load_checkpoint(dst, device="cuda")
+        reset()
+        toks_i1 = cli.run_batched(model1, cfg1, prompt, 4, 12, temp=0.0,
+                                  decode_attn="composed").cpu()
+        got = read("quantize_i1_batched", ("ternary_gemm_decode",
+                                           "ternary_gemm_tiled"))
+        ids_t = torch.tensor([prompt], device="cuda")
+        pos = torch.arange(len(prompt), device="cuda")[None]
+        with torch.inference_mode():
+            diff = float((forward(gpu_model, cfg, ids_t, pos)[0]
+                          - forward(model1, cfg1, ids_t, pos)[0]).abs().max())
+        listing = io.StringIO()
+        with contextlib.redirect_stdout(listing):
+            cli.main(["inspect", str(fixture), "--hash"])
+            cli.main(["inspect", str(dst), "--hash"])
+        digests = [line for line in listing.getvalue().splitlines()
+                   if line.startswith("model digest:")]
+    same = torch.equal(toks_i1, toks_i2)
+    print(json.dumps({"phase": "quantize", "fmt": cfg1.weight_fmt,
+                      "tokens_i2": toks_i2[0].tolist(),
+                      "tokens_i1": toks_i1[0].tolist(), "identical": same,
+                      "max_abs_logit_diff": diff, "inspect": digests,
+                      "launches": got}), flush=True)
+    if not same or len(digests) != 2:
+        fail("requantized i1 tiny_real gives other greedy tokens on the card "
+             "(or inspect failed)")
 
 
 def server_phase(built, fixture, card, reset, read) -> None:

@@ -212,3 +212,54 @@ def test_engine_tiny_real_card_equals_cpu(dev, q8):
         eng.run(reqs)
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
+
+
+def _tq_inputs(dev, fmt, m, k, n, seed):
+    from vlut_tpu_torch.bench.kernels import rand_packed
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    packed = rand_packed(fmt, k, n, gen, dev)
+    scales = (torch.rand((k // 256, n), generator=gen, device=dev) * 0.6
+              + 0.3).to(torch.float16)
+    # codes near 127 make block dots whose products with an fp16 scale
+    # round in float32, so the order of the float sum shows
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    xq[: m // 2] = xq[: m // 2].abs()
+    xs = torch.rand((m, 1), generator=gen, device=dev) * 0.01
+    return xq, packed, scales, xs
+
+
+# #9 sums exact int32 block dots in float32 in the JAX interpret run's
+# order (tq_gemm_plain), so the kernel matches its plain version bit for bit.
+@pytest.mark.parametrize("fmt", ["tq2", "tq1"])
+@pytest.mark.parametrize("m,k,n,bk", [(1, 512, 64, 256), (40, 1024, 200, 512),
+                                      (32, 4096, 4096, 2048),
+                                      (100, 1536, 128, 512),
+                                      (256, 2048, 1024, 1024)])
+def test_tq_gemm_matches_plain(dev, fmt, m, k, n, bk):
+    from vlut_tpu_torch.ops import tq
+
+    xq, packed, scales, xs = _tq_inputs(dev, fmt, m, k, n, seed=m + k)
+    want = tq.tq_gemm_plain(xq, packed, scales, xs, fmt=fmt, bk=bk)
+    before = tq.tq_gemm.launches
+    got = tq.tq_gemm(xq, packed, scales, xs, fmt=fmt, bk=bk)
+    torch.cuda.synchronize()
+    assert tq.tq_gemm.launches == before + 1
+    assert got.shape == (m, n) and torch.equal(got, want)
+    bf = tq.tq_gemm(xq, packed, scales, xs, fmt=fmt, bk=bk,
+                    out_dtype=torch.bfloat16)
+    assert torch.equal(bf, want.to(torch.bfloat16))
+    # an x whose rows are not 16-byte aligned takes the scalar loads
+    wide = torch.zeros((m, k + 1), dtype=torch.int8, device=dev)
+    wide[:, 1:] = xq
+    got = tq.tq_gemm(wide[:, 1:], packed, scales, xs, fmt=fmt, bk=bk)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fmt", ["i2", "i1", "tq2", "tq1"])
+def test_bench_lane_runs_on_card(dev, fmt):
+    from vlut_tpu_torch.bench.kernels import bench_gemm
+
+    out = bench_gemm(fmt, 32, 1024, 512, repeats=1, iters=8)
+    assert out["us"] > 0 and out["fmt"] == fmt

@@ -52,15 +52,28 @@ def test_load_checkpoint_needs_gpu_or_cpu_asked(no_cuda):
 
 
 @pytest.mark.parametrize("argv", [
-    ["batched", "-p", "a", "-np", "1", "-n", "1"],
-    ["generate", "-p", "a", "-n", "1"],
-    ["serve", "--port", "0"],
-], ids=["batched", "generate", "serve"])
-def test_cli_needs_gpu_or_cpu_asked(no_cuda, argv):
+    ["batched", "--model", "{m}", "-p", "a", "-np", "1", "-n", "1"],
+    ["generate", "--model", "{m}", "-p", "a", "-n", "1"],
+    ["serve", "--model", "{m}", "--port", "0"],
+    ["bench", "-m", "falcon_1b", "-ns", "1", "--fmt", "tq1"],
+    ["bench-sweep", "-m", "{m}", "-p", "4", "-n", "1"],
+    ["batched-bench", "-m", "{m}", "-npp", "4", "-ntg", "1", "-npl", "1"],
+    ["ppl", "--model", "{m}", "-f", "{txt}", "--window", "64"],
+    ["eval", "--model", "{m}", "--task", "mc", "-f", "{mc}"],
+], ids=["batched", "generate", "serve", "bench", "bench-sweep",
+        "batched-bench", "ppl", "eval"])
+def test_cli_needs_gpu_or_cpu_asked(no_cuda, argv, tmp_path, capsys):
     from vlut_tpu_torch import cli
 
+    mc, txt = tmp_path / "mc.jsonl", tmp_path / "text.txt"
+    mc.write_text('{"question": "a", "choices": ["b", "c"], "answer": 0}')
+    txt.write_bytes((ROOT / "SURVEY.md").read_bytes()[:200])
+    argv = [a.format(m=TINY_REAL, mc=mc, txt=txt) for a in argv]
     with pytest.raises(RuntimeError, match="--device cpu"):
-        cli.main(argv[:1] + ["--model", str(TINY_REAL)] + argv[1:])
+        cli.main(argv)
+    if argv[0] in ("bench", "bench-sweep", "batched-bench", "ppl", "eval"):
+        cli.main(argv + ["--device", "cpu"])
+        assert capsys.readouterr().out
 
 
 def test_flagship_needs_gpu_or_cpu_asked(no_cuda):

@@ -9,19 +9,41 @@
       [--device cpu]
   python -m vlut_tpu_torch.cli batched --model DIR -p PROMPT -np N -n N
       [--temp T] [--repeat-penalty R] [--seed S] [--device cpu]
+  python -m vlut_tpu_torch.cli bench [-m llama3_8b] [-ns 32,256]
+      [--fmt i2,i1,tq2,tq1] [--device cpu]
+  python -m vlut_tpu_torch.cli bench-sweep [-m DIR | --preset P] [--fmt i2]
+      [-p 512] [-n 128] [-b 1] [-o md|csv|json] [--device cpu]
+  python -m vlut_tpu_torch.cli batched-bench [-m DIR | --preset P]
+      [-npp 16] [-ntg 16] [-npl 64] [--device cpu]
+  python -m vlut_tpu_torch.cli ppl --model DIR -f FILE [--window 512]
+      [--check-lossless] [--save-logits F.npz | --kl-base F.npz]
+      [--device cpu]
+  python -m vlut_tpu_torch.cli eval --model DIR --task hellaswag|winogrande|mc
+      -f FILE [--limit N] [--device cpu]
+  python -m vlut_tpu_torch.cli quantize SRC DST --fmt i2|i1
+  python -m vlut_tpu_torch.cli inspect DIR [--hash]
 
 ``generate`` serves one request through the slot engine; ``serve`` starts
 the completion server; ``batched`` is the shared-prompt np-way fan-out (one
-prompt prefilled into np slots, then n decode steps per slot).  Each runs
-on the GPU unless ``--device cpu`` is given.
+prompt prefilled into np slots, then n decode steps per slot).  ``bench``
+is the kernel microbenchmark (i2/i1 through the tiled ternary kernel,
+llama.cpp's TQ2_0/TQ1_0 through the TQ kernel); ``bench-sweep`` and
+``batched-bench`` are the llama-bench and batched-bench analogs; ``ppl``
+and ``eval`` the perplexity harness (with the quantized-vs-dequant KL
+check) and the accuracy tasks.  Each of these runs on the GPU unless
+``--device cpu`` is given.  ``quantize`` (exact i2 <-> i1 repack) and
+``inspect`` (config and tensor directory, ``--hash`` for sha256 digests)
+touch no device.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
+import numpy as np
 import torch
 
 
@@ -128,6 +150,102 @@ def cmd_generate(args) -> None:
           f"{eng.perf.summary()} | {model.device}]", file=sys.stderr)
 
 
+def cmd_bench(args) -> None:
+    from vlut_tpu_torch.bench.kernels import main as bench_main
+
+    argv = ["-m", args.model_shape] if args.model_shape else []
+    argv += ["-ns", args.ns, "--fmt", args.fmt]
+    if args.device:
+        argv += ["--device", args.device]
+    bench_main(argv)
+
+
+# subcommands whose flags are those of bench/e2e.py (handed over whole:
+# argparse would take a leading ``--flag`` of a REMAINDER for its own)
+_E2E = {"bench-sweep": "sweep", "batched-bench": "batched"}
+
+
+def cmd_ppl(args) -> None:
+    from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+    from vlut_tpu_torch.eval import tasks
+    from vlut_tpu_torch.eval.perplexity import logits_compare, perplexity
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    cfg, model, _ = load_checkpoint(args.model, device=args.device)
+    tok = Tokenizer(args.model)
+    with open(args.file) as f:
+        ids = np.asarray(tok.encode(f.read()), np.int32)
+    if args.save_logits:
+        tasks.save_logits(model, cfg, ids, args.save_logits,
+                          window=args.window)
+        print(f"saved base logits to {args.save_logits}")
+        return
+    if args.kl_base:
+        print(json.dumps(tasks.kl_vs_saved(model, cfg, args.kl_base),
+                         indent=2))
+        return
+    out = perplexity(model, cfg, ids, window=args.window)
+    print(f"ppl = {out['ppl']:.4f} over {out['tokens']} tokens")
+    if args.check_lossless:
+        cmp = logits_compare(model, cfg, ids)
+        print(f"quantized-vs-dequant: KL mean {cmp['kl_mean']:.3e}, "
+              f"top1 {cmp['top1_agreement'] * 100:.2f}%")
+
+
+def cmd_eval(args) -> None:
+    from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+    from vlut_tpu_torch.eval import tasks
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    cfg, model, _ = load_checkpoint(args.model, device=args.device)
+    fn = {"hellaswag": tasks.hellaswag_eval,
+          "winogrande": tasks.winogrande_eval,
+          "mc": tasks.multiple_choice_eval}[args.task]
+    out = fn(model, cfg, Tokenizer(args.model), args.file, limit=args.limit)
+    print(json.dumps(out, indent=2))
+
+
+def cmd_quantize(args) -> None:
+    from vlut_tpu_torch.convert.quantize import requantize
+
+    cfg = requantize(args.src, args.dst, args.fmt)
+    print(f"requantized -> {args.dst} ({cfg.weight_fmt})")
+
+
+def cmd_inspect(args) -> None:
+    """Checkpoint directory inspector (the gguf-hash / gguf_dump analog):
+    metadata, config, and the tensor directory with shapes, dtypes, sizes
+    and, with ``--hash``, a sha256 digest per tensor and of the model."""
+    import hashlib
+    import pathlib
+
+    from vlut_tpu_torch.convert.checkpoint import safetensors_arrays
+
+    path = pathlib.Path(args.ckpt)
+    meta = json.loads((path / "vlut_config.json").read_text())
+    print(json.dumps({k: v for k, v in meta.items() if k != "model_config"},
+                     indent=2))
+    print(json.dumps(meta["model_config"], indent=2))
+    arrays = safetensors_arrays(path / "model.safetensors")
+    print(f"{'tensor':44s} {'shape':>22s} {'dtype':>9s} {'MiB':>9s}"
+          + ("  sha256[:12]" if args.hash else ""))
+    total = 0
+    full = hashlib.sha256()
+    for name in sorted(arrays):
+        t = arrays[name]
+        total += t.nbytes
+        line = (f"{name:44s} {str(t.shape):>22s} {str(t.dtype):>9s} "
+                f"{t.nbytes / 2**20:9.2f}")
+        if args.hash:
+            h = hashlib.sha256(np.ascontiguousarray(t).tobytes())
+            full.update(h.digest())
+            line += f"  {h.hexdigest()[:12]}"
+        print(line)
+    print(f"{'TOTAL':44s} {'':>22s} {'':>9s} {total / 2**20:9.2f}")
+    if args.hash:
+        print(f"model digest: {full.hexdigest()}")
+
+
 def _generate_parser(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model", required=True)
     p.add_argument("-p", "--prompt", required=True)
@@ -171,6 +289,11 @@ def _generate_parser(p: argparse.ArgumentParser) -> None:
 def main(argv: list[str] | None = None) -> None:
     from vlut_tpu_torch.serving.server import add_server_args, run_from_args
 
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in _E2E:
+        from vlut_tpu_torch.bench.e2e import main as e2e_main
+
+        return e2e_main([_E2E[argv[0]]] + argv[1:])
     ap = argparse.ArgumentParser(prog="python -m vlut_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("generate", help="one request through the slot engine")
@@ -190,6 +313,48 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_batched)
+
+    p = sub.add_parser("bench", help="ternary GEMM microbenchmark")
+    p.add_argument("-m", "--model-shape", default=None)
+    p.add_argument("-ns", default="32,256")
+    p.add_argument("--fmt", default="i2,i1")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_bench)
+    sub.add_parser("bench-sweep", help="llama-bench analog (flags: "
+                   "python -m vlut_tpu_torch.bench.e2e sweep -h)")
+    sub.add_parser("batched-bench", help="batched-bench analog (flags: "
+                   "python -m vlut_tpu_torch.bench.e2e batched -h)")
+
+    p = sub.add_parser("ppl", help="perplexity (llama-perplexity analog)")
+    p.add_argument("--model", required=True)
+    p.add_argument("-f", "--file", required=True)
+    p.add_argument("--window", type=int, default=512)
+    p.add_argument("--check-lossless", action="store_true")
+    p.add_argument("--save-logits", default=None,
+                   help="save fp16 base logits for later --kl-base runs")
+    p.add_argument("--kl-base", default=None,
+                   help="compare against logits saved via --save-logits")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_ppl)
+    p = sub.add_parser("eval", help="accuracy tasks (perplexity.cpp analog)")
+    p.add_argument("--model", required=True)
+    p.add_argument("--task", choices=("hellaswag", "winogrande", "mc"),
+                   required=True)
+    p.add_argument("-f", "--file", required=True)
+    p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("quantize",
+                       help="requantize a packed checkpoint (i2 <-> i1)")
+    p.add_argument("src")
+    p.add_argument("dst")
+    p.add_argument("--fmt", choices=("i2", "i1"), required=True)
+    p.set_defaults(fn=cmd_quantize)
+    p = sub.add_parser("inspect", help="checkpoint tensor directory + hash")
+    p.add_argument("ckpt")
+    p.add_argument("--hash", action="store_true")
+    p.set_defaults(fn=cmd_inspect)
     args = ap.parse_args(argv)
     args.fn(args)
 

@@ -34,6 +34,8 @@ from vlut_tpu_torch.config import ModelConfig
 from vlut_tpu_torch.device import resolve_device
 from vlut_tpu_torch.models.dims import (
     DimPlan,
+    chunk_positions,
+    head_positions,
     make_plan,
     pad_heads_cols,
     pad_heads_rows,
@@ -48,6 +50,8 @@ from vlut_tpu_torch.ops.packing import (
     TernaryTensor,
     pack_ternary,
     padded_k,
+    random_packed_bytes,
+    unpack_ternary,
 )
 from vlut_tpu_torch.ops.quant import quantize_activations, true_div
 from vlut_tpu_torch.ops.ternary_gemm import RECIP_127
@@ -62,6 +66,7 @@ from vlut_tpu_torch.runtime.kv_cache import (
 
 ATTN_CHUNK = 1024  # switch to online-softmax chunking past this KV length
 DECODE_ATTN = ("fused", "composed")
+IMPLS = ("auto", "dequant")
 
 # config fields this port implements; any other field must keep its default
 _SUPPORTED_FIELDS = {
@@ -144,6 +149,38 @@ def pack_weight(name: str, trits: np.ndarray, scale, cfg: ModelConfig,
     return pack_ternary(trits, scale, cfg.weight_fmt, plan.kb)
 
 
+def unpack_weight(name: str, t: TernaryTensor, cfg: ModelConfig,
+                  plan: DimPlan | None = None) -> np.ndarray:
+    """Inverse of :func:`pack_weight`: packed tensor -> logical (K, N) int8
+    trits in HF orientation (the head and chunk padding dropped)."""
+    plan = plan or make_plan(cfg)
+    hd, hd_p = plan.hd, plan.hd_p
+    w = unpack_ternary(t).cpu().numpy()
+
+    def gather_head_cols(w2, heads):
+        if hd == hd_p:
+            return w2
+        k = w2.shape[0]
+        return w2.reshape(k, heads, hd_p)[
+            :, :, head_positions(hd, hd_p)].reshape(k, heads * hd)
+
+    if name in ("wq", "wk", "wv"):
+        return gather_head_cols(
+            w, cfg.n_kv_heads if name in ("wk", "wv") else cfg.n_heads)
+    if name == "wo":
+        w = w[chunk_positions(cfg.n_heads * hd_p, plan.wo_chunk,
+                              plan.wo_chunk_p)]
+        if hd != hd_p:
+            w = w.reshape(cfg.n_heads, hd_p, -1)[
+                :, head_positions(hd, hd_p)].reshape(cfg.n_heads * hd, -1)
+        return w
+    if name in ("w_gate", "w_up"):
+        return w[:, chunk_positions(cfg.d_ff, plan.ff_chunk, plan.ff_chunk_p)]
+    if name == "w_down":
+        return w[chunk_positions(cfg.d_ff, plan.ff_chunk, plan.ff_chunk_p)]
+    raise KeyError(name)
+
+
 # --- modules -------------------------------------------------------------------
 
 class TernaryLinear(nn.Module):
@@ -172,11 +209,12 @@ class TernaryLinear(nn.Module):
         return TernaryTensor(self.packed, self.w_scale, self.k, self.n,
                              self.fmt, self.kb)
 
-    def forward(self, x: torch.Tensor, **fused) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, impl: str = "auto",
+                **fused) -> torch.Tensor:
         """ternary_matmul, or ternary_matmul_fused when keywords are given."""
         if fused:
-            return ternary_matmul_fused(x, self.tensor(), **fused)
-        return ternary_matmul(x, self.tensor())
+            return ternary_matmul_fused(x, self.tensor(), impl=impl, **fused)
+        return ternary_matmul(x, self.tensor(), impl=impl)
 
 
 class DecoderLayer(nn.Module):
@@ -355,9 +393,8 @@ def init_params_fast(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     """Random packed model generated directly on ``device`` with a seeded
     ``torch.Generator`` (benchmark weights at full size in seconds).
 
-    i2 bytes are built from four base-3 digits in {0, 1, 2}: a random byte
-    could hold field value 3, which is not a trit.  i1 bytes are uniform in
-    [0, 243).  Padding positions get random trits too.
+    Bytes come from :func:`random_packed_bytes` (valid trits only);
+    padding positions get random trits too.
     """
     check_supported(cfg)
     device = resolve_device(device)
@@ -370,16 +407,7 @@ def init_params_fast(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     def packed(spec: TernarySpec) -> torch.Tensor:
         shape = (cfg.n_layers, padded_k(spec.k, spec.fmt, spec.kb) // r,
                  -(-spec.n // 128) * 128)
-        if cfg.weight_fmt == "i1":
-            return torch.randint(0, 243, shape, generator=gen, device=device,
-                                 dtype=torch.int32).to(torch.uint8)
-        c = torch.randint(0, 81, shape, generator=gen, device=device,
-                          dtype=torch.int32)
-        out = torch.zeros(shape, dtype=torch.int32, device=device)
-        for q in range(4):
-            out |= (c % 3) << (2 * q)
-            c = c // 3
-        return out.to(torch.uint8)
+        return random_packed_bytes(shape, cfg.weight_fmt, gen, device)
 
     layers: dict[str, Any] = {}
     for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
@@ -639,19 +667,19 @@ def _fused_attn_ok(cfg: ModelConfig, plan: DimPlan, t: int,
 
 
 def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, cos, sin,
-                safe_pos, rope_pos, k_pos, write_start, decode_attn):
+                safe_pos, rope_pos, k_pos, write_start, decode_attn, impl):
     b, t = x.shape[:2]
     hd_p, eps, d = plan.hd_p, cfg.rms_eps, cfg.d_model
     proj = lp.proj
     if lp.fused:
         # attn_norm + activation quant + qkv GEMM in one projection
-        qkv = proj["wqkv"](x, mode="norm", norm_g=lp.attn_norm, norm_n=d,
-                           eps=eps)
+        qkv = proj["wqkv"](x, impl, mode="norm", norm_g=lp.attn_norm,
+                           norm_n=d, eps=eps)
         qd, kvd = plan.q_dim_p, plan.kv_dim_p
         q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
     else:
         h = _rms(x, lp.attn_norm, eps, d)
-        q, k, v = proj["wq"](h), proj["wk"](h), proj["wv"](h)
+        q, k, v = proj["wq"](h, impl), proj["wk"](h, impl), proj["wv"](h, impl)
     q = apply_rope(q.reshape(b, t, -1, hd_p), rope_pos, cos, sin)
     k = apply_rope(k.reshape(b, t, -1, hd_p), rope_pos, cos, sin)
     v = v.reshape(b, t, -1, hd_p)
@@ -672,32 +700,32 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, cos, sin,
     att = att.reshape(b, t, plan.wo_in_p)
     # [attn_sub_norm] + quant + wo GEMM + residual (both trees)
     x = proj["wo"](
-        att, mode="norm" if cfg.use_subnorms else "plain",
+        att, impl, mode="norm" if cfg.use_subnorms else "plain",
         norm_g=getattr(lp, "attn_sub_norm", None),
         norm_n=cfg.n_heads * plan.hd, eps=eps, residual=x, out_dtype=x.dtype)
     if lp.fused:
         # ffn_norm + quant + gate|up GEMM; silu*up [+ sub-norm] + quant +
         # down GEMM + residual
         ffl = plan.ff_p
-        gu = proj["w_gateup"](x, mode="norm", norm_g=lp.ffn_norm, norm_n=d,
-                              eps=eps)
+        gu = proj["w_gateup"](x, impl, mode="norm", norm_g=lp.ffn_norm,
+                              norm_n=d, eps=eps)
         return proj["w_down"](
-            gu[..., :ffl], mode="silu_mul", x2=gu[..., ffl:],
+            gu[..., :ffl], impl, mode="silu_mul", x2=gu[..., ffl:],
             sub_norm=cfg.use_subnorms,
             norm_g=getattr(lp, "ffn_sub_norm", None), norm_n=cfg.d_ff,
             eps=eps, residual=x, out_dtype=x.dtype)
     h = _rms(x, lp.ffn_norm, eps, d)
-    gate, up = proj["w_gate"](h), proj["w_up"](h)
+    gate, up = proj["w_gate"](h, impl), proj["w_up"](h, impl)
     a = (torch.nn.functional.silu(gate.to(torch.float32))
          * up.to(torch.float32)).to(x.dtype)
     if cfg.use_subnorms:
         a = _rms(a, lp.ffn_sub_norm, eps, cfg.d_ff)
-    return x + proj["w_down"](a).to(x.dtype)
+    return x + proj["w_down"](a, impl).to(x.dtype)
 
 
 def run_layers(layers, x, positions, kv: dict | None, *, cfg: ModelConfig,
                plan: DimPlan, cos, sin, slots: torch.Tensor | None = None,
-               decode_attn: str = "fused"):
+               decode_attn: str = "fused", impl: str = "auto"):
     """Run the layer stack (either tree) over x (B, T, D).  With ``slots``
     the B rows are those slots of the cache ``kv``."""
     b = positions.shape[0]
@@ -716,7 +744,7 @@ def run_layers(layers, x, positions, kv: dict | None, *, cfg: ModelConfig,
             x, layers[i], _SlotKV(kv, i, slots) if kv is not None else None,
             cfg=cfg, plan=plan, cos=cos, sin=sin, safe_pos=safe_pos,
             rope_pos=rope_pos, k_pos=k_pos, write_start=write_start,
-            decode_attn=decode_attn,
+            decode_attn=decode_attn, impl=impl,
         )
     return x, kv
 
@@ -740,6 +768,8 @@ def forward(
     positions: torch.Tensor,  # (B, T) int; -1 marks padding tokens
     kv_cache: dict | None = None,
     *,
+    impl: str = "auto",
+    logits_last_only: bool = False,
     logits_at: torch.Tensor | None = None,  # (B,) per-row index into T
     slots: torch.Tensor | None = None,  # (B,) cache slot of each row
     decode_attn: str = "fused",
@@ -751,20 +781,28 @@ def forward(
     ``slots[b]`` when given.  ``decode_attn`` picks the attention of a
     one-token step over the whole cache: ``"fused"`` runs the KV row write
     and the attention as one kernel (#7/#8), ``"composed"`` writes the row
-    (#5) and attends in PyTorch.
+    (#5) and attends in PyTorch.  ``impl`` picks the projections' path:
+    ``"auto"`` (the kernels on the card, their plain versions on the CPU)
+    or ``"dequant"`` (float32 products with the dequantized weights, the
+    accuracy reference).  ``logits_at`` projects one row per sequence,
+    ``logits_last_only`` the last.
     """
     if decode_attn not in DECODE_ATTN:
         raise ValueError(f"decode_attn must be one of {DECODE_ATTN}")
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}")
     b = tokens.shape[0]
     plan = params.plan
     x = params.embed[tokens]
     x, kv_cache = run_layers(params.layers, x, positions, kv_cache, cfg=cfg,
                              plan=plan, cos=params.rope_cos,
                              sin=params.rope_sin, slots=slots,
-                             decode_attn=decode_attn)
+                             decode_attn=decode_attn, impl=impl)
     x = _rms(x, params.final_norm, cfg.rms_eps, cfg.d_model)
     if logits_at is not None:
         x = x[torch.arange(b, device=x.device), logits_at][:, None]
+    elif logits_last_only:
+        x = x[:, -1:]
     bq, tq, d = x.shape
     if hasattr(params, "lm_head_q"):
         xq, xs = quantize_activations(x.reshape(bq * tq, d))

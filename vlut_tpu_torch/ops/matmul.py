@@ -10,7 +10,13 @@ The TPU's XLA-vs-Pallas crossover (``VLUT_TPU_XLA_MIN_M``) and its autotune
 table were measured on a TPU and are not carried over; block shapes are the
 kernels' own constants.  On the CPU every wrapper runs its plain PyTorch
 version, so the same routing runs the same integer math on both devices.
-``impl="dequant"`` is the float-dequant accuracy reference.
+
+``impl`` (also an argument of the model's ``forward``) is ``"auto"``, the
+routing above, or ``"dequant"``, the float-dequant accuracy reference:
+float32 products with the dequantized weights and no activation
+quantization, composed around :func:`ternary_matmul_fused`'s prologue as
+the JAX package composes it.  The quantized-vs-dequant KL of
+``eval/perplexity.py`` compares the two.
 """
 
 from __future__ import annotations
@@ -91,6 +97,7 @@ def ternary_matmul_fused(
     eps: float = 1e-5,
     sub_norm: bool = False,  # RMSNorm after silu_mul (bitnet ffn_sub_norm)
     residual: torch.Tensor | None = None,  # (..., N) added to the output
+    impl: str = "auto",
     out_dtype=None,
 ) -> torch.Tensor:
     """Projection with the surrounding elementwise chain fused:
@@ -100,13 +107,24 @@ def ternary_matmul_fused(
 
     with h rounded through bf16 except in plain mode.  M <= 64 is one fused
     decode launch; larger M composes the same steps around the tiled GEMM.
+    ``impl="dequant"`` composes them around the dequant product, with the
+    residual added in ``out_dtype`` (``vlut_tpu/ops/matmul.py:221-235``).
     """
     out_dtype = out_dtype or (x.dtype if x.dtype != torch.float64
                               else torch.float32)
+    if impl not in ("auto", "dequant"):
+        raise ValueError(f"unknown impl {impl!r}")
     batch, m = _rows(x, t)
     x2d = x.reshape(m, t.k)
     x2_2d = x2.reshape(m, t.k) if mode == "silu_mul" else None
     res2d = residual.reshape(m, t.n) if residual is not None else None
+    if impl == "dequant":
+        h = ternary_gemm.decode_input(x2d, x2_2d, norm_g, mode, sub_norm,
+                                      norm_n or t.k, eps)
+        out = ternary_matmul(h, t, impl="dequant", out_dtype=out_dtype)
+        if res2d is not None:
+            out = res2d.to(out_dtype) + out
+        return out.reshape(*batch, t.n)
     if m <= SMALL_M:
         out = ternary_gemm.ternary_gemm_decode(
             x2d, t.packed, t.scale_vector(), x2=x2_2d, norm_g=norm_g,

@@ -129,6 +129,24 @@ def pack_ternary(
                          kb=kb)
 
 
+def random_packed_bytes(shape, fmt: str, gen: torch.Generator,
+                        device) -> torch.Tensor:
+    """Random valid packed bytes (benchmark weights made on the device):
+    i1 bytes uniform in [0, 243); i2 bytes of four 2-bit fields, each in
+    {0, 1, 2}, from base-3 codes < 81 (a random byte could hold field value
+    3, which is not a trit)."""
+    if fmt == "i1":
+        return torch.randint(0, 243, shape, generator=gen, device=device,
+                             dtype=torch.int32).to(torch.uint8)
+    c = torch.randint(0, 81, shape, generator=gen, device=device,
+                      dtype=torch.int32)
+    out = torch.zeros_like(c)
+    for q in range(4):
+        out |= (c % 3) << (2 * q)
+        c = c // 3
+    return out.to(torch.uint8)
+
+
 def unpack_fields(packed: torch.Tensor, fmt: str, kb: int) -> torch.Tensor:
     """(Kp/r, Np) uint8 -> (Kp, Np) int16 FIELDS in {0, 1, 2} (trit + 1)."""
     r = TRITS_PER_BYTE[fmt]

@@ -19,12 +19,14 @@ from vlut_tpu_torch.runtime.sampling import NEG_INF, row_generators, sample
 
 def make_generate_fn(cfg: ModelConfig, n_steps: int,
                      features: tuple[str, ...] | None = None,
-                     decode_attn: str = "fused") -> Callable:
+                     decode_attn: str = "fused",
+                     impl: str = "auto") -> Callable:
     """f(params, cache, last_tokens, lengths, sp, seed) -> ((B, n_steps)
     tokens, cache), generating exactly n_steps tokens per row.
 
     Prompts must already be prefilled into ``cache`` at rows [0, lengths);
-    the cache is updated in place.
+    the cache is updated in place.  ``decode_attn`` and ``impl`` go to
+    ``forward``.
     """
     features = () if features is None else tuple(features)
     draws = "sampling" in features or "mirostat" in features
@@ -39,7 +41,7 @@ def make_generate_fn(cfg: ModelConfig, n_steps: int,
         for _ in range(n_steps):
             logits, cache = forward(params, cfg, tokens[:, None],
                                     lens[:, None], cache, logits_at=at,
-                                    decode_attn=decode_attn)
+                                    decode_attn=decode_attn, impl=impl)
             logits = logits[:, 0].to(torch.float32)
             v = logits.shape[-1]
             if v != cfg.vocab_size:
