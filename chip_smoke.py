@@ -38,14 +38,19 @@ Phases (any failure exits non-zero; none is skipped):
  12. one JSON line of every kernel with its launches on the paths of phases
      3-11, then the card, then ``{"ok": true, "device": ...}`` last.
 
-Phase 2 also holds #9 (the TQ2_0/TQ1_0 GEMM) against its plain version at
-the llama3_8b shapes (dxd, dxff, ffxd) for both formats at M 32 and 256:
-the float32 sum runs in the same order in both, so they must be equal bit
-for bit (max |err| 0).  It then checks, without timing them, the kernels
-at the shapes the later phases give them: #1 at every flagship projection
-in i2 and i1 at M 1 and 32 (the e2e benches' decode), #3 bit-exact in i2
-and i1 at the microbenchmark's lanes (M 32 and 256) and at the e2e
-prefills (M 512 and 16384), and #7 at the e2e benches' caches.
+Phase 2 times #3 (the tiled GEMM) at the flagship prefill (M 4096) and at
+the microbenchmark's i2 lanes (llama3_8b dxd, dxff, ffxd at M 32 and 256)
+beside two yardsticks on the unpacked trits: ``torch._int_mm`` with the
+weight row-major and column-major (the faster is its ``library_ms``) and
+one float16 matmul.  It also holds #9 (the TQ2_0/TQ1_0 GEMM) against its
+plain version at the llama3_8b shapes (dxd, dxff, ffxd) for both formats
+at M 32 and 256: the float32 sum runs in the same order in both, so they
+must be equal bit for bit (max |err| 0).  It then checks, without timing
+them, the kernels at the shapes the later phases give them: #1 at every
+flagship projection in i2 and i1 at M 1 and 32 (the e2e benches' decode),
+#3 bit-exact in i2 and i1 at the microbenchmark's lanes (M 32 and 256),
+at the e2e prefills (M 512 and 16384) and at shapes that make its plan
+take each tile and split of K, and #7 at the e2e benches' caches.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.  It imports nothing of JAX.
@@ -322,31 +327,62 @@ def phase_kernels(dev) -> dict:
                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                library_ms=lib_ms, max_abs_err=err)
 
-    # --- #3 tiled GEMM: the flagship prefill's projections at M = 4096 ------
-    m = 4096
+    # --- #3 tiled GEMM: the flagship prefill's projections at M = 4096, then
+    # the microbenchmark's i2 lanes (llama3_8b dxd, dxff, ffxd at M 32 and
+    # 256, weights rotated past the L2 as the bench does) --------------------
+    def tiled_timed(name, label, m, k, n, fmt, iters, rotate):
+        kb = DEFAULT_BLOCK[fmt]
+        packed, ws, xq, xs, err = tiled_case(label, m, k, n, fmt)
+        rot = Rotation(packed, 128 << 20 if rotate else 0)
+        ms = cuda_ms(lambda: tg.ternary_gemm_tiled(
+            xq, rot.next(), xs, ws, fmt=fmt, kb=kb, k=k), iters=iters,
+            graph=True)
+        plain_ms = cuda_ms(lambda: tg._gemm_plain(
+            xq, xs, packed, ws, fmt, kb, k, None, torch.float32),
+            iters=2, warmup=1)
+        # yardsticks on the unpacked int8 trits: torch._int_mm with the
+        # weight row-major and column-major (cuBLASLt's int8 layout), and
+        # one float16 matmul (codes and trits are exact in float16, every
+        # sum below 2**24: the same integer product)
+        w8 = trits_i8(packed, fmt, k)
+        lib = {}
+        for layout, w in (("row-major", w8), ("column-major",
+                                               w8.t().contiguous().t())):
+            wr = Rotation(w, 128 << 20 if rotate else 0)
+            lib[layout] = library_ms(lambda: torch._int_mm(xq, wr.next()),
+                                     iters=iters)
+            del wr
+        xh = xq.to(torch.float16)
+        wr = Rotation(w8.to(torch.float16), 128 << 20 if rotate else 0)
+        fp16_ms = library_ms(lambda: torch.matmul(xh, wr.next()), iters=iters)
+        del w8, wr
+        timed = {lay: t for lay, t in lib.items() if t is not None}
+        layout = min(timed, key=timed.get) if timed else None
+        nbytes = m * k + 4 * m + packed.numel() + 4 * n + 4 * m * n
+        b_ms, by = bound_ms(nbytes, 2 * m * k * n)
+        record(name, shape=f"{label} M={m} {k}->{n} {fmt}", ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+               library_ms=timed.get(layout), max_abs_err=err,
+               library=f"torch._int_mm, weight {layout}",
+               int_mm_ms=lib, fp16_matmul_ms=fp16_ms,
+               plan=tg.tiled_plan(m, packed.shape[1],
+                                  packed.shape[0] * TRITS_PER_BYTE[fmt], fmt))
+        del rot
+        torch.cuda.empty_cache()
+
     for label, k, n, fmt in (("qkv", 4096, 6144, "i2"),
                              ("wo", 4096, 4096, "i2"),
                              ("gateup", 4096, 28672, "i2"),
                              ("down", 14336, 4096, "i2"),
                              ("qkv_i1", 4096, 6144, "i1")):
-        kb = DEFAULT_BLOCK[fmt]
-        packed, ws, xq, xs, err = tiled_case(label, m, k, n, fmt)
-        ms = cuda_ms(lambda: tg.ternary_gemm_tiled(xq, packed, xs, ws, fmt=fmt,
-                                                   kb=kb, k=k), iters=5,
-                     graph=True)
-        plain_ms = cuda_ms(lambda: tg._gemm_plain(
-            xq, xs, packed, ws, fmt, kb, k, None, torch.float32),
-            iters=2, warmup=1)
-        w8 = trits_i8(packed, fmt, k)
-        lib_ms = library_ms(lambda: torch._int_mm(xq, w8), iters=5)
-        del w8
-        nbytes = m * k + 4 * m + packed.numel() + 4 * n + 4 * m * n
-        b_ms, by = bound_ms(nbytes, 2 * m * k * n)
-        name = "ternary_gemm_tiled" if fmt == "i2" else "ternary_gemm_tiled_other"
-        record(name, shape=f"{label} M={m} {k}->{n} {fmt}", ms=ms,
-               plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-               library_ms=lib_ms, max_abs_err=err)
-        torch.cuda.empty_cache()
+        tiled_timed("ternary_gemm_tiled" if fmt == "i2"
+                    else "ternary_gemm_tiled_other", label, 4096, k, n, fmt,
+                    iters=5, rotate=False)
+    for label, k, n in (("dxd", 4096, 4096), ("dxff", 4096, 14336),
+                        ("ffxd", 14336, 4096)):
+        for m in (32, 256):
+            tiled_timed("ternary_gemm_tiled_lanes", label, m, k, n, "i2",
+                        iters=20, rotate=True)
 
     # --- #5/#6 KV row writer on the flagship's per-layer cache --------------
     b, s, h, d = 32, 184, 8, 128
@@ -408,11 +444,18 @@ def phase_kernels(dev) -> dict:
              for m in (32, 256)]
     lanes += [(label, m, k, n) for label, k, n, *_ in shapes[:4]
               for m in (512, 16384)]
+    # and at shapes that make tiled_plan take each of its tile rows (32, 64,
+    # 128) with and without a split of K, at a ragged K too
+    lanes += [("plan", m, k, n) for m, k, n in (
+        (1, 1280, 384), (20, 4096, 28672), (65, 1280, 384),
+        (200, 4096, 28672), (513, 1280, 384), (300, 4096, 28672),
+        (65, 1283, 384), (256, 3000, 640))]
     for fmt in ("i2", "i1"):
         for label, m, k, n in lanes:
             err = tiled_case(label, m, k, n, fmt)[-1]
-            checked("ternary_gemm_tiled", f"{label} M={m} {k}->{n} {fmt}",
-                    err)
+            plan = tg.tiled_plan(m, -(-n // 128) * 128, padded_k(k, fmt), fmt)
+            checked("ternary_gemm_tiled", f"{label} M={m} {k}->{n} {fmt} "
+                    f"plan={plan}", err)
             torch.cuda.empty_cache()
     # #7 in the e2e benches' decode: bench_sweep's tg from an empty cache
     # (S 552) at batch 1 and 32, batched_bench's after a 128-token prefill

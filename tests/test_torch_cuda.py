@@ -38,20 +38,41 @@ def _weights(k, n, fmt, seed):
                         fmt)
 
 
+def _tiled_matches_plain(dev, fmt, m, k, n, seed, strided=False):
+    """#3 on the card equals its plain version bit for bit, in float32 and
+    bf16; ``strided`` hands it x as a view whose rows are not 16-byte
+    aligned."""
+    t = _weights(k, n, fmt, seed=seed)
+    packed, ws = t.packed.to(dev), t.scale_vector().to(dev)
+    rng = np.random.default_rng(seed)
+    xq = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8))
+    xs = torch.from_numpy(rng.uniform(1e-3, 0.1, (m, 1)).astype(np.float32))
+    xd = xq.to(dev)
+    if strided:
+        wide = torch.zeros((m, k + 3), dtype=torch.int8, device=dev)
+        wide[:, 3:] = xd
+        xd = wide[:, 3:]
+    for od in (torch.float32, torch.bfloat16):
+        want = tg.ternary_gemm_tiled(xq, t.packed, xs, t.scale_vector(),
+                                     fmt=fmt, kb=t.kb, k=k, out_dtype=od)
+        before = tg.ternary_gemm_tiled.launches
+        got = tg.ternary_gemm_tiled(xd, packed, xs.to(dev), ws, fmt=fmt,
+                                    kb=t.kb, k=k, out_dtype=od)
+        torch.cuda.synchronize()
+        assert tg.ternary_gemm_tiled.launches == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
 @pytest.mark.parametrize("fmt", ["i2", "i1"])
-@pytest.mark.parametrize("m", [1, 32, 40, 64, 200])
+@pytest.mark.parametrize("m", [1, 32, 40, 64, 65, 200, 256, 513])
 def test_tiled_and_fused_quant_match_plain(dev, fmt, m):
     k, n = 1280, 384
+    _tiled_matches_plain(dev, fmt, m, k, n, seed=m)
+    # a K that is not a multiple of 16, x as a view with unaligned rows
+    _tiled_matches_plain(dev, fmt, m, 1283, n, seed=m + 1, strided=True)
     t = _weights(k, n, fmt, seed=m)
     packed, ws = t.packed.to(dev), t.scale_vector().to(dev)
     rng = np.random.default_rng(m)
-    xq = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8))
-    xs = torch.from_numpy(rng.uniform(1e-3, 0.1, (m, 1)).astype(np.float32))
-    want = tg.ternary_gemm_tiled(xq, t.packed, xs, t.scale_vector(), fmt=fmt,
-                                 kb=t.kb, k=k)
-    got = tg.ternary_gemm_tiled(xq.to(dev), packed, xs.to(dev), ws, fmt=fmt,
-                                kb=t.kb, k=k)
-    assert torch.equal(got.cpu(), want)
     if m <= tg.MAX_DECODE_M:
         x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
         want = tg.ternary_gemm_fused_quant(x, t.packed, t.scale_vector(),
@@ -59,6 +80,21 @@ def test_tiled_and_fused_quant_match_plain(dev, fmt, m):
         got = tg.ternary_gemm_fused_quant(x.to(dev), packed, ws, fmt=fmt,
                                           kb=t.kb, k=k)
         assert torch.equal(got.cpu(), want)
+
+
+# Shapes that make tiled_plan take each block row count (32, 64, 128) with
+# one split and with several, and at K 3840 (i2: 30 pack blocks) the split
+# counts 2, 3, 5, 6, 10 and 15 (tests/test_torch_gemm.py checks the plans).
+TILED_PLAN_SHAPES = [
+    (20, 2560, 17000), (200, 2560, 4224), (300, 1280, 8320), (1, 3840, 128),
+    (32, 3840, 1664), (32, 3840, 2816), (32, 3840, 3200), (32, 3840, 4480),
+    (32, 3840, 7040), (256, 3840, 128), (513, 3840, 1024)]
+
+
+@pytest.mark.parametrize("fmt", ["i2", "i1"])
+@pytest.mark.parametrize("m,k,n", TILED_PLAN_SHAPES)
+def test_tiled_plan_shapes_match_plain(dev, fmt, m, k, n):
+    _tiled_matches_plain(dev, fmt, m, k, n, seed=m + k + n)
 
 
 @pytest.mark.parametrize("fmt", ["i2", "i1"])

@@ -60,6 +60,163 @@ def test_tiled_plain_bit_equal(m, fmt, per_channel):
     np.testing.assert_array_equal(got[:, :n].numpy(), want)
 
 
+# The shapes the port gives #3: llama3_8b's flagship projections (prefill
+# M 4096, e2e pp 512 at batch 1 and 32), the `bench` lanes (dxd, dxff, ffxd
+# at M 32 and 256) and the card tests' small shapes.
+_PROJ = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)]
+_LANES = [(4096, 4096), (4096, 14336), (14336, 4096)]
+_PLAN_SHAPES = ([(m, k, n) for k, n in _PROJ for m in (512, 4096, 16384)]
+                + [(m, k, n) for k, n in _LANES for m in (32, 256)]
+                + [(m, 1280, 384) for m in (1, 32, 65, 200, 256, 513)])
+
+
+@pytest.mark.parametrize("fmt", ["i2", "i1"])
+@pytest.mark.parametrize("m,k,n", _PLAN_SHAPES)
+def test_tiled_plan_covers_the_card(fmt, m, k, n):
+    """Tiles cover Np; BM follows M; the splits divide the pack blocks,
+    leave each split two of them and keep the grid in one wave of 132
+    blocks, as many as that allows; the wave is at least half full unless
+    K cannot be split further."""
+    from vlut_tpu_torch.ops.packing import padded_k
+
+    np_ = -(-n // 128) * 128
+    kp = padded_k(k, fmt)
+    nb = kp // (128 if fmt == "i2" else 160)
+    bm, bn, splits = tg.tiled_plan(m, np_, kp, fmt)
+    assert np_ % bn == 0 and nb % splits == 0
+    assert bm == (32 if m <= 32 else 64 if m <= 256
+                  and np_ // 128 * -(-m // 64) <= 132 else 128)
+    assert bn == (256 if bm == 128 and np_ % 256 == 0 else 128)
+    tiles = np_ // bn * -(-m // bm)
+    assert splits == 1 or (nb // splits >= 2 and tiles * splits <= 132)
+    assert not any(nb % s == 0 and nb // s >= 2 and tiles * s <= 132
+                   for s in range(splits + 1, nb + 1))
+    assert tiles * splits >= 66 or nb // splits < 4
+
+
+def test_tiled_plan_reaches_every_split_count():
+    """The card tests' plan shapes take every block row count with and
+    without a split, and several split counts."""
+    from test_torch_cuda import TILED_PLAN_SHAPES
+    from vlut_tpu_torch.ops.packing import padded_k
+
+    seen = set()
+    for fmt in ("i2", "i1"):
+        for m, k, n in TILED_PLAN_SHAPES:
+            bm, _, s = tg.tiled_plan(m, -(-n // 128) * 128, padded_k(k, fmt),
+                                     fmt)
+            seen.add((fmt, bm, s > 1))
+            seen.add((fmt, s))
+    for fmt in ("i2", "i1"):
+        for bm in (32, 64, 128):
+            assert (fmt, bm, False) in seen and (fmt, bm, True) in seen
+    assert {("i2", s) for s in (1, 2, 3, 5, 6, 10, 15)} <= seen
+
+
+_QP = {"i2": 2, "i1": 3}
+
+
+def _b_slot(qp, nt, lane, bn):
+    """csrc/ternary_gemm.cu:b_slot."""
+    return ((qp * (bn // 8) + nt) * 32
+            + (lane ^ ((nt & 3) | ((lane >> 2) & 4))))
+
+
+def _decode_to_slots(block, fmt):
+    """The kernel's decode_column on one pack block of one column tile:
+    block (32, BN) packed bytes -> (slots, 4) int8 words of trits, each
+    16-byte slot written once."""
+    from vlut_tpu_torch.ops.packing import unpack_fields
+
+    kb = 128 if fmt == "i2" else 160
+    bn = block.shape[1]
+    # field q of slab row j, column n -> trit, as the decode computes it
+    trits = (unpack_fields(torch.from_numpy(block), fmt, kb).numpy()
+             .astype(np.int8) - 1).reshape(kb // 32, 32, bn)
+    slots = np.zeros((_QP[fmt] * bn // 8 * 32, 4, 4), np.int8)
+    written = np.zeros(len(slots), int)
+    for cq in range(bn // 4):
+        for r4 in range(4):
+            for e in range(4):
+                col = 4 * cq + e
+                nt, lane = col >> 3, (col & 7) * 4 + r4
+                for qp in range(_QP[fmt]):
+                    s = _b_slot(qp, nt, lane, bn)
+                    written[s] += 1
+                    for w, (h, dq) in enumerate(((0, 0), (1, 0), (0, 1),
+                                                 (1, 1))):
+                        q = 2 * qp + dq
+                        if q < kb // 32:
+                            rows = 16 * h + 4 * r4 + np.arange(4)
+                            slots[s, w] = trits[q, rows, col]
+    assert (written == 1).all()
+    return slots
+
+
+def _slots_to_trits(slots, fmt, bn):
+    """The mma warps' view of the slots: the (kb, BN) trits of the block's
+    K (chunk q = K 32q..32q+31) and columns, from registers b0/b1 of every
+    (warp column, n-tile, lane) as mma m16n8k32 reads them."""
+    kb = 128 if fmt == "i2" else 160
+    nt_w = bn // 32  # n-tiles of each of the four warp columns
+    w = np.full((kb, bn), 99, np.int8)
+    for wn in range(4):
+        for nt in range(nt_w):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                col = (wn * nt_w + nt) * 8 + g
+                for qp in range(_QP[fmt]):
+                    v = slots[_b_slot(qp, wn * nt_w + nt, lane, bn)]
+                    for h in range(2):
+                        q = 2 * qp + h
+                        if q >= kb // 32:
+                            continue
+                        w[32 * q + 4 * t + np.arange(4), col] = v[2 * h]
+                        w[32 * q + 16 + 4 * t + np.arange(4), col] = v[2 * h + 1]
+    return w
+
+
+@pytest.mark.parametrize("fmt", ["i2", "i1"])
+@pytest.mark.parametrize("m,k,splits,bn", [(5, 300, 1, 128), (33, 1000, 2, 128),
+                                           (70, 640, 5, 128),
+                                           (130, 900, 2, 256)])
+def test_tiled_kernel_order_emulated(fmt, m, k, splits, bn):
+    """The tiled kernel's data movement emulated on the CPU: the decoded B
+    tile in fragment order, read back as the mma reads it, gives each pack
+    block's trits in x's natural K order; the splits' int32 sums meet in a
+    workspace; the epilogue then equals _gemm_plain bit for bit at a ragged
+    k."""
+    kb = 128 if fmt == "i2" else 160
+    n = 256
+    _, tt = _weights(k, n, fmt, True, seed=k + m)
+    packed = tt.packed.numpy()
+    kp = tt.k_padded
+    nb = kp // kb
+    splits = max(s for s in range(1, splits + 1) if nb % s == 0)
+    rng = np.random.default_rng(m)
+    xq = rng.integers(-127, 128, size=(m, k)).astype(np.int8)
+    xs = rng.uniform(1e-3, 0.1, (m, 1)).astype(np.float32)
+    xpad = np.zeros((m, kp), np.int64)  # the copy's zero fill past k
+    xpad[:, :k] = xq
+    work = np.zeros((m, tt.n_padded), np.int64)
+    for z in range(splits):
+        for n0 in range(0, tt.n_padded, bn):
+            acc = np.zeros((m, bn), np.int64)
+            for b in range(z * nb // splits, (z + 1) * nb // splits):
+                block = packed[b * 32:(b + 1) * 32, n0:n0 + bn]
+                w = _slots_to_trits(_decode_to_slots(block, fmt), fmt, bn)
+                assert (np.abs(w) <= 1).all()
+                acc += xpad[:, b * kb:(b + 1) * kb] @ w.astype(np.int64)
+            work[:, n0:n0 + bn] += acc
+    got = tg._epilogue_plain(torch.from_numpy(work).to(torch.int32),
+                             torch.from_numpy(xs), tt.scale_vector(), None,
+                             torch.float32)
+    want = tg._gemm_plain(torch.from_numpy(xq), torch.from_numpy(xs),
+                          tt.packed, tt.scale_vector(), fmt, kb, k, None,
+                          torch.float32)
+    assert torch.equal(got, want)
+
+
 # --- kernel 4: fused-quant GEMM --------------------------------------------------
 
 @pytest.mark.parametrize("m", [1, 5, 32])

@@ -38,7 +38,7 @@ from vlut_tpu_torch.ops.packing import (
     padded_k,
     random_packed_bytes,
 )
-from vlut_tpu_torch.ops.ternary_gemm import ternary_gemm_tiled
+from vlut_tpu_torch.ops.ternary_gemm import ternary_gemm_tiled, tiled_plan
 
 # reference shapes: tests/test-vlut-gemm.cpp:717-721
 MODEL_SHAPES = {
@@ -48,7 +48,6 @@ MODEL_SHAPES = {
 }
 L_STACK = 8
 ROTATION_BYTES = 128 << 20
-TILED_BLOCKS = (128, 128)  # the tiled kernel's (BM, BN); its BK is kb
 TQ_BLOCKS = (64, tq.KERNEL_BN)  # the TQ kernel's (BM, BN); it steps K by 256
 
 
@@ -115,8 +114,8 @@ def bench_gemm(
     iters: int | None = None,
 ) -> dict[str, Any]:
     """One (fmt, M, K, N) lane: us per call, packed GB/s and TFLOP/s, with
-    the JAX bench's keys.  ``blocks`` are the kernel's own tile constants:
-    the port's kernels take no tile choice."""
+    the JAX bench's keys.  ``blocks`` are the kernel's own tiles: the TQ
+    kernel's constants, the tiled kernel's plan for this shape."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -136,7 +135,9 @@ def bench_gemm(
             return tq.tq_gemm(xq, p, scales, xs, fmt=fmt, bk=bk)
     else:
         kb = DEFAULT_BLOCK[fmt]
-        blocks = (*TILED_BLOCKS, kb)
+        # the tiled kernel's plan (BM, BN, splits of K) and its K step
+        bm, bn, splits = tiled_plan(m, packed.shape[1], padded_k(k, fmt), fmt)
+        blocks = (bm, bn, kb, splits)
         ws = torch.ones((packed.shape[1],), device=dev)
         wbytes = packed.numel()
         xq = torch.randint(-100, 100, (m, k), generator=gen, device=dev,

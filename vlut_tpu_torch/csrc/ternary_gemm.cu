@@ -14,15 +14,32 @@
 // What bounds them on an H100: at decode sizes (M <= 64) each packed weight
 // byte is used by at most 64 rows, so moving the weights from memory is the
 // bound; the prefill GEMM (M = 4096) is bound by int8 operations.  Both
-// GEMMs run the dot on the int8 tensor cores (mma.sync m16n8k32) with the
-// K order of each 32-deep mma chunk chosen so that one packed byte decodes
-// to exactly one B-fragment register (see tiled_gemm_kernel).  The decode
-// GEMM streams every packed byte once, straight from memory into
+// GEMMs run the dot on the int8 tensor cores (mma.sync m16n8k32).  The
+// decode GEMM streams every packed byte once, straight from memory into
 // registers (a warp reads four full 32-byte sectors per load), with the
 // next pack block's loads in flight while the current one is decoded; it
 // has no shared-memory staging, no cp.async/TMA ring and no wgmma yet.
-// The tiled GEMM decodes each staged byte once into shared memory; it has
-// no copy/compute overlap yet.
+//
+// The tiled GEMM (#3) is bound by bytes at M 32 (llama3_8b ffxd: 14.7 MB
+// of packed weights, 4.7 us) and by int8 operations from M 256 on (ffxd
+// 30 GOP, 15 us; the M 4096 prefill 0.9 ms).  What held its first design
+// back: x was scattered into shared memory byte by byte, every load's
+// latency was exposed between two barriers, and one 128 x 128 tile at every
+// M left three quarters of the mma rows empty at M 32 and put 32 blocks on
+// 132 SMs.  The design here: x is copied whole (the mma's K order chosen so
+// that A is x in its natural order, read by ldmatrix); a ring of 4 stages
+// of 1-2 pack blocks, filled by the TMA unit, keeps the copies in flight
+// while the previous stage is decoded and multiplied; each packed byte is
+// decoded once per block into a shared B tile in the mma's fragment order
+// (16-byte stores and loads, conflict-free); the block's tile (32 x 128,
+// 64 x 128, 128 x 128 or 128 x 256) and an integer split of K follow M
+// (ops/ternary_gemm.py:tiled_plan), the splits meeting exactly in an int32
+// workspace.  16-byte cp.async copies cost half of each stage to issue
+// (clock64 timelines, PERF.md §6 PR 5); the TMA's 2-D boxes cost one
+// instruction each.  What bounds it now: the shared-memory traffic of the
+// mma.sync fragments (copies and fragment loads alone take 72% of an M
+// 4096 projection); wgmma, which reads both operands from shared memory
+// itself, is next.
 //
 // The Pallas decode kernel keeps the quantized x in scratch across a
 // sequential grid.  Hopper blocks run in parallel and share nothing, so the
@@ -31,6 +48,7 @@
 // warp reads its A registers with one 16-byte load per fragment (from L1
 // or L2: all warps read the same, small, x).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -336,160 +354,497 @@ void launch_decode(bool i1, dim3 grid, cudaStream_t st, const uint4* afrag,
   }
 }
 
-// Tiled GEMM on natural-layout int8 x (M, K) on the int8 tensor cores.
-// Block tile 128 x 128, one pack block of K (32 slab rows) per step; the
-// 8 warps sit as 2 (M) x 4 (N), each with a 64 x 32 tile of 4 x 4
-// mma_s8 accumulators.  The mma's K order inside a pack block is the slab
-// order: chunk c takes slab rows j = 8c..8c+7 with their four fields, so
-// one packed byte decodes to exactly one B register (byte q = trit of
-// field q), and the matching A register is the word of x codes at
-// K = b*kb + q*32 + j, q = 0..3, which the staging loop gathers into
-// shared memory.  i1's fifth digits form a fifth chunk whose registers
-// hold the digits of four consecutive slab rows.  Each packed byte is
-// decoded once per block, at staging.
-constexpr int kBM = 128, kBN = 128, kPad = 8;  // pad: conflict-free frags
-
-template <bool I1>
-__global__ void __launch_bounds__(256) tiled_gemm_kernel(
-    const int8_t* __restrict__ x, long ldx, int k,
-    const float* __restrict__ xs, const uint8_t* __restrict__ packed,
-    const float* __restrict__ ws, int m, int kp, int np, int kb, void* out,
-    int out_bf16) {
-  // x codes of fields 0..3 per (slab row, m); decoded trits per (row, n)
-  __shared__ __align__(16) uint32_t sa[kSlab][kBM + kPad];
-  __shared__ __align__(16) uint32_t sb[kSlab][kBN + kPad];
-  // i1 fifth plane, four slab rows per word: x per (m, j/4), trits (n, j/4)
-  constexpr int k5 = I1 ? kSlab / 4 + 1 : 1;
-  __shared__ __align__(16) uint32_t sa5[I1 ? kBM : 1][k5];
-  __shared__ __align__(16) uint32_t sb5[I1 ? kBN : 1][k5];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int segs = kb / 16;  // 16-byte segments of x per row and block
-  const bool x_vec = (ldx % 16) == 0 &&
-                     (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-
-  int acc[4][4][4];
+// The block's int32 sums of an (MT x 16) x (NT x 8) warp tile at rows r0,
+// columns c0: with no split they go straight through the epilogue; with
+// `splits` > 1 they are added into `work` (m x np int32, zeroed by the
+// caller, then one counter per output tile), and the last split of the
+// tile to arrive applies the epilogue to the complete sums.  Integer sums
+// are exact, so the order of arrival cannot change the result.
+template <int MT, int NT>
+__device__ __forceinline__ void tile_epilogue(
+    const int (&acc)[MT][NT][4], int r0, int c0, int m, int np,
+    const float* __restrict__ xs, const float* __restrict__ ws, int splits,
+    int* work, int tile, void* out, int out_bf16) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if (splits > 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+      for (int e = 0; e < 4; ++e) {
+        const int gm = r0 + mt * 16 + g + 8 * (e >> 1);
+        if (gm >= m) continue;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
-    }
-  }
-
-  const int nb = kp / kb;
-  for (int b = 0; b < nb; ++b) {
-    // x: 16 consecutive K of one row lie in one field q, slab rows j..j+15
-    for (int i = tid; i < kBM * segs; i += blockDim.x) {
-      const int mm = i / segs, seg = i % segs;
-      const int gm = m0 + mm, gk = b * kb + seg * 16;
-      const int q = seg >> 1, j = (seg & 1) * 16;
-      alignas(16) int8_t v[16];
-      if (x_vec && gm < m && gk + 16 <= k) {
-        *reinterpret_cast<int4*>(v) = *reinterpret_cast<const int4*>(
-            x + static_cast<long>(gm) * ldx + gk);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          v[e] = (gm < m && gk + e < k) ? x[static_cast<long>(gm) * ldx + gk + e] : 0;
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        if (q < 4) {
-          reinterpret_cast<int8_t*>(&sa[j + e][mm])[q] = v[e];
-        } else {
-          reinterpret_cast<int8_t*>(&sa5[mm][(j + e) >> 2])[(j + e) & 3] = v[e];
+        for (int nt = 0; nt < NT; ++nt) {
+          atomicAdd(work + static_cast<long>(gm) * np + c0 + nt * 8 + 2 * t + (e & 1),
+                    acc[mt][nt][e]);
         }
       }
     }
-    // weights: one 16-byte load per thread (32 rows x 128 columns)
-    {
-      const int rr = tid >> 3, c16 = (tid & 7) * 16;
-      const uint4 w = *reinterpret_cast<const uint4*>(
-          packed + static_cast<long>(b * kSlab + rr) * np + n0 + c16);
-      const uint32_t wv[4] = {w.x, w.y, w.z, w.w};
-      uint32_t d[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const uint32_t byte = (wv[e >> 2] >> (8 * (e & 3))) & 0xffu;
-        if (I1) {
-          int t5;
-          d[e] = vlut::decode_i1(byte, &t5);
-          reinterpret_cast<int8_t*>(&sb5[c16 + e][rr >> 2])[rr & 3] =
-              static_cast<int8_t>(t5);
-        } else {
-          d[e] = vlut::decode_i2(byte);
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 16; e += 4) {
-        *reinterpret_cast<uint4*>(&sb[rr][c16 + e]) =
-            make_uint4(d[e], d[e + 1], d[e + 2], d[e + 3]);
-      }
+    __shared__ int last;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int* counter = work + static_cast<long>(m) * np + tile;
+      last = atomicAdd(counter, 1) == splits - 1;
     }
     __syncthreads();
-#pragma unroll
-    for (int c = 0; c < (I1 ? 5 : 4); ++c) {
-      uint32_t a[4][4], bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int r = wm + mt * 16 + g;
-        if (c < 4) {
-          const int j = c * 8 + t;
-          a[mt][0] = sa[j][r];
-          a[mt][1] = sa[j][r + 8];
-          a[mt][2] = sa[j + 4][r];
-          a[mt][3] = sa[j + 4][r + 8];
-        } else {
-          a[mt][0] = sa5[r][t];
-          a[mt][1] = sa5[r + 8][t];
-          a[mt][2] = sa5[r][t + 4];
-          a[mt][3] = sa5[r + 8][t + 4];
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = wn + nt * 8 + g;
-        if (c < 4) {
-          bf[nt][0] = sb[c * 8 + t][col];
-          bf[nt][1] = sb[c * 8 + t + 4][col];
-        } else {
-          bf[nt][0] = sb5[col][t];
-          bf[nt][1] = sb5[col][t + 4];
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], a[mt], bf[nt][0], bf[nt][1]);
-      }
-    }
-    __syncthreads();
+    if (!last) return;
+    __threadfence();
   }
-
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int gm = m0 + wm + mt * 16 + g + 8 * h;
+      const int gm = r0 + mt * 16 + g + 8 * h;
       if (gm >= m) continue;
       const float xsv = xs[gm];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + wn + nt * 8 + 2 * t;
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = c0 + nt * 8 + 2 * t;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float v = epilogue(acc[mt][nt][2 * h + e], xsv, ws[col + e],
-                                   nullptr, 0, out_bf16);
-          store_f(out, static_cast<long>(gm) * np + col + e, v, out_bf16);
+          const long i = static_cast<long>(gm) * np + col + e;
+          const int a = splits > 1 ? __ldcg(work + i) : acc[mt][nt][2 * h + e];
+          store_f(out, i, epilogue(a, xsv, ws[col + e], nullptr, 0, out_bf16),
+                  out_bf16);
         }
       }
     }
   }
+}
+
+// Tiled GEMM on natural-layout int8 x (M, K) on the int8 tensor cores; see
+// the note at the top of this file.  Block tile BM x BN (chosen with the
+// split count by ops/ternary_gemm.py:tiled_plan); the 8 warps sit as 2 (M)
+// x 4 (N), each with an (BM/2) x (BN/4) tile of MT x NT mma_s8
+// accumulators.  Block z takes pack blocks z*nbs .. z*nbs+nbs-1.
+//
+// K order.  The mma's 32-deep chunk q of a pack block is field q's 32
+// consecutive K (K = b*kb + 32q + j, slab row j), so A is x in its natural
+// order, read by ldmatrix from a row-major tile, and i1's fifth digits are
+// a fifth chunk like the others.  B register 0 of lane 4g + t for chunk q
+// holds field q of slab rows 4t..4t+3 of the n-tile's column g (register 1
+// rows 16+4t..): the decode transposes four packed words (four rows x four
+// columns) and takes one shift, one mask and fields_to_trits per register.
+//
+// Shared memory, per stage of KS pack blocks: the x tile as boxes of BM
+// rows x 32 bytes (one mma chunk each, in the TMA's 32-byte swizzle) and
+// the packed bytes (KS x 32 rows x BN columns), both copied by the TMA
+// unit (x's rows past m and K past k come back zero) in a ring of kRing
+// stages; and the decoded B tile of the stage, double-buffered, in the
+// mma's fragment order: one 16-byte slot per (chunk pair, n-tile, lane)
+// holds registers 0 and 1 of both chunks of the pair, so an mma warp loads
+// its B for two chunks with one conflict-free 16-byte load, and the decode
+// writes it with one.
+constexpr int kTiledThreads = 256;
+constexpr int kWarpsM = 2, kWarpsN = 4;
+
+template <int BM, int BN, bool I1>
+struct TiledCfg {
+  static constexpr int kKb = I1 ? 160 : 128;
+  static constexpr int kNq = I1 ? 5 : 4;  // 32-deep chunks per pack block
+  static constexpr int kQp = (kNq + 1) / 2;  // chunk pairs (16-byte B slots)
+  static constexpr int kNTiles = BN / 8;
+  // pack blocks per stage and ring depth, within 227 KB of shared memory;
+  // the 32-row i2 tile takes a shallower ring so that two blocks fit on an
+  // SM (one's decode then runs beside the other's mma)
+  static constexpr int kKs = (BN == 256 || (BM == 128 && I1)) ? 1 : 2;
+  static constexpr int kBlocksPerSm = BM == 32 && !I1 ? 2 : 1;
+  static constexpr int kRing = kBlocksPerSm == 2 ? 3 : 4;
+  static constexpr int kMt = BM / (16 * kWarpsM), kNt = BN / (8 * kWarpsN);
+  // the 128-row tiles decode a stage at once before its mma; the smaller
+  // ones interleave the decode with the mma rounds (measured the faster
+  // way for each, PERF.md)
+  static constexpr bool kInterleave = BM < 128;
+  // x: kKs * kKb / 32 boxes of BM rows x 32 bytes (one mma chunk each)
+  static constexpr int kXBytes = BM * kKs * kKb;
+  static constexpr int kRawBytes = kKs * kSlab * BN;
+  static constexpr int kBSlots = kKs * kQp * kNTiles * 32;  // uint4 per stage
+  static constexpr int kSmem = kRing * (kXBytes + kRawBytes) + 2 * kBSlots * 16;
+  // per SM: 228 KB, less 1 KB reserved and 1 KB of static shared memory
+  // (the 1024-byte alignment of the dynamic part) per block
+  static_assert(kBlocksPerSm * (kSmem + 2048) <= 228 * 1024, "shared memory");
+  static_assert(kXBytes % 1024 == 0 && kRawBytes % 1024 == 0, "box alignment");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The stage copies are the TMA unit's: one thread asks for a whole box of
+// a tensor (described by a CUtensorMap the host encodes per call), the
+// unit zero-fills what lies outside the tensor and counts the bytes it
+// writes on an mbarrier, whose phase completes when the one arrival and
+// every expected byte are in.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// box at coordinates (c0 inner, c1 outer) of `map` into shared memory
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// orders the block's earlier shared-memory reads (made visible to this
+// thread by a barrier) before its later TMA writes to the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Four 8 x 16-byte matrices: lanes 8i..8i+7 give the row addresses of
+// matrix i, register i of lane 4g + t gets bytes 4t..4t+3 of its row g.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// 4 x 4 byte transpose: byte j of v[i] becomes byte i of v[j]
+__device__ __forceinline__ void transpose4(uint32_t (&v)[4]) {
+  const uint32_t t0 = __byte_perm(v[0], v[1], 0x5140);
+  const uint32_t t1 = __byte_perm(v[0], v[1], 0x7362);
+  const uint32_t t2 = __byte_perm(v[2], v[3], 0x5140);
+  const uint32_t t3 = __byte_perm(v[2], v[3], 0x7362);
+  v[0] = __byte_perm(t0, t2, 0x5410);
+  v[1] = __byte_perm(t0, t2, 0x7632);
+  v[2] = __byte_perm(t1, t3, 0x5410);
+  v[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// The 16-byte B slot of (chunk pair qp, n-tile nt of the block, lane) in
+// one pack block's tile.  The XOR permutes slots inside an n-tile so that
+// the decode's stores (eight threads: four n-tiles x two column halves)
+// and the mma's loads (eight consecutive lanes) each hit eight bank groups.
+template <int BN>
+__device__ __forceinline__ int b_slot(int qp, int nt, int lane) {
+  return (qp * (BN / 8) + nt) * 32 + (lane ^ ((nt & 3) | ((lane >> 2) & 4)));
+}
+
+// The decode of one stage's packed bytes into its B tile is one unit per
+// thread: pack block pb, columns 4cq..4cq+3, slab rows 4r4..4r4+3 (register
+// 0) and 16+4r4.. (register 1), u = (pb * 4 + r4) * BN / 4 + cq.  decode_load
+// reads the unit's eight packed words (conflict-free: a warp reads 32
+// consecutive words of one row) and transposes them, so that byte i of
+// w[h][e] is row i of column 4cq + e; decode_column then writes that
+// column's 16-byte B slots, one per chunk pair.
+template <int BN>
+__device__ __forceinline__ void decode_load(const uint8_t* raw, int u,
+                                            uint32_t (&w)[2][4]) {
+  const int cq = u % (BN / 4), r4 = u / (BN / 4) % 4, pb = u / BN;
+  const uint8_t* rp = raw + pb * kSlab * BN + 4 * cq;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[h][i] = *reinterpret_cast<const uint32_t*>(
+          rp + (16 * h + 4 * r4 + i) * BN);
+    }
+  }
+  transpose4(w[0]);
+  transpose4(w[1]);
+}
+
+template <int BN, bool I1>
+__device__ __forceinline__ void decode_column(const uint32_t (&w)[2][4], int u,
+                                              int e, uint4* bt) {
+  constexpr int kQp = I1 ? 3 : 2;
+  const int cq = u % (BN / 4), r4 = u / (BN / 4) % 4, pb = u / BN;
+  // reg[h][q]: field q of the four rows of register h
+  uint32_t reg[2][6];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if constexpr (I1) {
+      uint32_t d[4], t5 = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int v5;
+        d[i] = static_cast<uint32_t>(
+            vlut::decode_i1((w[h][e] >> (8 * i)) & 0xffu, &v5));
+        t5 |= (static_cast<uint32_t>(v5) & 0xffu) << (8 * i);
+      }
+      transpose4(d);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) reg[h][q] = d[q];
+      reg[h][4] = t5;
+      reg[h][5] = 0;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        reg[h][q] = static_cast<uint32_t>(
+            vlut::fields_to_trits((w[h][e] >> (2 * q)) & 0x03030303u));
+      }
+      reg[h][4] = reg[h][5] = 0;
+    }
+  }
+  const int col = 4 * cq + e;
+  const int nt = col >> 3, lane = (col & 7) * 4 + r4;
+  uint4* bp = bt + pb * kQp * (BN / 8) * 32;
+#pragma unroll
+  for (int qp = 0; qp < kQp; ++qp) {
+    bp[b_slot<BN>(qp, nt, lane)] = make_uint4(reg[0][2 * qp], reg[1][2 * qp],
+                                          reg[0][2 * qp + 1],
+                                          reg[1][2 * qp + 1]);
+  }
+}
+
+template <int BM, int BN, bool I1>
+__global__ void __launch_bounds__(kTiledThreads,
+                                  TiledCfg<BM, BN, I1>::kBlocksPerSm)
+    tiled_gemm_kernel(
+    const __grid_constant__ CUtensorMap tmx,
+    const __grid_constant__ CUtensorMap tmw, const float* __restrict__ xs,
+    const float* __restrict__ ws, int m, int np, int nbs, int splits,
+    int* work, void* out, int out_bf16) {
+  using C = TiledCfg<BM, BN, I1>;
+  constexpr int KS = C::kKs, R = C::kRing, MT = C::kMt, NT = C::kNt;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  uint8_t* sx = smem;                                  // [R][boxes][BM][32]
+  uint8_t* sraw = smem + R * C::kXBytes;               // [R][KS][32][BN]
+  uint4* sb = reinterpret_cast<uint4*>(sraw + R * C::kRawBytes);  // [2][..]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp / kWarpsN) * MT * 16, wn = (warp % kWarpsN) * NT * 8;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int b0 = blockIdx.z * nbs, ns = (nbs + KS - 1) / KS;
+  auto valid = [&](int s) { return min(KS, nbs - s * KS); };
+
+  // Stage s into ring slot s % R: the TMA unit copies the x boxes of its
+  // valid pack blocks (rows past m and K past k come back zero) and the
+  // packed rows, all counted on full[s % R].  A TMA request takes a thread
+  // about a hundred cycles to issue, and the stage's barrier waits for the
+  // slowest warp, so the interleaved tiles spread the requests: lane 0 of
+  // warp j % 8 asks for box j.  The 128-row tiles, whose decode comes
+  // first, measured slower that way and leave every request to thread 0
+  // (PERF.md).  Thread 0 also arrives with the stage's byte count.
+  __shared__ __align__(8) uint64_t full[R];
+  constexpr int kIssuers = C::kInterleave ? kTiledThreads / 32 : 1;
+  auto load = [&](int s) {
+    if (lane != 0 || warp >= kIssuers || s >= ns) return;
+    const int nv = valid(s), kk0 = (b0 + s * KS) * C::kKb;
+    const int nx = nv * C::kKb / 32;  // x boxes; box nx is the packed rows
+    uint64_t* bar = &full[s % R];
+    if (warp == 0) mbar_arrive_expect(bar, BM * nv * C::kKb + C::kRawBytes);
+    fence_proxy_async();
+    const uint32_t dx = smem_addr(sx + (s % R) * C::kXBytes);
+    for (int j = warp; j < nx; j += kIssuers) {
+      tma_load_2d(dx + j * BM * 32, &tmx, kk0 + 32 * j, m0, bar);
+    }
+    if (nx % kIssuers == warp) {
+      tma_load_2d(smem_addr(sraw + (s % R) * C::kRawBytes), &tmw, n0,
+                  (b0 + s * KS) * kSlab, bar);
+    }
+  };
+  auto landed = [&](int s) { mbar_wait(&full[s % R], (s / R) & 1); };
+
+  int acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+    }
+  }
+
+  if (tid == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) mbar_init(&full[r], 1);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < R - 1; ++s) load(s);
+  landed(0);
+  // this thread's decode unit, if the stage has its pack block
+  auto has_unit = [&](int s) { return tid < KS * BN && tid / BN < valid(s); };
+  if (has_unit(0)) {
+    uint32_t w[2][4];
+    decode_load<BN>(sraw, tid, w);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) decode_column<BN, I1>(w, tid, e, sb);
+  }
+
+  // lane's ldmatrix row: rows 0-7 / 8-15 for lanes 0-7 / 8-15, the same
+  // rows 16 bytes on for lanes 16-31 (registers 0-3 = a0..a3 of m16n8k32).
+  // A box row is 32 bytes whose two 16-byte halves the TMA's 32-byte
+  // swizzle exchanges in rows 4-7 of every 8: ldmatrix's eight rows then
+  // fall in eight bank groups.
+  const uint32_t xrow =
+      (wm + (lane & 15)) * 32 + (((lane >> 4) ^ (lane >> 2)) & 1) * 16;
+  // A stage runs in rounds of one chunk pair of one pack block.  With
+  // kInterleave a round's fragments are loaded, then one column of this
+  // thread's decode of the next stage is computed (its arithmetic covers
+  // the loads' latency), then the round's mma are issued; otherwise the
+  // whole decode comes first and each chunk's A is loaded just before its
+  // mma (fewer live registers for the 128-row tiles).
+  constexpr int kRounds = KS * C::kQp;
+  constexpr int kSteps = C::kInterleave && kRounds < 4 ? 4 : kRounds;
+  for (int i = 0; i < ns; ++i) {
+    if (i + 1 < ns) landed(i + 1);
+    __syncthreads();  // stage i - 1 is consumed, B tile i is written
+    const bool dec = i + 1 < ns && has_unit(i + 1);
+    uint4* bnext = sb + ((i + 1) & 1) * C::kBSlots;
+    uint32_t w[2][4];
+    if (dec) decode_load<BN>(sraw + ((i + 1) % R) * C::kRawBytes, tid, w);
+    if (!C::kInterleave && dec) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) decode_column<BN, I1>(w, tid, e, bnext);
+    }
+    load(i + R - 1);
+    const uint32_t xa = smem_addr(sx + (i % R) * C::kXBytes) + xrow;
+    const uint4* bt = sb + (i & 1) * C::kBSlots;
+    const int nv = valid(i);
+#pragma unroll
+    for (int r = 0; r < kSteps; ++r) {
+      const int pb = r / C::kQp, qp = r % C::kQp;
+      const bool live = r < kRounds && pb < nv;
+      uint4 bv[NT];
+      if (live) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          bv[nt] = bt[pb * C::kQp * C::kNTiles * 32 + b_slot<BN>(qp, wn / 8 + nt, lane)];
+        }
+      }
+      if constexpr (C::kInterleave) {
+        uint32_t a[2][MT][4];
+        if (live) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (2 * qp + h >= C::kNq) break;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              ldmatrix_x4(a[h][mt], xa + mt * 16 * 32 +
+                                        (pb * C::kNq + 2 * qp + h) * BM * 32);
+            }
+          }
+        }
+        if (r < 4 && dec) decode_column<BN, I1>(w, tid, r, bnext);
+        if (live) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (2 * qp + h >= C::kNq) break;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+                mma_s8(acc[mt][nt], a[h][mt], h ? bv[nt].z : bv[nt].x,
+                       h ? bv[nt].w : bv[nt].y);
+              }
+            }
+          }
+        }
+      } else if (live) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (2 * qp + h >= C::kNq) break;
+          uint32_t a[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            ldmatrix_x4(a[mt], xa + mt * 16 * 32 +
+                                   (pb * C::kNq + 2 * qp + h) * BM * 32);
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              mma_s8(acc[mt][nt], a[mt], h ? bv[nt].z : bv[nt].x,
+                     h ? bv[nt].w : bv[nt].y);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  tile_epilogue<MT, NT>(acc, m0 + wm, n0 + wn, m, np, xs, ws, splits, work,
+                        blockIdx.y * gridDim.x + blockIdx.x, out, out_bf16);
+}
+
+// Above 48 KB a kernel takes dynamic shared memory only after opting in.
+template <int BM, int BN, bool I1>
+cudaError_t tiled_opt_in() {
+  return cudaFuncSetAttribute(tiled_gemm_kernel<BM, BN, I1>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              TiledCfg<BM, BN, I1>::kSmem);
+}
+
+template <int BM, int BN, bool I1>
+int launch_tiled(cudaStream_t st, const CUtensorMap& tmx, const CUtensorMap& tmw,
+                 const float* xs, const float* ws, int m, int np, int nbs,
+                 int splits, int* work, void* out, int out_bf16) {
+  const dim3 grid(np / BN, (m + BM - 1) / BM, splits);
+  tiled_gemm_kernel<BM, BN, I1>
+      <<<grid, kTiledThreads, TiledCfg<BM, BN, I1>::kSmem, st>>>(
+          tmx, tmw, xs, ws, m, np, nbs, splits, work, out, out_bf16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The driver's tensor-map encoder, looked up once through the runtime (the
+// library links no driver library of its own).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                            : nullptr;
+  }();
+  return fn;
+}
+
+// A 2-D uint8 tensor (inner x outer, rows `stride` bytes apart) cut into
+// boxes of box_inner x box_outer.
+bool encode_2d(CUtensorMap* map, const void* base, long inner, long outer,
+               long stride, int box_inner, int box_outer,
+               CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -532,22 +887,66 @@ int vlut_decode_gemm(const void* afrag, const void* xs, const void* packed,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (m, np) = epilogue(x (m, k) int8 @ trits(packed)); np % 128 == 0.
+// Once, when the library is loaded (never inside a graph capture): lets
+// every instantiation of the tiled kernel take its shared memory.
+int vlut_tiled_init() {
+  const cudaError_t errs[] = {
+      tiled_opt_in<32, 128, false>(),  tiled_opt_in<64, 128, false>(),
+      tiled_opt_in<128, 128, false>(), tiled_opt_in<128, 256, false>(),
+      tiled_opt_in<32, 128, true>(),   tiled_opt_in<64, 128, true>(),
+      tiled_opt_in<128, 128, true>(),  tiled_opt_in<128, 256, true>()};
+  for (const cudaError_t e : errs) {
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
+// out (m, np) = epilogue(x (m, k) int8 @ trits(packed)); x rows of stride
+// ldx, 16-byte aligned; (bm, bn) one of (32, 128), (64, 128), (128, 128),
+// (128, 256), np % bn == 0; splits divides the kp / kb pack blocks, and
+// with splits > 1 work is m * np + the number of output tiles of zeroed
+// int32.
 int vlut_tiled_gemm(const void* x, long ldx, int k, const void* xs,
                     const void* packed, const void* ws, int m, int kp, int np,
-                    int kb, int i1, void* out, int out_bf16, void* stream) {
-  const dim3 grid(np / kBN, (m + kBM - 1) / kBM);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* xp = static_cast<const int8_t*>(x);
-  auto* xsp = static_cast<const float*>(xs);
-  auto* pk = static_cast<const uint8_t*>(packed);
-  auto* wsp = static_cast<const float*>(ws);
-  if (i1) {
-    tiled_gemm_kernel<true><<<grid, 256, 0, st>>>(xp, ldx, k, xsp, pk, wsp, m, kp, np, kb, out, out_bf16);
-  } else {
-    tiled_gemm_kernel<false><<<grid, 256, 0, st>>>(xp, ldx, k, xsp, pk, wsp, m, kp, np, kb, out, out_bf16);
+                    int kb, int i1, int bm, int bn, int splits, void* work,
+                    void* out, int out_bf16, void* stream) {
+  const int nb = kp / kb;
+  if (m <= 0 || kb != (i1 ? 160 : 128) || (bn != 128 && bn != 256) ||
+      np % bn || splits < 1 || nb % splits || (splits > 1 && !work) ||
+      ldx % 16 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(packed) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  // x in boxes of one mma chunk (32 bytes) x bm rows, with the 32-byte
+  // swizzle; the packed rows in boxes of one stage (bn bytes x 32 or 64
+  // rows: the 256-column tile and i1's 128-row tile step one pack block)
+  const int ks = (bn == 256 || (bm == 128 && i1)) ? 1 : 2;
+  CUtensorMap tmx, tmw;
+  if (!encode_2d(&tmx, x, k, m, ldx, 32, bm, CU_TENSOR_MAP_SWIZZLE_32B) ||
+      !encode_2d(&tmw, packed, np, kp / (kb / vlut::kSlab), np, bn,
+                 ks * vlut::kSlab, CU_TENSOR_MAP_SWIZZLE_NONE)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* xsp = static_cast<const float*>(xs);
+  auto* wsp = static_cast<const float*>(ws);
+  auto* wk = static_cast<int*>(work);
+  const int nbs = nb / splits;
+#define VLUT_TILED(BM, BN)                                                   \
+  (i1 ? launch_tiled<BM, BN, true>(st, tmx, tmw, xsp, wsp, m, np, nbs, splits, \
+                                   wk, out, out_bf16)                          \
+      : launch_tiled<BM, BN, false>(st, tmx, tmw, xsp, wsp, m, np, nbs,        \
+                                    splits, wk, out, out_bf16))
+  if (bn == 256) {
+    return bm == 128 ? VLUT_TILED(128, 256) : static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (bm) {
+    case 32: return VLUT_TILED(32, 128);
+    case 64: return VLUT_TILED(64, 128);
+    case 128: return VLUT_TILED(128, 128);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef VLUT_TILED
 }
 
 }  // extern "C"

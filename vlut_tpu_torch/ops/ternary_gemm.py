@@ -44,10 +44,12 @@ def _lib() -> ctypes.CDLL:
         lib.vlut_decode_gemm.argtypes = [
             _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P]
         lib.vlut_tiled_gemm.argtypes = [
-            _P, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P]
+            _P, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+            _I, _P]
         for f in (lib.vlut_quant_prologue, lib.vlut_decode_gemm,
-                  lib.vlut_tiled_gemm):
+                  lib.vlut_tiled_gemm, lib.vlut_tiled_init):
             f.restype = ctypes.c_int
+        _build.check(lib.vlut_tiled_init(), "vlut_tiled_init")
         lib._vlut_typed = True
     return lib
 
@@ -331,6 +333,32 @@ ternary_gemm_fused_quant.launches = 0
 
 # --- kernel 3: tiled GEMM on pre-quantized activations -----------------------------
 
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def tiled_plan(m: int, np_: int, kp: int, fmt: str) -> tuple[int, int, int]:
+    """The tiled kernel's (BM, BN, splits) for an (M, Kp) x (Kp, Np) GEMM.
+
+    The kernel's shared memory holds one block per SM (two for the 32-row
+    i2 tile), and a grid past one wave of 132 blocks leaves SMs idle in its
+    last wave (and at 32 rows, short splits cost more than a second block
+    per SM gives; PERF.md §6 PR 5).  BM is 32 up to M 32; 64 up to M 256
+    while its 128-column tiles fit in one wave; 128 otherwise, with 256
+    columns where Np allows (x is then read from L2 half as often).  Where
+    the tiles leave SMs idle, K is split: ``splits`` is the largest divisor
+    of the pack blocks that keeps the grid in one wave and every split two
+    pack blocks deep.  The splits' int32 sums are exact, so their order
+    cannot change the result."""
+    nb = kp // DEFAULT_BLOCK[fmt]
+    bm = (32 if m <= 32 else
+          64 if m <= 256 and np_ // 128 * -(-m // 64) <= _SMS else 128)
+    bn = 256 if bm == 128 and np_ % 256 == 0 else 128
+    tiles = np_ // bn * -(-m // bm)
+    splits = max(s for s in range(1, max(1, nb // 2) + 1)
+                 if nb % s == 0 and (s == 1 or tiles * s <= _SMS))
+    return bm, bn, splits
+
+
 def ternary_gemm_tiled(
     x_q: torch.Tensor,  # (M, K) int8
     packed: torch.Tensor,
@@ -369,12 +397,26 @@ def _tiled_cuda(x_q, packed, x_scale, w_scale, fmt, kb, k, out_dtype):
         raise ValueError(f"unsupported out dtype {out_dtype}")
     m, np_ = x_q.shape[0], packed.shape[1]
     kp = packed.shape[0] * TRITS_PER_BYTE[fmt]
+    if x_q.stride(0) % 16 or x_q.data_ptr() % 16:
+        # the TMA unit reads x from 16-byte aligned rows: rows that are not
+        # go through one padded contiguous copy
+        xp = torch.empty((m, -(-k // 16) * 16), dtype=torch.int8,
+                         device=x_q.device)
+        xp[:, :k] = x_q
+        x_q = xp
+    bm, bn, splits = tiled_plan(m, np_, kp, fmt)
     out = torch.empty((m, np_), dtype=out_dtype, device=x_q.device)
+    work = None
+    if splits > 1:  # int32 sums, then one arrival counter per output tile
+        tiles = np_ // bn * -(-m // bm)
+        work = torch.zeros((m * np_ + tiles,), dtype=torch.int32,
+                           device=x_q.device)
     err = _lib().vlut_tiled_gemm(
         x_q.data_ptr(), x_q.stride(0), k, x_scale.data_ptr(),
         packed.data_ptr(), w_scale.data_ptr(), m, kp, np_, kb,
-        int(fmt == "i1"), out.data_ptr(), int(out_dtype == torch.bfloat16),
-        _stream())
+        int(fmt == "i1"), bm, bn, splits,
+        work.data_ptr() if work is not None else None, out.data_ptr(),
+        int(out_dtype == torch.bfloat16), _stream())
     _build.check(err, "vlut_tiled_gemm")
     return out
 
