@@ -42,15 +42,19 @@ Phase 2 times #3 (the tiled GEMM) at the flagship prefill (M 4096) and at
 the microbenchmark's i2 lanes (llama3_8b dxd, dxff, ffxd at M 32 and 256)
 beside two yardsticks on the unpacked trits: ``torch._int_mm`` with the
 weight row-major and column-major (the faster is its ``library_ms``) and
-one float16 matmul.  It also holds #9 (the TQ2_0/TQ1_0 GEMM) against its
-plain version at the llama3_8b shapes (dxd, dxff, ffxd) for both formats
-at M 32 and 256: the float32 sum runs in the same order in both, so they
-must be equal bit for bit (max |err| 0).  It then checks, without timing
-them, the kernels at the shapes the later phases give them: #1 at every
-flagship projection in i2 and i1 at M 1 and 32 (the e2e benches' decode),
-#3 bit-exact in i2 and i1 at the microbenchmark's lanes (M 32 and 256),
-at the e2e prefills (M 512 and 16384) and at shapes that make its plan
-take each tile and split of K, and #7 at the e2e benches' caches.
+one float16 matmul; #1 and #4 beside the same three calls (the fastest is
+their ``library_ms``).  It also holds #9 (the TQ2_0/TQ1_0 GEMM) against
+its plain version at the llama3_8b shapes (dxd, dxff, ffxd) for both
+formats at M 32 and 256, with the plan of each: the float32 sum runs in the
+same order in both, so they must be equal bit for bit (max |err| 0).  It
+then checks, without timing them, the kernels at the shapes the later
+phases give them: #1 at every flagship projection in i2 and i1 at M 1 and
+32 (the e2e benches' decode), #3 bit-exact in i2 and i1 at the
+microbenchmark's lanes (M 32 and 256), at the e2e prefills (M 512 and
+16384) and at shapes that make its plan take each tile and split of K, #9
+bit-exact at shapes that make its plan take each tile and split count and
+with every tile and split forced at two shapes, and #7 at the e2e benches'
+caches.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.  It imports nothing of JAX.
@@ -144,6 +148,45 @@ class Rotation:
     def next(self):
         self.i = (self.i + 1) % len(self.copies)
         return self.copies[self.i]
+
+
+INT_MM_ROW = "torch._int_mm, weight row-major"
+INT_MM_COL = "torch._int_mm, weight column-major"
+FP16_MM = "float16 torch.matmul"
+
+
+def gemm_yardsticks(xq, w8, rotate: bool = True,
+                    iters: int = 20) -> tuple[float | None, str | None, dict]:
+    """The library yardsticks of an int8 GEMM on the unpacked int8 trits
+    (weights rotated past the L2 with ``rotate``): ``torch._int_mm`` with
+    the weight row-major and column-major (cuBLASLt's int8 layout), and one
+    float16 matmul (codes and trits are exact in float16, every sum below
+    2**24: the same integer product).  Returns the fastest's ms and name,
+    and every time."""
+    import torch
+
+    total = 128 << 20 if rotate else 0
+    times = {}
+    for name, w in ((INT_MM_ROW, w8), (INT_MM_COL, w8.t().contiguous().t())):
+        wr = Rotation(w, total)
+        times[name] = library_ms(lambda: torch._int_mm(xq, wr.next()),
+                                 iters=iters)
+        del wr
+    xh = xq.to(torch.float16)
+    wr = Rotation(w8.to(torch.float16), total)
+    times[FP16_MM] = library_ms(lambda: torch.matmul(xh, wr.next()),
+                                iters=iters)
+    del wr
+    return (*fastest(times), times)
+
+
+def fastest(times: dict, names=None) -> tuple[float | None, str | None]:
+    """The least time of ``times`` (of ``names`` only, where given), with
+    its name; (None, None) where none was timed."""
+    timed = {k: v for k, v in times.items()
+             if v is not None and (names is None or k in names)}
+    best = min(timed, key=timed.get) if timed else None
+    return timed.get(best), best
 
 
 def check_float_prologue(name, got, want, codes_k, codes_p, xs, ws, res):
@@ -285,8 +328,7 @@ def phase_kernels(dev) -> dict:
         plain_ms = cuda_ms(lambda: tg._gemm_plain(
             *tg.decode_prologue(x1, x2, g, mode, sub, k, 1e-5), packed, ws,
             fmt, DEFAULT_BLOCK[fmt], k, res, od), iters=3, warmup=1)
-        w8 = Rotation(trits_i8(packed, fmt, k))
-        lib_ms = library_ms(lambda: torch._int_mm(xq_p, w8.next()))
+        lib_ms, lib_name, yard = gemm_yardsticks(xq_p, trits_i8(packed, fmt, k))
         in_b = x1.element_size() * m * k * (2 if x2 is not None else 1)
         nbytes = (in_b + packed.numel() + 4 * n + (4 * k if g is not None else 0)
                   + (2 * m * n if res is not None else 0) + 2 * m * n)
@@ -296,8 +338,9 @@ def phase_kernels(dev) -> dict:
         record(name, shape=f"{label} M={m} {k}->{n} {fmt} {mode}"
                f"{'+sub' if sub else ''}{'+res' if has_res else ''}",
                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-               library_ms=lib_ms, max_abs_err=err, eager_ms=eager_ms)
-        del rot, w8
+               library_ms=lib_ms, max_abs_err=err, eager_ms=eager_ms,
+               library=lib_name, yardsticks_ms=yard)
+        del rot
 
     # --- #4 fused-quant GEMM: the unfused tree's projections at M = 32 ------
     for label, k, n in (("wq", 4096, 4096), ("wk", 4096, 1024),
@@ -319,13 +362,14 @@ def phase_kernels(dev) -> dict:
         plain_ms = cuda_ms(lambda: tg._gemm_plain(
             *tg.kernel_quantize(x), packed, ws, "i2", 128, k, None,
             torch.float32), iters=3, warmup=1)
-        w8 = Rotation(trits_i8(packed, "i2", k))
-        lib_ms = library_ms(lambda: torch._int_mm(xq, w8.next()))
+        lib_ms, lib_name, yard = gemm_yardsticks(xq, trits_i8(packed, "i2", k))
         nbytes = 2 * m * k + packed.numel() + 4 * n + 4 * m * n
         b_ms, by = bound_ms(nbytes, 2 * m * k * n)
         record("ternary_gemm_fused_quant", shape=f"{label} M={m} {k}->{n} i2",
                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-               library_ms=lib_ms, max_abs_err=err)
+               library_ms=lib_ms, max_abs_err=err, library=lib_name,
+               yardsticks_ms=yard)
+        del rot
 
     # --- #3 tiled GEMM: the flagship prefill's projections at M = 4096, then
     # the microbenchmark's i2 lanes (llama3_8b dxd, dxff, ffxd at M 32 and
@@ -340,31 +384,16 @@ def phase_kernels(dev) -> dict:
         plain_ms = cuda_ms(lambda: tg._gemm_plain(
             xq, xs, packed, ws, fmt, kb, k, None, torch.float32),
             iters=2, warmup=1)
-        # yardsticks on the unpacked int8 trits: torch._int_mm with the
-        # weight row-major and column-major (cuBLASLt's int8 layout), and
-        # one float16 matmul (codes and trits are exact in float16, every
-        # sum below 2**24: the same integer product)
-        w8 = trits_i8(packed, fmt, k)
-        lib = {}
-        for layout, w in (("row-major", w8), ("column-major",
-                                               w8.t().contiguous().t())):
-            wr = Rotation(w, 128 << 20 if rotate else 0)
-            lib[layout] = library_ms(lambda: torch._int_mm(xq, wr.next()),
-                                     iters=iters)
-            del wr
-        xh = xq.to(torch.float16)
-        wr = Rotation(w8.to(torch.float16), 128 << 20 if rotate else 0)
-        fp16_ms = library_ms(lambda: torch.matmul(xh, wr.next()), iters=iters)
-        del w8, wr
-        timed = {lay: t for lay, t in lib.items() if t is not None}
-        layout = min(timed, key=timed.get) if timed else None
+        # the yardsticks; the library time is the faster _int_mm layout
+        yard = gemm_yardsticks(xq, trits_i8(packed, fmt, k), rotate,
+                               iters)[2]
+        lib_ms, lib_name = fastest(yard, (INT_MM_ROW, INT_MM_COL))
         nbytes = m * k + 4 * m + packed.numel() + 4 * n + 4 * m * n
         b_ms, by = bound_ms(nbytes, 2 * m * k * n)
         record(name, shape=f"{label} M={m} {k}->{n} {fmt}", ms=ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-               library_ms=timed.get(layout), max_abs_err=err,
-               library=f"torch._int_mm, weight {layout}",
-               int_mm_ms=lib, fp16_matmul_ms=fp16_ms,
+               library_ms=lib_ms, max_abs_err=err, library=lib_name,
+               yardsticks_ms=yard,
                plan=tg.tiled_plan(m, packed.shape[1],
                                   packed.shape[0] * TRITS_PER_BYTE[fmt], fmt))
         del rot
@@ -457,6 +486,10 @@ def phase_kernels(dev) -> dict:
             checked("ternary_gemm_tiled", f"{label} M={m} {k}->{n} {fmt} "
                     f"plan={plan}", err)
             torch.cuda.empty_cache()
+    # #9 bit-exact at shapes that make tq_plan take each of its tiles and
+    # split counts (ragged M and N, bk 256 to 2048), and with every tile and
+    # split forced at two shapes
+    tq_checks(dev, gen, checked)
     # #7 in the e2e benches' decode: bench_sweep's tg from an empty cache
     # (S 552) at batch 1 and 32, batched_bench's after a 128-token prefill
     for b, s, first in ((1, 552, 0), (1, 552, 31), (32, 552, 0),
@@ -497,6 +530,47 @@ def attention_case(dev, gen, b: int, s: int, first: int) -> float:
     return float(err.max())
 
 
+def tq_checks(dev, gen, checked) -> None:
+    import torch
+
+    from vlut_tpu_torch.bench.kernels import rand_packed
+    from vlut_tpu_torch.ops import tq
+
+    sms = tq.sm_count(dev.index or 0)
+    forced = {(40, 4096, 1000, 2048), (130, 3584, 264, 512)}
+    for fmt in ("tq2", "tq1"):
+        for m, k, n, bk in tq.PLAN_SHAPES:
+            packed = rand_packed(fmt, k, n, gen, dev)
+            scales = (torch.rand((k // tq.QK, n), generator=gen, device=dev)
+                      * 0.6 + 0.3).to(torch.float16)
+            xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.int8)
+            xs = torch.rand((m, 1), generator=gen, device=dev) * 0.01
+            want = tq.tq_gemm_plain(xq, packed, scales, xs, fmt=fmt, bk=bk)
+            plans = [None]
+            if (m, k, n, bk) in forced:
+                plans += [(bm, bn, sp) for bm, bn in tq.TILES
+                          for sp in range(1, k // bk + 1)]
+            for plan in plans:
+                if plan is None:
+                    got = tq.tq_gemm(xq, packed, scales, xs, fmt=fmt, bk=bk)
+                    plan = tq.tq_plan(m, -(-n // 16) * 16, k, bk, sms)
+                    label = "plan"
+                else:
+                    got = tq._tq_cuda(xq, packed, scales, xs, fmt, bk,
+                                      torch.float32, plan=plan)
+                    label = "forced"
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if not torch.equal(got, want):
+                    fail(f"tq_gemm {fmt} M={m} {k}->{n} bk={bk} {label} "
+                         f"{plan}: differs from the plain version ({err})")
+                checked("tq_gemm", f"M={m} {k}->{n} {fmt} bk={bk} {label}="
+                        f"{plan}", err)
+            del packed, want
+            torch.cuda.empty_cache()
+
+
 def tq_kernels(dev, gen, record) -> None:
     """#9 at the microbenchmark's llama3_8b shapes, tq2 and tq1, M 32 and
     256, with the bench's tile choice bk = 2048.  Kernel and plain version
@@ -509,6 +583,7 @@ def tq_kernels(dev, gen, record) -> None:
     from vlut_tpu_torch.bench.kernels import rand_packed
     from vlut_tpu_torch.ops import tq
 
+    sms = tq.sm_count(dev.index or 0)
     for fmt in ("tq2", "tq1"):
         for label, k, n in (("dxd", 4096, 4096), ("dxff", 4096, 14336),
                             ("ffxd", 14336, 4096)):
@@ -543,7 +618,8 @@ def tq_kernels(dev, gen, record) -> None:
                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                        library_ms=lib_ms, max_abs_err=err,
                        library="float16 torch.matmul of the codes and the "
-                       "weight dequantized to float16 beforehand")
+                       "weight dequantized to float16 beforehand",
+                       plan=tq.tq_plan(m, n, k, 2048, sms))
                 del want, got
             del rot, wrot, wf
             torch.cuda.empty_cache()

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from vlut_tpu_torch.ops import kv_update, ternary_gemm as tg
+from vlut_tpu_torch.ops import kv_update, ternary_gemm as tg, tq
 from vlut_tpu_torch.ops.packing import pack_ternary
 
 pytestmark = pytest.mark.cuda
@@ -268,14 +268,14 @@ def _tq_inputs(dev, fmt, m, k, n, seed):
 
 # #9 sums exact int32 block dots in float32 in the JAX interpret run's
 # order (tq_gemm_plain), so the kernel matches its plain version bit for bit.
-@pytest.mark.parametrize("fmt", ["tq2", "tq1"])
-@pytest.mark.parametrize("m,k,n,bk", [(1, 512, 64, 256), (40, 1024, 200, 512),
-                                      (32, 4096, 4096, 2048),
-                                      (100, 1536, 128, 512),
-                                      (256, 2048, 1024, 1024)])
-def test_tq_gemm_matches_plain(dev, fmt, m, k, n, bk):
-    from vlut_tpu_torch.ops import tq
+_TQ_SHAPES = [(1, 512, 64, 256), (40, 1024, 200, 512), (32, 4096, 4096, 2048),
+              (100, 1536, 128, 512), (256, 2048, 1024, 1024)]
 
+
+@pytest.mark.parametrize("fmt", ["tq2", "tq1"])
+@pytest.mark.parametrize("m,k,n,bk", _TQ_SHAPES + [
+    s for s in tq.PLAN_SHAPES if s not in _TQ_SHAPES])
+def test_tq_gemm_matches_plain(dev, fmt, m, k, n, bk):
     xq, packed, scales, xs = _tq_inputs(dev, fmt, m, k, n, seed=m + k)
     want = tq.tq_gemm_plain(xq, packed, scales, xs, fmt=fmt, bk=bk)
     before = tq.tq_gemm.launches
@@ -285,12 +285,26 @@ def test_tq_gemm_matches_plain(dev, fmt, m, k, n, bk):
     assert got.shape == (m, n) and torch.equal(got, want)
     bf = tq.tq_gemm(xq, packed, scales, xs, fmt=fmt, bk=bk,
                     out_dtype=torch.bfloat16)
+    # a second call of the same plan, to bfloat16
     assert torch.equal(bf, want.to(torch.bfloat16))
-    # an x whose rows are not 16-byte aligned takes the scalar loads
+    # an x whose rows are not 16-byte aligned goes through one copy
     wide = torch.zeros((m, k + 1), dtype=torch.int8, device=dev)
     wide[:, 1:] = xq
     got = tq.tq_gemm(wide[:, 1:], packed, scales, xs, fmt=fmt, bk=bk)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fmt", ["tq2", "tq1"])
+@pytest.mark.parametrize("m,k,n,bk", [(40, 4096, 1000, 2048),
+                                      (130, 3584, 264, 512)])
+def test_tq_every_tile_and_split_matches_plain(dev, fmt, m, k, n, bk):
+    xq, packed, scales, xs = _tq_inputs(dev, fmt, m, k, n, seed=m + n)
+    want = tq.tq_gemm_plain(xq, packed, scales, xs, fmt=fmt, bk=bk)
+    for bm, bn in tq.TILES:
+        for splits in range(1, k // bk + 1):
+            got = tq._tq_cuda(xq, packed, scales, xs, fmt, bk, torch.float32,
+                              plan=(bm, bn, splits))
+            assert torch.equal(got, want), (bm, bn, splits)
 
 
 @pytest.mark.parametrize("fmt", ["i2", "i1", "tq2", "tq1"])

@@ -48,7 +48,6 @@ MODEL_SHAPES = {
 }
 L_STACK = 8
 ROTATION_BYTES = 128 << 20
-TQ_BLOCKS = (64, tq.KERNEL_BN)  # the TQ kernel's (BM, BN); it steps K by 256
 
 
 def tq_bk(kp: int) -> int:
@@ -114,8 +113,10 @@ def bench_gemm(
     iters: int | None = None,
 ) -> dict[str, Any]:
     """One (fmt, M, K, N) lane: us per call, packed GB/s and TFLOP/s, with
-    the JAX bench's keys.  ``blocks`` are the kernel's own tiles: the TQ
-    kernel's constants, the tiled kernel's plan for this shape."""
+    the JAX bench's keys.  ``blocks`` are the kernel's own tiles: its plan
+    for this shape (the TQ kernel's (BM, BN, splits, bk) on the card, only
+    bk on the CPU, whose plain version has no tiles), the tiled kernel's
+    (BM, BN, kb, splits)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -124,7 +125,8 @@ def bench_gemm(
     if fmt in tq.ROWS_PER_BLOCK:
         kp = packed.shape[0] // tq.ROWS_PER_BLOCK[fmt] * tq.QK
         bk = tq_bk(kp)
-        blocks = (*TQ_BLOCKS, bk)
+        blocks = ((*tq.tq_plan(m, n, kp, bk, tq.sm_count(dev.index or 0)),
+                   bk) if dev.type == "cuda" else (bk,))
         scales = torch.full((kp // tq.QK, n), 0.03, dtype=torch.float16,
                             device=dev)
         wbytes = packed.numel() + scales.numel() * 2

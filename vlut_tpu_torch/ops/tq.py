@@ -26,6 +26,7 @@ its result depends on ``bk`` as the JAX one does.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -36,7 +37,7 @@ from vlut_tpu_torch.ops.ternary_gemm import _check_cuda, _int_matmul, _stream
 
 QK = 256  # block size (QK_K)
 ROWS_PER_BLOCK = {"tq2": QK // 4, "tq1": 52}  # packed byte rows / 256 wts
-KERNEL_BN = 32  # the kernel's column tile: N is padded to it
+TILES = ((32, 64), (32, 128), (128, 64))  # the kernel's (BM, BN)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -175,14 +176,65 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("tq_gemm.cu")
     if not getattr(lib, "_vlut_typed", False):
         lib.vlut_tq_gemm.argtypes = [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _P, _P, _P]
+                                     _I, _I, _I, _P, _P, _P, _P]
         lib.vlut_tq_gemm.restype = ctypes.c_int
-        lib.vlut_tq_afrag_bytes.argtypes = [_I, _I, _I]
-        lib.vlut_tq_afrag_bytes.restype = _L
         lib.vlut_tq_init.restype = ctypes.c_int
         _build.check(lib.vlut_tq_init(), "vlut_tq_init")
         lib._vlut_typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tq_plan(m: int, np_: int, kp: int, bk: int,
+            sms: int) -> tuple[int, int, int]:
+    """The kernel's (BM, BN, splits) for an (M, Kp) x (Kp, Np) GEMM on a card
+    with ``sms`` streaming multiprocessors.
+
+    The kernel's shared memory holds one block per SM.  K splits only at bk
+    tile boundaries (each tile's float32 partial is summed in tile order,
+    so the result does not depend on the split), a split may cover an
+    uneven number of tiles, and bk = 256 (one chained sum) never splits;
+    ``splits`` is the most that keep the grid in one wave (1 when the tiles
+    alone fill it).  The tiles follow a sweep of every tile and split on an
+    H100 (``bench/tq_study.py --sweep``, PERF.md §6): above 32 rows
+    128 x 64 (for tq1, whose decode costs per column what tq2's does per 4
+    columns, by far the best tile; for tq2 2-7% faster than 64 x 128, the
+    next best); up to 32 rows 32 x 128, or 32 x 64 where the 128-column
+    tiles and their splits would leave half the card idle."""
+    nk = kp // bk
+
+    def split(tiles: int) -> int:
+        return 1 if bk == QK else max(1, min(nk, sms // tiles))
+
+    def tiles_of(bm: int, bn: int) -> int:
+        return -(-np_ // bn) * -(-m // bm)
+
+    if m > 32:
+        bm, bn = 128, 64
+    else:
+        bm, bn = 32, 128
+        t = tiles_of(bm, bn)
+        if t * split(t) < sms // 2:
+            bn = 64
+    t = tiles_of(bm, bn)
+    return bm, bn, split(t)
+
+
+# (M, K, N, bk) at which tq_plan takes each of its tiles and split counts on
+# a 132-SM card (one split, even and uneven splits of the bk tiles), with
+# ragged M and N (N not a multiple of 16 is padded by the wrapper): the
+# shapes of the kernel's checks on the card
+PLAN_SHAPES = [
+    (1, 512, 64, 256), (17, 1024, 200, 512), (100, 1536, 136, 512),
+    (40, 4096, 1000, 2048), (256, 2048, 1024, 1024), (130, 3584, 264, 512),
+    (32, 14336, 4096, 2048), (256, 4096, 14336, 2048), (32, 4096, 4096, 2048),
+    (32, 4096, 14336, 2048), (64, 14336, 4096, 2048), (7, 14336, 2000, 2048),
+    (33, 1024, 72, 512)]
 
 
 def tq_gemm(
@@ -221,28 +273,46 @@ def tq_gemm(
     return out
 
 
-def _tq_cuda(x_q, packed, scales, x_scale, fmt, bk, out_dtype):
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous from a 16-byte aligned address (the TMA's rule)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _tq_cuda(x_q, packed, scales, x_scale, fmt, bk, out_dtype, plan=None,
+             lib=None):
+    """The kernel's call; ``plan`` and ``lib`` replace the plan and the
+    built library (for the study, ``bench/tq_study.py``)."""
     m, kp = x_q.shape
     n = packed.shape[1]
-    np_ = -(-n // KERNEL_BN) * KERNEL_BN
+    # the TMA reads rows 16 bytes apart: N is padded only where it is not
+    np_ = -(-n // 16) * 16
     if np_ != n:
         packed = torch.nn.functional.pad(packed, (0, np_ - n))
         scales = torch.nn.functional.pad(scales, (0, np_ - n))
+    packed, scales = _aligned(packed), _aligned(scales)
     x_scale = x_scale.to(torch.float32).contiguous()
     _check_cuda(packed, scales, x_scale)
     if x_q.stride(1) != 1:
         raise ValueError("x_q must have unit column stride")
-    if packed.data_ptr() % 4:
-        raise ValueError("packed weights must be 4-byte aligned on the card")
-    lib = _lib()
-    tq1 = int(fmt == "tq1")
-    # the kernel's scratch: x in mma A-fragment order, written per call
-    afrag = torch.empty((lib.vlut_tq_afrag_bytes(m, kp, tq1),),
-                        dtype=torch.uint8, device=x_q.device)
+    if x_q.stride(0) % 16 or x_q.data_ptr() % 16:
+        # rows that are not 16-byte aligned go through one contiguous copy
+        x_q = x_q.clone(memory_format=torch.contiguous_format)
+    lib = lib or _lib()
+    bm, bn, splits = plan or tq_plan(m, np_, kp, bk,
+                                     sm_count(x_q.device.index or 0))
     out = torch.empty((m, np_), dtype=torch.float32, device=x_q.device)
+    part = counters = None
+    if splits > 1:  # the bk tiles' partials, one arrival counter per tile
+        part = torch.empty((kp // bk, m, np_), dtype=torch.float32,
+                           device=x_q.device)
+        counters = torch.zeros((-(-np_ // bn) * -(-m // bm),),
+                               dtype=torch.int32, device=x_q.device)
     err = lib.vlut_tq_gemm(
         x_q.data_ptr(), x_q.stride(0), x_scale.data_ptr(), packed.data_ptr(),
-        scales.data_ptr(), m, kp, np_, tq1, bk, afrag.data_ptr(),
+        scales.data_ptr(), m, kp, np_, int(fmt == "tq1"), bk, bm, bn, splits,
+        part.data_ptr() if part is not None else None,
+        counters.data_ptr() if counters is not None else None,
         out.data_ptr(), _stream())
     _build.check(err, "vlut_tq_gemm")
     return (out if np_ == n else out[:, :n]).to(out_dtype)
