@@ -43,13 +43,17 @@ the microbenchmark's i2 lanes (llama3_8b dxd, dxff, ffxd at M 32 and 256)
 beside two yardsticks on the unpacked trits: ``torch._int_mm`` with the
 weight row-major and column-major (the faster is its ``library_ms``) and
 one float16 matmul; #1 and #4 beside the same three calls (the fastest is
-their ``library_ms``).  It also holds #9 (the TQ2_0/TQ1_0 GEMM) against
+their ``library_ms``), with their prologue and GEMM also timed apart, and
+one profiled call of each (with and without a split of K) that must run at
+most two device kernels.  It also holds #9 (the TQ2_0/TQ1_0 GEMM) against
 its plain version at the llama3_8b shapes (dxd, dxff, ffxd) for both
 formats at M 32 and 256, with the plan of each: the float32 sum runs in the
 same order in both, so they must be equal bit for bit (max |err| 0).  It
 then checks, without timing them, the kernels at the shapes the later
-phases give them: #1 at every flagship projection in i2 and i1 at M 1 and
-32 (the e2e benches' decode), #3 bit-exact in i2 and i1 at the
+phases give them: #1 at every flagship projection in i2 and i1 at M 1,
+17, 32, 33 and 64 (the e2e benches' decode is M 1 and 32), and bit-exact at
+shapes that make its plan take every kernel instantiation and split count
+(with every tile and split forced at two), #3 bit-exact in i2 and i1 at the
 microbenchmark's lanes (M 32 and 256), at the e2e prefills (M 512 and
 16384) and at shapes that make its plan take each tile and split of K, #9
 bit-exact at shapes that make its plan take each tile and split count and
@@ -213,6 +217,61 @@ def check_float_prologue(name, got, want, codes_k, codes_p, xs, ws, res):
     return float(err.max())
 
 
+def decode_parts_ms(x1, rot, ws, kw) -> dict:
+    """#1's (or #4's) prologue and GEMM timed apart, each in a CUDA graph of
+    20 calls: the GEMM on the prologue's output; with a split of K, its
+    workspace is zeroed by a fill kernel per call (the prologue's work in a
+    call), timed apart and taken off."""
+    from vlut_tpu_torch.ops import ternary_gemm as tg
+    from vlut_tpu_torch.ops.packing import TRITS_PER_BYTE
+
+    fmt, m, np_ = kw["fmt"], x1.shape[0], rot.copies[0].shape[1]
+    kp = rot.copies[0].shape[0] * TRITS_PER_BYTE[fmt]
+    args = (x1, kw["x2"], kw["norm_g"], kw["mode"], kw["sub_norm"],
+            kw["norm_n"], kw["eps"], kp)
+    pro_ms = cuda_ms(lambda: tg._launch_prologue(*args), graph=True)
+    bn, splits = tg.decode_plan(m, np_, kp, fmt,
+                                tg.sm_count(x1.device.index or 0))
+    codes, xs, rowsum, work = tg._launch_prologue(*args, np_, bn, splits)
+    od, res = kw["out_dtype"], kw["residual"]
+    res = res.to(od).contiguous() if res is not None else None
+
+    def gemm():
+        if work is not None:
+            work.zero_()
+        return tg._launch_decode_gemm(codes, xs, rowsum, work, rot.next(), ws,
+                                      fmt, m, res, od, bn, splits)
+    gemm_ms = cuda_ms(gemm, graph=True)
+    memset_ms = cuda_ms(work.zero_, graph=True) if work is not None else 0.0
+    return {"prologue_ms": pro_ms, "gemm_ms": gemm_ms - memset_ms,
+            "memset_ms": memset_ms, "plan": [bn, splits]}
+
+
+def device_kernels(fn) -> list[str]:
+    """The names of the device kernels (and memsets, copies) that one call
+    of ``fn`` runs, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def check_two_kernels(name, launched) -> None:
+    """A call of #1 or #4 runs exactly its prologue, then its GEMM: no
+    memset, copy or other kernel (a split's workspace is the prologue's to
+    zero)."""
+    want = ("decode_prologue_kernel", "decode_gemm_kernel")
+    if (len(launched) != 2
+            or not all(w in e for w, e in zip(want, launched))):
+        fail(f"{name}: one call ran {launched}, not {list(want)}")
+
+
 def phase_kernels(dev) -> dict:
     import torch
 
@@ -225,6 +284,7 @@ def phase_kernels(dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     results = {}
+    sms = tg.sm_count(dev.index or 0)
 
     def rand_packed(k, n, fmt):
         return random_packed_bytes(
@@ -252,11 +312,13 @@ def phase_kernels(dev) -> dict:
         print(json.dumps({"phase": "kernels", "kernel": name, **kw}),
               flush=True)
 
-    def decode_case(label, m, k, n, mode, sub, has_res, fmt):
-        """#1's inputs at one projection, held against its plain version;
-        returns the inputs, the call's keywords and the largest error."""
-        packed = rand_packed(k, n, fmt)
-        ws = torch.full((n,), 0.05, device=dev)
+    def decode_case(label, m, k, n, mode, sub, has_res, fmt, plan=None):
+        """#1's inputs at one projection, held against its plain version
+        (with ``plan``, the kernels forced to that (BN, splits)); returns
+        the inputs, the call's keywords and the largest error."""
+        np_ = -(-n // 128) * 128  # the residual stays n wide
+        packed = rand_packed(k, np_, fmt)
+        ws = torch.full((np_,), 0.05, device=dev)
         if mode == "plain":
             x1 = randn(m, k, dtype=torch.float32)
         elif mode == "silu_mul":
@@ -270,8 +332,13 @@ def phase_kernels(dev) -> dict:
                   residual=randn(m, n) if has_res else None, fmt=fmt,
                   kb=DEFAULT_BLOCK[fmt], k=k, mode=mode, sub_norm=sub,
                   norm_n=k, eps=1e-5, out_dtype=torch.bfloat16)
-        got = tg.ternary_gemm_decode(x1, packed, ws, **kw)
         x2, g, res = kw["x2"], kw["norm_g"], kw["residual"]
+        if plan is None:
+            got = tg.ternary_gemm_decode(x1, packed, ws, **kw)
+        else:
+            got = tg._decode_cuda(x1, packed, ws, x2, g, res, fmt,
+                                  DEFAULT_BLOCK[fmt], mode, sub, k, 1e-5,
+                                  torch.bfloat16, plan=plan)
         xq_p, xs_p = tg.decode_prologue(x1, x2, g, mode, sub, k, 1e-5)
         want = tg._gemm_plain(xq_p, xs_p, packed, ws, fmt, DEFAULT_BLOCK[fmt],
                               k, res, torch.bfloat16)
@@ -282,8 +349,7 @@ def phase_kernels(dev) -> dict:
                 fail(f"decode {label}: integer path differs ({err})")
         else:
             kp = packed.shape[0] * TRITS_PER_BYTE[fmt]
-            codes_k = tg.prologue_codes(x1, x2, g, mode, sub, k, 1e-5, fmt,
-                                        DEFAULT_BLOCK[fmt], kp)[0][:, :k]
+            codes_k = tg.prologue_codes(x1, x2, g, mode, sub, k, 1e-5, kp)[0]
             err = check_float_prologue(f"decode {label}", got, want, codes_k,
                                        xq_p, xs_p, ws, res)
         return x1, packed, ws, kw, xq_p, err
@@ -325,6 +391,7 @@ def phase_kernels(dev) -> dict:
         # dispatch per call, which bounds a decode step that is not graphed
         eager_ms = cuda_ms(lambda: tg.ternary_gemm_decode(x1, rot.next(), ws,
                                                           **kw))
+        parts = decode_parts_ms(x1, rot, ws, kw)
         plain_ms = cuda_ms(lambda: tg._gemm_plain(
             *tg.decode_prologue(x1, x2, g, mode, sub, k, 1e-5), packed, ws,
             fmt, DEFAULT_BLOCK[fmt], k, res, od), iters=3, warmup=1)
@@ -339,7 +406,15 @@ def phase_kernels(dev) -> dict:
                f"{'+sub' if sub else ''}{'+res' if has_res else ''}",
                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                library_ms=lib_ms, max_abs_err=err, eager_ms=eager_ms,
-               library=lib_name, yardsticks_ms=yard)
+               library=lib_name, yardsticks_ms=yard, **parts)
+        if label in ("wo", "gateup"):  # with a split of K, and without
+            launched = device_kernels(
+                lambda: tg.ternary_gemm_decode(x1, packed, ws, **kw))
+            print(json.dumps({"phase": "kernels_per_call",
+                              "kernel": "ternary_gemm_decode",
+                              "shape": label, "plan": parts["plan"],
+                              "device_kernels": launched}), flush=True)
+            check_two_kernels(f"decode {label}", launched)
         del rot
 
     # --- #4 fused-quant GEMM: the unfused tree's projections at M = 32 ------
@@ -363,12 +438,23 @@ def phase_kernels(dev) -> dict:
             *tg.kernel_quantize(x), packed, ws, "i2", 128, k, None,
             torch.float32), iters=3, warmup=1)
         lib_ms, lib_name, yard = gemm_yardsticks(xq, trits_i8(packed, "i2", k))
+        parts = decode_parts_ms(x, rot, ws, dict(
+            x2=None, norm_g=None, residual=None, fmt="i2", mode="plain",
+            sub_norm=False, norm_n=0, eps=0.0, out_dtype=torch.float32))
         nbytes = 2 * m * k + packed.numel() + 4 * n + 4 * m * n
         b_ms, by = bound_ms(nbytes, 2 * m * k * n)
         record("ternary_gemm_fused_quant", shape=f"{label} M={m} {k}->{n} i2",
                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                library_ms=lib_ms, max_abs_err=err, library=lib_name,
-               yardsticks_ms=yard)
+               yardsticks_ms=yard, **parts)
+        if label == "w_down":
+            launched = device_kernels(lambda: tg.ternary_gemm_fused_quant(
+                x, packed, ws, fmt="i2", kb=128, k=k))
+            print(json.dumps({"phase": "kernels_per_call",
+                              "kernel": "ternary_gemm_fused_quant",
+                              "shape": label, "device_kernels": launched}),
+                  flush=True)
+            check_two_kernels(f"fused_quant {label}", launched)
         del rot
 
     # --- #3 tiled GEMM: the flagship prefill's projections at M = 4096, then
@@ -395,7 +481,8 @@ def phase_kernels(dev) -> dict:
                library_ms=lib_ms, max_abs_err=err, library=lib_name,
                yardsticks_ms=yard,
                plan=tg.tiled_plan(m, packed.shape[1],
-                                  packed.shape[0] * TRITS_PER_BYTE[fmt], fmt))
+                                  packed.shape[0] * TRITS_PER_BYTE[fmt], fmt,
+                                  sms))
         del rot
         torch.cuda.empty_cache()
 
@@ -456,14 +543,33 @@ def phase_kernels(dev) -> dict:
         print(json.dumps({"phase": "kernels_check", "kernel": name,
                           "shape": shape, "max_abs_err": err}), flush=True)
 
-    # #1 in the e2e benches' decode: every flagship projection, i2 and i1,
-    # at batch 1 and 32
+    # #1 in the e2e benches' decode (batch 1 and 32) and at M 17, 33 and
+    # 64: every flagship projection, i2 and i1
     for fmt in ("i2", "i1"):
-        for m in (1, 32):
+        for m in (1, 17, 32, 33, 64):
             for label, k, n, mode, sub, has_res, _, _ in shapes[:4]:
                 err = decode_case(label, m, k, n, mode, sub, has_res, fmt)[-1]
                 checked("ternary_gemm_decode",
                         f"{label} M={m} {k}->{n} {fmt} {mode}", err)
+    # #1 bit-exact (plain mode, with a residual) at shapes that make
+    # decode_plan take every kernel instantiation and split count, and with
+    # every (BN, splits) forced at two of them
+    forced = {(17, 3840, 512), (64, 3840, 384)}
+    for fmt in ("i2", "i1"):
+        for m, k, n in tg.DECODE_PLAN_SHAPES:
+            np_, kp = -(-n // 128) * 128, padded_k(k, fmt)
+            plans = [None]
+            if (m, k, n) in forced:
+                plans += [(bn, sp) for bn in (128, 256) if np_ % bn == 0
+                          for sp in range(1, min(kp // DEFAULT_BLOCK[fmt],
+                                                 tg.MAX_SPLITS) + 1)]
+            for plan in plans:
+                err = decode_case("plan", m, k, n, "plain", False, True, fmt,
+                                  plan)[-1]
+                shown = plan or tg.decode_plan(m, np_, kp, fmt, sms)
+                checked("ternary_gemm_decode", f"plan M={m} {k}->{n} {fmt} "
+                        f"{'forced' if plan else 'plan'}={shown}", err)
+            torch.cuda.empty_cache()
     # #3 in the microbenchmark's i2/i1 lanes (llama3_8b dxd, dxff, ffxd at
     # M 32 and 256) and in the e2e benches' prefills (pp 512 at batch 1 and
     # 32: M 512 and 16384)
@@ -482,7 +588,8 @@ def phase_kernels(dev) -> dict:
     for fmt in ("i2", "i1"):
         for label, m, k, n in lanes:
             err = tiled_case(label, m, k, n, fmt)[-1]
-            plan = tg.tiled_plan(m, -(-n // 128) * 128, padded_k(k, fmt), fmt)
+            plan = tg.tiled_plan(m, -(-n // 128) * 128, padded_k(k, fmt), fmt,
+                                 sms)
             checked("ternary_gemm_tiled", f"{label} M={m} {k}->{n} {fmt} "
                     f"plan={plan}", err)
             torch.cuda.empty_cache()
@@ -913,9 +1020,9 @@ def main() -> None:
 
     # 12. summary
     replaces = {
-        "ternary_gemm_decode": ("vlut_tpu_torch/csrc/ternary_gemm.cu",
+        "ternary_gemm_decode": ("vlut_tpu_torch/csrc/decode_gemm.cu",
                                 "vlut_tpu/ops/pallas_gemm.py:676"),
-        "ternary_gemm_fused_quant": ("vlut_tpu_torch/csrc/ternary_gemm.cu",
+        "ternary_gemm_fused_quant": ("vlut_tpu_torch/csrc/decode_gemm.cu",
                                      "vlut_tpu/ops/pallas_gemm.py:336"),
         "ternary_gemm_tiled": ("vlut_tpu_torch/csrc/ternary_gemm.cu",
                                "vlut_tpu/ops/pallas_gemm.py:223"),

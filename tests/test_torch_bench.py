@@ -29,11 +29,10 @@ def test_bench_gemm_lanes(fmt):
     assert set(out) == JAX_GEMM_KEYS
     assert (out["fmt"], out["m"], out["k"], out["n"]) == (fmt, 3, 512, 128)
     assert out["us"] > 0 and out["gbps_packed"] > 0 and out["tflops"] > 0
-    # on the CPU the TQ lane reports its bk tile (its plan needs the card's
-    # SM count); the tiled kernel's plan: one row tile of 32, K (four pack
-    # blocks) split in two
+    # on the CPU each lane reports its K step (bk, kb): the kernels' plans
+    # need the card's SM count
     want_blocks = ((512,) if fmt.startswith("tq")
-                   else (32, 128, DEFAULT_BLOCK[fmt], 2))
+                   else (DEFAULT_BLOCK[fmt],))
     assert out["blocks"] == want_blocks
 
 

@@ -102,8 +102,9 @@ def test_tiled_plan_shapes_match_plain(dev, fmt, m, k, n):
                                            ("silu_mul", False),
                                            ("silu_mul", True)])
 @pytest.mark.parametrize("with_res", [False, True])
-def test_decode_matches_plain(dev, fmt, mode, sub_norm, with_res):
-    m, k, n = 32, 1280, 384
+@pytest.mark.parametrize("m", [1, 17, 32, 33, 64])
+def test_decode_matches_plain(dev, fmt, mode, sub_norm, with_res, m):
+    k, n = 1280, 384
     t = _weights(k, n, fmt, seed=3)
     packed, ws = t.packed.to(dev), t.scale_vector().to(dev)
     rng = np.random.default_rng(4)
@@ -126,8 +127,8 @@ def test_decode_matches_plain(dev, fmt, mode, sub_norm, with_res):
     if mode == "plain":
         assert torch.equal(got, want)
         return
-    codes_k = tg.prologue_codes(x1, x2, g, mode, sub_norm, k, 1e-5, fmt,
-                                t.kb, t.k_padded)[0][:, :k]
+    codes_k = tg.prologue_codes(x1, x2, g, mode, sub_norm, k, 1e-5,
+                                t.k_padded)[0]
     d = (codes_k.int() - codes.int()).abs()
     assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
     mag = want.abs() + (torch.nn.functional.pad(res.float().abs(),
@@ -136,6 +137,56 @@ def test_decode_matches_plain(dev, fmt, mode, sub_norm, with_res):
     tol = (((d > 0).sum(1, keepdim=True) + 1) * xs * ws[None]
            + 2.0 ** -6 * mag)
     assert bool(((got - want).abs() <= tol).all())
+
+
+def _decode_matches_plain(dev, fmt, m, k, n, seed, plans=(None,)):
+    """#1 (plain mode, bf16 residual narrower than Np) and #4 on the card
+    equal their plain versions bit for bit, as planned or at each forced
+    (BN, splits)."""
+    t = _weights(k, n, fmt, seed=seed)
+    packed, ws = t.packed.to(dev), t.scale_vector().to(dev)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    res = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(
+        torch.bfloat16)
+    want = tg.ternary_gemm_decode(x, t.packed, t.scale_vector(), residual=res,
+                                  fmt=fmt, kb=t.kb, k=k,
+                                  out_dtype=torch.bfloat16)
+    for plan in plans:
+        if plan is None:
+            before = tg.ternary_gemm_decode.launches
+            got = tg.ternary_gemm_decode(x.to(dev), packed, ws,
+                                         residual=res.to(dev), fmt=fmt,
+                                         kb=t.kb, k=k, out_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            assert tg.ternary_gemm_decode.launches == before + 1
+        else:
+            got = tg._decode_cuda(x.to(dev), packed, ws, None, None,
+                                  res.to(dev), fmt, t.kb, "plain", False, 0,
+                                  0.0, torch.bfloat16, plan=plan)
+        assert torch.equal(got.cpu(), want), plan
+    fq = tg.ternary_gemm_fused_quant(x.to(dev), packed, ws, fmt=fmt, kb=t.kb,
+                                     k=k)
+    assert torch.equal(fq.cpu(), tg.ternary_gemm_fused_quant(
+        x, t.packed, t.scale_vector(), fmt=fmt, kb=t.kb, k=k))
+
+
+@pytest.mark.parametrize("fmt", ["i2", "i1"])
+@pytest.mark.parametrize("m,k,n", tg.DECODE_PLAN_SHAPES)
+def test_decode_plan_shapes_match_plain(dev, fmt, m, k, n):
+    _decode_matches_plain(dev, fmt, m, k, n, seed=m + k + n)
+
+
+@pytest.mark.parametrize("fmt", ["i2", "i1"])
+@pytest.mark.parametrize("m,k,n", [(17, 3840, 512), (64, 3840, 384)])
+def test_decode_every_tile_and_split_matches_plain(dev, fmt, m, k, n):
+    from vlut_tpu_torch.ops.packing import padded_k
+
+    nb = padded_k(k, fmt) // (128 if fmt == "i2" else 160)
+    np_ = -(-n // 128) * 128
+    _decode_matches_plain(dev, fmt, m, k, n, seed=m + n, plans=[
+        (bn, s) for bn in (128, 256) if np_ % bn == 0
+        for s in range(1, min(nb, tg.MAX_SPLITS) + 1)])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -82,7 +82,7 @@ def test_tiled_plan_covers_the_card(fmt, m, k, n):
     np_ = -(-n // 128) * 128
     kp = padded_k(k, fmt)
     nb = kp // (128 if fmt == "i2" else 160)
-    bm, bn, splits = tg.tiled_plan(m, np_, kp, fmt)
+    bm, bn, splits = tg.tiled_plan(m, np_, kp, fmt, sms=132)
     assert np_ % bn == 0 and nb % splits == 0
     assert bm == (32 if m <= 32 else 64 if m <= 256
                   and np_ // 128 * -(-m // 64) <= 132 else 128)
@@ -104,7 +104,7 @@ def test_tiled_plan_reaches_every_split_count():
     for fmt in ("i2", "i1"):
         for m, k, n in TILED_PLAN_SHAPES:
             bm, _, s = tg.tiled_plan(m, -(-n // 128) * 128, padded_k(k, fmt),
-                                     fmt)
+                                     fmt, sms=132)
             seen.add((fmt, bm, s > 1))
             seen.add((fmt, s))
     for fmt in ("i2", "i1"):
@@ -317,25 +317,267 @@ def test_decode_plain_vs_interpret(fmt, mode, sub_norm, with_res):
     assert (np.abs(got - want) <= tol).all()
 
 
+# --- kernels 1 and 4: the decode GEMM's data order emulated on the CPU -------
+
+
+def _dcfg(m, bn, fmt):
+    """csrc/decode_gemm.cu Cfg: (L, Nw, WN, WK, x boxes, rows)."""
+    kb = 128 if fmt == "i2" else 160
+    mtl = -(-m // 16)
+    el = 4 if fmt == "i2" and mtl <= 2 else 2
+    wn = bn // (32 * el)
+    wk = 8 // wn
+    assert wk == tg.decode_stage_blocks(m, bn, fmt)
+    return el, 32 * el, wn, wk, -(-wk * kb // 128), 16 * mtl
+
+
+def _tma_box(src, c0, c1, rows):
+    """A 128-byte x ``rows`` box of the 2-D uint8 ``src`` at (c0 inner, c1
+    outer) as the TMA unit writes it: zero past the tensor, each row's
+    16-byte units XORed with the row % 8 (the 128-byte swizzle)."""
+    box = np.zeros((rows, 128), np.uint8)
+    sub = src[c1:c1 + rows, c0:c0 + 128]
+    box[:sub.shape[0], :sub.shape[1]] = sub
+    r = np.arange(rows)[:, None]
+    b = np.arange(128)[None, :]
+    out = np.zeros(rows * 128, np.uint8)
+    out[r * 128 + (((b >> 4) ^ (r & 7)) << 4) + (b & 15)] = box
+    return out
+
+
+def _word(mem, addr):
+    """Little-endian uint32 words of ``mem`` at byte addresses ``addr``."""
+    return (mem[addr].astype(np.uint32) | mem[addr + 1].astype(np.uint32) << 8
+            | mem[addr + 2].astype(np.uint32) << 16
+            | mem[addr + 3].astype(np.uint32) << 24)
+
+
+def _transpose4(v):
+    """csrc transpose4: byte j of v[i] becomes byte i of v[j]."""
+    b = [[(v[i] >> (8 * j)) & 0xFF for j in range(4)] for i in range(4)]
+    return [b[0][j] | b[1][j] << 8 | b[2][j] << 16 | b[3][j] << 24
+            for j in range(4)]
+
+
+def _i1_step(lo, hi):
+    """csrc i1_step: the next base-3 digit of four bytes, two per lane."""
+    ql = ((lo * 171) >> 9) & 0x007F007F
+    qh = ((hi * 171) >> 9) & 0x007F007F
+    return ((lo - 3 * ql) | ((hi - 3 * qh) << 8)) & 0xFFFFFFFF, ql, qh
+
+
+def _bytes_of(reg):
+    """(lanes,) uint32 -> (lanes, 4) unsigned bytes."""
+    return np.stack([(reg >> (8 * i)) & 0xFF for i in range(4)], 1)
+
+
+def _emulate_decode_gemm(codes, packed, m, fmt, bn, splits):
+    """The decode GEMM's int32 sums (the fields' dot less the codes' row
+    sums) as the kernel moves its data: each stage's TMA boxes, a consumer
+    lane's word loads from the swizzled weight rows, the transposes, the
+    fields (i2) or base-3 steps (i1) into B registers, ldmatrix's A from the
+    swizzled code boxes, mma m16n8k32 per lane fragment, the K groups' adds
+    in each block's reduction tiles, the splits' sums in the workspace (the
+    kernel adds them as floats, exact below 2^24)."""
+    kb = 128 if fmt == "i2" else 160
+    nq = kb // 32
+    kp, np_ = codes.shape[1], packed.shape[1]
+    nb = kp // kb
+    el, nw, wn_n, wk_n, nxb, rows = _dcfg(m, bn, fmt)
+    mtl = rows // 16
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    work = np.zeros((m, np_), np.int64)
+    for bx in range(np_ // bn):
+        n0 = bx * bn
+        for z in range(splits):
+            p0 = z * nb // splits
+            nbs = (z + 1) * nb // splits - p0
+            red = np.zeros((rows, bn), np.int64)
+            for s in range(-(-nbs // wk_n)):
+                k0 = (p0 + s * wk_n) * kb
+                xmem = np.concatenate([_tma_box(codes, k0 + 128 * b, 0, rows)
+                                       for b in range(nxb)])
+                wmem = np.concatenate([
+                    _tma_box(packed, n0 + 128 * b, (p0 + s * wk_n) * 32,
+                             wk_n * 32) for b in range(bn // 128)])
+                for warp in range(8):
+                    wn, wk = warp % wn_n, warp // wn_n
+                    if s * wk_n + wk >= nbs:
+                        continue
+                    words = []  # [l][h][e] (lanes,) uint32
+                    for l in range(el):
+                        cb = wn * nw + 32 * l + 4 * g
+                        bp = (cb >> 7) * wk_n * 32 * 128 + wk * 32 * 128
+                        u, inn = (cb & 127) >> 4, cb & 15
+                        words.append([_transpose4([
+                            _word(wmem, bp + j * 128 + ((u ^ (j & 7)) << 4)
+                                  + inn)
+                            for j in (16 * h + 4 * t + i for i in range(4))])
+                            for h in range(2)])
+                    if fmt == "i1":
+                        state = [[[[w & 0x00FF00FF, (w >> 8) & 0x00FF00FF]
+                                   for w in wh] for wh in wl] for wl in words]
+                    acc = np.zeros((mtl, 4 * el, 16, 8), np.int64)
+                    for q in range(nq):
+                        off = wk * kb + 32 * q + 16 * (lane >> 4)
+                        a_tiles = []
+                        for mt in range(mtl):
+                            addr = ((off >> 7) * rows * 128 + mt * 16 * 128
+                                    + (lane & 15) * 128
+                                    + ((((off >> 4) & 7) ^ (lane & 7)) << 4))
+                            # ldmatrix x4: register i of lane 4g + t is bytes
+                            # 4t..4t+3 of row g of matrix i (lanes 8i..8i+7)
+                            a = np.zeros((16, 32), np.int64)
+                            for i in range(4):
+                                reg = xmem[addr[8 * i + g][:, None] + 4 * t[:, None]
+                                           + np.arange(4)].astype(np.int8)
+                                r0, kk = g + 8 * (i & 1), 16 * (i >> 1) + 4 * t
+                                a[r0[:, None], kk[:, None] + np.arange(4)] = reg
+                            a_tiles.append(a)
+                        for l in range(el):
+                            for e in range(4):
+                                if fmt == "i2":
+                                    b0 = (words[l][0][e] >> (2 * q)) & 0x03030303
+                                    b1 = (words[l][1][e] >> (2 * q)) & 0x03030303
+                                else:
+                                    regs = []
+                                    for h in range(2):
+                                        lo, hi = state[l][h][e]
+                                        if q < 4:
+                                            d, lo, hi = _i1_step(lo, hi)
+                                            state[l][h][e] = [lo, hi]
+                                        else:
+                                            d = lo | (hi << 8)
+                                        regs.append(d)
+                                    b0, b1 = regs
+                                bmat = np.zeros((32, 8), np.int64)
+                                kk = 4 * t[:, None] + np.arange(4)
+                                bmat[kk, g[:, None]] = _bytes_of(b0)
+                                bmat[16 + kk, g[:, None]] = _bytes_of(b1)
+                                assert bmat.max() <= 2
+                                for mt in range(mtl):
+                                    acc[mt, 4 * l + e] += a_tiles[mt] @ bmat
+                    # D register e of lane 4g + t: row g + 8(e >> 1), mma
+                    # column c = 2t + (e & 1) = column 4c + e2 of group l
+                    for mt in range(mtl):
+                        for l in range(el):
+                            for e2 in range(4):
+                                for e in range(4):
+                                    row = mt * 16 + g + 8 * (e >> 1)
+                                    c = 2 * t + (e & 1)
+                                    col = wn * nw + 32 * l + 4 * c + e2
+                                    np.add.at(red, (row, col),
+                                              acc[mt, 4 * l + e2, row - mt * 16, c])
+            work[:, n0:n0 + bn] += red[:m]
+    return work - codes.view(np.int8).astype(np.int64).sum(1, keepdims=True)
+
+
 @pytest.mark.parametrize("fmt", ["i2", "i1"])
 @pytest.mark.parametrize("m", [1, 17, 64])
-def test_afrag_layout_is_a_bijection(fmt, m):
-    """The decode prologue's A-fragment layout places every (row, K) code
-    of the 16-row tiles at its own byte, and the four field-0..3 codes of a
-    slab row in one aligned word (the kernel stores them as one int32)."""
+@pytest.mark.parametrize("bn", [128, 256])
+def test_decode_kernel_order_emulated(fmt, m, bn):
+    """The decode GEMM's data order emulated on the CPU (x codes in natural
+    order through swizzled TMA boxes, the weight ring's slots, the decode
+    into B registers, mma fragments, the K groups' and splits' integer
+    sums, the row-sum correction), then the epilogue with a residual: bit
+    for bit _gemm_plain at every split of K."""
     kb = 128 if fmt == "i2" else 160
-    kp = 3 * kb
-    mp = -(-m // 16) * 16
-    offs = tg.afrag_offsets(mp, kp, kb)
-    assert sorted(offs.flatten().tolist()) == list(range(mp * kp))
-    w = torch.arange(kp) % kb
-    field0 = offs[:, w < 32]
-    for q in range(4):
-        fq = offs[:, (w >= 32 * q) & (w < 32 * q + 32)]
-        assert torch.equal(fq, field0 + q)
-    assert bool((field0 % 4 == 0).all())
-    # the first m rows are the same offsets with M = m (rows >= m are pad)
-    assert torch.equal(tg.afrag_offsets(m, kp, kb), offs[:m])
+    k = 6 * kb - 37
+    n = 256
+    _, tt = _weights(k, n, fmt, True, seed=m + bn)
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    xq, xs = tg.kernel_quantize(x)
+    codes = np.zeros((m, tt.k_padded), np.int8)
+    codes[:, :k] = xq.numpy()
+    res = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    want = tg._gemm_plain(xq, xs, tt.packed, tt.scale_vector(), fmt, kb, k,
+                          res, torch.float32)
+    nb = tt.k_padded // kb
+    for splits in range(1, min(nb, tg.MAX_SPLITS) + 1):
+        acc = _emulate_decode_gemm(codes.view(np.uint8), tt.packed.numpy(), m,
+                                   fmt, bn, splits)
+        got = tg._epilogue_plain(torch.from_numpy(acc).to(torch.int32), xs,
+                                 tt.scale_vector(), res, torch.float32)
+        assert torch.equal(got, want), splits
+
+
+_DECODE_PROJ = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+                (4096, 1024), (4096, 14336)]
+
+
+@pytest.mark.parametrize("fmt", ["i2", "i1"])
+@pytest.mark.parametrize("m", [1, 17, 32, 33, 64])
+@pytest.mark.parametrize("k,n", _DECODE_PROJ)
+def test_decode_plan_fills_one_wave(fmt, m, k, n):
+    """BN is 128 unless its tiles alone overfill the wave of 132 blocks
+    (then 256 where Np allows); the splits keep the grid in one wave, as
+    many as that allows while every range of K is at least one stage deep,
+    at most 4, and none where the float sums could pass 2^24."""
+    from vlut_tpu_torch.ops.packing import padded_k
+
+    np_ = -(-n // 128) * 128
+    kp = padded_k(k, fmt)
+    nb = kp // (128 if fmt == "i2" else 160)
+    bn, splits = tg.decode_plan(m, np_, kp, fmt, 132)
+    assert bn == (256 if np_ // 128 > 132 and np_ % 256 == 0 else 128)
+    tiles = np_ // bn
+    stage = tg.decode_stage_blocks(m, bn, fmt)
+    assert 1 <= splits <= min(nb, 4)
+    assert splits == 1 or (tiles * splits <= 132 and nb // splits >= stage)
+    assert splits == (1 if 254 * kp >= 1 << 24
+                      else max(1, min(132 // tiles, nb // stage, 4)))
+
+
+def test_decode_plan_shapes_reach_every_tile_and_split_count():
+    """The card checks' shapes (ops/ternary_gemm.py:DECODE_PLAN_SHAPES) take
+    every kernel instantiation the plan uses (16-row tiles 1-4; BN 128 with
+    one split and with several, BN 256 with one; i2 and i1) and every split
+    count in each format."""
+    from vlut_tpu_torch.ops.packing import padded_k
+
+    seen, counts = set(), {"i2": set(), "i1": set()}
+    for m, k, n in tg.DECODE_PLAN_SHAPES:
+        for fmt in ("i2", "i1"):
+            bn, s = tg.decode_plan(m, -(-n // 128) * 128, padded_k(k, fmt),
+                                   fmt, 132)
+            seen.add((fmt, -(-m // 16), bn, s > 1))
+            counts[fmt].add(s)
+    assert seen == {(f, mt, bn, sp) for f in ("i2", "i1") for mt in range(1, 5)
+                    for bn, sp in ((128, False), (128, True), (256, False))}
+    assert all(c == set(range(1, tg.MAX_SPLITS + 1)) for c in counts.values())
+
+
+@pytest.mark.parametrize("fmt", ["i2", "i1"])
+@pytest.mark.parametrize("m,k,n", tg.DECODE_PLAN_SHAPES)
+def test_decode_scratch_layout(fmt, m, k, n):
+    """A call's one scratch allocation (the C call's codes, scales, row sums
+    and split workspace, and the prologue's buffers when it runs alone):
+    the parts are aligned for their types (the workspace to 16 bytes, for
+    the kernel's vector adds), disjoint, and as large as the kernels write."""
+    from vlut_tpu_torch.ops.packing import padded_k
+
+    np_, kp = -(-n // 128) * 128, padded_k(k, fmt)
+    bn, splits = tg.decode_plan(m, np_, kp, fmt, 132)
+    xs, rowsum, work, nbytes = tg._scratch_layout(m, kp, np_, bn, splits)
+    assert (xs, rowsum) == (m * kp, m * kp + 4 * m) and xs % 16 == 0
+    if splits == 1:
+        assert work is None and nbytes == rowsum + 4 * m
+    else:
+        assert work % 16 == 0 and rowsum + 4 * m <= work < rowsum + 4 * m + 16
+        assert nbytes == work + 4 * (m * np_ + np_ // bn)
+    codes, xs_t, rs_t, work_t = tg._decode_buffers(m, kp, np_, bn, splits,
+                                                   torch.device("cpu"))
+    base = codes.data_ptr()
+    assert codes.shape == (m, kp) and codes.dtype == torch.int8
+    assert xs_t.shape == (m,) and xs_t.data_ptr() == base + xs
+    assert rs_t.dtype == torch.int32 and rs_t.data_ptr() == base + rowsum
+    if splits > 1:
+        assert work_t.data_ptr() == base + work
+        assert work_t.numel() == m * np_ + np_ // bn
+    else:
+        assert work_t is None
 
 
 def test_decode_rejects_large_m():

@@ -38,7 +38,8 @@ from vlut_tpu_torch.ops.packing import (
     padded_k,
     random_packed_bytes,
 )
-from vlut_tpu_torch.ops.ternary_gemm import ternary_gemm_tiled, tiled_plan
+from vlut_tpu_torch.ops.ternary_gemm import (
+    sm_count, ternary_gemm_tiled, tiled_plan)
 
 # reference shapes: tests/test-vlut-gemm.cpp:717-721
 MODEL_SHAPES = {
@@ -114,9 +115,10 @@ def bench_gemm(
 ) -> dict[str, Any]:
     """One (fmt, M, K, N) lane: us per call, packed GB/s and TFLOP/s, with
     the JAX bench's keys.  ``blocks`` are the kernel's own tiles: its plan
-    for this shape (the TQ kernel's (BM, BN, splits, bk) on the card, only
-    bk on the CPU, whose plain version has no tiles), the tiled kernel's
-    (BM, BN, kb, splits)."""
+    for this shape on the card (the TQ kernel's (BM, BN, splits, bk), the
+    tiled kernel's (BM, BN, kb, splits)); on the CPU, whose plain versions
+    have no tiles and whose plans need the card's SM count, only the K step
+    (bk, kb)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -138,8 +140,11 @@ def bench_gemm(
     else:
         kb = DEFAULT_BLOCK[fmt]
         # the tiled kernel's plan (BM, BN, splits of K) and its K step
-        bm, bn, splits = tiled_plan(m, packed.shape[1], padded_k(k, fmt), fmt)
-        blocks = (bm, bn, kb, splits)
+        blocks = (kb,)
+        if dev.type == "cuda":
+            bm, bn, splits = tiled_plan(m, packed.shape[1], padded_k(k, fmt),
+                                        fmt, sm_count(dev.index or 0))
+            blocks = (bm, bn, kb, splits)
         ws = torch.ones((packed.shape[1],), device=dev)
         wbytes = packed.numel()
         xq = torch.randint(-100, 100, (m, k), generator=gen, device=dev,

@@ -105,24 +105,32 @@ TIMELINE = [
 ]
 
 
-def _variant_source(name: str, edits) -> pathlib.Path:
+def variant_source(name: str, edits, source: str = "ternary_gemm.cu"
+                   ) -> pathlib.Path:
+    """A directory under ``build/study`` holding ``source`` of the checkout
+    with the text ``edits`` applied (each (old, new) must be found), and the
+    headers it includes."""
     d = STUDY / name
     d.mkdir(parents=True, exist_ok=True)
     for f in _build.CSRC.glob("*.cuh"):
         shutil.copy(f, d)
-    src = (_build.CSRC / "ternary_gemm.cu").read_text()
+    src = (_build.CSRC / source).read_text()
     for old, new in edits:
         if old not in src:
             raise RuntimeError(f"{name}: the source no longer has {old!r}")
         src = src.replace(old, new, 1)
-    (d / "ternary_gemm.cu").write_text(src)
+    (d / source).write_text(src)
     return d
 
 
-def _build_variants(dirs: dict[str, pathlib.Path]) -> dict[str, ctypes.CDLL]:
+def compile_variants(dirs: dict[str, pathlib.Path],
+                     source: str) -> dict[str, ctypes.CDLL]:
+    """Builds ``source`` of every directory in parallel (one nvcc each) and
+    loads the libraries."""
+    lib = pathlib.Path(source).stem + ".so"
     procs = {v: subprocess.Popen(
         [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(d), "-o",
-         str(d / "lib.so"), str(d / "ternary_gemm.cu")],
+         str(d / lib), str(d / source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for v, d in dirs.items()}
     libs = {}
@@ -130,7 +138,13 @@ def _build_variants(dirs: dict[str, pathlib.Path]) -> dict[str, ctypes.CDLL]:
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {v}:\n{log}")
-        lib = ctypes.CDLL(str(dirs[v] / "lib.so"))
+        libs[v] = ctypes.CDLL(str(dirs[v] / lib))
+    return libs
+
+
+def _build_variants(dirs: dict[str, pathlib.Path]) -> dict[str, ctypes.CDLL]:
+    libs = compile_variants(dirs, "ternary_gemm.cu")
+    for v, lib in libs.items():
         lib.vlut_tiled_gemm.restype = ctypes.c_int
         if hasattr(lib, "vlut_tiled_init"):
             lib.vlut_tiled_gemm.argtypes = tg._lib().vlut_tiled_gemm.argtypes
@@ -141,7 +155,6 @@ def _build_variants(dirs: dict[str, pathlib.Path]) -> dict[str, ctypes.CDLL]:
             lib.vlut_tiled_gemm.argtypes = [P, L, I, P, P, P, I, I, I, I, I,
                                             P, I, P]
             lib.planned = False
-        libs[v] = lib
     return libs
 
 
@@ -185,7 +198,8 @@ class Case:
         if not getattr(lib, "planned", True):
             err = lib.vlut_tiled_gemm(*args, out.data_ptr(), 0, stream)
         else:
-            bm, bn, splits = plan or tg.tiled_plan(m, n, self.kp, self.fmt)
+            bm, bn, splits = plan or tg.tiled_plan(m, n, self.kp, self.fmt,
+                                                   tg.sm_count(0))
             work = None
             if splits > 1:
                 work = torch.zeros((m * n + n // bn * -(-m // bm),),
@@ -253,9 +267,9 @@ def main(argv: list[str] | None = None) -> int:
         dirs[name] = pathlib.Path(d)
     ablations = list(ABLATIONS) if args.ablate else []
     for name in ablations:
-        dirs[name] = _variant_source(name, ABLATIONS[name])
+        dirs[name] = variant_source(name, ABLATIONS[name])
     if args.timeline:
-        dirs["timeline"] = _variant_source("timeline", TIMELINE)
+        dirs["timeline"] = variant_source("timeline", TIMELINE)
     _build.build_all()
     libs = _build_variants(dirs)
     gen = torch.Generator(device="cuda")
@@ -279,7 +293,7 @@ def main(argv: list[str] | None = None) -> int:
         for tag, m, k, n in LANES:
             c = Case(gen, m, k, n, fmt, rotate=True)
             row = {"lane": tag, "m": m, "fmt": fmt,
-                   "plan": tg.tiled_plan(m, n, c.kp, fmt)}
+                   "plan": tg.tiled_plan(m, n, c.kp, fmt, tg.sm_count(0))}
             for v in others:  # in turns: variants, kernel twice, variants
                 if not c.exact(c.call(libs[v])):
                     emit(mismatch=[v, tag, m, fmt])
@@ -320,14 +334,15 @@ def main(argv: list[str] | None = None) -> int:
                    for bm, bn in ((32, 128), (64, 128), (128, 128), (128, 256))
                    for s in (1, 2, 4, 7, 8, 16)
                    if nb % s == 0 and (s == 1 or nb // s >= 2)}
-            emit(sweep=tag, m=m, plan=tg.tiled_plan(m, n, c.kp, "i2"),
+            emit(sweep=tag, m=m,
+                 plan=tg.tiled_plan(m, n, c.kp, "i2", tg.sm_count(0)),
                  us=res, card=card)
 
     if args.timeline:
         lib = libs["timeline"]
         for tag, m, k, n in LANES[:2] + [("qkv", 4096, 4096, 6144)]:
             c = Case(gen, m, k, n, "i2", rotate=False)
-            plan = tg.tiled_plan(m, n, c.kp, "i2")
+            plan = tg.tiled_plan(m, n, c.kp, "i2", tg.sm_count(0))
             c.run(c.copies[0], lib, plan)
             torch.cuda.synchronize()
             buf = np.zeros(64 * 256, np.int64)

@@ -41,7 +41,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import pathlib
-import shutil
 import subprocess
 import sys
 
@@ -49,7 +48,8 @@ import numpy as np
 import torch
 
 from vlut_tpu_torch.bench.kernels import rand_packed
-from vlut_tpu_torch.bench.tiled_study import emit, graph_us
+from vlut_tpu_torch.bench.tiled_study import (
+    compile_variants, emit, graph_us, variant_source)
 from vlut_tpu_torch.ops import _build, tq
 
 LANES = [(tag, m, k, n) for tag, k, n in (("dxd", 4096, 4096),
@@ -123,32 +123,9 @@ TIMELINE = [
 ]
 
 
-def _variant_source(name: str, edits) -> pathlib.Path:
-    d = _build.BUILD_DIR / "study" / name
-    d.mkdir(parents=True, exist_ok=True)
-    for f in _build.CSRC.glob("*.cuh"):
-        shutil.copy(f, d)
-    src = (_build.CSRC / "tq_gemm.cu").read_text()
-    for old, new in edits:
-        if old not in src:
-            raise RuntimeError(f"{name}: the source no longer has {old!r}")
-        src = src.replace(old, new, 1)
-    (d / "tq_gemm.cu").write_text(src)
-    return d
-
-
 def _build_variants(dirs: dict[str, pathlib.Path]) -> dict[str, ctypes.CDLL]:
-    procs = {v: subprocess.Popen(
-        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(d), "-o",
-         str(d / "libtq.so"), str(d / "tq_gemm.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for v, d in dirs.items()}
-    libs = {}
-    for v, p in procs.items():
-        log, _ = p.communicate()
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed for {v}:\n{log}")
-        lib = ctypes.CDLL(str(dirs[v] / "libtq.so"))
+    libs = compile_variants(dirs, "tq_gemm.cu")
+    for v, lib in libs.items():
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
         lib.vlut_tq_gemm.restype = lib.vlut_tq_init.restype = I
         lib.first_design = hasattr(lib, "vlut_tq_afrag_bytes")
@@ -159,7 +136,6 @@ def _build_variants(dirs: dict[str, pathlib.Path]) -> dict[str, ctypes.CDLL]:
         else:
             lib.vlut_tq_gemm.argtypes = tq._lib().vlut_tq_gemm.argtypes
         _build.check(lib.vlut_tq_init(), f"{v} vlut_tq_init")
-        libs[v] = lib
     return libs
 
 
@@ -265,9 +241,9 @@ def main(argv: list[str] | None = None) -> int:
         dirs[name] = pathlib.Path(d)
     ablations = list(ABLATIONS) if args.ablate else []
     for name in ablations:
-        dirs[name] = _variant_source(name, ABLATIONS[name])
+        dirs[name] = variant_source(name, ABLATIONS[name], "tq_gemm.cu")
     if args.timeline:
-        dirs["timeline"] = _variant_source("timeline", TIMELINE)
+        dirs["timeline"] = variant_source("timeline", TIMELINE, "tq_gemm.cu")
     logs = _build.build_all()
     for line in logs["tq_gemm.cu"].splitlines():
         if any(w in line for w in ("registers", "spill", "Compiling entry")):

@@ -20,8 +20,8 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("ternary_gemm.cu", "kv_update.cu", "decode_attention.cu",
-           "tq_gemm.cu")
+SOURCES = ("decode_gemm.cu", "ternary_gemm.cu", "kv_update.cu",
+           "decode_attention.cu", "tq_gemm.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

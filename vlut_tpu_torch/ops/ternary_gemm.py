@@ -11,8 +11,9 @@ TPU kernel on the serving path:
   int8 activations, any M)
 
 A tensor on the CPU goes to the plain version beside each wrapper; a CUDA
-tensor goes to the kernel in ``csrc/ternary_gemm.cu`` (built and loaded by
-``ops/_build.py``), or the wrapper raises.  Each wrapper counts its kernel
+tensor goes to the kernels in ``csrc/decode_gemm.cu`` (the first two) or
+``csrc/ternary_gemm.cu`` (the tiled one), built and loaded by
+``ops/_build.py``, or the wrapper raises.  Each wrapper counts its kernel
 launches in its ``launches`` attribute.  Shapes: x has the logical K
 columns (no padding needed); outputs are (M, Np) with the packed, padded N.
 """
@@ -20,6 +21,7 @@ columns (no padding needed); outputs are (M, Np) with the packed, padded N.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -39,23 +41,22 @@ _F = ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ternary_gemm.cu")
     if not getattr(lib, "_vlut_typed", False):
-        lib.vlut_quant_prologue.argtypes = [
-            _P, _P, _L, _I, _I, _I, _P, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P]
-        lib.vlut_decode_gemm.argtypes = [
-            _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P]
         lib.vlut_tiled_gemm.argtypes = [
             _P, _L, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
             _I, _P]
-        for f in (lib.vlut_quant_prologue, lib.vlut_decode_gemm,
-                  lib.vlut_tiled_gemm, lib.vlut_tiled_init):
+        for f in (lib.vlut_tiled_gemm, lib.vlut_tiled_init):
             f.restype = ctypes.c_int
         _build.check(lib.vlut_tiled_init(), "vlut_tiled_init")
         lib._vlut_typed = True
     return lib
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(index: int | None = None) -> int:
+    """The current CUDA stream's handle (of device ``index``, the cheaper
+    lookup on the decode step's hot path)."""
+    if index is None:
+        return torch.cuda.current_stream().cuda_stream
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -170,77 +171,173 @@ def decode_prologue(*args, **kw) -> tuple[torch.Tensor, torch.Tensor]:
     return kernel_quantize(decode_input(*args, **kw))
 
 
-def _m_tiles(m: int) -> int:
-    return -(-m // 16)
+# the decode prologue keeps a row of float32 inputs in the shared memory of
+# a cluster of at most 8 blocks (csrc/decode_gemm.cu: kProSmemMax)
+MAX_K = 8 * (227 * 1024 - 1024) // 4
+MAX_SPLITS = 4  # the decode GEMM's splits of K (its last block adds them)
 
 
-def _launch_prologue(x1, x2, norm_g, mode, sub_norm, norm_n, eps, fmt, kb,
-                     kp):
-    """The prologue kernel: (A fragments as uint8 bytes, (M,) scales)."""
-    m, k = x1.shape
-    in_bf16 = x1.dtype == torch.bfloat16
+def _dlib() -> ctypes.CDLL:
+    lib = _build.load("decode_gemm.cu")
+    if not getattr(lib, "_vlut_typed", False):
+        lib.vlut_decode_prologue.argtypes = [
+            _P, _P, _L, _I, _I, _I, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P,
+            _I, _I, _P]
+        lib.vlut_decode_gemm.argtypes = [
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P,
+            _I, _P]
+        lib.vlut_decode.argtypes = [
+            _P, _P, _L, _I, _I, _I, _P, _I, _I, _F, _F, _I, _P, _P, _I, _I,
+            _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P]
+        for f in (lib.vlut_decode_prologue, lib.vlut_decode_gemm,
+                  lib.vlut_decode, lib.vlut_decode_init):
+            f.restype = ctypes.c_int
+        _build.check(lib.vlut_decode_init(), "vlut_decode_init")
+        lib._vlut_typed = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(m: int, np_: int, kp: int, fmt: str,
+                sms: int) -> tuple[int, int]:
+    """The decode GEMM's (BN, splits) for an (M <= 64, Kp) x (Kp, Np) GEMM
+    on a card with ``sms`` streaming multiprocessors.
+
+    With its ring of up to 200 KB the kernel takes one block per SM, and a
+    grid past one wave leaves SMs idle in its last.  A block owns 128
+    columns, or 256 where the 128-column tiles alone overfill the wave (and
+    Np allows).  Where the tiles leave SMs idle, K is split into the most
+    ranges of whole pack blocks that keep the grid in one wave, each at
+    least one stage deep (the kernel's K groups, ``decode_stage_blocks``)
+    and at most 4 (their sums meet by atomic adds in L2, and the last block
+    of a tile applies the epilogue: splits cost time too); none where 254 *
+    Kp reaches 2^24 (the sums are added as floats, exact below it).  The
+    choice follows a sweep of every (BN, splits) on an H100 at the flagship
+    projections, M 1, 32 and 64 (``bench/decode_study.py --sweep``, PERF.md
+    §6).  The ranges may be uneven; the sums are exact, so no plan changes
+    the result."""
+    bn = 256 if np_ // 128 > sms and np_ % 256 == 0 else 128
+    tiles = np_ // bn
+    nb = kp // DEFAULT_BLOCK[fmt]
+    s = decode_stage_blocks(m, bn, fmt)
+    if 254 * kp >= 1 << 24:
+        return bn, 1
+    return bn, max(1, min(sms // tiles, nb // s, MAX_SPLITS))
+
+
+# (M, K, N) at which decode_plan takes every kernel instantiation it uses
+# (16-row tiles 1-4; BN 128 with one split and with several, BN 256 with
+# one) and every split count on a 132-SM card, in i2 and i1, and the
+# flagship's projections at M 32: the shapes of the kernel's checks on the
+# card
+DECODE_PLAN_SHAPES = [
+    (m, k, n) for m in (1, 17, 33, 64)
+    for k, n in ((1280, 17000), (1280, 33792), (3840, 384), (3840, 512))
+] + [(m, k, 384) for m in (17, 64) for k in (1280, 1920)] + [
+    (32, 4096, 6144), (32, 4096, 4096), (32, 4096, 28672), (32, 14336, 4096)]
+
+
+def decode_stage_blocks(m: int, bn: int, fmt: str) -> int:
+    """Pack blocks per stage of the decode GEMM (csrc/decode_gemm.cu Cfg):
+    its eight mma warps split into column groups of 128 (i2 up to M 32) or
+    64 columns, and K groups of one pack block each."""
+    nw = 128 if fmt == "i2" and m <= 32 else 64
+    return 8 * nw // bn
+
+
+def _prologue_args(x1, x2, norm_g):
     if x1.dtype not in (torch.bfloat16, torch.float32) or x1.stride(1) != 1:
         raise ValueError("x must be bf16/f32 with unit column stride")
+    if x1.shape[1] > MAX_K:
+        raise ValueError(f"K={x1.shape[1]}: the decode prologue takes "
+                         f"K <= {MAX_K}")
     if x2 is not None and (x2.dtype != x1.dtype or x2.stride() != x1.stride()
                            or x2.device != x1.device):
         raise ValueError("x2 must match x1's dtype, strides and device")
     if norm_g is not None:
-        norm_g = norm_g.to(torch.float32).contiguous()
+        if norm_g.dtype != torch.float32 or not norm_g.is_contiguous():
+            norm_g = norm_g.to(torch.float32).contiguous()
         _check_cuda(norm_g)
-    mtl = _m_tiles(m)
-    dev = x1.device
-    afrag = torch.empty((mtl * 16 * kp,), dtype=torch.uint8, device=dev)
-    xs = torch.empty((m,), dtype=torch.float32, device=dev)
-    err = _lib().vlut_quant_prologue(
+    return norm_g
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_layout(m: int, kp: int, np_: int, bn: int,
+                    splits: int) -> tuple[int, int, int | None, int]:
+    """Byte offsets in a call's one scratch allocation: the (M, Kp) int8
+    codes at 0, then the (M,) float32 scales, the (M,) int32 row sums and,
+    with a split of K, 16-byte aligned after them, the split's workspace
+    (the (M, Np) float32 sums, then one int32 arrival counter per column
+    tile), which the prologue zeroes.  Returns (scales, row sums, workspace
+    or None, total bytes)."""
+    xs = m * kp
+    rowsum = xs + 4 * m
+    end = rowsum + 4 * m
+    if splits == 1:
+        return xs, rowsum, None, end
+    work = -(-end // 16) * 16
+    return xs, rowsum, work, work + 4 * (m * np_ + np_ // bn)
+
+
+def _decode_buffers(m, kp, np_, bn, splits, device):
+    """The scratch of :func:`_scratch_layout` as tensors: (M, Kp) int8
+    codes, (M,) float32 scales, (M,) int32 row sums and the workspace as
+    int32 (None without a split)."""
+    xs, rowsum, work, nbytes = _scratch_layout(m, kp, np_, bn, splits)
+    buf = torch.empty((nbytes,), dtype=torch.uint8, device=device)
+    return (buf[:xs].view(torch.int8).view(m, kp),
+            buf[xs:rowsum].view(torch.float32),
+            buf[rowsum:rowsum + 4 * m].view(torch.int32),
+            buf[work:].view(torch.int32) if work is not None else None)
+
+
+def _launch_prologue(x1, x2, norm_g, mode, sub_norm, norm_n, eps, kp,
+                     np_=0, bn=128, splits=1):
+    """The prologue kernel alone: ((M, Kp) int8 codes, (M,) scales, (M,)
+    int32 row sums of the codes, and, for a GEMM of ``splits`` > 1 over Np
+    columns in tiles of BN, its workspace, zeroed)."""
+    norm_g = _prologue_args(x1, x2, norm_g)
+    m, k = x1.shape
+    codes, xs, rowsum, work = _decode_buffers(m, kp, np_, bn, splits,
+                                              x1.device)
+    err = _dlib().vlut_decode_prologue(
         x1.data_ptr(), x2.data_ptr() if x2 is not None else None,
-        x1.stride(0), int(in_bf16), k, kp,
+        x1.stride(0), int(x1.dtype == torch.bfloat16), k, kp,
         norm_g.data_ptr() if norm_g is not None else None, _MODES[mode],
-        int(sub_norm), float(norm_n or k), float(eps), kb, m, mtl,
-        afrag.data_ptr(), xs.data_ptr(), _stream())
-    _build.check(err, "vlut_quant_prologue")
-    return afrag, xs
+        int(sub_norm), float(norm_n or k), float(eps), m, codes.data_ptr(),
+        xs.data_ptr(), rowsum.data_ptr(),
+        work.data_ptr() if work is not None else None, np_,
+        np_ // bn if work is not None else 0, _stream())
+    _build.check(err, "vlut_decode_prologue")
+    return codes, xs, rowsum, work
 
 
-def afrag_offsets(m: int, kp: int, kb: int, device=None) -> torch.Tensor:
-    """(M, Kp) byte offsets of each int8 code in the prologue's A-fragment
-    layout (the kernel's ``afrag_byte``)."""
-    mtl, nc = _m_tiles(m), kb // 32
-    kk = torch.arange(kp, device=device)
-    b, w = kk // kb, kk % kb
-    q, j = w // 32, w % 32
-    c = torch.where(q < 4, j >> 3, 4)
-    byte = torch.where(q < 4, q, j >> 3)
-    t, half = j & 3, (j >> 2) & 1
-    rows = torch.arange(m, device=device)[:, None]
-    reg = ((rows >> 3) & 1) + 2 * half
-    frag = (b * nc + c) * mtl + (rows >> 4)
-    return ((frag * 32 + (rows & 7) * 4 + t) * 4 + reg) * 4 + byte
-
-
-def prologue_codes(x1, x2, norm_g, mode, sub_norm, norm_n, eps, fmt, kb,
+def prologue_codes(x1, x2, norm_g, mode, sub_norm, norm_n, eps,
                    kp) -> tuple[torch.Tensor, torch.Tensor]:
-    """The prologue kernel's int8 codes in natural (M, Kp) order and its
-    (M,) scales, to hold them against :func:`decode_prologue` (not counted
-    as a launch of the decode kernel)."""
-    afrag, xs = _launch_prologue(x1, x2, norm_g, mode, sub_norm, norm_n,
-                                 eps, fmt, kb, kp)
-    offs = afrag_offsets(x1.shape[0], kp, kb, device=afrag.device)
-    return afrag[offs].view(torch.int8), xs
+    """The prologue kernel's (M, K) int8 codes and (M,) scales, to hold them
+    against :func:`decode_prologue` (not counted as a launch of the decode
+    kernel)."""
+    codes, xs, _, _ = _launch_prologue(x1, x2, norm_g, mode, sub_norm,
+                                       norm_n, eps, kp)
+    return codes[:, :x1.shape[1]], xs
 
 
-def _launch_decode_gemm(afrag, xs, packed, w_scale, fmt, kb, m, residual,
-                        out_dtype):
+def _launch_decode_gemm(codes, xs, rowsum, work, packed, w_scale, fmt, m,
+                        residual, out_dtype, bn, splits):
+    """The GEMM kernel alone, on :func:`_launch_prologue`'s outputs (with
+    ``splits`` > 1, its zeroed workspace ``work``)."""
     np_ = packed.shape[1]
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"unsupported out dtype {out_dtype}")
     out = torch.empty((m, np_), dtype=out_dtype, device=packed.device)
-    if residual is not None:
-        residual = residual.to(out_dtype).contiguous()
-        _check_cuda(residual)
-    nb = packed.shape[0] * TRITS_PER_BYTE[fmt] // kb
-    err = _lib().vlut_decode_gemm(
-        afrag.data_ptr(), xs.data_ptr(), packed.data_ptr(),
-        w_scale.data_ptr(), m, nb, np_, int(fmt == "i1"),
+    err = _dlib().vlut_decode_gemm(
+        codes.data_ptr(), xs.data_ptr(), rowsum.data_ptr(), packed.data_ptr(),
+        w_scale.data_ptr(), m, codes.shape[1], np_, int(fmt == "i1"), bn,
+        splits, work.data_ptr() if work is not None else None,
         residual.data_ptr() if residual is not None else None,
         residual.shape[1] if residual is not None else 0,
         residual.shape[1] if residual is not None else 0,
@@ -287,13 +384,42 @@ def ternary_gemm_decode(
 
 
 def _decode_cuda(x1, packed, w_scale, x2, norm_g, residual, fmt, kb, mode,
-                 sub_norm, norm_n, eps, out_dtype):
+                 sub_norm, norm_n, eps, out_dtype, plan=None):
+    """Two launches from one C call: the prologue and the GEMM, which may
+    start while the prologue runs.  One scratch allocation holds the codes,
+    the scales, the row sums and the split's workspace (the decode step is
+    bound by the host's dispatch: PERF.md §5).  ``plan`` forces (BN,
+    splits) in place of :func:`decode_plan`'s."""
     _check_packed_cuda(packed, w_scale)
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"unsupported out dtype {out_dtype}")
+    if residual is not None:
+        if residual.dtype != out_dtype or not residual.is_contiguous():
+            residual = residual.to(out_dtype).contiguous()
+        _check_cuda(residual)
+    norm_g = _prologue_args(x1, x2, norm_g)
+    m, k = x1.shape
+    np_ = packed.shape[1]
     kp = packed.shape[0] * TRITS_PER_BYTE[fmt]
-    afrag, xs = _launch_prologue(x1, x2, norm_g, mode, sub_norm, norm_n,
-                                 eps, fmt, kb, kp)
-    return _launch_decode_gemm(afrag, xs, packed, w_scale, fmt, kb,
-                               x1.shape[0], residual, out_dtype)
+    index = x1.device.index or 0
+    bn, splits = plan or decode_plan(m, np_, kp, fmt, sm_count(index))
+    xs, rowsum, work, nbytes = _scratch_layout(m, kp, np_, bn, splits)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x1.device)
+    out = torch.empty((m, np_), dtype=out_dtype, device=x1.device)
+    base = scratch.data_ptr()
+    err = _dlib().vlut_decode(
+        x1.data_ptr(), x2.data_ptr() if x2 is not None else None,
+        x1.stride(0), int(x1.dtype == torch.bfloat16), k, kp,
+        norm_g.data_ptr() if norm_g is not None else None, _MODES[mode],
+        int(sub_norm), float(norm_n or k), float(eps), m, packed.data_ptr(),
+        w_scale.data_ptr(), np_, int(fmt == "i1"), bn, splits, base,
+        base + xs, base + rowsum, base + work if work is not None else None,
+        residual.data_ptr() if residual is not None else None,
+        residual.shape[1] if residual is not None else 0,
+        residual.shape[1] if residual is not None else 0, out.data_ptr(),
+        int(out_dtype == torch.bfloat16), _stream(index))
+    _build.check(err, "vlut_decode")
+    return out
 
 
 ternary_gemm_decode.launches = 0
@@ -333,16 +459,15 @@ ternary_gemm_fused_quant.launches = 0
 
 # --- kernel 3: tiled GEMM on pre-quantized activations -----------------------------
 
-_SMS = 132  # streaming multiprocessors of an H100 SXM
-
-
-def tiled_plan(m: int, np_: int, kp: int, fmt: str) -> tuple[int, int, int]:
-    """The tiled kernel's (BM, BN, splits) for an (M, Kp) x (Kp, Np) GEMM.
+def tiled_plan(m: int, np_: int, kp: int, fmt: str,
+               sms: int) -> tuple[int, int, int]:
+    """The tiled kernel's (BM, BN, splits) for an (M, Kp) x (Kp, Np) GEMM on
+    a card with ``sms`` streaming multiprocessors.
 
     The kernel's shared memory holds one block per SM (two for the 32-row
-    i2 tile), and a grid past one wave of 132 blocks leaves SMs idle in its
-    last wave (and at 32 rows, short splits cost more than a second block
-    per SM gives; PERF.md §6 PR 5).  BM is 32 up to M 32; 64 up to M 256
+    i2 tile), and a grid past one wave of ``sms`` blocks leaves SMs idle in
+    its last wave (and at 32 rows, short splits cost more than a second
+    block per SM gives; PERF.md §6).  BM is 32 up to M 32; 64 up to M 256
     while its 128-column tiles fit in one wave; 128 otherwise, with 256
     columns where Np allows (x is then read from L2 half as often).  Where
     the tiles leave SMs idle, K is split: ``splits`` is the largest divisor
@@ -351,11 +476,11 @@ def tiled_plan(m: int, np_: int, kp: int, fmt: str) -> tuple[int, int, int]:
     cannot change the result."""
     nb = kp // DEFAULT_BLOCK[fmt]
     bm = (32 if m <= 32 else
-          64 if m <= 256 and np_ // 128 * -(-m // 64) <= _SMS else 128)
+          64 if m <= 256 and np_ // 128 * -(-m // 64) <= sms else 128)
     bn = 256 if bm == 128 and np_ % 256 == 0 else 128
     tiles = np_ // bn * -(-m // bm)
     splits = max(s for s in range(1, max(1, nb // 2) + 1)
-                 if nb % s == 0 and (s == 1 or tiles * s <= _SMS))
+                 if nb % s == 0 and (s == 1 or tiles * s <= sms))
     return bm, bn, splits
 
 
@@ -404,7 +529,8 @@ def _tiled_cuda(x_q, packed, x_scale, w_scale, fmt, kb, k, out_dtype):
                          device=x_q.device)
         xp[:, :k] = x_q
         x_q = xp
-    bm, bn, splits = tiled_plan(m, np_, kp, fmt)
+    bm, bn, splits = tiled_plan(m, np_, kp, fmt,
+                                sm_count(x_q.device.index or 0))
     out = torch.empty((m, np_), dtype=out_dtype, device=x_q.device)
     work = None
     if splits > 1:  # int32 sums, then one arrival counter per output tile

@@ -26,14 +26,14 @@ its result depends on ``bk`` as the JAX one does.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import numpy as np
 import torch
 
 from vlut_tpu_torch.ops import _build
-from vlut_tpu_torch.ops.ternary_gemm import _check_cuda, _int_matmul, _stream
+from vlut_tpu_torch.ops.ternary_gemm import (
+    _check_cuda, _int_matmul, _stream, sm_count)
 
 QK = 256  # block size (QK_K)
 ROWS_PER_BLOCK = {"tq2": QK // 4, "tq1": 52}  # packed byte rows / 256 wts
@@ -182,12 +182,6 @@ def _lib() -> ctypes.CDLL:
         _build.check(lib.vlut_tq_init(), "vlut_tq_init")
         lib._vlut_typed = True
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """Streaming multiprocessors of CUDA device ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def tq_plan(m: int, np_: int, kp: int, bk: int,
