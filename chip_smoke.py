@@ -57,8 +57,18 @@ shapes that make its plan take every kernel instantiation and split count
 microbenchmark's lanes (M 32 and 256), at the e2e prefills (M 512 and
 16384) and at shapes that make its plan take each tile and split of K, #9
 bit-exact at shapes that make its plan take each tile and split count and
-with every tile and split forced at two shapes, and #7 at the e2e benches'
-caches.
+with every tile and split forced at two shapes, #7 at the e2e benches'
+caches, and #7 and #8 at shapes that make attn_plan take each rows-per-block
+choice (every choice forced at two), at B 1, at the edge starts (0, S - 1,
+out of range: the write skipped) with large finite values in the rows a
+slot does not see, and replayed from a CUDA graph (cache bit-exact, output
+within 2e-5, two calls bit-identical).  #7 and #8 are timed at the decode
+paths' shapes (the flagship engine's B 32 S 2048 without and with a
+512-row window, the batched cache B 32 S 184, bench-sweep's tg at B 1 and
+32, tiny_real's heads) with the tensors the model's layer hands them,
+beside scaled_dot_product_attention, each with its plan, the host's eager
+dispatch of one call, and the device kernels one call runs: the attention
+kernel alone, or the phase fails.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.  It imports nothing of JAX.
@@ -603,6 +613,19 @@ def phase_kernels(dev) -> dict:
                         (32, 168, 128)):
         err = attention_case(dev, gen, b, s, first)
         checked("decode_attention", f"B={b} S={s} start={first}+", err)
+    # #7 and #8 at shapes that make attn_plan take each rows-per-block choice
+    # (every choice forced at two), at the edge starts (0, S - 1, out of
+    # range) with large finite values in the rows a slot does not see, at
+    # B 1, and replayed from a CUDA graph: cache bit-exact, output within
+    # 2e-5, two calls bit-identical
+    from vlut_tpu_torch.bench import attention_study
+
+    for r in attention_study.check(gen):
+        name = ("decode_attention_int8" if "q8=True" in r["label"]
+                else "decode_attention")
+        if r["why"]:
+            fail(f"{name} {r['label']} rows={r['rows']}: {r['why']}")
+        checked(name, f"{r['label']} rows={r['rows']}", r["max_abs_err"])
     return results
 
 
@@ -736,108 +759,62 @@ ATT_RTOL = ATT_ATOL = 2e-5
 
 
 def decode_attention_kernels(dev, gen, record) -> None:
-    """#7 and #8 at the flagship engine's shapes (B 32, S 2048, 8 KV heads
-    of 32 query heads, hd 128), starts spread over 64-1900, without and
-    with a 512-row window.  Cache rows, codes and scales must equal the
-    plain version's; the attention output is float32 summed in another
-    order, held to rtol and atol 2e-5."""
+    """#7 and #8 at the decode paths' shapes (bench/attention_study.py:
+    SHAPES: the flagship engine's B 32, S 2048 with starts spread over
+    64-1900, without and with a 512-row window, the flagship batched cache
+    B 32 S 184, bench-sweep's tg at B 1 and 32 (S 552) and tiny_real's
+    heads), with the tensors ``_layer_step`` hands the kernel (bf16 q and
+    rows, v a strided slice of the qkv output, int64 starts) and the cache
+    rotated past the L2 where it fits in it.  Cache rows, codes and scales
+    must equal the plain version's, the output (float32 summed in another
+    order) agree to rtol and atol 2e-5, and two calls be bit-identical.
+    Each shape records its plan (cache rows per block), the host's eager
+    dispatch of one call and the device kernels one call runs, which must
+    be the kernel alone: no cast, copy or memset."""
     import torch
-    import torch.nn.functional as F
 
+    from vlut_tpu_torch.bench import attention_study as st
     from vlut_tpu_torch.ops import decode_attention as da
-    from vlut_tpu_torch.runtime.kv_cache import dequantize_kv, quantize_kv
 
-    b, s, hkv, g, hd = 32, 2048, 8, 4, 128
-    h = hkv * g
-    scale = hd ** -0.5
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
-
-    start = torch.linspace(64, 1900, b, device=dev).round().to(torch.int32)
-    start = start[torch.randperm(b, generator=gen, device=dev)]
-    q, kn, vn = randn(b, 1, h, hd), randn(b, 1, hkv, hd), randn(b, 1, hkv, hd)
-    kf, vf = randn(b, s, hkv, hd), randn(b, s, hkv, hd)
-    kq, ksc = quantize_kv(kf)
-    vq, vsc = quantize_kv(vf)
-    rows_idx = torch.arange(s, device=dev)[None, :]
-
-    def check(name, got, want, caches):
-        torch.cuda.synchronize()
-        for mine, theirs in caches:
-            if not torch.equal(mine, theirs):
-                fail(f"{name}: cache rows differ from the plain version")
-        err = (got - want).abs()
-        if bool((err > ATT_ATOL + ATT_RTOL * want.abs()).any()):
-            fail(f"{name}: attention beyond tolerance (max {float(err.max())})")
-        return float(err.max())
-
-    for window in (0, 512):
-        visible = rows_idx < start.long()[:, None]
-        if window:
-            visible &= rows_idx > (start.long()[:, None] - window)
-        rows = int(visible.sum())  # visible cache rows over all slots
-        ops = 4.0 * rows * h * hd
-        out_b = b * h * hd * 4
-        mask = visible[:, None, None, :]
-        suffix = "" if window == 0 else "_window"
-        shape = (f"B={b} S={s} H={h} Hkv={hkv} hd={hd} window={window} "
-                 f"rows={rows}")
-
-        # #7: bf16 cache
-        kc, vc = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
-        kw, vw = kc.clone(), vc.clone()
-        want = da.decode_attention_plain(q, kn, vn, kw, vw, start, window,
-                                         scale=scale)
-        got = da.decode_attention(q, kn, vn, kc, vc, start, window,
-                                  scale=scale)
-        err = check("decode_attention" + suffix, got, want,
-                    ((kc, kw), (vc, vw)))
-        ms = cuda_ms(lambda: da.decode_attention(q, kn, vn, kc, vc, start,
-                                                 window, scale=scale),
-                     graph=True)
-        plain_ms = cuda_ms(lambda: da.decode_attention_plain(
-            q, kn, vn, kw, vw, start, window, scale=scale), iters=3, warmup=1)
-        qb = q.transpose(1, 2).to(torch.bfloat16)
-        kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
-        lib_ms = library_ms(lambda: F.scaled_dot_product_attention(
-            qb, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True))
-        nbytes = rows * hkv * hd * 2 * 2 + out_b * 2 + b * hkv * hd * 2 * 4
-        b_ms, by = bound_ms(nbytes, ops, F32_OPS_PER_S)
-        record("decode_attention" + suffix, shape=shape + " bf16", ms=ms,
-               plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-               library_ms=lib_ms, max_abs_err=err,
-               library="scaled_dot_product_attention(enable_gqa) over the "
-               "bf16 rows")
-        del kc, vc, kw, vw, kt, vt
-
-        # #8: int8 codes + float32 scales
-        kc, vc, ks, vs = kq.clone(), vq.clone(), ksc.clone(), vsc.clone()
-        ref = [t.clone() for t in (kc, vc, ks, vs)]
-        want = da.decode_attention_int8_plain(q, kn, vn, *ref, start, window,
-                                              scale=scale)
-        got = da.decode_attention_int8(q, kn, vn, kc, vc, ks, vs, start,
-                                       window, scale=scale)
-        err = check("decode_attention_int8" + suffix, got, want,
-                    zip((kc, vc, ks, vs), ref))
-        ms = cuda_ms(lambda: da.decode_attention_int8(
-            q, kn, vn, kc, vc, ks, vs, start, window, scale=scale), graph=True)
-        plain_ms = cuda_ms(lambda: da.decode_attention_int8_plain(
-            q, kn, vn, *ref, start, window, scale=scale), iters=3, warmup=1)
-        kd = dequantize_kv(kc, ks, torch.bfloat16).transpose(1, 2)
-        vd = dequantize_kv(vc, vs, torch.bfloat16).transpose(1, 2)
-        lib_ms = library_ms(lambda: F.scaled_dot_product_attention(
-            qb, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True))
-        nbytes = (rows * hkv * (hd + 4) * 2 + out_b * 2
-                  + b * hkv * hd * 4 * 2 + b * hkv * (hd + 4) * 2)
-        b_ms, by = bound_ms(nbytes, ops, F32_OPS_PER_S)
-        record("decode_attention_int8" + suffix, shape=shape + " int8",
-               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-               library_ms=lib_ms, max_abs_err=err,
-               library="scaled_dot_product_attention(enable_gqa) over the "
-               "cache dequantized to bf16 beforehand")
-        del kc, vc, ks, vs, ref, kd, vd
-        torch.cuda.empty_cache()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, b, s, hkv, g, hd, window, starts in st.SHAPES:
+        for q8 in (False, True):
+            name = ("decode_attention_int8" if q8 else "decode_attention") + (
+                "" if label == "engine" else "_" + label)
+            case = st.Case(gen, b, s, hkv, g, hd, window, starts, q8,
+                           rotate=True)
+            why, err = st.check_case(case)
+            if why:
+                fail(f"{name}: {why}")
+            launched = st.device_kernels(case.call())
+            if len(launched) != 1 or "decode_attn_kernel" not in launched[0]:
+                fail(f"{name}: one call ran {launched}, not the attention "
+                     "kernel alone")
+            ms = cuda_ms(case.call(), graph=True)
+            plain_ms = cuda_ms(lambda: case.want(case.copies[0]), iters=3,
+                               warmup=1)
+            lib_ms = library_ms(case.sdpa())
+            rows = case.rows()
+            h = hkv * g
+            # visible rows read once (int8: codes and scales), the new rows,
+            # q, the output
+            row_b = hkv * (hd + 4) * 2 if q8 else hkv * hd * 2 * 2
+            nbytes = (rows * row_b + b * h * hd * (2 + 4)
+                      + b * hkv * hd * 2 * 2)
+            b_ms, by = bound_ms(nbytes, 4.0 * rows * h * hd, F32_OPS_PER_S)
+            record(name, shape=(f"B={b} S={s} H={h} Hkv={hkv} hd={hd} "
+                                f"window={window} rows={rows} "
+                                + ("int8" if q8 else "bf16")),
+                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                   library_ms=lib_ms, max_abs_err=err,
+                   rows_per_block=da.attn_plan(b, hkv, da.span(s, window),
+                                               sms),
+                   eager_us=st.eager_us(case.call()), launched=launched,
+                   library="scaled_dot_product_attention(enable_gqa) over "
+                   + ("the cache dequantized to bf16 beforehand" if q8
+                      else "the bf16 rows"))
+            del case
+            torch.cuda.empty_cache()
 
 
 def main() -> None:

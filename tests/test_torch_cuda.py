@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from vlut_tpu_torch.ops import decode_attention as da
 from vlut_tpu_torch.ops import kv_update, ternary_gemm as tg, tq
 from vlut_tpu_torch.ops.packing import pack_ternary
 
@@ -212,62 +213,126 @@ def test_kv_writer_matches_plain(dev, dtype):
     assert torch.equal(one, w1)
 
 
-def _attn_inputs(dev, b, s, hkv, g, hd, seed):
+def _attn_inputs(dev, b, s, hkv, g, hd, seed, starts=None):
     gen = torch.Generator(device=dev).manual_seed(seed)
     rn = lambda *sh: torch.randn(sh, generator=gen, device=dev)  # noqa: E731
-    start = torch.randint(0, s, (b,), generator=gen, device=dev,
-                          dtype=torch.int32)
-    start[0], start[-1] = 0, s - 1
+    if starts is None:
+        start = torch.randint(0, s, (b,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        start[0], start[-1] = 0, s - 1
+    else:
+        start = torch.tensor(starts, device=dev, dtype=torch.int32)
     return (rn(b, 1, hkv * g, hd), rn(b, 1, hkv, hd), rn(b, 1, hkv, hd),
             rn(b, s, hkv, hd), rn(b, s, hkv, hd), start)
 
 
+def _hidden(start, s, window):
+    """(B, S) bool: the cache rows a slot does not see."""
+    idx = torch.arange(s, device=start.device)[None, :]
+    st = start.long()[:, None]
+    hidden = idx >= st
+    if window:
+        hidden |= idx <= st - window
+    return hidden
+
+
 # Attention outputs are float32 sums taken in another order than the plain
-# version's dense softmax (per-warp online softmax, then a merge), so they
-# are held to rtol 1e-5 and atol 1e-5; cache rows, codes and scales must be
-# bit-exact.
+# version's dense softmax (per-stage online softmax, then the merge of the
+# warps' and the splits' states), so they are held to rtol 1e-5 and atol
+# 1e-5; cache rows, codes and scales must be bit-exact, and two calls on
+# the same inputs bit-identical.
 ATT_TOL = dict(rtol=1e-5, atol=1e-5)
 
-
-@pytest.mark.parametrize("window", [0, 37])
-@pytest.mark.parametrize("hkv,g,hd", [(8, 4, 128), (2, 1, 128), (4, 8, 256),
-                                      (2, 2, 256)])
-def test_decode_attention_matches_plain(dev, hkv, g, hd, window):
-    from vlut_tpu_torch.ops import decode_attention as da
-
-    q, kn, vn, kf, vf, start = _attn_inputs(dev, 5, 300, hkv, g, hd, seed=g)
-    kc, vc = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
-    kw, vw = kc.clone(), vc.clone()
-    want = da.decode_attention_plain(q, kn, vn, kw, vw, start, window,
-                                     scale=hd ** -0.5)
-    before = da.decode_attention.launches
-    got = da.decode_attention(q, kn, vn, kc, vc, start, window,
-                              scale=hd ** -0.5)
-    torch.cuda.synchronize()
-    assert da.decode_attention.launches == before + 1
-    torch.testing.assert_close(got, want, **ATT_TOL)
-    assert torch.equal(kc, kw) and torch.equal(vc, vw)
+# (B, S, Hkv, G, hd, window, starts, large finite values in the rows a slot
+# does not see): GQA shapes with and without a window; the plan's shapes
+# (ops/decode_attention.py:PLAN_SHAPES); B 1; starts 0, S - 1 and out of
+# range (the write skipped)
+_ATT_BASE = [(5, 300, hkv, g, hd, w, None, False)
+             for hkv, g, hd in ((8, 4, 128), (2, 1, 128), (4, 8, 256),
+                                (2, 2, 256))
+             for w in (0, 37)]
+_ATT_MORE = (
+    [(b, s, hkv, (4, 2, 1, 8)[i % 4], 256 if i % 3 == 2 else 128, 0, None,
+      False) for i, (b, hkv, s) in enumerate(
+          da.PLAN_SHAPES)]
+    + [(1, 40, 8, 4, 128, 0, [39], False)]
+    + [(5, 300, 2, 4, 128, w, [0, 299, 300, -1, 17], True) for w in (0, 37)])
 
 
-@pytest.mark.parametrize("window", [0, 37])
-@pytest.mark.parametrize("hkv,g,hd", [(8, 4, 128), (2, 1, 128), (4, 8, 256)])
-def test_decode_attention_int8_matches_plain(dev, hkv, g, hd, window):
-    from vlut_tpu_torch.ops import decode_attention as da
+def _attn_check(dev, q8, b, s, hkv, g, hd, window, starts, hide, seed):
     from vlut_tpu_torch.runtime.kv_cache import quantize_kv
 
-    q, kn, vn, kf, vf, start = _attn_inputs(dev, 5, 300, hkv, g, hd, seed=9)
-    (kc, ksc), (vc, vsc) = quantize_kv(kf), quantize_kv(vf)
-    ref = [t.clone() for t in (kc, vc, ksc, vsc)]
-    want = da.decode_attention_int8_plain(q, kn, vn, *ref, start, window,
-                                          scale=hd ** -0.5)
-    before = da.decode_attention_int8.launches
-    got = da.decode_attention_int8(q, kn, vn, kc, vc, ksc, vsc, start,
-                                   window, scale=hd ** -0.5)
+    q, kn, vn, kf, vf, start = _attn_inputs(dev, b, s, hkv, g, hd, seed,
+                                            starts)
+    if q8:
+        (kc, ksc), (vc, vsc) = quantize_kv(kf), quantize_kv(vf)
+        cache = [kc, vc, ksc, vsc]
+    else:
+        cache = [kf.to(torch.bfloat16), vf.to(torch.bfloat16)]
+    if hide:
+        hidden = _hidden(start, s, window)
+        for t in cache[:2]:
+            t[hidden] = 127 if q8 else 3e38
+        for t in cache[2:]:
+            t[hidden] = 1e30
+    ref = [t.clone() for t in cache]
+    plain = da.decode_attention_int8_plain if q8 else da.decode_attention_plain
+    kernel = da.decode_attention_int8 if q8 else da.decode_attention
+    want = plain(q, kn, vn, *ref, start, window, scale=hd ** -0.5)
+    outs = []
+    for _ in range(2):
+        mine = [t.clone() for t in cache]
+        before = kernel.launches
+        got = kernel(q, kn, vn, *mine, start, window, scale=hd ** -0.5)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        torch.testing.assert_close(got, want, **ATT_TOL)
+        for m, r in zip(mine, ref):
+            assert torch.equal(m, r)
+        outs.append(got)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("case", _ATT_BASE + _ATT_MORE)
+def test_decode_attention_matches_plain(dev, case):
+    _attn_check(dev, False, *case, seed=case[3])
+
+
+@pytest.mark.parametrize("case", [c for c in _ATT_BASE if c[2:5] != (
+    2, 2, 256)] + _ATT_MORE)
+def test_decode_attention_int8_matches_plain(dev, case):
+    _attn_check(dev, True, *case, seed=9)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+def test_decode_attention_takes_the_layer_tensors(dev, q8):
+    """The tensors _layer_step hands the kernel (bf16 q and new rows, v a
+    strided slice of the qkv output, int64 starts) go in as they are."""
+    from vlut_tpu_torch.runtime.kv_cache import quantize_kv
+
+    b, s, hkv, g, hd = 4, 200, 2, 2, 128
+    q, kn, vn, kf, vf, start = _attn_inputs(dev, b, s, hkv, g, hd, 3)
+    qkv = torch.cat([q, kn, vn], dim=2).reshape(b, 1, -1).to(torch.bfloat16)
+    qd, kvd = hkv * g * hd, hkv * hd
+    qb = qkv[..., :qd].reshape(b, 1, hkv * g, hd).contiguous()
+    kb = qkv[..., qd:qd + kvd].reshape(b, 1, hkv, hd).contiguous()
+    vb = qkv[..., qd + kvd:].reshape(b, 1, hkv, hd)
+    assert not vb.is_contiguous()
+    st = start.long()
+    if q8:
+        (kc, ksc), (vc, vsc) = quantize_kv(kf), quantize_kv(vf)
+        cache = [kc, vc, ksc, vsc]
+    else:
+        cache = [kf.to(torch.bfloat16), vf.to(torch.bfloat16)]
+    ref = [t.clone() for t in cache]
+    plain = da.decode_attention_int8_plain if q8 else da.decode_attention_plain
+    kernel = da.decode_attention_int8 if q8 else da.decode_attention
+    want = plain(qb, kb, vb, *ref, st, 0, scale=hd ** -0.5)
+    got = kernel(qb, kb, vb, *cache, st, 0, scale=hd ** -0.5)
     torch.cuda.synchronize()
-    assert da.decode_attention_int8.launches == before + 1
     torch.testing.assert_close(got, want, **ATT_TOL)
-    for mine, theirs in zip((kc, vc, ksc, vsc), ref):
-        assert torch.equal(mine, theirs)
+    for m, r in zip(cache, ref):
+        assert torch.equal(m, r)
 
 
 def test_quantize_kv_same_on_card_and_cpu(dev):
