@@ -12,15 +12,21 @@ Phases (any failure exits non-zero; none is skipped):
   3. the flagship: llama3_8b_158 at full width and depth, prefill 32 x 128
      plus greedy batched decode (vlut_tpu_torch/bench/flagship.py), with the
      composed decode attention (row write #5 + PyTorch) and the fused one
-     (#7);
+     (#7), each with the decode step replayed as a CUDA graph (the main
+     path, counted) and then eagerly (the A/B): identical greedy tokens;
   4. real weights: tests/fixtures/tiny_real through the port's ``batched``
-     path on the card and on the CPU; the greedy tokens must be identical;
+     path on the card (graphed and eager) and on the CPU: identical greedy
+     tokens; seeded sampling graphed and eager: identical tokens;
   5. the slot engine at the flagship's full width: 32 slots, ctx 2048, 48
      greedy requests of 64-1500 prompt tokens (vlut_tpu_torch/bench/
      engine.py), with the bf16 and the q8 cache, each with the fused and
-     the composed decode attention (the A/B of ms per decode step);
-  6. tiny_real through the engine on the card and on the CPU, bf16 and q8
-     cache: identical greedy tokens;
+     the composed decode attention (the A/B of ms per decode step), each
+     graphed (the main path) and eager: identical greedy tokens; the fused
+     runs profile 4 decode steps (kernels, launch calls, idle share);
+  6. tiny_real through the engine on the card (graphed and eager) and on
+     the CPU, bf16 and q8 cache: identical greedy tokens; seeded sampling
+     (temperature 0.8, top-k 40, XTC, mirostat rows) graphed and eager on
+     the card: identical tokens;
   7. the completion server over the flagship engine (tiny_real's tokenizer
      for text): 8 concurrent /completion requests, one streaming, must
      answer 200 with the tokens of a direct Engine.run;
@@ -62,10 +68,16 @@ caches, and #7 and #8 at shapes that make attn_plan take each rows-per-block
 choice (every choice forced at two), at B 1, at the edge starts (0, S - 1,
 out of range: the write skipped) with large finite values in the rows a
 slot does not see, and replayed from a CUDA graph (cache bit-exact, output
-within 2e-5, two calls bit-identical).  #7 and #8 are timed at the decode
-paths' shapes (the flagship engine's B 32 S 2048 without and with a
-512-row window, the batched cache B 32 S 184, bench-sweep's tg at B 1 and
-32, tiny_real's heads) with the tensors the model's layer hands them,
+within 2e-5, two calls bit-identical).  #5 (the KV row writer) takes a
+layer's update as the composed path gives it (V a strided slice of the
+fused qkv, int64 starts; q8: codes and both scale planes in one call) at
+the batched cache, the engine's (bf16 and q8) and tiny_real's heads: bit
+for bit against the plain assignment (int32 starts too, a start out of
+range skipped, the one-array form), one call the writer's kernel alone,
+timed in graphs of 20 calls beside one index_put_ per array.  #7 and #8
+are timed at the decode paths' shapes (the flagship engine's B 32 S 2048
+without and with a 512-row window, the batched cache B 32 S 184,
+bench-sweep's tg at B 1 and 32, tiny_real's heads) with the tensors the model's layer hands them,
 beside scaled_dot_product_attention, each with its plan, the host's eager
 dispatch of one call, and the device kernels one call runs: the attention
 kernel alone, or the phase fails.
@@ -265,11 +277,18 @@ def device_kernels(fn) -> list[str]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a trace without any device event is the profiler's miss (seen once
+    # for the 1.5 us KV row writer, whose output its caller had checked),
+    # not a call that launched nothing: it is taken again, at most twice
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def check_two_kernels(name, launched) -> None:
@@ -510,38 +529,8 @@ def phase_kernels(dev) -> dict:
             tiled_timed("ternary_gemm_tiled_lanes", label, m, k, n, "i2",
                         iters=20, rotate=True)
 
-    # --- #5/#6 KV row writer on the flagship's per-layer cache --------------
-    b, s, h, d = 32, 184, 8, 128
-    kc, vc = randn(b, s, h, d), randn(b, s, h, d)
-    ku, vu = randn(b, 1, h, d), randn(b, 1, h, d)
-    start = torch.randint(0, s, (b,), generator=gen, device=dev,
-                          dtype=torch.int32)
-    wk, wv = kc.clone(), vc.clone()
-    kv_update._write_plain(wk, ku, start)
-    kv_update._write_plain(wv, vu, start)
-    kv_update.write_rows_pair(kc, vc, ku, vu, start)
-    one = randn(b, s, h, d)
-    w1 = one.clone()
-    kv_update._write_plain(w1, ku, start)
-    kv_update.write_rows(one, ku, start)
-    torch.cuda.synchronize()
-    for got, want in ((kc, wk), (vc, wv), (one, w1)):
-        if not torch.equal(got, want):
-            fail("KV row writer differs from the indexed assignment")
-    ms = cuda_ms(lambda: kv_update.write_rows_pair(kc, vc, ku, vu, start),
-                 iters=100, graph=True)
-    plain_ms = cuda_ms(lambda: (kv_update._write_plain(kc, ku, start),
-                                kv_update._write_plain(vc, vu, start)),
-                       iters=100)
-    idx = (torch.arange(b, device=dev), start.long())
-    lib_ms = cuda_ms(lambda: (kc.index_put_(idx, ku[:, 0]),
-                              vc.index_put_(idx, vu[:, 0])), iters=100,
-                     graph=True)
-    b_ms, by = bound_ms(2 * 2 * b * h * d * 2 + 4 * b, 0)
-    record("write_rows_pair", shape=f"pair B={b} S={s} Hkv={h} hd={d} bf16",
-           ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-           library_ms=lib_ms, max_abs_err=0.0)
-    del kc, vc, wk, wv, one, w1
+    # --- #5/#6 KV row writer: a layer's update as the composed path gives it
+    kv_kernels(dev, gen, record)
     decode_attention_kernels(dev, gen, record)
     tq_kernels(dev, gen, record)
 
@@ -627,6 +616,81 @@ def phase_kernels(dev) -> dict:
             fail(f"{name} {r['label']} rows={r['rows']}: {r['why']}")
         checked(name, f"{r['label']} rows={r['rows']}", r["max_abs_err"])
     return results
+
+
+def kv_kernels(dev, gen, record) -> None:
+    """#5/#6 at ``bench/kv_study.py:SHAPES``, a layer's update as the
+    composed path gives it (``kv_study.layer_update``): one call (and the
+    same with int32 starts, and with a start out of range, which the kernel
+    skips) must equal the plain assignment bit for bit, and the one-array
+    form likewise; one call must run the writer's kernel alone (no cast or
+    copy).  Timed as the median of five CUDA graphs of 20 calls, beside
+    one ``index_put_`` per array (the library call) and the plain version
+    (``bench/kv_study.py`` times it in turns with other builds)."""
+    import statistics
+
+    import torch
+
+    from vlut_tpu_torch.bench import kv_study
+    from vlut_tpu_torch.ops import kv_update
+
+    def median_ms(fn):
+        return statistics.median(cuda_ms(fn, graph=True) for _ in range(5))
+
+    for label, b, s, hkv, q8 in kv_study.SHAPES:
+        caches, rows, start = kv_study.layer_update(gen, b, s, hkv, q8)
+        scales = tuple(caches[2:] + rows[2:]) or None
+
+        def call(st=start):
+            kv_update.write_rows_pair(caches[0], caches[1], rows[0], rows[1],
+                                      st, scales=scales)
+
+        for st in (start, start.to(torch.int32)):
+            want = [c.clone() for c in caches]
+            for c, u in zip(want, rows):
+                kv_update._write_plain(c, u, st)
+            call(st)
+            torch.cuda.synchronize()
+            if not all(torch.equal(c, w) for c, w in zip(caches, want)):
+                fail(f"KV row writer ({label}, {st.dtype}) differs from the "
+                     "indexed assignment")
+        skip = start.clone()
+        skip[1] = -1
+        want = [c.clone() for c in caches]
+        call(skip)
+        one, w1 = caches[0].clone(), caches[0].clone()
+        kv_update._write_plain(w1, rows[1], start)
+        kv_update.write_rows(one, rows[1], start)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(c, w) for c, w in zip(caches, want))
+                and torch.equal(one, w1)):
+            fail(f"KV row writer ({label}): a start out of range was "
+                 "written, or the one-array form differs")
+        del one, w1, want
+        launched = device_kernels(call)
+        if len(launched) != 1 or "write_rows_kernel" not in launched[0]:
+            fail(f"KV row writer ({label}): one call ran {launched}, not the "
+                 "writer's kernel alone")
+        ms = median_ms(call)
+        plain_ms = cuda_ms(lambda: [kv_update._write_plain(c, u, start)
+                                    for c, u in zip(caches, rows)])
+        idx = (torch.arange(b, device=dev), start)
+        lib_ms = statistics.median(
+            library_ms(lambda: [c.index_put_(idx, u[:, 0])
+                                for c, u in zip(caches, rows)])
+            for _ in range(5))
+        # each new row read once and written once, the starts read once
+        nbytes = 2 * sum(u.numel() * u.element_size() for u in rows) + 8 * b
+        b_ms, by = bound_ms(nbytes, 0)
+        record("write_rows_pair" + ("" if label == "batched" else
+                                    "_" + label),
+               shape=f"{label} B={b} S={s} Hkv={hkv} hd=128 arrays="
+               f"{len(caches)} " + ("q8" if q8 else "bf16"),
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+               library_ms=lib_ms, max_abs_err=0.0, launched=launched,
+               library=f"{len(caches)} index_put_ (one per array)")
+        del caches, rows
+        torch.cuda.empty_cache()
 
 
 def attention_case(dev, gen, b: int, s: int, first: int) -> float:
@@ -890,15 +954,23 @@ def main() -> None:
     ab: dict[str, dict[str, float]] = {}
     for mode, attn_kernel in (("composed", "write_rows_pair"),
                               ("fused", "decode_attention")):
-        reset()
-        fl = flagship.run("llama3_8b_158", device=dev, decode_attn=mode,
-                          built=built)
-        got = read(f"flagship_{mode}", ("ternary_gemm_decode",
-                                        "ternary_gemm_tiled", attn_kernel))
-        ab.setdefault("flagship_batched_S184", {})[mode] = fl["ms_per_step"]
-        print(json.dumps({"phase": "flagship", **fl, "launches": got,
-                          "card": card}), flush=True)
-        torch.cuda.empty_cache()
+        toks = {}
+        for graph in (True, False):
+            run = "graph" if graph else "eager"
+            reset()
+            fl = flagship.run("llama3_8b_158", device=dev, decode_attn=mode,
+                              built=built, cuda_graph=graph)
+            got = read(f"flagship_{mode}_{run}", (
+                "ternary_gemm_decode", "ternary_gemm_tiled", attn_kernel))
+            toks[run] = fl.pop("tokens").cpu()
+            ab.setdefault("flagship_batched_S184", {})[f"{mode}_{run}"] = fl[
+                "ms_per_step"]
+            print(json.dumps({"phase": "flagship", **fl, "launches": got,
+                              "card": card}), flush=True)
+            torch.cuda.empty_cache()
+        if not torch.equal(toks["graph"], toks["eager"]):
+            fail(f"flagship batched ({mode}): the graphed step's greedy "
+                 "tokens differ from the eager step's")
 
     # 4. real weights: tiny_real on the card and on the CPU
     from vlut_tpu_torch.cli import run_batched
@@ -914,15 +986,30 @@ def main() -> None:
     launches_real = read("tiny_real_batched", (
         "ternary_gemm_decode", "ternary_gemm_fused_quant",
         "ternary_gemm_tiled", "write_rows_pair"))
+    toks_eager = run_batched(gpu_model, cfg, ids, 4, 12, temp=0.0,
+                             decode_attn="composed", cuda_graph=False).cpu()
     toks_cpu = run_batched(cpu_model, cfg, ids, 4, 12, temp=0.0,
                            decode_attn="composed")
-    same = torch.equal(toks_gpu, toks_cpu)
+    same = torch.equal(toks_gpu, toks_cpu) and torch.equal(toks_gpu,
+                                                           toks_eager)
+    # seeded sampling through generate: graphed equals eager on the card
+    sampled = [run_batched(gpu_model, cfg, ids, 4, 12, temp=0.8, seed=5,
+                           decode_attn="composed", cuda_graph=g).cpu()
+               for g in (True, False)]
     print(json.dumps({"phase": "tiny_real", "prompt_tokens": len(ids),
                       "slots": 4, "n": 12, "tokens_gpu": toks_gpu[0].tolist(),
-                      "tokens_cpu": toks_cpu[0].tolist(), "identical": same,
+                      "tokens_cpu": toks_cpu[0].tolist(),
+                      "tokens_gpu_eager": toks_eager[0].tolist(),
+                      "identical": same,
+                      "seeded_tokens": sampled[0][0].tolist(),
+                      "seeded_graph_equals_eager": torch.equal(*sampled),
                       "launches": launches_real}), flush=True)
     if not same:
-        fail("tiny_real greedy tokens differ between the card and the CPU")
+        fail("tiny_real greedy tokens differ between the card's graphed "
+             "step, its eager step and the CPU")
+    if not torch.equal(*sampled):
+        fail("tiny_real seeded tokens differ between the graphed and the "
+             "eager step")
 
     # 5. the slot engine at the flagship's full width
     from vlut_tpu_torch.bench import engine as bench_engine
@@ -933,23 +1020,31 @@ def main() -> None:
             attn_kernel = {("bf16", "fused"): "decode_attention",
                            ("q8", "fused"): "decode_attention_int8"}.get(
                                (cache, mode), "write_rows_pair")
-            reset()
-            out = bench_engine.run(
-                device=dev, built=built, kv_quant=cache == "q8",
-                decode_attn=mode, profile_steps=4 if cache == "bf16" else 0,
-                check_paths=mode == "fused")
-            got = read(f"engine_{cache}_{mode}", (
-                "ternary_gemm_decode", "ternary_gemm_tiled", attn_kernel))
-            engine_out[(cache, mode)] = out.pop("outputs")
-            ab.setdefault(f"engine_{cache}_ctx2048", {})[mode] = out[
-                "decode_ms_per_step"]
-            print(json.dumps({"phase": "engine", **out, "launches": got,
-                              "card": card}), flush=True)
-            torch.cuda.empty_cache()
+            for graph in (True, False):
+                run = "graph" if graph else "eager"
+                reset()
+                out = bench_engine.run(
+                    device=dev, built=built, kv_quant=cache == "q8",
+                    decode_attn=mode, cuda_graph=graph,
+                    profile_steps=4 if mode == "fused" else 0,
+                    check_paths=mode == "fused" and graph)
+                got = read(f"engine_{cache}_{mode}_{run}", (
+                    "ternary_gemm_decode", "ternary_gemm_tiled", attn_kernel))
+                engine_out[(cache, mode, run)] = out.pop("outputs")
+                ab.setdefault(f"engine_{cache}_ctx2048", {})[
+                    f"{mode}_{run}"] = out["decode_ms_per_step"]
+                print(json.dumps({"phase": "engine", **out, "launches": got,
+                                  "card": card}), flush=True)
+                torch.cuda.empty_cache()
+            if (engine_out[(cache, mode, "graph")]
+                    != engine_out[(cache, mode, "eager")]):
+                fail(f"flagship engine ({cache}, {mode}): the graphed step's "
+                     "greedy tokens differ from the eager step's")
     agree = {}
     for cache in ("bf16", "q8"):
-        pairs = [a == b for x, y in zip(engine_out[(cache, "fused")],
-                                        engine_out[(cache, "composed")])
+        pairs = [a == b for x, y in zip(engine_out[(cache, "fused", "graph")],
+                                        engine_out[(cache, "composed",
+                                                    "graph")])
                  for a, b in zip(x, y)]
         agree[cache] = sum(pairs) / len(pairs)
     print(json.dumps({"phase": "decode_attn_ab", "ms_per_step": ab,
@@ -962,30 +1057,49 @@ def main() -> None:
 
     texts = [b"The little model", b"reads the lines", b"of its own repo.",
              b"The", b"little model reads the lines of its own repo.", b"re"]
+
+    def tiny_engine(model, cache, graph, samplers):
+        eng = Engine(cfg, model, n_slots=4, max_len=256,
+                     kv_quant=cache == "q8", cuda_graph=graph)
+        reqs = [Request(prompt=[2] + list(t), max_new_tokens=12, sampler=sp)
+                for t, sp in zip(texts, samplers)]
+        eng.run(reqs)
+        return [r.output for r in reqs], eng
+
+    greedy = [SamplerParams(temperature=0.0)] * len(texts)
     for cache in ("bf16", "q8"):
-        outs = {}
-        for device, model in (("cuda", gpu_model), ("cpu", cpu_model)):
-            eng = Engine(cfg, model, n_slots=4, max_len=256,
-                         kv_quant=cache == "q8")
-            reqs = [Request(prompt=[2] + list(t), max_new_tokens=12,
-                            sampler=SamplerParams(temperature=0.0))
-                    for t in texts]
-            if device == "cuda":
-                reset()
-            eng.run(reqs)
-            if device == "cuda":
-                got = read(f"tiny_real_engine_{cache}", (
-                    "decode_attention" if cache == "bf16"
-                    else "decode_attention_int8",))
-            outs[device] = [r.output for r in reqs]
-        same = outs["cuda"] == outs["cpu"]
+        reset()
+        outs, eng = tiny_engine(gpu_model, cache, True, greedy)
+        got = read(f"tiny_real_engine_{cache}", (
+            "decode_attention" if cache == "bf16"
+            else "decode_attention_int8",))
+        eager, _ = tiny_engine(gpu_model, cache, False, greedy)
+        cpu, _ = tiny_engine(cpu_model, cache, True, greedy)
+        same = outs == cpu and outs == eager
         print(json.dumps({"phase": "tiny_real_engine", "cache": cache,
-                          "tokens_gpu": outs["cuda"][0],
-                          "tokens_cpu": outs["cpu"][0], "identical": same,
+                          "tokens_gpu": outs[0], "tokens_cpu": cpu[0],
+                          "tokens_gpu_eager": eager[0], "identical": same,
+                          "step_programs": eng.step_programs(),
                           "launches": got}), flush=True)
         if not same:
-            fail(f"tiny_real engine ({cache}) tokens differ between the card "
-                 "and the CPU")
+            fail(f"tiny_real engine ({cache}) tokens differ between the "
+                 "card's graphed step, its eager step and the CPU")
+    # seeded sampling (temperature 0.8, top-k 40, XTC, mirostat rows): the
+    # noise drawn before each replay gives the eager step's tokens
+    seeded = [SamplerParams(temperature=0.8, top_k=40, seed=i,
+                            xtc_p=0.5 if i % 2 else 0.0, xtc_t=0.05,
+                            mirostat_tau=5.0 if i % 3 == 2 else 0.0)
+              for i in range(len(texts))]
+    sampled = {g: tiny_engine(gpu_model, "bf16", g, seeded)[0]
+               for g in (True, False)}
+    print(json.dumps({"phase": "tiny_real_engine_seeded",
+                      "tokens_graph": sampled[True][0],
+                      "tokens_eager": sampled[False][0],
+                      "identical": sampled[True] == sampled[False]}),
+          flush=True)
+    if sampled[True] != sampled[False]:
+        fail("tiny_real engine seeded tokens differ between the graphed "
+             "and the eager step")
 
     # 7. the completion server over the flagship engine
     server_phase(built, fixture, card, reset, read)

@@ -20,6 +20,7 @@ import torch
 
 from vlut_tpu_torch.ops import decode_attention as da
 from vlut_tpu_torch.ops import kv_update, ternary_gemm as tg, tq
+from vlut_tpu_torch.bench.kv_study import SHAPES as KV_SHAPES
 from vlut_tpu_torch.ops.packing import pack_ternary
 
 pytestmark = pytest.mark.cuda
@@ -213,6 +214,50 @@ def test_kv_writer_matches_plain(dev, dtype):
     assert torch.equal(one, w1)
 
 
+def kv_layer_inputs(dev, b, s, hkv, q8, seed):
+    from vlut_tpu_torch.bench.kv_study import layer_update
+
+    return layer_update(torch.Generator(device=dev).manual_seed(seed), b, s,
+                        hkv, q8)
+
+
+@pytest.mark.parametrize("b,s,hkv,q8", [sh[1:] for sh in KV_SHAPES])
+def test_kv_writer_takes_the_layer_tensors(dev, b, s, hkv, q8):
+    """One launch writes every array of the layer (K, V and the q8 scale
+    planes) from the rows as the layer gives them (V strided, int64
+    starts), bit for bit as the plain assignment; int32 starts too."""
+    caches, rows, start = kv_layer_inputs(dev, b, s, hkv, q8, seed=s + b)
+    assert not rows[1].is_contiguous() or q8
+    for st in (start, start.to(torch.int32)):
+        want = [c.clone() for c in caches]
+        for c, u in zip(want, rows):
+            kv_update._write_plain(c, u, st)
+        before = kv_update.write_rows_pair.launches
+        kv_update.write_rows_pair(
+            caches[0], caches[1], rows[0], rows[1], st,
+            scales=tuple(caches[2:] + rows[2:]) or None)
+        torch.cuda.synchronize()
+        assert kv_update.write_rows_pair.launches == before + 1
+        for got, w in zip(caches, want):
+            assert torch.equal(got, w)
+
+
+def test_kv_writer_skips_starts_out_of_range(dev):
+    caches, rows, start = kv_layer_inputs(dev, 6, 40, 2, True, seed=5)
+    start[1], start[4] = -1, 40
+    ok = (start >= 0) & (start < 40)
+    want = [c.clone() for c in caches]
+    for c, u in zip(want, rows):
+        c[ok.nonzero()[:, 0], start[ok]] = u[ok][:, 0]
+    kv_update.write_rows_pair(caches[0], caches[1], rows[0], rows[1], start,
+                              scales=tuple(caches[2:] + rows[2:]))
+    torch.cuda.synchronize()
+    for got, w in zip(caches, want):
+        assert torch.equal(got, w)
+    with pytest.raises(IndexError):
+        kv_update._write_plain(want[0], rows[0], start)
+
+
 def _attn_inputs(dev, b, s, hkv, g, hd, seed, starts=None):
     gen = torch.Generator(device=dev).manual_seed(seed)
     rn = lambda *sh: torch.randn(sh, generator=gen, device=dev)  # noqa: E731
@@ -364,6 +409,137 @@ def test_engine_tiny_real_card_equals_cpu(dev, q8):
         eng.run(reqs)
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
+
+
+def _tiny_real(device):
+    import pathlib
+
+    from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+
+    path = pathlib.Path(__file__).parent / "fixtures" / "tiny_real"
+    cfg, model, _ = load_checkpoint(path, device=device)
+    return cfg, model
+
+
+def _engine_tokens(device, q8, decode_attn, cuda_graph, samplers):
+    from vlut_tpu_torch import ops
+    from vlut_tpu_torch.runtime.engine import Engine, Request
+
+    cfg, model = _tiny_real(device)
+    eng = Engine(cfg, model, n_slots=4, max_len=256, kv_quant=q8,
+                 decode_attn=decode_attn, cuda_graph=cuda_graph)
+    texts = (b"The little model", b"reads", b"its own repo.", b"The",
+             b"little model reads the lines of its own repo.", b"re")
+    # one request asks for log-probs (computed outside the step program)
+    reqs = [Request(prompt=[2] + list(p), max_new_tokens=12, sampler=sp,
+                    n_probs=3 if i == 4 else 0)
+            for i, (p, sp) in enumerate(zip(texts, samplers))]
+    before = {w: w.launches for w in ops.COUNTED}
+    eng.run(reqs)
+    counts = {w.__name__: w.launches - before.get(w, 0) for w in ops.COUNTED}
+    eng.ids = [lp[0].tolist() for lp in reqs[4].logprobs]
+    return [r.output for r in reqs], counts, eng
+
+
+@pytest.mark.parametrize("decode_attn", ["fused", "composed"])
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8"])
+def test_engine_graph_equals_eager_and_cpu(dev, q8, decode_attn):
+    """tiny_real through the engine: the replayed step gives the eager
+    step's greedy tokens and the CPU's, and a replay counts the launches
+    the eager step makes."""
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+
+    greedy = [SamplerParams(temperature=0.0)] * 6
+    graph, n_graph, eng = _engine_tokens("cuda", q8, decode_attn, True,
+                                         greedy)
+    eager, n_eager, eng_e = _engine_tokens("cuda", q8, decode_attn, False,
+                                           greedy)
+    cpu, _, _ = _engine_tokens("cpu", q8, decode_attn, True, greedy)
+    assert graph == eager == cpu
+    assert eng.ids == eng_e.ids and len(eng.ids) == 12
+    assert n_graph == n_eager and sum(n_graph.values()) > 0
+    progs = eng.step_programs()
+    assert len(progs) == 1 and progs[0]["replays"] > 0
+
+
+def test_engine_seeded_sampling_graph_equals_eager(dev):
+    """temperature 0.8, top-k 40, XTC and mirostat: the noise drawn before
+    each replay gives the eager step's seeded tokens."""
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+
+    samplers = [SamplerParams(temperature=0.8, top_k=40, seed=i,
+                              xtc_p=0.5 if i % 2 else 0.0, xtc_t=0.05,
+                              mirostat_tau=5.0 if i % 3 == 2 else 0.0)
+                for i in range(6)]
+    graph, _, eng = _engine_tokens("cuda", False, "fused", True, samplers)
+    eager, _, _ = _engine_tokens("cuda", False, "fused", False, samplers)
+    assert graph == eager
+    assert any(p.get("replays") for p in eng.step_programs())
+
+
+def test_engine_programs_in_one_pool_graph_equals_eager(dev):
+    """Two step programs (greedy, seeded) captured into the engine's one
+    memory pool and replayed in turn as the active feature set flips give
+    the eager step's tokens."""
+    from vlut_tpu_torch.runtime.engine import Engine, Request
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+
+    def run(graph):
+        cfg, model = _tiny_real("cuda")
+        eng = Engine(cfg, model, n_slots=2, max_len=256, cuda_graph=graph)
+        greedy = SamplerParams(temperature=0.0)
+        reqs = [Request(prompt=[2, 84, 104, 101], max_new_tokens=30,
+                        sampler=greedy)]
+        reqs += [Request(prompt=[2, 108 + i], max_new_tokens=5,
+                         sampler=SamplerParams(temperature=0.8, top_k=40,
+                                               seed=i) if i % 2 == 0
+                         else greedy) for i in range(6)]
+        eng.run(reqs)
+        return [r.output for r in reqs], eng.step_programs()
+
+    graph, progs = run(True)
+    eager, _ = run(False)
+    assert graph == eager
+    assert len(progs) == 2 and all(p["replays"] > 1 for p in progs)
+
+
+@pytest.mark.parametrize("decode_attn", ["fused", "composed"])
+def test_batched_graph_equals_eager_and_cpu(dev, decode_attn):
+    from vlut_tpu_torch.cli import run_batched
+
+    ids = [2] + list(b"The little model reads the lines of its own repo.")
+    out = {}
+    for device, graph in (("cuda", True), ("cuda", False), ("cpu", True)):
+        cfg, model = _tiny_real(device)
+        out[device, graph] = run_batched(
+            model, cfg, ids, 4, 12, temp=0.0, decode_attn=decode_attn,
+            cuda_graph=graph).cpu()
+    assert torch.equal(out["cuda", True], out["cuda", False])
+    assert torch.equal(out["cuda", True], out["cpu", True])
+    # seeded sampling through generate: graphed equals eager
+    cfg, model = _tiny_real("cuda")
+    sampled = [run_batched(model, cfg, ids, 4, 12, temp=0.8, seed=3,
+                           decode_attn=decode_attn, cuda_graph=graph).cpu()
+               for graph in (True, False)]
+    assert torch.equal(sampled[0], sampled[1])
+
+
+def test_capture_raises_where_a_workspace_is_missing(dev, monkeypatch):
+    """A step captured before its decode attention ran once at its size
+    (no workspace yet) raises: nothing falls back to an eager step, and
+    the launch counters keep their counts."""
+    from vlut_tpu_torch.runtime.step_graph import StepGraph
+
+    monkeypatch.setattr(da, "_work", {})
+    q, kn, vn, kf, vf, start = _attn_inputs(dev, 4, 64, 2, 2, 128, 1)
+    kc, vc = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+    before = da.decode_attention.launches
+    g = StepGraph(lambda: da.decode_attention(q, kn, vn, kc, vc, start, 0,
+                                              scale=0.1))
+    with pytest.raises(RuntimeError, match="workspace"):
+        g.capture()
+    assert not g.captured and da.decode_attention.launches == before
+    torch.cuda.synchronize()
 
 
 def _tq_inputs(dev, fmt, m, k, n, seed):

@@ -620,6 +620,165 @@ def test_kv_writer_plain_bit_equal(dtype):
                                   np.asarray(one.astype(jnp.float32)))
 
 
+def _kv_layer(b, s, hkv, hd, q8, seed, g=2):
+    """A layer's update as the composed path hands it to #5 (numpy): the
+    caches, K rows, V rows as a strided column slice of a fused qkv output
+    and starts; for q8 the codes and the (B, S, Hkv) scale planes."""
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((b, 1, (g + 2) * hkv * hd)).astype(np.float32)
+    qd, kvd = g * hkv * hd, hkv * hd
+    k = qkv[..., qd:qd + kvd].reshape(b, 1, hkv, hd)
+    start = rng.integers(0, s, b)
+    start[0], start[-1] = 0, s - 1
+    caches = [rng.standard_normal((b, s, hkv, hd)).astype(np.float32)
+              for _ in range(2)]
+    if not q8:
+        return caches, [k, qkv], start
+    codes = [rng.integers(-127, 128, (b, s, hkv, hd)).astype(np.int8)
+             for _ in range(2)]
+    scales = [rng.uniform(0, 1, (b, s, hkv)).astype(np.float32)
+              for _ in range(2)]
+    rows = [rng.integers(-127, 128, (b, 1, hkv, hd)).astype(np.int8),
+            rng.integers(-127, 128, (b, 1, hkv, hd)).astype(np.int8),
+            rng.uniform(0, 1, (b, 1, hkv)).astype(np.float32),
+            rng.uniform(0, 1, (b, 1, hkv)).astype(np.float32)]
+    return codes + scales, rows, start
+
+
+def _torch_rows(rows, q8, hkv, hd, g=2):
+    """The rows as torch tensors, V (bf16) a strided slice of the qkv."""
+    if q8:
+        return [torch.from_numpy(r) for r in rows]
+    k, qkv = rows
+    qkv_t = torch.from_numpy(qkv).to(torch.bfloat16)
+    v = qkv_t[..., (g + 1) * hkv * hd:].reshape(qkv.shape[0], 1, hkv, hd)
+    assert not v.is_contiguous()
+    return [torch.from_numpy(k).to(torch.bfloat16), v]
+
+
+@pytest.mark.parametrize("st_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8"])
+def test_kv_writer_layer_forms_match_pallas(q8, st_dtype):
+    """The layer's update in one call (K, V and, for q8, the two scale
+    planes; V a strided slice of the fused qkv; int32 or int64 starts) is
+    the JAX kernels' update bit for bit (interpret mode)."""
+    b, s, hkv, hd = 3, 9, 2, 128
+    caches, rows, start = _kv_layer(b, s, hkv, hd, q8, seed=11)
+    trows = _torch_rows(rows, q8, hkv, hd)
+    if q8:
+        tc = [torch.from_numpy(c.copy()) for c in caches]
+        jrows = rows
+    else:
+        tc = [torch.from_numpy(c).to(torch.bfloat16) for c in caches]
+        jrows = [r.float().numpy() for r in trows]
+    jdt = [jnp.bfloat16] * 2 if not q8 else [jnp.int8] * 2 + [jnp.float32] * 2
+    want = []
+    for a in range(0, len(caches), 2):
+        want += jkv.write_rows_pair_pallas(
+            jnp.asarray(caches[a], jdt[a]), jnp.asarray(caches[a + 1],
+                                                        jdt[a + 1]),
+            jnp.asarray(jrows[a], jdt[a]), jnp.asarray(jrows[a + 1],
+                                                       jdt[a + 1]),
+            jnp.asarray(start, jnp.int32), interpret=True)
+    out = tkv.write_rows_pair(tc[0], tc[1], trows[0], trows[1],
+                              torch.from_numpy(start).to(st_dtype),
+                              scales=tuple(tc[2:] + trows[2:]) or None)
+    assert out[0] is tc[0] and out[1] is tc[1]
+    for got, w in zip(tc, want):
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(w.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("bad", [-1, 9])
+def test_kv_writer_plain_refuses_a_start_out_of_range(bad):
+    kc, vc = torch.zeros(3, 9, 2, 128), torch.zeros(3, 9, 2, 128)
+    u = torch.ones(3, 1, 2, 128)
+    with pytest.raises(IndexError):
+        tkv.write_rows_pair(kc, vc, u, u, torch.tensor([0, bad, 3]))
+    with pytest.raises(IndexError):
+        tkv.write_rows(kc, u, torch.tensor([bad, 0, 3]))
+
+
+class _EmulatedWriter:
+    """Stands in for the built library: takes the C call's arguments as the
+    kernel would (every array's chunk size from its row size, slot stride
+    and addresses; threads over (slot, array, chunk); a start outside [0,
+    S) skipped) and performs the copies on the CPU tensors behind the
+    pointers."""
+
+    def __init__(self, tensors):
+        self.by_ptr = {t.data_ptr(): t for t in tensors}
+        self.calls = []
+
+    @staticmethod
+    def _bytes(t):
+        raw = torch.empty(0, dtype=torch.uint8).set_(t.untyped_storage())
+        return raw, t.storage_offset() * t.element_size()
+
+    def vlut_write_rows(self, n, caches, rows, lds, nbytes, start, start64, b,
+                        s, stream):
+        self.calls.append(dict(n=n, lds=list(lds), nbytes=list(nbytes),
+                               start64=start64, b=b, s=s))
+        st = self.by_ptr[start].tolist()
+        arrays = []
+        for i in range(n):
+            c, u = self.by_ptr[caches[i]], self.by_ptr[rows[i]]
+            bits = caches[i] | rows[i] | lds[i] | nbytes[i]
+            lg = 4
+            while lg > 0 and bits & ((1 << lg) - 1):
+                lg -= 1
+            arrays.append((c, u, lds[i], nbytes[i], lg))
+        per_slot = sum(rb >> lg for *_, rb, lg in arrays)
+        for t in range(b * per_slot):
+            slot, c = divmod(t, per_slot)
+            if not 0 <= st[slot] < s:
+                continue
+            for cache, row, ld, rb, lg in arrays:
+                if c < rb >> lg:
+                    break
+                c -= rb >> lg
+            dst, d0 = self._bytes(cache)
+            src, s0 = self._bytes(row)
+            off = c << lg
+            at = d0 + (slot * s + st[slot]) * rb + off
+            frm = s0 + slot * ld + off
+            dst[at:at + (1 << lg)] = src[frm:frm + (1 << lg)]
+        return 0
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8"])
+def test_kv_writer_launch_arguments_emulated(q8, monkeypatch):
+    """The wrapper's one call (arrays, slot strides in bytes, row sizes,
+    int64 starts) run through an emulation of the kernel's thread mapping
+    gives the plain assignment, a start out of range skipped."""
+    b, s, hkv, hd = 4, 7, 2, 128
+    caches, rows, start = _kv_layer(b, s, hkv, hd, q8, seed=12)
+    start[1] = s  # out of range: the kernel writes nothing there
+    trows = _torch_rows(rows, q8, hkv, hd)
+    tc = [torch.from_numpy(c.copy()) if q8 else torch.from_numpy(c).to(
+        torch.bfloat16) for c in caches]
+    want = [c.clone() for c in tc]
+    ok = torch.from_numpy(start) < s
+    for c, u in zip(want, trows):
+        for slot in range(b):
+            if ok[slot]:
+                c[slot, start[slot]] = u[slot, 0]
+    st = torch.from_numpy(start).long()
+    lib = _EmulatedWriter(tc + trows + [st])
+    monkeypatch.setattr(tkv, "_stream", lambda: 0)
+    tkv._launch(tc, trows, st, lib=lib)
+    (call,) = lib.calls
+    assert call["n"] == len(tc) and call["start64"] == 1
+    assert call["lds"] == [u.stride(0) * u.element_size() for u in trows]
+    assert call["nbytes"] == [c[0, 0].numel() * c.element_size() for c in tc]
+    if not q8:
+        assert call["lds"][1] == 4 * hkv * hd * 2  # the fused qkv row
+    for i, (got, w) in enumerate(zip(tc, want)):
+        assert torch.equal(got[ok], w[ok]), i
+        assert torch.equal(got[~ok], torch.from_numpy(caches[i]).to(
+            got.dtype)[~ok]), i
+
+
 # --- routing -------------------------------------------------------------------
 
 @pytest.mark.parametrize("m,small", [(1, True), (64, True), (65, False),

@@ -6,15 +6,21 @@ behind an ``Engine`` with 32 slots and a 2048-row context.  48 greedy
 requests with prompts of 64-1500 random tokens (so the queue exceeds the
 slots and prompts past 1024 tokens are prefilled in chunks) each generate
 24 tokens.  Prefill and decode rates come from the engine's counters (host
-clock around work that ends in a device sync).
+clock around work that ends in a device sync).  On the card the decode
+step is a CUDA graph (captured at its second step; the capture's time is
+counted apart, ``capture_s``, and each step program's capture time, graph
+memory and replays are listed).
 
     python -m vlut_tpu_torch.bench.engine [--cache-type bf16|q8]
         [--decode-attn fused|composed] [--layers L] [--device cpu]
-        [--profile-steps N]
+        [--ab] [--profile-steps N]
 
 prints one JSON line; with ``--profile-steps`` it also breaks N decode
 steps (taken while all 32 slots decode and none is admitted) down by
-kernel under ``torch.profiler``.
+kernel under ``torch.profiler``.  ``--ab`` runs the graphed and the eager
+step in turns on one model (graph, eager, eager, graph; with
+``--profile-steps``, one profiled run of each after them), a line per run,
+and fails unless every run gave the same tokens.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from vlut_tpu_torch.bench.flagship import build_model, profile_decode
 from vlut_tpu_torch.device import resolve_device
 from vlut_tpu_torch.models import transformer
 from vlut_tpu_torch.models.transformer import forward
+from vlut_tpu_torch.ops import _build
 from vlut_tpu_torch.ops import decode_attention as dattn
 from vlut_tpu_torch.ops import ternary_gemm as tg
 from vlut_tpu_torch.ops.kv_update import write_rows_pair
@@ -106,16 +113,18 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
         kv_quant: bool = False, decode_attn: str = "fused",
         n_slots: int = N_SLOTS, ctx: int = CTX, requests=None, built=None,
         profile_steps: int = 0, check_paths: bool = False,
-        seed: int = 0) -> dict:
+        seed: int = 0, cuda_graph: bool = True) -> dict:
     """Run the workload once on a fresh engine; ``built`` is a (cfg, model)
     pair from :func:`build_model` to reuse.  Returns the counters, the
     generated tokens and, with ``profile_steps``, a decode breakdown; with
     ``check_paths``, :func:`compare_attention_paths` once every slot
     decodes."""
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        _build.build_all()  # set-up: no kernel is built in a timed step
     cfg, model = built or build_model(preset, dev, n_layers, seed)
     eng = Engine(cfg, model, n_slots=n_slots, max_len=ctx, kv_quant=kv_quant,
-                 decode_attn=decode_attn)
+                 decode_attn=decode_attn, cuda_graph=cuda_graph)
     reqs = requests if requests is not None else make_requests(cfg.vocab_size)
     for r in reqs:
         eng.submit(r)
@@ -150,6 +159,7 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "cache": "q8" if kv_quant else "bf16", "decode_attn": decode_attn,
+        "cuda_graph": eng.cuda_graph,
         "slots": n_slots, "ctx": ctx, "requests": len(reqs),
         "prompt_tokens": p.n_prompt_tokens, "prompt_s": p.t_prompt_s,
         "prompt_tok_per_s": p.n_prompt_tokens / p.t_prompt_s,
@@ -157,6 +167,8 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
         "decode_s": p.t_decode_s,
         "decode_tok_per_s": p.n_decode_tokens / p.t_decode_s,
         "decode_ms_per_step": p.t_decode_s / p.n_decode_steps * 1e3,
+        "captures": p.n_captures, "capture_s": p.t_capture_s,
+        "step_programs": eng.step_programs(),
         "wall_s": wall_s,
         "outputs": [r.output for r in reqs],
         **({"profile": prof} if prof is not None else {}),
@@ -173,12 +185,30 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--decode-attn", choices=("fused", "composed"),
                     default="fused")
     ap.add_argument("--profile-steps", type=int, default=0)
+    ap.add_argument("--ab", action="store_true",
+                    help="the graphed and the eager step in turns")
     args = ap.parse_args(argv)
-    out = run(args.preset, args.device, args.layers,
-              kv_quant=args.cache_type == "q8", decode_attn=args.decode_attn,
-              profile_steps=args.profile_steps)
-    out.pop("outputs")
-    print(json.dumps(out))
+    kw = dict(kv_quant=args.cache_type == "q8", decode_attn=args.decode_attn)
+    if not args.ab:
+        out = run(args.preset, args.device, args.layers,
+                  profile_steps=args.profile_steps, **kw)
+        out.pop("outputs")
+        print(json.dumps(out))
+        return
+    built = build_model(args.preset, resolve_device(args.device),
+                        args.layers)
+    turns = [(g, 0) for g in (True, False, False, True)]
+    if args.profile_steps:
+        turns += [(True, args.profile_steps), (False, args.profile_steps)]
+    outputs = []
+    for graph, prof in turns:
+        out = run(args.preset, args.device, built=built, profile_steps=prof,
+                  cuda_graph=graph, **kw)
+        outputs.append(out.pop("outputs"))
+        print(json.dumps(out), flush=True)
+    if any(o != outputs[0] for o in outputs):
+        raise SystemExit("the graphed and the eager step gave different "
+                         "tokens")
 
 
 if __name__ == "__main__":

@@ -4,14 +4,19 @@ A packed i2 ternary Llama at ``llama3_8b_158`` shapes with seeded random
 weights generated on the device (int8 output head, fused and unrolled
 layer tree): one prefill of 32 slots x 128-token prompts, then greedy
 batched decode.  The decode step time is the marginal between an n = 8 and
-an n = 40 run (each after a fresh prefill, best of ``reps``), which cancels
-the fixed per-run costs.  Device times come from CUDA events.
+an n = 40 run (each after a fresh prefill into the same cache, best of
+``reps``), which cancels the fixed per-run costs.  Device times come from
+CUDA events.  On the card the decode step is one CUDA graph, captured in
+each n's warm-up run (never in a timed one).
 
     python -m vlut_tpu_torch.bench.flagship [--layers L] [--device cpu]
-        [--decode-attn fused|composed] [--profile]
+        [--decode-attn fused|composed] [--ab] [--profile]
 
 prints one JSON line with prefill ms, ms per decode step and tokens/s
 (and, with ``--profile``, the device time of one decode run by kernel).
+``--ab`` runs the graphed and the eager step in turns on one model (graph,
+eager, eager, graph), a line per run, and fails unless their tokens are
+identical.
 """
 
 from __future__ import annotations
@@ -80,9 +85,12 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
         reps: int = 3, seed: int = 0, np_slots: int = NP_SLOTS,
         prompt_len: int = PROMPT_LEN, n_lo: int = N_LO,
         n_hi: int = N_HI, profile: bool = False,
-        decode_attn: str = "fused", built=None) -> dict:
+        decode_attn: str = "fused", built=None,
+        cuda_graph: bool = True) -> dict:
     """``built``: a (cfg, model) pair from :func:`build_model` to reuse;
-    ``decode_attn``: the decode step's attention path (``forward``)."""
+    ``decode_attn``: the decode step's attention path (``forward``);
+    ``cuda_graph=False``: the eager decode step.  The result's ``tokens``
+    are the (np, n_hi) greedy tokens of the last timed run."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     cfg, model = built or build_model(preset, dev, n_layers, seed)
@@ -95,9 +103,12 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
         rng.integers(0, cfg.vocab_size, (np_slots, prompt_len))).to(dev)
     positions = torch.arange(prompt_len, device=dev)[None].repeat(np_slots, 1)
     logits_at = torch.full((np_slots,), prompt_len - 1, device=dev)
+    # one cache, prefilled in place before every run: the decode graph
+    # keeps its tensors (a run writes rows past the prompt, which the next
+    # prefill's decode writes again before it reads them)
+    cache = init_kv_cache(cfg, np_slots, max_len=max_len, device=dev)
 
     def prefill():
-        cache = init_kv_cache(cfg, np_slots, max_len=max_len, device=dev)
         return forward(model, cfg, tokens, positions, cache,
                        logits_at=logits_at)
 
@@ -115,12 +126,12 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
     decode_ms = {}
     for n in (n_lo, n_hi):
         gen = make_generate_fn(cfg, n_steps=n, features=features_of(samplers),
-                               decode_attn=decode_attn)
-        _, cache = prefill()
-        toks, _ = gen(model, cache, last, lengths, sp)  # warm-up
+                               decode_attn=decode_attn, cuda_graph=cuda_graph)
+        prefill()
+        toks, _ = gen(model, cache, last, lengths, sp)  # warm-up, capture
         best = float("inf")
         for _ in range(reps):
-            _, cache = prefill()
+            prefill()
             (toks, _), ms = _elapsed_ms(
                 dev, lambda: gen(model, cache, last, lengths, sp))
             best = min(best, ms)
@@ -133,14 +144,17 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
     if profile and dev.type == "cuda":
         gen = make_generate_fn(cfg, n_steps=n_lo,
                                features=features_of(samplers),
-                               decode_attn=decode_attn)
-        _, cache = prefill()
+                               decode_attn=decode_attn, cuda_graph=cuda_graph)
+        prefill()
+        gen(model, cache, last, lengths, sp)  # warm-up, capture
+        prefill()
         prof = profile_decode(lambda: gen(model, cache, last, lengths, sp),
                               n_lo)
     return {
         "preset": preset,
         "n_layers": cfg.n_layers,
         "decode_attn": decode_attn,
+        "cuda_graph": cuda_graph and dev.type == "cuda",
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "setup_s": setup_s,
@@ -149,6 +163,7 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
         "decode_ms": decode_ms,
         "ms_per_step": step_ms,
         "tok_per_s": np_slots / step_ms * 1e3,
+        "tokens": toks,
         **({"profile": prof} if prof is not None else {}),
     }
 
@@ -156,9 +171,11 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
 def profile_decode(fn, n_steps: int, top: int = 12) -> dict:
     """Device time by kernel over one call of ``fn`` (``n_steps`` decode
     steps) under ``torch.profiler``: the wall time, the summed kernel time,
-    the device's idle share, the ``top`` kernels by time with their
-    launches per step, and the host operators by self CPU time (what the
-    host spends dispatching a step)."""
+    the device's idle share, the kernels run and the host's launch calls
+    (``cudaLaunchKernel``, ``cudaLaunchKernelExC``, ``cudaGraphLaunch``) per
+    step, the ``top`` kernels by time with their launches per step, and the
+    host operators by self CPU time (what the host spends dispatching a
+    step)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -176,10 +193,16 @@ def profile_decode(fn, n_steps: int, top: int = 12) -> dict:
                   key=lambda e: -e.self_cpu_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     kernels.sort(key=lambda e: -e.self_device_time_total)
+    # the host's launches: kernels one by one, or graphs
+    runtime = {e.key: e.count / n_steps for e in events
+               if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                            "cudaGraphLaunch")}
     return {
         "wall_ms_per_step": wall_ms / n_steps,
         "kernel_ms_per_step": busy_ms / n_steps,
         "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
+        "kernels_per_step": sum(e.count for e in kernels) / n_steps,
+        "launch_calls_per_step": runtime,
         "top": [{"kernel": e.key[:80],
                  "ms_per_step": e.self_device_time_total / 1e3 / n_steps,
                  "launches_per_step": e.count / n_steps}
@@ -202,10 +225,20 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--profile", action="store_true",
                     help="also break one n=8 decode run down by kernel "
                     "(torch.profiler; GPU only)")
+    ap.add_argument("--ab", action="store_true",
+                    help="the graphed and the eager step in turns")
     args = ap.parse_args(argv)
-    print(json.dumps(run(args.preset, args.device, args.layers,
-                         profile=args.profile,
-                         decode_attn=args.decode_attn)))
+    dev = resolve_device(args.device)
+    built = build_model(args.preset, dev, args.layers)
+    tokens = []
+    for graph in (True, False, False, True) if args.ab else (True,):
+        out = run(args.preset, dev, profile=args.profile, built=built,
+                  decode_attn=args.decode_attn, cuda_graph=graph)
+        tokens.append(out.pop("tokens"))
+        print(json.dumps(out), flush=True)
+    if any(not torch.equal(t, tokens[0]) for t in tokens):
+        raise SystemExit("the graphed and the eager step gave different "
+                         "tokens")
 
 
 if __name__ == "__main__":

@@ -49,11 +49,13 @@ import torch
 
 def run_batched(model, cfg, ids: list[int], np_parallel: int, n_predict: int,
                 temp: float = 0.5, repeat_penalty: float = 1.5,
-                seed: int = 0, decode_attn: str = "fused") -> torch.Tensor:
+                seed: int = 0, decode_attn: str = "fused",
+                cuda_graph: bool = True) -> torch.Tensor:
     """Prefill ``ids`` into ``np_parallel`` slots and generate ``n_predict``
     tokens per slot; returns (np, n_predict) token ids.  As in the JAX
     package, the argmax of the prefill logits seeds decoding and is not part
-    of the returned rows."""
+    of the returned rows.  ``cuda_graph=False`` decodes eagerly on the
+    card."""
     from vlut_tpu_torch.models.transformer import forward, init_kv_cache
     from vlut_tpu_torch.runtime.generate import make_generate_fn
     from vlut_tpu_torch.runtime.sampling import (
@@ -75,7 +77,7 @@ def run_batched(model, cfg, ids: list[int], np_parallel: int, n_predict: int,
     last = torch.argmax(logits[:, 0, : cfg.vocab_size], dim=-1)
     gen = make_generate_fn(cfg, n_steps=n_predict,
                            features=features_of(samplers),
-                           decode_attn=decode_attn)
+                           decode_attn=decode_attn, cuda_graph=cuda_graph)
     out, _ = gen(model, cache, last, torch.full((b,), t, device=dev),
                  stack_params(samplers, device=dev), seed)
     return out

@@ -317,6 +317,15 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    @property
+    def n_logits(self) -> int:
+        """The width of the logits ``forward`` returns (the padded vocab)."""
+        if hasattr(self, "lm_head_q"):
+            return self.lm_head_q.shape[-1]
+        if hasattr(self, "lm_head"):
+            return self.lm_head.shape[-1]
+        return self.embed.shape[0]
+
     def tree(self) -> dict[str, Any]:
         layers = (self.layers.tree() if isinstance(self.layers, StackedLayers)
                   else [_layer_tree(lp) for lp in self.layers])
@@ -617,9 +626,9 @@ class _SlotKV:
         arrs = [self._layer(n) for n in self._names()]
         b, t = k.shape[:2]
         if t == 1 and self.slots is None:
-            for a in range(0, len(arrs), 2):
-                write_rows_pair(arrs[a], arrs[a + 1], rows[a], rows[a + 1],
-                                start)
+            # one launch for the layer: K, V and the q8 scale planes
+            write_rows_pair(arrs[0], arrs[1], rows[0], rows[1], start,
+                            scales=tuple(arrs[2:] + list(rows[2:])) or None)
         else:
             s = arrs[0].shape[1]
             idx = (self.slots if self.slots is not None

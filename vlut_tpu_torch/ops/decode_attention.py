@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from vlut_tpu_torch.ops import _build
+from vlut_tpu_torch.ops import _build, counted, holds_buffers
 from vlut_tpu_torch.ops.ternary_gemm import _stream, sm_count
 from vlut_tpu_torch.runtime.kv_cache import dequantize_kv, quantize_kv
 
@@ -150,6 +150,13 @@ def type_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 _dlib = None
 _work: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+@holds_buffers
+def _workspaces() -> list:
+    # a CUDA graph captured with a workspace keeps it, so a larger call
+    # may replace it here
+    return [t for pair in _work.values() for t in pair]
 
 
 def _lib() -> ctypes.CDLL:
@@ -277,5 +284,5 @@ def decode_attention_int8(q: torch.Tensor, k_new: torch.Tensor,
     return out
 
 
-decode_attention.launches = 0
-decode_attention_int8.launches = 0
+counted(decode_attention)
+counted(decode_attention_int8)

@@ -4,8 +4,11 @@
 ``cache[b, start[b]]`` and :func:`write_rows` does the same for one array.
 Both update the caches IN PLACE and return them (the JAX package gets the
 same effect through buffer donation).  A CUDA tensor goes to the kernel in
-``csrc/kv_update.cu`` (one kernel serves both forms); a CPU tensor goes to
-the plain indexed assignment.  The kernel drops a write whose start lies
+``csrc/kv_update.cu``: one launch for every array of a layer's update (K
+and V, and with ``scales`` the int8 cache's two scale planes), the rows
+taken with the slot stride the layer gives them and the starts as int32 or
+int64, so nothing is cast or copied before it.  A CPU tensor goes to the
+plain indexed assignment.  The kernel drops a write whose start lies
 outside [0, S); the plain version raises on it.
 """
 
@@ -15,16 +18,18 @@ import ctypes
 
 import torch
 
-from vlut_tpu_torch.ops import _build
+from vlut_tpu_torch.ops import _build, counted
 
 _P = ctypes.c_void_p
+MAX_ARRAYS = 4  # csrc/kv_update.cu kMaxArrays
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("kv_update.cu")
     if not getattr(lib, "_vlut_typed", False):
         lib.vlut_write_rows.argtypes = [
-            _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_long, _P]
+            ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, _P]
         lib.vlut_write_rows.restype = ctypes.c_int
         lib._vlut_typed = True
     return lib
@@ -36,46 +41,71 @@ def _stream() -> int:
 
 def _write_plain(cache: torch.Tensor, u: torch.Tensor,
                  start: torch.Tensor) -> None:
-    b = cache.shape[0]
-    cache[torch.arange(b, device=cache.device), start.long()] = u[:, 0].to(
-        cache.dtype)
+    b, s = cache.shape[:2]
+    st = start.long()
+    if bool(((st < 0) | (st >= s)).any()):
+        raise IndexError(f"a start lies outside [0, {s}): {st.tolist()}")
+    cache[torch.arange(b, device=cache.device), st] = u[:, 0].to(cache.dtype)
 
 
-def _launch(kc, vc, ku, vu, start) -> None:
-    b, s = kc.shape[:2]
-    for c, u in ((kc, ku), (vc, vu)):
-        if c is None:
-            continue
-        if not (c.is_contiguous() and u.is_contiguous()):
-            raise ValueError("cache and rows must be contiguous")
-        if (u.shape != (b, 1) + c.shape[2:] or u.dtype != c.dtype
-                or u.device != c.device):
-            raise ValueError(f"row {tuple(u.shape)} {u.dtype} does not fit "
-                             f"cache {tuple(c.shape)} {c.dtype}")
-    start = start.to(device=kc.device, dtype=torch.int32).contiguous()
-    if start.shape != (b,):
-        raise ValueError("start must be (B,)")
-    row_bytes = kc[0, 0].numel() * kc.element_size()
-    err = _lib().vlut_write_rows(
-        kc.data_ptr(), vc.data_ptr() if vc is not None else None,
-        ku.data_ptr(), vu.data_ptr() if vu is not None else None,
-        start.data_ptr(), b, s, row_bytes, _stream())
+def _slot_stride(c: torch.Tensor, u: torch.Tensor) -> int:
+    """The slot stride of the rows ``u`` (B, 1, *trail) of cache ``c``
+    (B, S, *trail): same type and device, trailing dims contiguous."""
+    b, trail = c.shape[0], tuple(c.shape[2:])
+    ok = (tuple(u.shape) == (b, 1) + trail and u.dtype == c.dtype
+          and u.device == c.device and c.is_contiguous())
+    step = 1
+    for dim in range(u.dim() - 1, 1, -1):
+        ok = ok and (u.shape[dim] == 1 or u.stride(dim) == step)
+        step *= u.shape[dim]
+    if not ok:
+        raise ValueError(
+            f"rows {tuple(u.shape)} {u.dtype} strides {u.stride()} do not "
+            f"fit the contiguous cache {tuple(c.shape)} {c.dtype}")
+    return u.stride(0)
+
+
+def _launch(caches, rows, start, lib=None) -> None:
+    """One kernel call for up to four arrays of one layer; ``lib``
+    overrides the build (studies, tests)."""
+    b, s = caches[0].shape[:2]
+    n = len(caches)
+    if not 0 < n <= MAX_ARRAYS or len(rows) != n:
+        raise ValueError(f"1 to {MAX_ARRAYS} caches, one row each")
+    lds, nbytes = [], []
+    for c, u in zip(caches, rows):
+        if c.shape[:2] != (b, s):
+            raise ValueError("the caches must share (B, S)")
+        lds.append(_slot_stride(c, u) * u.element_size())
+        nbytes.append(c[0, 0].numel() * c.element_size())
+    if (start.shape != (b,) or start.dtype not in (torch.int32, torch.int64)
+            or start.stride(0) != 1 or start.device != caches[0].device):
+        raise ValueError("start must be a contiguous (B,) int32 or int64 on "
+                         "the caches' device")
+    arr = ctypes.c_void_p * n
+    lng = ctypes.c_long * n
+    err = (lib or _lib()).vlut_write_rows(
+        n, arr(*[c.data_ptr() for c in caches]),
+        arr(*[u.data_ptr() for u in rows]), lng(*lds), lng(*nbytes),
+        start.data_ptr(), int(start.dtype == torch.int64), b, s, _stream())
     _build.check(err, "vlut_write_rows")
 
 
 def write_rows_pair(kc: torch.Tensor, vc: torch.Tensor, ku: torch.Tensor,
-                    vu: torch.Tensor, start: torch.Tensor):
-    """kc/vc (B, S, H, D) caches, ku/vu (B, 1, H, D) rows, start (B,):
-    writes both rows of every slot in one launch, in place; returns
-    (kc, vc)."""
+                    vu: torch.Tensor, start: torch.Tensor, scales=None):
+    """kc/vc (B, S, H, D) caches, ku/vu (B, 1, H, D) rows of the caches'
+    type (any slot stride, trailing dims contiguous), start (B,) int32 or
+    int64: writes both rows of every slot, in place; returns (kc, vc).
+    ``scales`` = (k_scale cache, v_scale cache, k row scales, v row scales),
+    (B, S, H) and (B, 1, H) float32, the int8 cache's scale planes, written
+    in the same launch."""
+    caches = (kc, vc) + tuple(scales[:2] if scales is not None else ())
+    rows = (ku, vu) + tuple(scales[2:] if scales is not None else ())
     if not kc.is_cuda:
-        _write_plain(kc, ku, start)
-        _write_plain(vc, vu, start)
+        for c, u in zip(caches, rows):
+            _write_plain(c, u, start)
         return kc, vc
-    if not vc.is_cuda:
-        raise ValueError("kc and vc must lie on one device")
-    _launch(kc, vc, ku.to(kc.dtype).contiguous(), vu.to(vc.dtype).contiguous(),
-            start)
+    _launch(caches, rows, start)
     write_rows_pair.launches += 1
     return kc, vc
 
@@ -87,9 +117,9 @@ def write_rows(cache: torch.Tensor, u: torch.Tensor,
     if not cache.is_cuda:
         _write_plain(cache, u, start)
         return cache
-    _launch(cache, None, u.to(cache.dtype).contiguous(), None, start)
+    _launch((cache,), (u,), start)
     write_rows_pair.launches += 1
     return cache
 
 
-write_rows_pair.launches = 0
+counted(write_rows_pair)

@@ -26,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from vlut_tpu_torch.ops import _build
+from vlut_tpu_torch.ops import _build, counted
 from vlut_tpu_torch.ops.packing import TRITS_PER_BYTE, DEFAULT_BLOCK, unpack_fields
 from vlut_tpu_torch.ops.quant import true_div
 
@@ -422,7 +422,7 @@ def _decode_cuda(x1, packed, w_scale, x2, norm_g, residual, fmt, kb, mode,
     return out
 
 
-ternary_gemm_decode.launches = 0
+counted(ternary_gemm_decode)
 
 
 # --- kernel 4: small-M GEMM with the quantization fused --------------------------
@@ -454,7 +454,7 @@ def ternary_gemm_fused_quant(
     return out
 
 
-ternary_gemm_fused_quant.launches = 0
+counted(ternary_gemm_fused_quant)
 
 
 # --- kernel 3: tiled GEMM on pre-quantized activations -----------------------------
@@ -547,4 +547,4 @@ def _tiled_cuda(x_q, packed, x_scale, w_scale, fmt, kb, k, out_dtype):
     return out
 
 
-ternary_gemm_tiled.launches = 0
+counted(ternary_gemm_tiled)

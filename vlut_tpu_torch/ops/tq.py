@@ -31,7 +31,7 @@ import math
 import numpy as np
 import torch
 
-from vlut_tpu_torch.ops import _build
+from vlut_tpu_torch.ops import _build, counted
 from vlut_tpu_torch.ops.ternary_gemm import (
     _check_cuda, _int_matmul, _stream, sm_count)
 
@@ -312,7 +312,7 @@ def _tq_cuda(x_q, packed, scales, x_scale, fmt, bk, out_dtype, plan=None,
     return (out if np_ == n else out[:, :n]).to(out_dtype)
 
 
-tq_gemm.launches = 0
+counted(tq_gemm)
 
 
 def tq2_gemm(*args, **kw):

@@ -11,11 +11,25 @@ the scratch row ``max_len - 1``).  A slot one row from capacity shifts its
 context (keeps ``n_keep`` tokens, drops half of the rest, re-rotates the
 moved keys).
 
-PyTorch runs eagerly, so nothing is compiled per shape: the bucket sizes
+Prefill runs eagerly, so nothing is compiled per shape: the bucket sizes
 only set the prefill groups and the chunk size, kept as in the JAX package
 so that the same requests see the same computation.  Prefill rows are
 written in place into their slots' cache rows, and each layer reads back
 only the slots of its group.
+
+The decode step is one program per sampler feature set, as the JAX
+engine keys its jitted step: forward, pad-vocab mask, sampler chain and
+ring update over static tensors (:meth:`Engine._decode_step`).  (The JAX
+key also holds ``k_probs > 0``; here log-probs are computed outside the
+program, so it is the same program with or without them.)  On the card it
+is captured once as a CUDA graph (:mod:`runtime.step_graph`), after one
+eager step of the same key, and replayed; every program of an engine
+shares one memory pool.  The host fills the static tokens and lengths
+through a pinned copy, draws the step's noise from the per-slot
+generators into static tensors, replays, and reads the next tokens back
+with one ``.tolist()``.  Log-probs, admission, prefill, context shift and
+``fork_slot`` stay on the host, eager.  On the CPU, or with
+``cuda_graph=False`` (the eager A/B), the same step runs eagerly.
 
 Not ported yet (each raises ``NotImplementedError``): multi-device meshes,
 draft-model speculation and lookahead decoding, grammar-constrained
@@ -47,12 +61,15 @@ from vlut_tpu_torch.runtime import kv_cache as kvc
 from vlut_tpu_torch.runtime.sampling import (
     NEG_INF,
     SamplerParams,
+    draw_noise,
     features_of,
     init_state,
+    noise_shapes,
     row_generator,
     sample_ex,
     stack_params,
 )
+from vlut_tpu_torch.runtime.step_graph import step_runner
 
 PENALTY_WINDOW = 64
 N_KEEP = 4  # prompt tokens a context shift keeps
@@ -126,6 +143,9 @@ class PerfCounters:
     n_decode_steps: int = 0
     n_reused_tokens: int = 0
     n_shifted_tokens: int = 0
+    # decode-step captures (CUDA graphs), kept out of t_decode_s
+    n_captures: int = 0
+    t_capture_s: float = 0.0
 
     def summary(self) -> str:
         pp = self.n_prompt_tokens / self.t_prompt_s if self.t_prompt_s else 0
@@ -139,10 +159,21 @@ class PerfCounters:
         )
 
 
+@dataclasses.dataclass
+class _StepProgram:
+    """The decode step of one feature set: the noise it draws (shapes and
+    static tensors) and its runner (``runtime.step_graph.step_runner``)."""
+
+    shapes: dict[str, tuple]
+    noise: dict[str, torch.Tensor]
+    run: Any
+
+
 class Engine:
     """Single-device slot engine over a :class:`TransformerLM`, on the
     model's device; the model is served as the fused, unrolled tree with a
-    bf16 or int8 (``kv_quant``) cache."""
+    bf16 or int8 (``kv_quant``) cache.  ``cuda_graph=False`` runs the
+    decode step eagerly on the card too."""
 
     def __init__(
         self,
@@ -158,6 +189,7 @@ class Engine:
         prefill_buckets: tuple[int, ...] = (16, 32, 64, 128, 256, 512, 1024),
         mesh: Any = None,
         decode_attn: str = "fused",
+        cuda_graph: bool = True,
     ):
         if mesh is not None:
             raise _not_ported("multi-device serving (mesh=)", "13")
@@ -195,6 +227,19 @@ class Engine:
         # is admitted there
         self._gens: list[torch.Generator | None] = [None] * n_slots
         self._features: tuple[str, ...] = ()
+        # the decode step's static inputs, (tokens, lengths), filled from a
+        # pinned host copy; one program per key
+        self._step_in = torch.zeros((2, n_slots), dtype=torch.long,
+                                    device=dev)
+        self._host_in = torch.zeros((2, n_slots), dtype=torch.long,
+                                    pin_memory=dev.type == "cuda")
+        self.cuda_graph = cuda_graph and dev.type == "cuda"
+        self._steps: dict[tuple[str, ...], _StepProgram] = {}
+        # one pool for every program's graph: replays run one at a time on
+        # one stream and each step's outputs are read before the next
+        # replay, so a graph may reuse what another freed at its capture
+        self._pool = (torch.cuda.graph_pool_handle() if self.cuda_graph
+                      else None)
 
         self.context_shift = context_shift
         self._rope_tables = None
@@ -309,7 +354,9 @@ class Engine:
 
         active = [(s.req.sampler if s.req else SamplerParams(temperature=0.0))
                   for s in self.slots]
-        self._sp = stack_params(active, device=self.device)
+        # in place: a captured step reads these tensors
+        for k, v in stack_params(active, device=self.device).items():
+            self._sp[k].copy_(v)
         self._features = features_of(active)
 
     @torch.inference_mode()
@@ -433,6 +480,65 @@ class Engine:
         slot.generated += 1
         self._finish_if_done(i, tok)
 
+    def _decode_step(self, features: tuple[str, ...],
+                     noise: dict[str, torch.Tensor]):
+        """The decode step a graph captures, over the static inputs
+        (``_step_in``, ``_sp``, the ring, the sampler state and ``noise``),
+        all updated in place: forward over every slot (its KV rows written),
+        pad-vocab mask, sampler chain, ring update.  Returns the (B,) next
+        tokens and the (B, V) float32 logits."""
+        tokens, lengths = self._step_in
+        logits, _ = forward(self.params, self.cfg, tokens[:, None],
+                            lengths[:, None], self.cache,
+                            decode_attn=self.decode_attn)
+        logits = _mask_pad_vocab(logits[:, 0].to(torch.float32),
+                                 self.cfg.vocab_size)
+        valid = _window_mask(self.ring_cnt, self._sp["penalty_last_n"])
+        nxt, state = sample_ex(
+            logits, self._sp, None, self._sampler_state, self.ring, valid,
+            features=features, noise=noise)
+        for k, v in state.items():
+            if v is not self._sampler_state[k]:
+                self._sampler_state[k].copy_(v)
+        rows = torch.arange(self.n_slots, device=self.device)
+        self.ring[rows, (self.ring_cnt % PENALTY_WINDOW).long()] = nxt.to(
+            torch.int32)
+        self.ring_cnt += 1
+        return nxt, logits
+
+    def _program(self, features: tuple[str, ...]) -> _StepProgram:
+        prog = self._steps.get(features)
+        if prog is None:
+            shapes = noise_shapes(self.n_slots, self.params.n_logits,
+                                  features)
+            noise = {name: torch.zeros(sh, device=self.device)
+                     for name, sh in shapes.items()}
+            prog = _StepProgram(shapes, noise, step_runner(
+                lambda: self._decode_step(features, noise), self.device,
+                self.cuda_graph, self._pool))
+            self._steps[features] = prog
+        return prog
+
+    def _run_step(self, prog: _StepProgram):
+        """One decode step of ``prog``: its noise drawn, then its runner
+        called (on the card: eager at the first call, captured at the
+        second, replayed after)."""
+        if prog.shapes:
+            draw_noise(self._gens, prog.shapes, self.device, out=prog.noise)
+        fresh = not prog.run.captured
+        out = prog.run()
+        if fresh and prog.run.captured:
+            self.perf.n_captures += 1
+            self.perf.t_capture_s += prog.run.capture_s
+        return out
+
+    def step_programs(self) -> list[dict]:
+        """Each decode step program: its features, and its graph's capture
+        time, memory and replays (none on the CPU, with ``cuda_graph=False``
+        or before the capture)."""
+        return [{"features": list(k), **p.run.stats()}
+                for k, p in self._steps.items()]
+
     @torch.inference_mode()
     def step(self) -> bool:
         """One engine iteration: admit new requests, decode all active
@@ -441,31 +547,21 @@ class Engine:
         active = [i for i, s in enumerate(self.slots) if s.req is not None]
         if not active:
             return bool(self.queue)
-        dev = self.device
-        tokens = torch.zeros((self.n_slots,), dtype=torch.long)
+        host = self._host_in.numpy()
+        host[0] = 0
         # idle slots still run; their row write lands on row max_len - 1,
         # which is never part of a reusable prefix
-        lengths = torch.full((self.n_slots,), self.max_len - 1,
-                             dtype=torch.long)
+        host[1] = self.max_len - 1
         for i in active:
             s = self.slots[i]
-            tokens[i] = s.req.output[-1]
-            lengths[i] = s.length + s.generated - 1
+            host[0, i] = s.req.output[-1]
+            host[1, i] = s.length + s.generated - 1
+        fed = host[0].tolist()
         k_probs = max(self.slots[i].req.n_probs for i in active)
         t0 = time.perf_counter()
-        logits, _ = forward(self.params, self.cfg, tokens[:, None].to(dev),
-                            lengths[:, None].to(dev), self.cache,
-                            decode_attn=self.decode_attn)
-        logits = _mask_pad_vocab(logits[:, 0].to(torch.float32),
-                                 self.cfg.vocab_size)
-        valid = _window_mask(self.ring_cnt, self._sp["penalty_last_n"])
-        nxt, self._sampler_state = sample_ex(
-            logits, self._sp, self._gens, self._sampler_state, self.ring,
-            valid, features=self._features)
-        rows = torch.arange(self.n_slots, device=dev)
-        self.ring[rows, (self.ring_cnt % PENALTY_WINDOW).long()] = nxt.to(
-            torch.int32)
-        self.ring_cnt += 1
+        self._step_in.copy_(self._host_in, non_blocking=True)
+        captures = self.perf.t_capture_s
+        nxt, logits = self._run_step(self._program(self._features))
         if k_probs:
             lp = torch.log_softmax(logits, dim=-1)
             top_lp, top_id = torch.topk(lp, k_probs, dim=-1)
@@ -473,13 +569,14 @@ class Engine:
             p_id, p_lp = top_id.cpu().numpy(), top_lp.cpu().numpy()
             p_chosen = chosen.cpu().tolist()
         nxt = nxt.tolist()
-        self.perf.t_decode_s += time.perf_counter() - t0
+        self.perf.t_decode_s += (time.perf_counter() - t0
+                                 - (self.perf.t_capture_s - captures))
         self.perf.n_decode_tokens += len(active)
         self.perf.n_decode_steps += 1
         for i in active:
             req = self.slots[i].req
             # the token fed this step had its KV row written
-            self.slots[i].kv_hist.append(int(tokens[i]))
+            self.slots[i].kv_hist.append(fed[i])
             if k_probs and req.n_probs:
                 req.logprobs.append((p_id[i, :req.n_probs],
                                      p_lp[i, :req.n_probs], p_chosen[i]))

@@ -309,11 +309,42 @@ def _uniform(gens, b: int, n: int, device) -> torch.Tensor:
     return torch.stack(rows)
 
 
-def _per_row_categorical(logits, gens):
-    """Gumbel-max draw per row with the row's own noise; masked entries get
-    no noise."""
-    b, v = logits.shape
-    u = _uniform(gens, b, v, logits.device)
+def noise_shapes(b: int, v: int,
+                 features: tuple[str, ...] | None) -> dict[str, tuple]:
+    """The uniform noise :func:`sample_ex` draws for B rows over V logits
+    with these features, in the order it draws it: the XTC roll, the
+    categorical draw, mirostat's draw.  A chain that only takes the argmax
+    draws nothing."""
+    on = (lambda name: features is None or name in features)
+    if not on("sampling") and not on("mirostat"):
+        return {}
+    shapes = {"xtc": (b, 1)} if on("xtc") else {}
+    shapes["categorical"] = (b, v)
+    if on("mirostat"):
+        shapes["mirostat"] = (b, v)
+    return shapes
+
+
+def draw_noise(gens, shapes: dict[str, tuple], device,
+               out: dict[str, torch.Tensor] | None = None
+               ) -> dict[str, torch.Tensor]:
+    """Draw the noise of :func:`noise_shapes` ahead of :func:`sample_ex`,
+    in its order, from the same per-row generators: handed to it as
+    ``noise``, it gives the tokens it would give drawing for itself, bit
+    for bit.  With ``out`` the draws are copied into those tensors (the
+    static inputs of a captured step)."""
+    drawn = {name: _uniform(gens, b, n, device)
+             for name, (b, n) in shapes.items()}
+    if out is None:
+        return drawn
+    for name, u in drawn.items():
+        out[name].copy_(u)
+    return out
+
+
+def _per_row_categorical(logits, u):
+    """Gumbel-max draw per row with the row's own uniform noise ``u``;
+    masked entries get no noise."""
     g = -torch.log(-torch.log(u.clamp(min=1e-20, max=1.0 - 1e-7)))
     g = torch.where(logits > NEG_INF / 2, g, torch.zeros_like(g))
     return torch.argmax(logits + g, dim=-1)
@@ -368,11 +399,18 @@ def sample_ex(
     allowed_mask: torch.Tensor | None = None,  # (B, V) bool
     dry_breakers: torch.Tensor | None = None,
     features: tuple[str, ...] | None = None,
+    noise: dict[str, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The full chain with carried per-row state; returns ((B,) int64
     tokens, state).  ``generators`` holds one generator per row (None for
-    a row that never samples); it may be None when no row samples."""
+    a row that never samples); it may be None when no row samples.
+    ``noise``, from :func:`draw_noise`, takes the place of the draws (a
+    captured step draws nothing: its noise is drawn before each replay)."""
     on = (lambda name: features is None or name in features)
+    b, v = logits.shape
+    if noise is None:
+        noise = draw_noise(generators, noise_shapes(b, v, features),
+                           logits.device)
     if on("logit_bias"):
         logits = apply_logit_bias(logits, p)
     if allowed_mask is not None:
@@ -401,10 +439,9 @@ def sample_ex(
     if on("min_p"):
         t = apply_min_p(t, p["min_p"])
     if on("xtc"):
-        roll = _uniform(generators, logits.shape[0], 1, logits.device)
-        t = apply_xtc(t, p["xtc_p"], p["xtc_t"], roll)
+        t = apply_xtc(t, p["xtc_p"], p["xtc_t"], noise["xtc"])
     t = apply_temperature(t, p)
-    std_tok = _per_row_categorical(t, generators)
+    std_tok = _per_row_categorical(t, noise["categorical"])
 
     if on("mirostat"):
         tau, eta = p["mirostat_tau"], p["mirostat_eta"]
@@ -417,7 +454,7 @@ def sample_ex(
         surprise = -torch.log2(torch.clamp(mprob, min=1e-30))
         mkeep = (surprise <= mu[:, None]) | (ml >= ml.amax(-1, keepdim=True))
         mt = torch.where(mkeep, ml, torch.full_like(ml, NEG_INF))
-        miro_tok = _per_row_categorical(mt, generators)
+        miro_tok = _per_row_categorical(mt, noise["mirostat"])
         obs = torch.gather(surprise, 1, miro_tok[:, None])[:, 0]
         new_mu = mu - eta * (obs - tau)
         use_miro = tau > 0
@@ -429,10 +466,11 @@ def sample_ex(
 
 def sample(logits: torch.Tensor, p: dict[str, torch.Tensor],
            generators: list[torch.Generator] | None = None,
-           features: tuple[str, ...] | None = None) -> torch.Tensor:
+           features: tuple[str, ...] | None = None,
+           noise: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
     """The chain, token only (fresh state, no token window): (B, V) ->
     (B,) int64."""
     tok, _ = sample_ex(logits, p, generators,
                        init_state(logits.shape[0], logits.device),
-                       features=features)
+                       features=features, noise=noise)
     return tok
