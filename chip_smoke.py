@@ -41,8 +41,35 @@ Phases (any failure exits non-zero; none is skipped):
      quantized-vs-dequant KL on the card (mean < 0.05, top-1 > 0.95);
  11. tiny_real requantized to i1 (convert/quantize.py) gives the i2
      model's greedy ``batched`` tokens on the card; ``inspect`` of both;
- 12. one JSON line of every kernel with its launches on the paths of phases
-     3-11, then the card, then ``{"ok": true, "device": ...}`` last.
+ 12. speculative decoding at full width: the flagship engine (32 slots, ctx
+     2048, 32 greedy requests of 128-1024 prompt tokens, 32 new tokens)
+     with a random bitnet_2b_4t draft (seed 1, the same vocabulary), k 4,
+     graphed rounds against eager ones (identical tokens); ms and tokens
+     per round, drafted and accepted counts, the round program's launches,
+     and the share of tokens equal to the plain engine's (printed, not
+     gated: the random flagship turns rounding into other tokens); then the
+     flagship as its own draft;
+ 13. lookahead at full width: the same engine and requests with W 4, G 3
+     (T 11 rows per slot, M 352), graphed against eager;
+ 14. tiny_real on the card and on the CPU (identical tokens): draft mode
+     (itself, and itself with its last layer dropped) and lookahead (their
+     tokens equal plain greedy), prompt lookup through the CLI (card text
+     equals the CPU's and plain greedy's), a GBNF and a json_schema request
+     (their outputs parse under their grammars), a random rank-8 LoRA
+     adapter written as safetensors and loaded by ``load_peft_adapter``,
+     and a control vector (each changes the tokens);
+ 15. grammar at full width: 8 flagship slots under a JSON schema over a
+     synthetic 128,256-piece vocabulary made from the seed, graphed
+     against eager, every output accepted by its grammar; host ms of the
+     masks against the step's;
+ 16. LoRA at full width: a random rank-16 adapter on wq/wv/w_up (the
+     unfused tree, #4 per projection at decode), 32 slots, graphed against
+     eager, ms per step against the fused model's;
+ 17. slot save/restore on the flagship engine: a slot saved after its
+     request, erased, restored into another slot of the captured engine;
+     the continuation equals the original slot's;
+ 18. one JSON line of every kernel with its launches on the paths of phases
+     3-17, then the card, then ``{"ok": true, "device": ...}`` last.
 
 Phase 2 times #3 (the tiled GEMM) at the flagship prefill (M 4096) and at
 the microbenchmark's i2 lanes (llama3_8b dxd, dxff, ffxd at M 32 and 256)
@@ -61,7 +88,9 @@ phases give them: #1 at every flagship projection in i2 and i1 at M 1,
 shapes that make its plan take every kernel instantiation and split count
 (with every tile and split forced at two), #3 bit-exact in i2 and i1 at the
 microbenchmark's lanes (M 32 and 256), at the e2e prefills (M 512 and
-16384) and at shapes that make its plan take each tile and split of K, #9
+16384), at the speculative verify's and the lookahead round's M (160 and
+352) and at shapes that make its plan take each tile and split of K, #1
+at the draft model's (bitnet_2b_4t's) four projections at M 32, #9
 bit-exact at shapes that make its plan take each tile and split count and
 with every tile and split forced at two shapes, #7 at the e2e benches'
 caches, and #7 and #8 at shapes that make attn_plan take each rows-per-block
@@ -569,6 +598,22 @@ def phase_kernels(dev) -> dict:
                 checked("ternary_gemm_decode", f"plan M={m} {k}->{n} {fmt} "
                         f"{'forced' if plan else 'plan'}={shown}", err)
             torch.cuda.empty_cache()
+    # #1 at the draft model's widths (bitnet_2b_4t: d 2560, 20/5 heads,
+    # d_ff 6912, sub-norms) at M 32, each projection of its layer
+    from vlut_tpu_torch.config import PRESETS
+    from vlut_tpu_torch.models.dims import make_plan
+
+    dc = PRESETS["bitnet_2b_4t"]
+    dp = make_plan(dc)
+    for label, k, n, mode, sub, has_res in (
+            ("draft_qkv", dc.d_model, dp.q_dim_p + 2 * dp.kv_dim_p, "norm",
+             False, False),
+            ("draft_wo", dp.wo_in_p, dc.d_model, "norm", False, True),
+            ("draft_gateup", dc.d_model, 2 * dp.ff_p, "norm", False, False),
+            ("draft_down", dp.ff_p, dc.d_model, "silu_mul", True, True)):
+        err = decode_case(label, 32, k, n, mode, sub, has_res, "i2")[-1]
+        checked("ternary_gemm_decode", f"{label} M=32 {k}->{n} i2 {mode}",
+                err)
     # #3 in the microbenchmark's i2/i1 lanes (llama3_8b dxd, dxff, ffxd at
     # M 32 and 256) and in the e2e benches' prefills (pp 512 at batch 1 and
     # 32: M 512 and 16384)
@@ -578,6 +623,10 @@ def phase_kernels(dev) -> dict:
              for m in (32, 256)]
     lanes += [(label, m, k, n) for label, k, n, *_ in shapes[:4]
               for m in (512, 16384)]
+    # the speculative verify (32 slots x (k 4 + 1): M 160) and the
+    # lookahead round (32 slots x T 11: M 352) at the flagship's widths
+    lanes += [(f"{tag}_{label}", m, k, n) for label, k, n, *_ in shapes[:4]
+              for tag, m in (("verify", 160), ("lookahead", 352))]
     # and at shapes that make tiled_plan take each of its tile rows (32, 64,
     # 128) with and without a split of K, at a ragged K too
     lanes += [("plan", m, k, n) for m, k, n in (
@@ -1109,7 +1158,12 @@ def main() -> None:
     tools_phases(dev, built, fixture, card, reset, read,
                  (cfg, gpu_model, cpu_model, ids, toks_gpu))
 
-    # 12. summary
+    # 12-17. speculative decoding, lookahead, grammar, LoRA / control
+    # vectors and slot save/restore
+    slice_phases(dev, built, fixture, card, reset, read,
+                 (cfg, gpu_model, cpu_model))
+
+    # 18. summary
     replaces = {
         "ternary_gemm_decode": ("vlut_tpu_torch/csrc/decode_gemm.cu",
                                 "vlut_tpu/ops/pallas_gemm.py:676"),
@@ -1357,6 +1411,423 @@ def server_phase(built, fixture, card, reset, read) -> None:
         fail(f"server counted errors: {errors}")
     if not all(same):
         fail("server tokens differ from a direct Engine.run")
+
+
+
+def slice_phases(dev, built, fixture, card, reset, read, real) -> None:
+    """Phases 12-17: speculative decoding, lookahead, grammar-constrained
+    sampling, LoRA / control vectors and slot save/restore, at the
+    flagship's full width (random weights) and on tiny_real (card against
+    CPU)."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vlut_tpu_torch import cli
+    from vlut_tpu_torch.bench import engine as bench_engine
+    from vlut_tpu_torch.bench import flagship
+    from vlut_tpu_torch.convert.checkpoint import write_safetensors
+    from vlut_tpu_torch.models.transformer import (
+        TransformerLM, init_params_fast, quantize_head)
+    from vlut_tpu_torch.runtime import grammar as gm
+    from vlut_tpu_torch.runtime import lora
+    from vlut_tpu_torch.runtime.engine import Engine, Request
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+
+    cfg_t, model_t = built
+    greedy = SamplerParams(temperature=0.0)
+    scratch = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+
+    def requests(n=32, lo=128, hi=1024, new=32, seed=2):
+        return bench_engine.make_requests(cfg_t.vocab_size, n, lo, hi, new,
+                                          seed)
+
+    def drive(path, expect, graph=True, n_slots=32, reqs=None, model=None,
+              cfg=None, **kw):
+        """One engine over ``reqs``, its launches read as ``path``."""
+        reset()
+        eng = Engine(cfg or cfg_t, model or model_t, n_slots=n_slots,
+                     max_len=2048, cuda_graph=graph, **kw)
+        reqs = reqs if reqs is not None else requests()
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read(path, expect)
+        bad = [r.rid for r in reqs if r.error or not r.done]
+        if bad:
+            fail(f"{path}: requests {bad} did not finish")
+        return [r.output for r in reqs], eng, got, wall
+
+    def stats(eng, wall):
+        p = eng.perf
+        steps = max(p.n_decode_steps, 1)
+        return {"wall_s": wall, "rounds": p.n_spec_rounds,
+                "decode_steps": p.n_decode_steps,
+                "ms_per_round": 1e3 * p.t_decode_s / steps,
+                "tokens_per_round": p.n_decode_tokens / steps,
+                "drafted": p.n_spec_drafted, "accepted": p.n_spec_accepted,
+                "acceptance": (p.n_spec_accepted / p.n_spec_drafted
+                               if p.n_spec_drafted else None),
+                "prompt_tok_s": (p.n_prompt_tokens / p.t_prompt_s
+                                 if p.t_prompt_s else None),
+                "capture_s": p.t_capture_s,
+                "step_programs": eng.step_programs()}
+
+    def share_equal(a, b):
+        pairs = [x == y for u, v in zip(a, b) for x, y in zip(u, v)]
+        return sum(pairs) / max(len(pairs), 1)
+
+    def done():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # 12. speculative decoding at full width: the flagship with a random
+    # bitnet_2b_4t draft (same 128,256 vocabulary), k 4, 32 slots
+    t_phase = time.time()
+    plain, eng, _, wall = drive("spec_plain", ("ternary_gemm_decode",))
+    plain_stats = stats(eng, wall)
+    del eng
+    done()
+    d_cfg, d_model = flagship.build_model("bitnet_2b_4t", dev, seed=1)
+    spec = {}
+    for graph in (True, False):
+        run = "graph" if graph else "eager"
+        spec[run], eng, got, wall = drive(
+            f"spec_draft_{run}", ("ternary_gemm_decode", "ternary_gemm_tiled",
+                                  "decode_attention"),
+            graph, draft=(d_cfg, d_model), k_draft=4)
+        print(json.dumps({"phase": "speculative", "draft": "bitnet_2b_4t",
+                          "k": 4, "run": run, **stats(eng, wall),
+                          "share_equal_to_plain": share_equal(spec[run],
+                                                              plain),
+                          "plain_ms_per_step": plain_stats["ms_per_round"],
+                          "launches": got, "card": card}), flush=True)
+        del eng
+        done()
+    if spec["graph"] != spec["eager"]:
+        fail("speculative (bitnet_2b_4t draft): graphed rounds' tokens "
+             "differ from eager ones")
+    del d_model, d_cfg
+    done()
+    own, eng, got, wall = drive("spec_self_draft", ("ternary_gemm_tiled",),
+                                draft=(cfg_t, model_t), k_draft=4)
+    print(json.dumps({"phase": "speculative", "draft": "the flagship itself",
+                      "k": 4, "run": "graph", **stats(eng, wall),
+                      "share_equal_to_plain": share_equal(own, plain),
+                      "launches": got, "seconds": time.time() - t_phase}),
+          flush=True)
+    del eng
+    done()
+
+    # 13. lookahead at full width: W 4, G 3 (T 11, M 352 per round)
+    t_phase = time.time()
+    look = {}
+    for graph in (True, False):
+        run = "graph" if graph else "eager"
+        look[run], eng, got, wall = drive(
+            f"lookahead_{run}", ("ternary_gemm_tiled",), graph,
+            lookahead=(4, 3))
+        print(json.dumps({"phase": "lookahead", "W": 4, "G": 3, "run": run,
+                          **stats(eng, wall),
+                          "share_equal_to_plain": share_equal(look[run],
+                                                              plain),
+                          "launches": got, "card": card,
+                          "seconds": time.time() - t_phase}), flush=True)
+        del eng
+        done()
+    if look["graph"] != look["eager"]:
+        fail("lookahead: graphed rounds' tokens differ from eager ones")
+
+    # 14. tiny_real on the card and the CPU: draft (itself, and itself with
+    # its last layer dropped), lookahead, prompt lookup through the CLI, a
+    # GBNF and a json_schema request, a LoRA and a control vector
+    t_phase = time.time()
+    cfg_r, gpu_r, cpu_r = real[0], real[1], real[2]
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    tok = Tokenizer(fixture)
+    eos = tok.eos_id
+    texts = [b"The little model", b"reads the lines", b"of its own repo.",
+             b"The", b"little model reads the lines of its own repo.", b"re"]
+    gbnf = 'root ::= "The " [a-z]+ (" " [a-z]+)* "."'
+    schema = {"type": "object", "properties": {"a": {"type": "integer"},
+                                               "b": {"type": "string",
+                                                     "maxLength": 6}},
+              "required": ["a", "b"]}
+
+    def dropped(model):
+        cfg_d = dataclasses.replace(cfg_r, n_layers=cfg_r.n_layers - 1)
+        tree = model.tree()
+        tree["layers"] = {k: ({kk: vv[:-1] for kk, vv in v.items()}
+                              if isinstance(v, dict) else v[:-1])
+                          for k, v in tree["layers"].items()}
+        return cfg_d, TransformerLM(cfg_d, tree)
+
+    rng = np.random.default_rng(5)
+    adapter = scratch / "tiny_lora"
+    adapter.mkdir()
+    d, q, kv, ff = cfg_r.d_model, cfg_r.q_dim, cfg_r.kv_dim, cfg_r.d_ff
+    arrays = {}
+    for li in range(cfg_r.n_layers):
+        for mod, block, k, n in (("q_proj", "self_attn", d, q),
+                                 ("v_proj", "self_attn", d, kv),
+                                 ("o_proj", "self_attn", q, d),
+                                 ("up_proj", "mlp", d, ff),
+                                 ("down_proj", "mlp", ff, d)):
+            pre = f"base_model.model.model.layers.{li}.{block}.{mod}"
+            arrays[f"{pre}.lora_A.weight"] = (
+                rng.standard_normal((8, k)) * 0.05).astype(np.float32)
+            arrays[f"{pre}.lora_B.weight"] = (
+                rng.standard_normal((n, 8)) * 0.05).astype(np.float32)
+    write_safetensors(adapter / "adapter_model.safetensors", arrays)
+    (adapter / "adapter_config.json").write_text(
+        json.dumps({"r": 8, "lora_alpha": 16}))
+    cvec = (rng.standard_normal((cfg_r.n_layers, cfg_r.d_model))
+            * 0.3).astype(np.float32)
+
+    def tiny(model, mode):
+        kw, m = {}, model
+        if mode == "draft_self":
+            kw = dict(draft=(cfg_r, model), k_draft=3)
+        elif mode == "draft_dropped":
+            kw = dict(draft=dropped(model), k_draft=3)
+        elif mode == "lookahead":
+            kw = dict(lookahead=(4, 3))
+        elif mode == "lora":
+            m = lora.apply_lora(model, lora.load_peft_adapter(adapter, cfg_r),
+                                scale=1.0)
+        elif mode == "cvector":
+            m = lora.apply_cvector(model, cvec, scale=1.0)
+        eng = Engine(cfg_r, m, n_slots=4, max_len=256, **kw)
+        grams = [None] * len(texts)
+        if mode == "grammar":
+            grams[0] = tok.make_grammar(gbnf)
+            grams[3] = tok.make_grammar(gm.json_schema_to_gbnf(schema))
+        reqs = [Request(prompt=[2] + list(t), max_new_tokens=16,
+                        sampler=greedy, stop_tokens=(eos,), grammar=g)
+                for t, g in zip(texts, grams)]
+        eng.run(reqs)
+        return [r.output for r in reqs], eng.perf
+
+    reset()
+    modes = ("plain", "draft_self", "draft_dropped", "lookahead", "grammar",
+             "lora", "cvector")
+    card_out = {mode: tiny(gpu_r, mode) for mode in modes}
+    got = read("tiny_real_slice", ("ternary_gemm_decode",
+                                   "ternary_gemm_fused_quant",
+                                   "decode_attention"))
+    cpu_out = {mode: tiny(cpu_r, mode) for mode in modes}
+    for mode in modes:
+        if card_out[mode][0] != cpu_out[mode][0]:
+            fail(f"tiny_real {mode}: card tokens differ from the CPU's")
+    for mode in ("draft_self", "draft_dropped", "lookahead"):
+        if card_out[mode][0] != card_out["plain"][0]:
+            fail(f"tiny_real {mode}: tokens differ from plain greedy")
+        if not card_out[mode][1].n_spec_rounds:
+            fail(f"tiny_real {mode}: no round ran")
+    if card_out["draft_self"][1].n_spec_accepted != card_out["draft_self"][
+            1].n_spec_drafted:
+        fail("tiny_real as its own draft: a proposal was rejected")
+    for i, g in ((0, gm.Grammar.from_gbnf(gbnf)),
+                 (3, gm.Grammar.from_gbnf(gm.json_schema_to_gbnf(schema)))):
+        out = card_out["grammar"][0][i]
+        text = "".join(tok.pieces()[t] for t in out if t != eos)
+        if not gm.GrammarState(g).accepts_text_prefix(text):
+            fail(f"tiny_real grammar request {i}: {text!r} is not accepted "
+                 "by its grammar")
+    for mode in ("lora", "cvector"):
+        if card_out[mode][0] == card_out["plain"][0]:
+            fail(f"tiny_real {mode}: the adapter changed no token")
+
+    def cli_text(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(
+                io.StringIO()):
+            cli.main(argv)
+        return buf.getvalue()
+
+    base = ["generate", "--model", str(fixture), "-p",
+            "The little model reads the lines", "-n", "16", "--temp", "0"]
+    lookup = {d_: cli_text(base + ["--prompt-lookup", "3", "--device", d_])
+              for d_ in ("cuda", "cpu")}
+    plain_cli = cli_text(base + ["--device", "cuda"])
+    print(json.dumps({
+        "phase": "tiny_real_slice",
+        "tokens": {m: card_out[m][0][0] for m in modes},
+        "spec_rounds": {m: card_out[m][1].n_spec_rounds for m in modes},
+        "accepted": {m: card_out[m][1].n_spec_accepted for m in modes},
+        "grammar_texts": ["".join(tok.pieces()[t] for t in card_out[
+            "grammar"][0][i] if t != eos) for i in (0, 3)],
+        "cli_prompt_lookup": lookup["cuda"], "cli_plain": plain_cli,
+        "launches": got, "seconds": time.time() - t_phase}), flush=True)
+    if lookup["cuda"] != lookup["cpu"]:
+        fail("CLI prompt lookup: card text differs from the CPU's")
+    if not lookup["cuda"].startswith(plain_cli.rstrip("\n")):
+        fail("CLI prompt lookup: text differs from plain greedy generate")
+
+    # 15. grammar at full width: 8 slots of the flagship, a JSON schema
+    # over a synthetic 128,256-piece vocabulary made from the seed
+    t_phase = time.time()
+    alphabet = list("abcdefghijklmnopqrstuvwxyz0123456789 {}\":,.-_")
+    rng = np.random.default_rng(11)
+    v = cfg_t.vocab_size
+    lens_ = rng.integers(1, 7, v)
+    pieces = ["".join(rng.choice(alphabet, int(n_))) for n_ in lens_]
+    pieces[3:3 + len(alphabet)] = alphabet  # every character alone too
+    eos_f = 128001
+    for i in (0, 1, 2, eos_f):
+        pieces[i] = ""
+    t0 = time.perf_counter()
+    trie = gm.VocabTrie(pieces)
+    trie_s = time.perf_counter() - t0
+    schema_f = {"type": "object",
+                "properties": {"name": {"type": "string", "maxLength": 8},
+                               "n": {"type": "integer"}},
+                "required": ["name", "n"]}
+    gbnf_f = gm.json_schema_to_gbnf(schema_f)
+    outs_g = {}
+    for graph in (True, False):
+        run = "graph" if graph else "eager"
+        reqs = [Request(prompt=r.prompt, max_new_tokens=16, sampler=greedy,
+                        stop_tokens=(eos_f,),
+                        grammar=gm.GrammarSampler(gbnf_f, pieces,
+                                                  eos_ids=(eos_f,),
+                                                  trie=trie))
+                for r in requests(n=8, lo=64, hi=256, new=16, seed=4)]
+        outs_g[run], eng, got, wall = drive(
+            f"grammar_{run}", ("ternary_gemm_decode", "decode_attention"),
+            graph, n_slots=8, reqs=reqs)
+        p = eng.perf
+        steps = max(p.n_decode_steps, 1)
+        print(json.dumps({
+            "phase": "grammar", "run": run, "slots": 8,
+            "vocab_pieces": len(pieces), "trie_build_s": trie_s,
+            "decode_steps": p.n_decode_steps,
+            "host_mask_ms_per_step": 1e3 * p.t_grammar_s / steps,
+            "step_ms_without_masks": 1e3 * (p.t_decode_s - p.t_grammar_s)
+            / steps,
+            "texts": ["".join(pieces[t] for t in o if t != eos_f)
+                      for o in outs_g[run][:3]],
+            "step_programs": eng.step_programs(), "launches": got,
+            "card": card, "seconds": time.time() - t_phase}), flush=True)
+        del eng
+        done()
+    if outs_g["graph"] != outs_g["eager"]:
+        fail("grammar at full width: graphed tokens differ from eager ones")
+    g_f = gm.Grammar.from_gbnf(gbnf_f)
+    for o in outs_g["graph"]:
+        text = "".join(pieces[t] for t in o if t != eos_f)
+        if not gm.GrammarState(g_f).accepts_text_prefix(text):
+            fail(f"grammar at full width: {text!r} is not accepted")
+
+    # 16. LoRA at full width: a random rank-16 adapter on wq/wv/w_up (the
+    # unfused tree, #4 per projection at decode), 32 slots, against the
+    # fused model's step
+    t_phase = time.time()
+    rng = np.random.default_rng(6)
+    adapter_f = scratch / "flagship_lora"
+    adapter_f.mkdir()
+    arrays = {}
+    for li in range(cfg_t.n_layers):
+        for mod, block, k, n in (("q_proj", "self_attn", 4096, 4096),
+                                 ("v_proj", "self_attn", 4096, 1024),
+                                 ("up_proj", "mlp", 4096, 14336)):
+            pre = f"base_model.model.model.layers.{li}.{block}.{mod}"
+            arrays[f"{pre}.lora_A.weight"] = (
+                rng.standard_normal((16, k)) * 0.02).astype(np.float32)
+            arrays[f"{pre}.lora_B.weight"] = (
+                rng.standard_normal((n, 16)) * 0.02).astype(np.float32)
+    write_safetensors(adapter_f / "adapter_model.safetensors", arrays)
+    (adapter_f / "adapter_config.json").write_text(
+        json.dumps({"r": 16, "lora_alpha": 32}))
+    del arrays
+    base_m = quantize_head(init_params_fast(cfg_t, seed=0, device=dev))
+    lmodel = lora.apply_lora(base_m, lora.load_peft_adapter(adapter_f, cfg_t))
+    del base_m
+    lreqs = lambda: requests(n=32, lo=64, hi=256, new=16, seed=3)  # noqa: E731
+    _, eng, _, wall = drive("lora_base_fused", ("ternary_gemm_decode",),
+                            reqs=lreqs())
+    fused_stats = stats(eng, wall)
+    del eng
+    done()
+    outs_l = {}
+    for graph in (True, False):
+        run = "graph" if graph else "eager"
+        outs_l[run], eng, got, wall = drive(
+            f"lora_{run}", ("ternary_gemm_fused_quant", "ternary_gemm_decode",
+                            "ternary_gemm_tiled"), graph, model=lmodel,
+            reqs=lreqs())
+        st = stats(eng, wall)
+        per = [p_ for p_ in st["step_programs"] if p_.get("replays")]
+        print(json.dumps({
+            "phase": "lora", "rank": 16, "on": ["wq", "wv", "w_up"],
+            "run": run, "ms_per_step": st["ms_per_round"],
+            "fused_model_ms_per_step": fused_stats["ms_per_round"],
+            "fused_quant_launches_per_step": (
+                per[0]["launches_per_replay"].get("ternary_gemm_fused_quant")
+                if per else None),
+            "step_programs": st["step_programs"], "launches": got,
+            "card": card, "seconds": time.time() - t_phase}), flush=True)
+        del eng
+        done()
+    if outs_l["graph"] != outs_l["eager"]:
+        fail("LoRA at full width: graphed tokens differ from eager ones")
+    del lmodel
+    done()
+
+    # 17. slot save/restore on the flagship engine: a slot saved after its
+    # request, erased, restored into another slot of the captured engine;
+    # the continuation equals the one from the slot it was saved from
+    t_phase = time.time()
+    rng = np.random.default_rng(8)
+    prompt = [int(t) for t in rng.integers(3, cfg_t.vocab_size, 300)]
+    suffix = [int(t) for t in rng.integers(3, cfg_t.vocab_size, 8)]
+
+    def continuation(restore):
+        reset()
+        eng = Engine(cfg_t, model_t, n_slots=4, max_len=2048)
+        eng.run([Request(prompt=prompt, max_new_tokens=6, sampler=greedy)])
+        hist = list(eng.slots[0].history)
+        size = 0
+        if restore:
+            t0 = time.perf_counter()
+            data = eng.save_slot(0)
+            save_s = time.perf_counter() - t0
+            eng.slots[0].history = []
+            t0 = time.perf_counter()
+            eng.restore_slot(2, data)
+            torch.cuda.synchronize()
+            size = (len(data), save_s, time.perf_counter() - t0)
+            if eng.slots[2].history != hist:
+                fail("slot restore: history differs")
+        nxt = Request(prompt=hist + suffix, max_new_tokens=16,
+                      sampler=greedy)
+        eng.run([nxt])
+        if eng.perf.n_reused_tokens != len(hist):
+            fail(f"slot restore: reused {eng.perf.n_reused_tokens} of "
+                 f"{len(hist)} rows")
+        del eng
+        done()
+        return nxt.output, size
+
+    orig, _ = continuation(False)
+    restored, (n_bytes, save_s, load_s) = continuation(True)
+    got = read("slot_restore", ("ternary_gemm_decode",))
+    print(json.dumps({"phase": "slot_restore", "rows": len(prompt) + 5,
+                      "bytes": n_bytes, "save_s": save_s, "restore_s": load_s,
+                      "tokens_restored": restored, "tokens_original": orig,
+                      "identical": restored == orig, "launches": got,
+                      "seconds": time.time() - t_phase}), flush=True)
+    if restored != orig:
+        fail("slot restore: the continuation differs from the original's")
+    shutil.rmtree(scratch, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -605,3 +605,99 @@ def test_bench_lane_runs_on_card(dev, fmt):
 
     out = bench_gemm(fmt, 32, 1024, 512, repeats=1, iters=8)
     assert out["us"] > 0 and out["fmt"] == fmt
+
+
+def _slice_engine(mode, graph, device="cuda", q8=False):
+    """tiny_real through the engine in one of this slice's modes: draft
+    (itself as its draft), lookahead, or a grammar on one request."""
+    from vlut_tpu_torch.runtime.engine import Engine, Request
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+    import pathlib
+
+    cfg, model = _tiny_real(device)
+    kw = {"draft": dict(draft=(cfg, model), k_draft=3),
+          "lookahead": dict(lookahead=(4, 3))}.get(mode, {})
+    eng = Engine(cfg, model, n_slots=4, max_len=256, kv_quant=q8,
+                 cuda_graph=graph, **kw)
+    tok = Tokenizer(pathlib.Path(__file__).parent / "fixtures" / "tiny_real")
+    texts = (b"The little model", b"reads", b"its own repo.", b"The")
+    reqs = [Request(prompt=[2] + list(p), max_new_tokens=16,
+                    sampler=SamplerParams(temperature=0.0),
+                    stop_tokens=(tok.eos_id,),
+                    grammar=(tok.make_grammar('root ::= [a-z ]+ "."')
+                             if mode == "grammar" and i < 2 else None))
+            for i, p in enumerate(texts)]
+    eng.run(reqs)
+    return [r.output for r in reqs], eng
+
+
+@pytest.mark.parametrize("mode", ["draft", "lookahead", "grammar"])
+def test_slice_step_programs_graph_equals_eager_and_cpu(dev, mode):
+    """The speculative round, the lookahead round and the grammar step:
+    replayed, they give the eager program's tokens and the CPU's; the
+    round or grammar program was captured and replayed."""
+    graph, eng = _slice_engine(mode, True)
+    eager, _ = _slice_engine(mode, False)
+    cpu, _ = _slice_engine(mode, True, device="cpu")
+    assert graph == eager == cpu
+    key = {"draft": "speculative", "lookahead": "lookahead"}.get(mode)
+    progs = [p for p in eng.step_programs()
+             if (p["features"][0] == key if key else "grammar"
+                 in p["features"])]
+    assert progs and progs[0].get("replays", 0) > 0
+    if mode != "grammar":
+        plain, _ = _slice_engine("plain", True)
+        assert graph == plain
+
+
+@pytest.mark.parametrize("mode", ["draft", "lookahead", "grammar"])
+def test_slice_round_replay_is_bit_identical(dev, mode):
+    """One program replayed twice on the same inputs, cache and carried
+    state gives the same outputs bit for bit."""
+    _, eng = _slice_engine(mode, True)
+    key = {"draft": ("speculative", "k=3"),
+           "lookahead": ("lookahead", "W=4", "G=3")}.get(mode, ("grammar",))
+    prog = eng._steps[key]
+    assert prog.run.captured
+    # the state a replay writes: the cache, and the lookahead's carry
+    state = [a for arrs in eng.cache.values() for a in arrs]
+    state += list(eng._la["state"].values()) if eng._la else []
+    snap = [a.clone() for a in state]
+    outs = []
+    for _ in range(2):
+        for a, s in zip(state, snap):
+            a.copy_(s)
+        out = prog.run()
+        outs.append([o.clone() for o in out])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_restore_into_a_captured_engine(dev):
+    """A slot saved after decoding restores into another slot of an engine
+    whose decode graph is captured (written in place): the continuation
+    equals the one from the slot it was saved from."""
+    from vlut_tpu_torch.runtime.engine import Engine, Request
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+
+    cfg, model = _tiny_real("cuda")
+    greedy = SamplerParams(temperature=0.0)
+    prompt = [2] + list(b"The little model reads")
+
+    def run(restore):
+        eng = Engine(cfg, model, n_slots=2, max_len=256)
+        first = Request(prompt=prompt, max_new_tokens=6, sampler=greedy)
+        eng.run([first])
+        assert any(p.get("replays") for p in eng.step_programs())
+        hist = list(eng.slots[0].history)
+        if restore:
+            data = eng.save_slot(0)
+            eng.slots[0].history = []
+            eng.restore_slot(1, data)
+        nxt = Request(prompt=hist + list(b" the"), max_new_tokens=10,
+                      sampler=greedy)
+        eng.run([nxt])
+        assert eng.perf.n_reused_tokens == len(hist)
+        return nxt.output
+
+    assert run(True) == run(False)

@@ -254,15 +254,26 @@ def test_temperature_sampling_distribution():
 
 
 def test_unported_sampler_transforms_raise():
-    """The sampler chain is ported (a top-k feature set builds), and what of
-    sampling is still to port, grammar constraints, raises."""
+    """The sampler chain is ported (a top-k feature set builds), grammar
+    constraints are too (a grammar request is served under its mask), and
+    a config outside the ported subset, a MoE one, still raises."""
+    import dataclasses
+
     from vlut_tpu_torch.runtime.engine import Engine, Request
+    from vlut_tpu_torch.runtime.grammar import GrammarSampler
 
     make_generate_fn(PRESETS["tiny"], 2, features=("top_k", "sampling"))
     model = tt.init_params(PRESETS["tiny"], seed=0)
     eng = Engine(PRESETS["tiny"], model, n_slots=1, max_len=32)
+    pieces = [""] * 3 + [chr(i) for i in range(3, 256)]
+    req = Request(prompt=[1, 2], max_new_tokens=3,
+                  grammar=GrammarSampler('root ::= "ab" [0-9]', pieces))
+    eng.run([req])
+    assert "".join(pieces[t] for t in req.output) == "ab" + pieces[
+        req.output[-1]] and pieces[req.output[-1]].isdigit()
     with pytest.raises(NotImplementedError):
-        eng.submit(Request(prompt=[1, 2], grammar=object()))
+        tt.check_supported(dataclasses.replace(PRESETS["tiny"], n_experts=4,
+                                               n_experts_used=2))
 
 
 def test_unported_config_raises():

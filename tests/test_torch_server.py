@@ -35,6 +35,12 @@ class StubTokenizer:
     def decode(self, ids):
         return "".join(chr(97 + (i % 26)) for i in ids if i >= 2)
 
+    def make_grammar(self, gbnf):
+        from vlut_tpu_torch.runtime.grammar import GrammarSampler
+
+        pieces = [self.decode([i]) for i in range(256)]
+        return GrammarSampler(gbnf, pieces, eos_ids=(self.eos_id,))
+
 
 @pytest.fixture(scope="module")
 def params():
@@ -189,11 +195,18 @@ def test_unknown_route_404_and_unported_501(server):
     assert _req(server, "POST", "/nope", {})[0] == 404
     assert _req(server, "GET", "/nope")[0] == 404
     for path in ("/v1/chat/completions", "/infill", "/embedding", "/rerank",
-                 "/apply-template", "/slots/0?action=save"):
+                 "/apply-template"):
         assert _req(server, "POST", path, {})[0] == 501, path
-    status, _ = _req(server, "POST", "/completion",
-                     {"prompt": "a", "grammar": 'root ::= "a"'})
-    assert status == 501
+    # the ported slot actions and grammar fields answer
+    status, data = _req(server, "POST", "/slots/0?action=save", {})
+    assert status == 200 and json.loads(data)["filename"] == "slot0"
+    assert _req(server, "POST", "/slots/0?action=restore", {})[0] == 200
+    assert _req(server, "POST", "/slots/0?action=erase", {})[0] == 200
+    assert _req(server, "POST", "/slots/0?action=nope", {})[0] == 400
+    status, data = _req(server, "POST", "/completion",
+                        {"prompt": "a", "grammar": 'root ::= "a"',
+                         "n_predict": 4, "temperature": 0})
+    assert status == 200 and json.loads(data)["content"] == "a"
 
 
 def test_over_context_prompt_400(noshift_server):
@@ -238,3 +251,28 @@ def _metric(hostport, name):
         if line.split(" ")[0] == name:
             return float(line.split()[-1])
     raise KeyError(name)
+
+
+def test_slot_save_restore_and_constraints(server):
+    """A slot saved after a completion restores into the other slot with
+    the same cached history; a regex request answers text its constraint
+    admits, and a json_schema one that the stub's a-z vocabulary cannot
+    spell (no quote piece) ends at once with EOS."""
+    _complete(server, prompt="hello", n_predict=3)
+    status, data = _req(server, "POST", "/slots/0?action=save",
+                        {"filename": "s"})
+    saved = json.loads(data)
+    assert status == 200 and saved["n_saved"] > 0
+    status, data = _req(server, "POST", "/slots/1?action=restore",
+                        {"filename": "s"})
+    assert status == 200
+    assert json.loads(data)["n_restored"] == saved["n_saved"]
+    assert _req(server, "POST", "/slots/1?action=restore",
+                {"filename": "missing"})[0] == 404
+    out = _complete(server, prompt="x", n_predict=6, regex="[ab]{2}c",
+                    ignore_eos=False)
+    assert out["content"] in ("aac", "abc", "bac", "bbc")
+    out = _complete(server, prompt="x", n_predict=8, ignore_eos=False,
+                    response_format={"type": "json_schema", "json_schema": {
+                        "schema": {"enum": ["cab", "bad"]}}})
+    assert out["content"] == "" and out["tokens_predicted"] == 1

@@ -3,10 +3,14 @@
   python -m vlut_tpu_torch.cli generate --model DIR -p PROMPT [-n N]
       [--ctx N] [--cache-type bf16|q8] [--head-type bf16|q8]
       [--decode-attn fused|composed] [sampler flags] [-l TOKEN:BIAS]
-      [--seed S] [--device cpu]
+      [--seed S] [--grammar-file F | --json-schema JSON]
+      [--draft-model DIR [--draft-k 4] | --prompt-lookup K | --lookahead
+      [--lookahead-window 8] [--lookahead-ngram 3]]
+      [--lora DIR [--lora-scale 1]] [--control-vector F
+      [--control-vector-scale 1]] [--device cpu]
   python -m vlut_tpu_torch.cli serve --model DIR [--port 8080] [--slots 8]
       [--ctx 4096] [--cache-type bf16|q8] [--decode-attn fused|composed]
-      [--device cpu]
+      [--draft-model DIR [--draft-k 4] | --lookahead ...] [--device cpu]
   python -m vlut_tpu_torch.cli batched --model DIR -p PROMPT -np N -n N
       [--temp T] [--repeat-penalty R] [--seed S] [--device cpu]
   python -m vlut_tpu_torch.cli bench [-m llama3_8b] [-ns 32,256]
@@ -23,7 +27,10 @@
   python -m vlut_tpu_torch.cli quantize SRC DST --fmt i2|i1
   python -m vlut_tpu_torch.cli inspect DIR [--hash]
 
-``generate`` serves one request through the slot engine; ``serve`` starts
+``generate`` serves one request through the slot engine (with a draft
+model, a grammar, a LoRA adapter or a control vector as asked), or with
+``--prompt-lookup`` / ``--lookahead`` through the standalone greedy
+speculative loops of ``runtime/speculative.py``; ``serve`` starts
 the completion server; ``batched`` is the shared-prompt np-way fan-out (one
 prompt prefilled into np slots, then n decode steps per slot).  ``bench``
 is the kernel microbenchmark (i2/i1 through the tiled ternary kernel,
@@ -127,23 +134,107 @@ def sampler_from_args(args):
     )
 
 
+def run_standalone_speculative(model, cfg, ids: list[int], n_predict: int,
+                               ctx: int, prompt_lookup: int = 0,
+                               window: int = 8, ngram: int = 3,
+                               decode_attn: str = "fused"):
+    """Greedy decoding of ``ids`` by prompt lookup (``prompt_lookup`` = k
+    drafted tokens per round, 2-grams over a 512-token history) or, with
+    ``prompt_lookup`` 0, by windowed lookahead (W ``window``, N ``ngram``);
+    returns (n_predict tokens, per-round accepted counts)."""
+    from vlut_tpu_torch.models.transformer import (
+        forward,
+        fuse_projections,
+        init_kv_cache,
+        unstack_layers,
+    )
+    from vlut_tpu_torch.runtime.speculative import (
+        make_lookahead_fn,
+        make_lookup_fn,
+    )
+
+    dev = model.device
+    served = unstack_layers(fuse_projections(model, cfg), cfg)
+    t = len(ids)
+    cache = init_kv_cache(cfg, 1, min(ctx, cfg.max_seq_len), device=dev)
+    with torch.inference_mode():
+        lg, _ = forward(served, cfg, torch.tensor([ids], device=dev),
+                        torch.arange(t, device=dev)[None], cache,
+                        logits_at=torch.tensor([t - 1], device=dev),
+                        decode_attn=decode_attn)
+    last = torch.argmax(lg[:, 0, :cfg.vocab_size], dim=-1)
+    lens = torch.tensor([t], device=dev)
+    if prompt_lookup:
+        hist = torch.zeros((1, 512), dtype=torch.long, device=dev)
+        hist[0, :t] = torch.tensor(ids[-512:], device=dev)
+        fn = make_lookup_fn(cfg, prompt_lookup, n_predict - 1, ngram=2,
+                            decode_attn=decode_attn)
+        out, _, accs, _ = fn(served, cache, hist, lens, last, lens)
+    else:
+        fn = make_lookahead_fn(cfg, n_predict - 1, window=window,
+                               ngram=ngram, decode_attn=decode_attn)
+        out, _, accs, _ = fn(served, cache, last, lens)
+    toks = [int(last[0])] + out[0, :n_predict - 1].tolist()
+    return toks, accs[:, 0].tolist()
+
+
 def cmd_generate(args) -> None:
     """One request through the slot engine (the JAX package's engine branch
-    of ``vlut-tpu generate``)."""
+    of ``vlut-tpu generate``), or through a standalone prompt-lookup or
+    lookahead loop."""
     from vlut_tpu_torch.convert.checkpoint import load_checkpoint
     from vlut_tpu_torch.runtime.engine import Engine, Request
+    from vlut_tpu_torch.runtime import lora
     from vlut_tpu_torch.utils.tokenizer import Tokenizer
 
     cfg, model, _ = load_checkpoint(args.model, device=args.device)
+    if args.lora:
+        model = lora.apply_lora(model, lora.load_peft_adapter(args.lora, cfg),
+                                scale=args.lora_scale)
+    if args.control_vector:
+        model = lora.apply_cvector(
+            model, lora.load_cvector_file(args.control_vector, cfg),
+            scale=args.control_vector_scale)
     tok = Tokenizer(args.model)
+    if args.prompt_lookup or args.lookahead:
+        t0 = time.time()
+        toks, accs = run_standalone_speculative(
+            model, cfg, tok.encode(args.prompt), args.n_predict, args.ctx,
+            args.prompt_lookup, args.lookahead_window, args.lookahead_ngram,
+            args.decode_attn)
+        dt = time.time() - t0
+        mode = (f"prompt-lookup k={args.prompt_lookup}" if args.prompt_lookup
+                else f"lookahead W={args.lookahead_window} "
+                f"N={args.lookahead_ngram}")
+        print(tok.decode(toks))
+        print(f"\n[{len(toks)} tokens, {len(toks) / dt:.1f} tok/s | {mode}, "
+              f"{sum(accs)} drafts accepted | {model.device}]",
+              file=sys.stderr)
+        return
+    draft = None
+    if args.draft_model:
+        d_cfg, d_model, _ = load_checkpoint(args.draft_model,
+                                            device=args.device)
+        draft = (d_cfg, d_model)
     eng = Engine(cfg, model, n_slots=1, max_len=args.ctx,
                  kv_quant=args.cache_type == "q8",
                  head_quant=args.head_type == "q8",
-                 decode_attn=args.decode_attn)
+                 decode_attn=args.decode_attn, draft=draft,
+                 k_draft=args.draft_k)
     stop = (tok.eos_id,) if tok.eos_id is not None else ()
+    grammar = None
+    if args.grammar_file:
+        with open(args.grammar_file) as f:
+            grammar = tok.make_grammar(f.read())
+    elif args.json_schema:
+        from vlut_tpu_torch.runtime.grammar import json_schema_to_gbnf
+
+        grammar = tok.make_grammar(
+            json_schema_to_gbnf(json.loads(args.json_schema)))
     req = Request(prompt=tok.encode(args.prompt),
                   max_new_tokens=args.n_predict,
-                  sampler=sampler_from_args(args), stop_tokens=stop)
+                  sampler=sampler_from_args(args), stop_tokens=stop,
+                  grammar=grammar)
     t0 = time.time()
     eng.run([req])
     dt = time.time() - t0
@@ -285,6 +376,28 @@ def _generate_parser(p: argparse.ArgumentParser) -> None:
                    default="fused",
                    help="decode attention: one fused kernel per layer, or "
                    "a row write and PyTorch attention")
+    p.add_argument("--grammar-file", default=None,
+                   help="GBNF grammar constraining generation")
+    p.add_argument("--json-schema", default=None,
+                   help="JSON schema constraining generation (via GBNF)")
+    p.add_argument("--draft-model", default=None,
+                   help="draft checkpoint for speculative decoding")
+    p.add_argument("--draft-k", type=int, default=4)
+    p.add_argument("--prompt-lookup", type=int, default=0, metavar="K",
+                   help="prompt-lookup (n-gram) speculative decoding with K "
+                   "drafted tokens per round (greedy)")
+    p.add_argument("--lookahead", action="store_true",
+                   help="draft-free windowed lookahead decoding (greedy)")
+    p.add_argument("--lookahead-window", type=int, default=8,
+                   help="Jacobi window branches (lookahead W)")
+    p.add_argument("--lookahead-ngram", type=int, default=3,
+                   help="n-gram length (lookahead N)")
+    p.add_argument("--lora", default=None,
+                   help="HF PEFT LoRA adapter directory")
+    p.add_argument("--lora-scale", type=float, default=1.0)
+    p.add_argument("--control-vector", default=None,
+                   help="control-vector file (.safetensors/.npz)")
+    p.add_argument("--control-vector-scale", type=float, default=1.0)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
 
 

@@ -14,9 +14,16 @@ run, as in the JAX package:
   through ``ternary_matmul_fused`` with the norms, silu*up and residual adds
   fused in.
 
+A LoRA adapter (``runtime/lora.py``) adds ``(h @ A) @ B * lora_scale`` to
+the projections it covers; such a projection runs unfused (its delta needs
+the normed input), and a LoRA on wq/wk/wv/w_gate/w_up keeps the whole
+tree unfused, as in the JAX package.  A control vector is added to the
+residual after each layer.  ``forward(attn_mask=...)`` overrides the causal
+mask (lookahead rounds).
+
 PyTorch runs eagerly, so there is no scan-versus-unroll trade-off: a
 serving process keeps one tree.  Configurations outside llama/bitnet (MoE,
-MLA, softcaps, sliding windows, ALiBi, qk-norm, LoRA, tensor/sequence
+MLA, softcaps, sliding windows, ALiBi, qk-norm, tensor/sequence
 parallelism, ...) raise ``NotImplementedError`` (:func:`check_supported`).
 """
 
@@ -78,6 +85,12 @@ _SUPPORTED_FIELDS = {
 PROJECTIONS = ("wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up", "w_gateup",
                "w_down")
 NORMS = ("attn_norm", "ffn_norm", "attn_sub_norm", "ffn_sub_norm")
+# float32 per-layer vectors a layer tree may carry: the norm gains and the
+# control vector
+LAYER_VECTORS = NORMS + ("cvector",)
+LORA_LEAVES = ("lora_a", "lora_b", "lora_scale")
+# a LoRA on one of these keeps the tree unfused (JAX fuse_projections)
+_UNFUSED_BY_LORA = ("wq", "wk", "wv", "w_gate", "w_up")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -188,11 +201,13 @@ class TernaryLinear(nn.Module):
 
     Buffers: ``packed`` (Kp/r, Np) uint8 and ``scale`` (per-tensor () or
     per-channel (Np,)) float32; ``w_scale`` is the scale broadcast to (Np,)
-    once, for the kernels' epilogue.
+    once, for the kernels' epilogue.  With ``lora`` (a dict of ``lora_a``
+    (Kp, r), ``lora_b`` (r, Np) and the float32 ``lora_scale``) the plain
+    call adds the adapter's delta.
     """
 
     def __init__(self, packed: torch.Tensor, scale: torch.Tensor,
-                 spec: TernarySpec):
+                 spec: TernarySpec, lora: dict | None = None):
         super().__init__()
         if packed.shape[0] * TRITS_PER_BYTE[spec.fmt] != padded_k(
                 spec.k, spec.fmt, spec.kb):
@@ -204,6 +219,9 @@ class TernaryLinear(nn.Module):
         t = TernaryTensor(packed, self.scale, self.k, self.n, self.fmt,
                           self.kb)
         self.register_buffer("w_scale", t.scale_vector(), persistent=False)
+        self.has_lora = bool(lora)
+        for name in LORA_LEAVES if lora else ():
+            self.register_buffer(name, lora[name])
 
     def tensor(self) -> TernaryTensor:
         return TernaryTensor(self.packed, self.w_scale, self.k, self.n,
@@ -213,8 +231,25 @@ class TernaryLinear(nn.Module):
                 **fused) -> torch.Tensor:
         """ternary_matmul, or ternary_matmul_fused when keywords are given."""
         if fused:
+            if self.has_lora:
+                raise ValueError("a projection with a LoRA runs unfused")
             return ternary_matmul_fused(x, self.tensor(), impl=impl, **fused)
-        return ternary_matmul(x, self.tensor(), impl=impl)
+        out = ternary_matmul(x, self.tensor(), impl=impl)
+        if self.has_lora:
+            out = out + self.lora_delta(x).to(out.dtype)
+        return out
+
+    def lora_delta(self, x: torch.Tensor) -> torch.Tensor:
+        """float32 ``(x @ A) @ B * lora_scale``: the inner product in A's
+        dtype, the outer one accumulated in float32 (JAX: ``jnp.dot(jnp.dot(
+        h.astype(a.dtype), a), b, preferred_element_type=float32)``)."""
+        inner = torch.matmul(x.to(self.lora_a.dtype), self.lora_a)
+        return torch.matmul(inner.to(torch.float32),
+                            self.lora_b.to(torch.float32)) * self.lora_scale
+
+    def lora_tree(self) -> dict[str, torch.Tensor]:
+        return ({n: getattr(self, n) for n in LORA_LEAVES} if self.has_lora
+                else {})
 
 
 class DecoderLayer(nn.Module):
@@ -223,14 +258,15 @@ class DecoderLayer(nn.Module):
     def __init__(self, tree: dict[str, Any], specs: dict[str, TernarySpec]):
         super().__init__()
         self.proj = nn.ModuleDict({
-            name: TernaryLinear(tree[name]["packed"], tree[name]["scale"],
-                                specs[name])
+            name: TernaryLinear(
+                tree[name]["packed"], tree[name]["scale"], specs[name],
+                {k: tree[name][k] for k in LORA_LEAVES if k in tree[name]})
             for name in PROJECTIONS if name in tree
         })
-        for name in NORMS:
+        for name in LAYER_VECTORS:
             if name in tree:
                 self.register_buffer(name, tree[name].to(torch.float32))
-        unknown = set(tree) - set(PROJECTIONS) - set(NORMS)
+        unknown = set(tree) - set(PROJECTIONS) - set(LAYER_VECTORS)
         if unknown:
             raise NotImplementedError(f"layer tensors not ported: {unknown}")
 
@@ -343,10 +379,10 @@ class TransformerLM(nn.Module):
 
 def _layer_tree(lp: DecoderLayer) -> dict[str, Any]:
     out: dict[str, Any] = {
-        name: {"packed": m.packed, "scale": m.scale}
+        name: {"packed": m.packed, "scale": m.scale, **m.lora_tree()}
         for name, m in lp.proj.items()
     }
-    for name in NORMS:
+    for name in LAYER_VECTORS:
         if hasattr(lp, name):
             out[name] = getattr(lp, name)
     return out
@@ -472,12 +508,14 @@ def fuse_projections(model: TransformerLM, cfg: ModelConfig) -> TransformerLM:
     """Concatenate wq|wk|wv -> wqkv and w_gate|w_up -> w_gateup along N (the
     byte layout is row-major over K slabs, so packed columns concatenate
     exactly); per-tensor scales become one per-channel vector.  Stacked
-    trees only; a no-op when already fused or unrolled."""
+    trees only; a no-op when already fused or unrolled, or when a LoRA sits
+    on wq/wk/wv/w_gate/w_up."""
     if not isinstance(model.layers, StackedLayers):
         return model
     tree = model.tree()
     layers = dict(tree["layers"])
-    if "wqkv" in layers:
+    if "wqkv" in layers or any("lora_a" in layers.get(n, {})
+                               for n in _UNFUSED_BY_LORA):
         return model
     plan = make_plan(cfg)
 
@@ -530,9 +568,10 @@ def _rms(x: torch.Tensor, weight: torch.Tensor, eps: float,
 
 
 def _attention(q, k, v, q_pos, k_pos, hd_logical, scale=0.0, k_scale=None,
-               v_scale=None):
+               v_scale=None, mask_override=None):
     """Causal GQA attention.  q (B, T, H, hd), k/v (B, S, Hkv, hd); returns
-    float32 (B, T, H, hd).
+    float32 (B, T, H, hd).  ``mask_override`` (B, T, S) bool replaces the
+    causal mask (the caller owns causality).
 
     k_scale/v_scale (B, S, Hkv): deferred int8-KV dequantization; the codes
     stay int8 and the per-row scales fold into the scores (scores·ks) and
@@ -543,7 +582,8 @@ def _attention(q, k, v, q_pos, k_pos, hd_logical, scale=0.0, k_scale=None,
         if k_scale is not None:
             k = dequantize_kv(k, k_scale)
             v = dequantize_kv(v, v_scale)
-        return _attention_chunked(q, k, v, q_pos, k_pos, hd_logical, scale)
+        return _attention_chunked(q, k, v, q_pos, k_pos, hd_logical, scale,
+                                  mask_override=mask_override)
     b, t, h, hd = q.shape
     hkv = k.shape[2]
     qf = q.to(torch.float32) * (scale or 1.0 / math.sqrt(hd_logical))
@@ -553,9 +593,12 @@ def _attention(q, k, v, q_pos, k_pos, hd_logical, scale=0.0, k_scale=None,
         # true scores = q · (codes * ks) == (q · codes) * ks
         scores = scores * k_scale.to(torch.float32).permute(0, 2, 1)[
             :, :, None, None, :]
-    kp = k_pos[:, None, None, None, :]
-    qp = q_pos[:, None, None, :, None]
-    mask = (kp <= qp) & (kp >= 0)
+    if mask_override is not None:
+        mask = mask_override[:, None, None, :, :]
+    else:
+        kp = k_pos[:, None, None, None, :]
+        qp = q_pos[:, None, None, :, None]
+        mask = (kp <= qp) & (kp >= 0)
     scores = scores.masked_fill(~mask, -1e30)
     p = torch.softmax(scores, dim=-1)
     if v_scale is not None:
@@ -566,7 +609,7 @@ def _attention(q, k, v, q_pos, k_pos, hd_logical, scale=0.0, k_scale=None,
 
 
 def _attention_chunked(q, k, v, q_pos, k_pos, hd_logical, scale=0.0,
-                       chunk=ATTN_CHUNK):
+                       chunk=ATTN_CHUNK, mask_override=None):
     """Online-softmax attention over KV chunks (same semantics as the dense
     path; O(T * chunk) live scores instead of O(T * S))."""
     b, t, h, hd = q.shape
@@ -583,7 +626,10 @@ def _attention_chunked(q, k, v, q_pos, k_pos, hd_logical, scale=0.0,
         vc = v[:, off:off + chunk].to(torch.float32)
         kp = k_pos[:, off:off + chunk][:, None, None, None, :]
         sc = torch.einsum("bthgd,bshd->bhgts", qf, kc)
-        masked = ~((kp <= qp) & (kp >= 0))
+        if mask_override is not None:
+            masked = ~mask_override[:, None, None, :, off:off + chunk]
+        else:
+            masked = ~((kp <= qp) & (kp >= 0))
         sc.masked_fill_(masked, -1e30)
         m_new = torch.maximum(m, sc.amax(dim=-1))
         corr = torch.exp(m - m_new)
@@ -658,13 +704,14 @@ class _SlotKV:
 
 
 def _fused_attn_ok(cfg: ModelConfig, plan: DimPlan, t: int,
-                   kvio: _SlotKV | None, decode_attn: str) -> bool:
-    """The decode-attention gate: one token per slot over the whole cache,
-    a model whose attention the kernels compute (no ALiBi, sinks, softcap,
-    chunked windows or bidirectional attention), and the kernels' head
-    shapes."""
+                   kvio: _SlotKV | None, decode_attn: str,
+                   attn_mask: torch.Tensor | None = None) -> bool:
+    """The decode-attention gate: one token per slot over the whole cache
+    under the causal mask (no ``attn_mask`` override), a model whose
+    attention the kernels compute (no ALiBi, sinks, softcap, chunked
+    windows or bidirectional attention), and the kernels' head shapes."""
     return (
-        decode_attn == "fused"
+        decode_attn == "fused" and attn_mask is None
         and kvio is not None and kvio.slots is None and t == 1
         and getattr(cfg, "pos_embed", "rope") != "alibi"
         and not getattr(cfg, "attn_sinks", False)
@@ -676,7 +723,8 @@ def _fused_attn_ok(cfg: ModelConfig, plan: DimPlan, t: int,
 
 
 def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, cos, sin,
-                safe_pos, rope_pos, k_pos, write_start, decode_attn, impl):
+                safe_pos, rope_pos, k_pos, write_start, decode_attn, impl,
+                attn_mask=None):
     b, t = x.shape[:2]
     hd_p, eps, d = plan.hd_p, cfg.rms_eps, cfg.d_model
     proj = lp.proj
@@ -692,7 +740,7 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, cos, sin,
     q = apply_rope(q.reshape(b, t, -1, hd_p), rope_pos, cos, sin)
     k = apply_rope(k.reshape(b, t, -1, hd_p), rope_pos, cos, sin)
     v = v.reshape(b, t, -1, hd_p)
-    if _fused_attn_ok(cfg, plan, t, kvio, decode_attn):
+    if _fused_attn_ok(cfg, plan, t, kvio, decode_attn, attn_mask):
         att = kvio.fused_attend(
             q, k, v, write_start, 0,
             cfg.attn_scale or 1.0 / math.sqrt(plan.hd))
@@ -701,40 +749,58 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, cos, sin,
         if kvio is not None:
             k, v, k_sc, v_sc = kvio.update(k, v, write_start)
         att = _attention(q, k, v, safe_pos, k_pos, plan.hd,
-                         scale=cfg.attn_scale, k_scale=k_sc, v_scale=v_sc)
+                         scale=cfg.attn_scale, k_scale=k_sc, v_scale=v_sc,
+                         mask_override=attn_mask)
     # chunk-pad into wo's packed-K layout (a no-op when chunk == chunk_p)
     att = att.reshape(b, t, plan.tp_pack, plan.wo_chunk)
     if plan.wo_chunk_p != plan.wo_chunk:
         att = torch.nn.functional.pad(att, (0, plan.wo_chunk_p - plan.wo_chunk))
     att = att.reshape(b, t, plan.wo_in_p)
-    # [attn_sub_norm] + quant + wo GEMM + residual (both trees)
-    x = proj["wo"](
-        att, impl, mode="norm" if cfg.use_subnorms else "plain",
-        norm_g=getattr(lp, "attn_sub_norm", None),
-        norm_n=cfg.n_heads * plan.hd, eps=eps, residual=x, out_dtype=x.dtype)
-    if lp.fused:
+    if proj["wo"].has_lora:
+        # unfused: the delta needs the sub-normed input
+        if cfg.use_subnorms:
+            att = _rms(att, lp.attn_sub_norm, eps, cfg.n_heads * plan.hd)
+        x = x + proj["wo"](att, impl).to(x.dtype)
+    else:
+        # [attn_sub_norm] + quant + wo GEMM + residual (both trees)
+        x = proj["wo"](
+            att, impl, mode="norm" if cfg.use_subnorms else "plain",
+            norm_g=getattr(lp, "attn_sub_norm", None),
+            norm_n=cfg.n_heads * plan.hd, eps=eps, residual=x,
+            out_dtype=x.dtype)
+    ffl = plan.ff_p
+    if "w_gateup" in proj and not proj["w_down"].has_lora:
         # ffn_norm + quant + gate|up GEMM; silu*up [+ sub-norm] + quant +
         # down GEMM + residual
-        ffl = plan.ff_p
         gu = proj["w_gateup"](x, impl, mode="norm", norm_g=lp.ffn_norm,
                               norm_n=d, eps=eps)
-        return proj["w_down"](
+        x = proj["w_down"](
             gu[..., :ffl], impl, mode="silu_mul", x2=gu[..., ffl:],
             sub_norm=cfg.use_subnorms,
             norm_g=getattr(lp, "ffn_sub_norm", None), norm_n=cfg.d_ff,
             eps=eps, residual=x, out_dtype=x.dtype)
-    h = _rms(x, lp.ffn_norm, eps, d)
-    gate, up = proj["w_gate"](h, impl), proj["w_up"](h, impl)
-    a = (torch.nn.functional.silu(gate.to(torch.float32))
-         * up.to(torch.float32)).to(x.dtype)
-    if cfg.use_subnorms:
-        a = _rms(a, lp.ffn_sub_norm, eps, cfg.d_ff)
-    return x + proj["w_down"](a, impl).to(x.dtype)
+    else:
+        h = _rms(x, lp.ffn_norm, eps, d)
+        if "w_gateup" in proj:
+            gu = proj["w_gateup"](h, impl)
+            gate, up = gu[..., :ffl], gu[..., ffl:]
+        else:
+            gate, up = proj["w_gate"](h, impl), proj["w_up"](h, impl)
+        a = (torch.nn.functional.silu(gate.to(torch.float32))
+             * up.to(torch.float32)).to(x.dtype)
+        if cfg.use_subnorms:
+            a = _rms(a, lp.ffn_sub_norm, eps, cfg.d_ff)
+        x = x + proj["w_down"](a, impl).to(x.dtype)
+    if hasattr(lp, "cvector"):
+        # control-vector steering, after the layer's residual adds
+        x = x + lp.cvector.to(x.dtype)
+    return x
 
 
 def run_layers(layers, x, positions, kv: dict | None, *, cfg: ModelConfig,
                plan: DimPlan, cos, sin, slots: torch.Tensor | None = None,
-               decode_attn: str = "fused", impl: str = "auto"):
+               decode_attn: str = "fused", impl: str = "auto",
+               attn_mask: torch.Tensor | None = None):
     """Run the layer stack (either tree) over x (B, T, D).  With ``slots``
     the B rows are those slots of the cache ``kv``."""
     b = positions.shape[0]
@@ -753,7 +819,7 @@ def run_layers(layers, x, positions, kv: dict | None, *, cfg: ModelConfig,
             x, layers[i], _SlotKV(kv, i, slots) if kv is not None else None,
             cfg=cfg, plan=plan, cos=cos, sin=sin, safe_pos=safe_pos,
             rope_pos=rope_pos, k_pos=k_pos, write_start=write_start,
-            decode_attn=decode_attn, impl=impl,
+            decode_attn=decode_attn, impl=impl, attn_mask=attn_mask,
         )
     return x, kv
 
@@ -782,6 +848,7 @@ def forward(
     logits_at: torch.Tensor | None = None,  # (B,) per-row index into T
     slots: torch.Tensor | None = None,  # (B,) cache slot of each row
     decode_attn: str = "fused",
+    attn_mask: torch.Tensor | None = None,  # (B, T, S) bool override
 ) -> tuple[torch.Tensor, dict | None]:
     """Returns (float32 logits (B, T', V_padded), kv_cache updated in place).
 
@@ -794,7 +861,9 @@ def forward(
     ``"auto"`` (the kernels on the card, their plain versions on the CPU)
     or ``"dequant"`` (float32 products with the dequantized weights, the
     accuracy reference).  ``logits_at`` projects one row per sequence,
-    ``logits_last_only`` the last.
+    ``logits_last_only`` the last.  ``attn_mask`` (B, T, S) bool replaces
+    the causal mask over the cache rows (the T rows are written first); it
+    takes the composed attention.
     """
     if decode_attn not in DECODE_ATTN:
         raise ValueError(f"decode_attn must be one of {DECODE_ATTN}")
@@ -806,7 +875,8 @@ def forward(
     x, kv_cache = run_layers(params.layers, x, positions, kv_cache, cfg=cfg,
                              plan=plan, cos=params.rope_cos,
                              sin=params.rope_sin, slots=slots,
-                             decode_attn=decode_attn, impl=impl)
+                             decode_attn=decode_attn, impl=impl,
+                             attn_mask=attn_mask)
     x = _rms(x, params.final_norm, cfg.rms_eps, cfg.d_model)
     if logits_at is not None:
         x = x[torch.arange(b, device=x.device), logits_at][:, None]

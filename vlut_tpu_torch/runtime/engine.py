@@ -31,10 +31,29 @@ with one ``.tolist()``.  Log-probs, admission, prefill, context shift and
 ``fork_slot`` stay on the host, eager.  On the CPU, or with
 ``cuda_graph=False`` (the eager A/B), the same step runs eagerly.
 
-Not ported yet (each raises ``NotImplementedError``): multi-device meshes,
-draft-model speculation and lookahead decoding, grammar-constrained
-sampling, slot save/restore, and recurrent models (ROADMAP Queue 1 items
-9 and 13).
+The other step programs, each one graph in the same pool:
+
+* the **grammar step**: the decode step with an (n_slots, V_p) bool mask
+  of allowed tokens as a static tensor, filled from a pinned host buffer
+  before each replay (the masks come from each request's
+  ``GrammarSampler`` on the host); keyed by (features, "grammar"), so the
+  program without a grammar stays free of transfers;
+* the **speculative round** (``draft=``): k+1 greedy draft decodes over
+  the draft's own cache, each argmax fed to the next on the device, then
+  one target forward over the k+1 rows and the accepted counts;
+* the **lookahead round** (``lookahead=(W, G)``): one forward of
+  T = 1 + (G-1)(W+1) rows per slot under a (B, T, S) mask, with its window,
+  n-gram pool, pointer and Jacobi carry as static tensors.
+
+Speculation and lookahead run only while every active slot is greedy and
+featureless (no grammar, no log-probs) and has the rows' headroom; else
+the normal step runs (and the draft cache does not advance).  Their tokens
+equal plain greedy decoding.  ``save_slot`` / ``restore_slot`` move a
+slot's rows through the JAX package's npz format (``runtime/state.py``);
+a restore writes the cache in place.
+
+Not ported (each raises ``NotImplementedError``): multi-device meshes and
+recurrent models (ROADMAP Queue 1 items 6 and 7).
 """
 
 from __future__ import annotations
@@ -43,6 +62,7 @@ import dataclasses
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from vlut_tpu_torch.config import ModelConfig
@@ -58,6 +78,8 @@ from vlut_tpu_torch.models.transformer import (
 )
 from vlut_tpu_torch.ops.rope import rope_table
 from vlut_tpu_torch.runtime import kv_cache as kvc
+from vlut_tpu_torch.runtime import speculative as spec_mod
+from vlut_tpu_torch.runtime import state as state_mod
 from vlut_tpu_torch.runtime.sampling import (
     NEG_INF,
     SamplerParams,
@@ -106,7 +128,9 @@ class Request:
     max_new_tokens: int = 64
     sampler: SamplerParams = dataclasses.field(default_factory=SamplerParams)
     stop_tokens: tuple[int, ...] = ()
-    grammar: Any = None  # not ported: a request with one is refused
+    # optional GBNF constraint (runtime.grammar.GrammarSampler bound to the
+    # engine's vocab pieces); reset at admission
+    grammar: Any = None
     # top-k logprobs to record per generated token (0 = off)
     n_probs: int = 0
     # filled by the engine:
@@ -146,6 +170,12 @@ class PerfCounters:
     # decode-step captures (CUDA graphs), kept out of t_decode_s
     n_captures: int = 0
     t_capture_s: float = 0.0
+    # speculative / lookahead rounds: proposals made and accepted
+    n_spec_drafted: int = 0
+    n_spec_accepted: int = 0
+    n_spec_rounds: int = 0
+    # host time building grammar masks, inside t_decode_s
+    t_grammar_s: float = 0.0
 
     def summary(self) -> str:
         pp = self.n_prompt_tokens / self.t_prompt_s if self.t_prompt_s else 0
@@ -161,8 +191,8 @@ class PerfCounters:
 
 @dataclasses.dataclass
 class _StepProgram:
-    """The decode step of one feature set: the noise it draws (shapes and
-    static tensors) and its runner (``runtime.step_graph.step_runner``)."""
+    """One step program: the noise it draws (shapes and static tensors; none
+    for a greedy round) and its runner (``runtime.step_graph.step_runner``)."""
 
     shapes: dict[str, tuple]
     noise: dict[str, torch.Tensor]
@@ -171,9 +201,12 @@ class _StepProgram:
 
 class Engine:
     """Single-device slot engine over a :class:`TransformerLM`, on the
-    model's device; the model is served as the fused, unrolled tree with a
-    bf16 or int8 (``kv_quant``) cache.  ``cuda_graph=False`` runs the
-    decode step eagerly on the card too."""
+    model's device; the model is served as the fused, unrolled tree (left
+    unfused where a LoRA needs it) with a bf16 or int8 (``kv_quant``)
+    cache.  ``draft=(cfg, model[, (d2t, t2d)])`` speculates with a draft
+    model (k_draft proposals per round), ``lookahead=(W, G)`` with the
+    draft-free lookahead; the two exclude each other.  ``cuda_graph=False``
+    runs every step program eagerly on the card too."""
 
     def __init__(
         self,
@@ -185,6 +218,7 @@ class Engine:
         context_shift: bool = True,
         head_quant: bool = False,
         draft: Any = None,
+        k_draft: int = 4,
         lookahead: tuple[int, int] | None = None,
         prefill_buckets: tuple[int, ...] = (16, 32, 64, 128, 256, 512, 1024),
         mesh: Any = None,
@@ -192,13 +226,12 @@ class Engine:
         cuda_graph: bool = True,
     ):
         if mesh is not None:
-            raise _not_ported("multi-device serving (mesh=)", "13")
-        if draft is not None:
-            raise _not_ported("draft-model speculative decoding", "9")
-        if lookahead is not None:
-            raise _not_ported("lookahead decoding", "9")
+            raise _not_ported("multi-device serving (mesh=)", "6")
+        if lookahead is not None and draft is not None:
+            raise ValueError("lookahead and draft are mutually exclusive "
+                             "decode modes")
         if type(cfg).__name__ == "MambaConfig":
-            raise _not_ported("recurrent models", "11")
+            raise _not_ported("recurrent models", "7")
         if decode_attn not in DECODE_ATTN:
             raise ValueError(f"decode_attn must be one of {DECODE_ATTN}")
         self.cfg = cfg
@@ -241,6 +274,35 @@ class Engine:
         self._pool = (torch.cuda.graph_pool_handle() if self.cuda_graph
                       else None)
 
+        # the grammar step's (n_slots, V_p) allowed-token mask: a static
+        # tensor filled from a pinned host buffer
+        self._mask = None
+        self._host_mask = None
+        self._spec = None
+        if draft is not None:
+            d_cfg, d_model = draft[0], draft[1]
+            self._spec = {
+                "cfg": d_cfg,
+                "params": unstack_layers(fuse_projections(d_model, d_cfg),
+                                         d_cfg),
+                "k": k_draft,
+                "cache": init_kv_cache(d_cfg, n_slots, self.max_len,
+                                       device=dev),
+                "vmap": (spec_mod.VocabMap(draft[2][0], draft[2][1], dev)
+                         if len(draft) > 2 and draft[2] is not None
+                         else None),
+            }
+        self._la = None
+        if lookahead is not None:
+            w, g = lookahead
+            self._la = {
+                "window": w, "ngram": g,
+                "round": spec_mod.make_lookahead_round(cfg, w, g,
+                                                       decode_attn),
+                "state": spec_mod.la_state(n_slots, w, g, device=dev),
+            }
+            self._la["t_total"] = self._la["round"].t_total
+
         self.context_shift = context_shift
         self._rope_tables = None
         self.perf = PerfCounters()
@@ -248,8 +310,6 @@ class Engine:
     # --- host API ------------------------------------------------------------
 
     def submit(self, req: Request) -> int:
-        if req.grammar is not None:
-            raise _not_ported("grammar-constrained sampling", "9")
         req.rid = self._next_rid
         self._next_rid += 1
         self.queue.append(req)
@@ -308,12 +368,23 @@ class Engine:
                 self.slots[s].history, prompt))
             reuse = min(self._common_prefix(self.slots[i].history, prompt),
                         len(prompt) - 1)
+            if self._spec is not None:
+                # the draft cache holds no tracked prefix: both models see
+                # the whole prompt
+                reuse = 0
             slot = self.slots[i]
             slot.req = req
             slot.length = len(prompt)
             slot.generated = 0
             slot.history = list(prompt)
             slot.kv_hist = list(prompt)
+            if self._la is not None:
+                # start each request with a clean window and pool
+                st = self._la["state"]
+                st["win"][i] = 0
+                st["pool"][i] = -1
+                st["ptr"][i] = 0
+                st["jac"][i] = -1
             # [slot, kv offset, remaining tokens, true prefix reuse]
             staged.append([i, req, reuse, prompt[reuse:], reuse])
         if not staged:
@@ -381,6 +452,16 @@ class Engine:
             logits_at=torch.clamp(nv - 1, min=0).to(dev), slots=slots.to(dev),
             decode_attn=self.decode_attn)
         logits = logits[:, 0]
+        if self._spec is not None:
+            # the draft prefills the same rows of its own cache (the prompt
+            # translated into its vocabulary)
+            sp = self._spec
+            toks_d = toks.to(dev)
+            if sp["vmap"] is not None:
+                toks_d = sp["vmap"].to_draft(toks_d)
+            forward(sp["params"], sp["cfg"], toks_d, pos.to(dev),
+                    sp["cache"], logits_at=torch.clamp(nv - 1, min=0).to(dev),
+                    slots=slots.to(dev), decode_attn=self.decode_attn)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.perf.n_prompt_tokens += int(nv.sum())
@@ -405,11 +486,16 @@ class Engine:
             v[i] = 0
         logits = _mask_pad_vocab(last_logits[None].to(torch.float32),
                                  self.cfg.vocab_size)
+        row_mask = None
+        if req.grammar is not None:
+            req.grammar.reset()
+            row_mask = torch.from_numpy(
+                self._grammar_row(req, self.params.n_logits))[None].to(dev)
         tok, row_state = sample_ex(
             logits, stack_params([s], device=dev), [self._gens[i]],
             {k: v[i:i + 1] for k, v in self._sampler_state.items()},
             self.ring[i:i + 1], _window_mask(self.ring_cnt[i:i + 1]),
-            features=features_of([s]))
+            allowed_mask=row_mask, features=features_of([s]))
         for k, v in row_state.items():
             self._sampler_state[k][i] = v[0]
         first = int(tok[0])
@@ -419,6 +505,11 @@ class Engine:
             req.logprobs.append((top_id[0].cpu().numpy(),
                                  top_lp[0].cpu().numpy(),
                                  float(lp[0, first])))
+        if req.grammar is not None and first not in req.stop_tokens:
+            try:
+                req.grammar.accept(first)
+            except Exception:  # noqa: BLE001
+                req.max_new_tokens = min(req.max_new_tokens, 1)
         self._push_token(i, first)
 
     def _maybe_context_shift(self, i: int):
@@ -480,13 +571,60 @@ class Engine:
         slot.generated += 1
         self._finish_if_done(i, tok)
 
+    def _grammar_row(self, req: Request, width: int) -> np.ndarray:
+        """(width,) bool allowed tokens of ``req``'s grammar (True past the
+        vocabulary: the pad logits are already masked).  A wedged grammar
+        (no token admissible) allows only EOS and the stop tokens, or, with
+        none known, anything while capping the request at this token."""
+        v = self.cfg.vocab_size
+        row = req.grammar.mask()[:v]
+        if not row.any():
+            outs = [t for t in set(getattr(req.grammar, "eos_ids", ()))
+                    | set(req.stop_tokens) if 0 <= t < v]
+            row = np.zeros((v,), bool)
+            if outs:
+                row[outs] = True
+            else:
+                row[:] = True
+                req.max_new_tokens = min(req.max_new_tokens,
+                                         len(req.output) + 1)
+        out = np.ones((width,), bool)
+        out[:v] = row
+        return out
+
+    def _grammar_mask(self, active: list[int]) -> bool:
+        """Fill the pinned host mask with every active grammar's row (True
+        elsewhere); False, and nothing filled, when no active slot has a
+        grammar that constrains this step (a lazy grammar before its
+        trigger does not)."""
+        grams = [i for i in active
+                 if self.slots[i].req.grammar is not None
+                 and not getattr(self.slots[i].req.grammar, "inactive",
+                                 False)]
+        if not grams:
+            return False
+        t0 = time.perf_counter()
+        if self._host_mask is None:
+            shape = (self.n_slots, self.params.n_logits)
+            self._host_mask = torch.ones(shape, dtype=torch.bool,
+                                         pin_memory=self.device.type == "cuda")
+            self._mask = torch.ones(shape, dtype=torch.bool,
+                                    device=self.device)
+        host = self._host_mask.numpy()
+        host[:] = True
+        for i in grams:
+            host[i] = self._grammar_row(self.slots[i].req, host.shape[1])
+        self.perf.t_grammar_s += time.perf_counter() - t0
+        return True
+
     def _decode_step(self, features: tuple[str, ...],
-                     noise: dict[str, torch.Tensor]):
+                     noise: dict[str, torch.Tensor], grammar: bool = False):
         """The decode step a graph captures, over the static inputs
-        (``_step_in``, ``_sp``, the ring, the sampler state and ``noise``),
-        all updated in place: forward over every slot (its KV rows written),
-        pad-vocab mask, sampler chain, ring update.  Returns the (B,) next
-        tokens and the (B, V) float32 logits."""
+        (``_step_in``, ``_sp``, the ring, the sampler state, ``noise`` and,
+        with ``grammar``, the allowed-token mask), all updated in place:
+        forward over every slot (its KV rows written), pad-vocab mask,
+        sampler chain, ring update.  Returns the (B,) next tokens and the
+        (B, V) float32 logits."""
         tokens, lengths = self._step_in
         logits, _ = forward(self.params, self.cfg, tokens[:, None],
                             lengths[:, None], self.cache,
@@ -496,7 +634,8 @@ class Engine:
         valid = _window_mask(self.ring_cnt, self._sp["penalty_last_n"])
         nxt, state = sample_ex(
             logits, self._sp, None, self._sampler_state, self.ring, valid,
-            features=features, noise=noise)
+            allowed_mask=self._mask if grammar else None, features=features,
+            noise=noise)
         for k, v in state.items():
             if v is not self._sampler_state[k]:
                 self._sampler_state[k].copy_(v)
@@ -506,18 +645,54 @@ class Engine:
         self.ring_cnt += 1
         return nxt, logits
 
-    def _program(self, features: tuple[str, ...]) -> _StepProgram:
-        prog = self._steps.get(features)
+    def _program(self, features: tuple[str, ...],
+                 grammar: bool = False) -> _StepProgram:
+        key = features + (("grammar",) if grammar else ())
+        prog = self._steps.get(key)
         if prog is None:
             shapes = noise_shapes(self.n_slots, self.params.n_logits,
                                   features)
             noise = {name: torch.zeros(sh, device=self.device)
                      for name, sh in shapes.items()}
             prog = _StepProgram(shapes, noise, step_runner(
-                lambda: self._decode_step(features, noise), self.device,
-                self.cuda_graph, self._pool))
-            self._steps[features] = prog
+                lambda: self._decode_step(features, noise, grammar),
+                self.device, self.cuda_graph, self._pool))
+            self._steps[key] = prog
         return prog
+
+    def _round_program(self, key: tuple[str, ...], fn) -> _StepProgram:
+        """The program of a greedy round ``fn`` (no noise)."""
+        prog = self._steps.get(key)
+        if prog is None:
+            prog = _StepProgram({}, {}, step_runner(
+                fn, self.device, self.cuda_graph, self._pool))
+            self._steps[key] = prog
+        return prog
+
+    def _spec_round(self):
+        """The speculative round a graph captures, over ``_step_in``: k+1
+        greedy draft decodes (the extra one writes the last proposal's KV
+        so an all-accepted round leaves no hole in the draft cache), then
+        one target forward over [fed token, k proposals].  Returns the (B,
+        k+1) target tokens and (B,) accepted counts."""
+        sp = self._spec
+        tokens, lengths = self._step_in
+        vm = sp["vmap"]
+        props = spec_mod.draft_tokens(
+            sp["params"], sp["cfg"], sp["cache"],
+            vm.to_draft(tokens) if vm else tokens, lengths, sp["k"] + 1,
+            self.decode_attn)[:, :sp["k"]]
+        if vm:
+            props = vm.to_target(props)
+        return spec_mod.verify(self.params, self.cfg, self.cache, tokens,
+                               props, lengths, self.decode_attn)
+
+    def _la_round(self):
+        """The lookahead round a graph captures, over ``_step_in`` and the
+        lookahead state (updated in place)."""
+        tokens, lengths = self._step_in
+        return self._la["round"](self.params, self.cache, tokens, lengths,
+                                 self._la["state"])
 
     def _run_step(self, prog: _StepProgram):
         """One decode step of ``prog``: its noise drawn, then its runner
@@ -533,35 +708,117 @@ class Engine:
         return out
 
     def step_programs(self) -> list[dict]:
-        """Each decode step program: its features, and its graph's capture
-        time, memory and replays (none on the CPU, with ``cuda_graph=False``
-        or before the capture)."""
+        """Each step program: its key (the decode step's features, with
+        "grammar" for the grammar step; "speculative" or "lookahead" for a
+        round), and its graph's capture time, memory and replays (none on
+        the CPU, with ``cuda_graph=False`` or before the capture)."""
         return [{"features": list(k), **p.run.stats()}
                 for k, p in self._steps.items()]
 
-    @torch.inference_mode()
-    def step(self) -> bool:
-        """One engine iteration: admit new requests, decode all active
-        slots.  Returns True while work remains."""
-        self._admit()
-        active = [i for i, s in enumerate(self.slots) if s.req is not None]
-        if not active:
-            return bool(self.queue)
+    def _fill_inputs(self, active: list[int], idle_len: int) -> list[int]:
+        """Write the fed tokens and the write rows of the step into the
+        pinned host inputs (idle slots: token 0 at row ``idle_len``);
+        returns the fed tokens."""
         host = self._host_in.numpy()
         host[0] = 0
-        # idle slots still run; their row write lands on row max_len - 1,
-        # which is never part of a reusable prefix
-        host[1] = self.max_len - 1
+        host[1] = idle_len
         for i in active:
             s = self.slots[i]
             host[0, i] = s.req.output[-1]
             host[1, i] = s.length + s.generated - 1
-        fed = host[0].tolist()
-        k_probs = max(self.slots[i].req.n_probs for i in active)
+        return host[0].tolist()
+
+    def _can_round(self, active: list[int], rows: int) -> bool:
+        """A speculative or lookahead round covers the greedy featureless
+        path (its tokens equal plain greedy decoding) while every active
+        slot has ``rows`` rows of headroom; anything needing the sampler
+        chain, a grammar or log-probs runs the normal step."""
+        if self._features:
+            return False
+        for i in active:
+            s = self.slots[i]
+            if s.req.grammar is not None or s.req.n_probs:
+                return False
+            if s.length + s.generated - 1 + rows >= self.max_len - 1:
+                return False
+        return True
+
+    def _commit_rounds(self, active, fed, tgt, n_acc, drafted: int):
+        """Push each active slot's accepted tokens of a round."""
+        for i in active:
+            slot = self.slots[i]
+            n = n_acc[i] + 1
+            row = tgt[i][:n]
+            # rows written this round that stay valid: the fed token and
+            # the accepted proposals
+            slot.kv_hist.extend([fed[i]] + row[:-1])
+            self.perf.n_decode_tokens += n
+            self.perf.n_spec_drafted += drafted
+            self.perf.n_spec_accepted += n - 1
+            for tok in row:
+                self._push_token_host_only(i, tok)
+                if slot.req is None:  # finished mid-row
+                    break
+
+    def _step_round(self, active: list[int], idle_len: int, key, fn,
+                    drafted: int) -> bool:
+        fed = self._fill_inputs(active, idle_len)
         t0 = time.perf_counter()
         self._step_in.copy_(self._host_in, non_blocking=True)
         captures = self.perf.t_capture_s
-        nxt, logits = self._run_step(self._program(self._features))
+        tgt, n_acc = self._run_step(self._round_program(key, fn))
+        tgt, n_acc = tgt.tolist(), n_acc.tolist()
+        self.perf.t_decode_s += (time.perf_counter() - t0
+                                 - (self.perf.t_capture_s - captures))
+        self.perf.n_decode_steps += 1
+        self.perf.n_spec_rounds += 1
+        self._commit_rounds(active, fed, tgt, n_acc, drafted)
+        return True
+
+    def _step_speculative(self, active: list[int]) -> bool:
+        # idle slots park at the tail row; prefix reuse is off in draft
+        # mode, so their round's writes touch no cached prefix
+        k = self._spec["k"]
+        return self._step_round(active, self.max_len - 1,
+                                ("speculative", f"k={k}"), self._spec_round, k)
+
+    def _step_lookahead(self, active: list[int]) -> bool:
+        la = self._la
+        # a lookahead round writes t_total rows from an idle slot's parking
+        # row, so its cached prefix is only kept below them
+        cap = self.max_len - la["t_total"] - 1
+        for s in self.slots:
+            if s.req is None and len(s.history) > cap:
+                s.history = s.history[:cap]
+        return self._step_round(
+            active, cap, ("lookahead", f"W={la['window']}",
+                          f"G={la['ngram']}"), self._la_round,
+            la["ngram"] - 1)
+
+    @torch.inference_mode()
+    def step(self) -> bool:
+        """One engine iteration: admit new requests, decode all active
+        slots (a speculative or lookahead round where it applies).  Returns
+        True while work remains."""
+        self._admit()
+        active = [i for i, s in enumerate(self.slots) if s.req is not None]
+        if not active:
+            return bool(self.queue)
+        if self._spec and self._can_round(active, self._spec["k"] + 2):
+            return self._step_speculative(active)
+        if self._la and self._can_round(active, self._la["t_total"] + 1):
+            return self._step_lookahead(active)
+        # idle slots still run; their row write lands on row max_len - 1,
+        # which is never part of a reusable prefix
+        fed = self._fill_inputs(active, self.max_len - 1)
+        k_probs = max(self.slots[i].req.n_probs for i in active)
+        t0 = time.perf_counter()
+        grammar = self._grammar_mask(active)
+        self._step_in.copy_(self._host_in, non_blocking=True)
+        if grammar:
+            self._mask.copy_(self._host_mask, non_blocking=True)
+        captures = self.perf.t_capture_s
+        nxt, logits = self._run_step(self._program(self._features, grammar))
         if k_probs:
             lp = torch.log_softmax(logits, dim=-1)
             top_lp, top_id = torch.topk(lp, k_probs, dim=-1)
@@ -580,16 +837,33 @@ class Engine:
             if k_probs and req.n_probs:
                 req.logprobs.append((p_id[i, :req.n_probs],
                                      p_lp[i, :req.n_probs], p_chosen[i]))
-            self._push_token_host_only(i, int(nxt[i]))
+            tok = int(nxt[i])
+            g = req.grammar
+            if g is not None and tok not in req.stop_tokens:
+                try:
+                    g.accept(tok)
+                except Exception:  # noqa: BLE001
+                    # a grammar fault ends this request after this token,
+                    # not the engine loop every other request depends on
+                    req.max_new_tokens = min(req.max_new_tokens,
+                                             len(req.output) + 1)
+            self._push_token_host_only(i, tok)
         return True
 
     # --- sequence/state ops ----------------------------------------------------
 
     def save_slot(self, i: int) -> bytes:
-        raise _not_ported("slot save/restore", "9")
+        """Serialize slot i's cached prefix (the JAX package's npz)."""
+        hist = self.slots[i].history
+        return state_mod.save_slot_state(self.cache, i, len(hist), hist)
 
     def restore_slot(self, i: int, data: bytes) -> None:
-        raise _not_ported("slot save/restore", "9")
+        """Write a serialized prefix into idle slot i, in place; the next
+        request admitted there reuses it through the prefix cache."""
+        if self.slots[i].req is not None:
+            raise RuntimeError(f"slot {i} is busy")
+        self.slots[i].history = state_mod.load_slot_state(self.cache, i, data)
+        self.slots[i].length = 0
 
     def fork_slot(self, src: int, dst: int) -> None:
         """Copy slot src's cached prefix to idle slot dst (seq_cp)."""

@@ -6,18 +6,24 @@ one engine thread drives ``Engine.step()`` (continuous batching).
 
   POST /completion, /completions, /v1/completions  — completion (+SSE)
   POST /tokenize, /detokenize                      — vocabulary round-trips
+  POST /slots/{id}?action=save|restore|erase       — slot state
   GET  /health, /metrics, /slots, /props, /v1/models
 
 Request fields as in the JAX package (prompt as text or token ids,
 n_predict / max_tokens, the sampler fields, stop strings, stream,
-ignore_eos, n_probs).  ``return_tokens: true`` adds the generated token ids
-(``tokens``) to the answer, and to the last event of a stream.  Chat,
-infill, embeddings, rerank, template expansion, slot actions and grammar
-constraints are not ported yet and answer 501.
+ignore_eos, n_probs, and the constraints ``grammar`` (GBNF, with
+``grammar_lazy`` + ``grammar_triggers``), ``regex`` / ``guided_regex``,
+``json_schema`` and ``response_format``).  ``return_tokens: true`` adds
+the generated token ids (``tokens``) to the answer, and to the last event
+of a stream.  A slot save keeps the state in the server's memory under
+``filename`` (default ``slot<id>``).  Chat, infill, embeddings, rerank and
+template expansion are not ported yet and answer 501.
 
     python -m vlut_tpu_torch.serving.server --model DIR [--port 8080]
         [--slots 8] [--ctx 4096] [--cache-type bf16|q8]
-        [--decode-attn fused|composed] [--device cpu]
+        [--decode-attn fused|composed] [--draft-model DIR [--draft-k 4]]
+        [--lookahead [--lookahead-window 8] [--lookahead-ngram 3]]
+        [--device cpu]
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
-from urllib.parse import urlparse
+from urllib.parse import parse_qs, urlparse
 
 from vlut_tpu_torch.runtime.engine import Engine, Request
 from vlut_tpu_torch.runtime.sampling import SamplerParams
@@ -40,8 +46,6 @@ NOT_PORTED_POST = (
     "/v1/embeddings", "/rerank", "/reranking", "/v1/rerank",
     "/apply-template",
 )
-GRAMMAR_FIELDS = ("grammar", "json_schema", "regex", "guided_regex",
-                  "response_format")
 
 
 class ServerState:
@@ -58,6 +62,8 @@ class ServerState:
             "requests_errors_total": 0,
         }
         self.running = True
+        # saved slot states by filename (POST /slots/{id}?action=save)
+        self.slot_files: dict[str, bytes] = {}
         self.thread = threading.Thread(target=self._loop, daemon=True)
 
     def start(self):
@@ -148,6 +154,38 @@ def _sampler_from_body(body: dict[str, Any]) -> SamplerParams:
         logit_bias=tuple(bias),
         seed=int(body.get("seed", 0)),
     )
+
+
+def _grammar_from_body(body: dict[str, Any], tok):
+    """The request's constraint as a grammar sampler bound to the
+    tokenizer's vocabulary, or None: ``grammar`` (GBNF; lazy with
+    ``grammar_lazy`` and ``grammar_triggers``), ``regex`` /
+    ``guided_regex``, ``json_schema``, or ``response_format`` of type
+    ``json_schema`` / ``json_object``."""
+    from vlut_tpu_torch.runtime.grammar import (
+        LazyGrammarSampler,
+        json_schema_to_gbnf,
+        regex_to_gbnf,
+    )
+
+    if body.get("grammar"):
+        g = tok.make_grammar(body["grammar"])
+        trig = body.get("grammar_triggers")
+        if body.get("grammar_lazy") and trig:
+            g = LazyGrammarSampler(g, trig)
+        return g
+    rx = body.get("regex") or body.get("guided_regex")
+    if rx:
+        return tok.make_grammar(regex_to_gbnf(rx))
+    schema = body.get("json_schema")
+    rf = body.get("response_format") or {}
+    if schema is None and rf.get("type") == "json_schema":
+        schema = (rf.get("json_schema") or {}).get("schema", {})
+    if schema is None and rf.get("type") == "json_object":
+        schema = {}
+    if schema is not None:
+        return tok.make_grammar(json_schema_to_gbnf(schema))
+    return None
 
 
 def make_handler(state: ServerState):
@@ -245,6 +283,8 @@ def make_handler(state: ServerState):
                 "n_past_max": max((s.length + s.generated
                                    for s in eng.slots), default=0),
                 "n_tokens_reused": perf.n_reused_tokens,
+                "n_drafted_total": perf.n_spec_drafted,
+                "n_drafted_accepted_total": perf.n_spec_accepted,
             }
             for k, v in gauges.items():
                 lines += [f"# TYPE vlut_{k} gauge", f"vlut_{k} {v}"]
@@ -264,7 +304,8 @@ def make_handler(state: ServerState):
             except json.JSONDecodeError:
                 self._json(400, {"error": "bad json"})
                 return
-            path = urlparse(self.path).path
+            parsed = urlparse(self.path)
+            path = parsed.path
             try:
                 if path in ("/completion", "/completions", "/v1/completions"):
                     self._completion(body)
@@ -276,7 +317,9 @@ def make_handler(state: ServerState):
                 elif path == "/detokenize":
                     self._json(200, {
                         "content": self.st.tok.decode(body.get("tokens", []))})
-                elif path in NOT_PORTED_POST or path.startswith("/slots/"):
+                elif path.startswith("/slots/"):
+                    self._slot_action(path, parsed.query, body)
+                elif path in NOT_PORTED_POST:
                     self._not_ported(f"POST {path}")
                 else:
                     self._json(404, {"error": "not found"})
@@ -302,6 +345,7 @@ def make_handler(state: ServerState):
                                             body.get("max_tokens", 128))),
                 sampler=_sampler_from_body(body),
                 stop_tokens=stop_tok,
+                grammar=_grammar_from_body(body, self.st.tok),
                 n_probs=min(n_probs, 16),
             )
 
@@ -388,9 +432,6 @@ def make_handler(state: ServerState):
             return emitted, finish
 
         def _completion(self, body):
-            if any(body.get(f) for f in GRAMMAR_FIELDS):
-                self._not_ported("grammar-constrained completion")
-                return
             prompt = body.get("prompt", "")
             ids = prompt if isinstance(prompt, list) else self.st.tok.encode(
                 prompt)
@@ -426,6 +467,41 @@ def make_handler(state: ServerState):
             if req.n_probs:
                 resp["completion_probabilities"] = self._probs_payload(req)
             self._json(200, resp)
+
+        def _slot_action(self, path: str, query: str, body):
+            """save / restore / erase of one slot's cached prefix."""
+            try:
+                slot_id = int(path.split("/")[2])
+            except (IndexError, ValueError):
+                self._json(400, {"error": "bad slot id"})
+                return
+            action = (parse_qs(query).get("action") or [""])[0]
+            eng = self.st.engine
+            if not 0 <= slot_id < eng.n_slots:
+                self._json(400, {"error": "slot id out of range"})
+                return
+            name = body.get("filename", f"slot{slot_id}")
+            with self.st.lock:
+                if action == "save":
+                    data = eng.save_slot(slot_id)
+                    self.st.slot_files[name] = data
+                    self._json(200, {
+                        "id_slot": slot_id, "filename": name,
+                        "n_saved": len(eng.slots[slot_id].history),
+                        "n_bytes": len(data)})
+                elif action == "restore":
+                    if name not in self.st.slot_files:
+                        self._json(404, {"error": f"no saved state {name}"})
+                        return
+                    eng.restore_slot(slot_id, self.st.slot_files[name])
+                    self._json(200, {
+                        "id_slot": slot_id,
+                        "n_restored": len(eng.slots[slot_id].history)})
+                elif action == "erase":
+                    eng.slots[slot_id].history = []
+                    self._json(200, {"id_slot": slot_id, "n_erased": 1})
+                else:
+                    self._json(400, {"error": f"unknown action {action!r}"})
 
     return Handler
 
@@ -464,6 +540,14 @@ def add_server_args(ap: argparse.ArgumentParser) -> None:
                     help="tensor-parallel ways (not ported: must be 1)")
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel ways (not ported: must be 1)")
+    ap.add_argument("--draft-model", default=None,
+                    help="draft checkpoint for per-slot speculative decode")
+    ap.add_argument("--draft-k", type=int, default=4)
+    ap.add_argument("--lookahead", action="store_true",
+                    help="per-slot draft-free windowed lookahead decode "
+                    "(greedy requests only; others use the normal step)")
+    ap.add_argument("--lookahead-window", type=int, default=8)
+    ap.add_argument("--lookahead-ngram", type=int, default=3)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
 
 
@@ -474,12 +558,20 @@ def start_from_args(args) -> tuple[ThreadingHTTPServer, ServerState]:
     if args.tp != 1 or args.dp != 1:
         raise NotImplementedError("tp/dp serving is not ported to "
                                   "vlut_tpu_torch yet (ROADMAP Queue 1 "
-                                  "item 13)")
+                                  "item 6)")
     cfg, model, _ = load_checkpoint(args.model, device=args.device)
+    draft = None
+    if args.draft_model:
+        d_cfg, d_model, _ = load_checkpoint(args.draft_model,
+                                            device=args.device)
+        draft = (d_cfg, d_model)
     engine = Engine(cfg, model, n_slots=args.slots, max_len=args.ctx,
                     kv_quant=args.cache_type == "q8",
                     context_shift=not args.no_context_shift,
-                    decode_attn=args.decode_attn)
+                    decode_attn=args.decode_attn, draft=draft,
+                    k_draft=args.draft_k,
+                    lookahead=((args.lookahead_window, args.lookahead_ngram)
+                               if args.lookahead else None))
     return serve(engine, Tokenizer(args.model), args.host, args.port,
                  model_name=str(args.model))
 

@@ -1,5 +1,5 @@
-"""Tokenizer host layer (port of vlut_tpu/utils/tokenizer.py, encode and
-decode only).
+"""Tokenizer host layer (port of vlut_tpu/utils/tokenizer.py: encode,
+decode and the grammar engine's view of the vocabulary).
 
 ``transformers`` is imported when a Tokenizer is made, so the rest of the
 port never needs it.  Where it is not installed, a checkpoint whose
@@ -49,6 +49,10 @@ class CharWordLevel:
 
         self.eos_token_id = special_id("eos_token")
         self.bos_token_id = special_id("bos_token")
+        self.all_special_ids = sorted(self.special.values())
+
+    def __len__(self) -> int:
+        return len(self.vocab)
 
     def encode(self, text: str, add_special_tokens: bool = True) -> list[int]:
         parts = self._split.split(text) if self._split else [text]
@@ -90,3 +94,27 @@ class Tokenizer:
     @property
     def bos_id(self) -> int | None:
         return self.tk.bos_token_id
+
+    def pieces(self) -> list[str]:
+        """Decoded text of every vocab id, the grammar engine's view of the
+        vocabulary; special tokens decode to "" so grammars never emit
+        them.  Cached."""
+        if getattr(self, "_pieces", None) is None:
+            special = set(self.tk.all_special_ids)
+            self._pieces = [
+                "" if i in special
+                else self.tk.decode([i], skip_special_tokens=False)
+                for i in range(len(self.tk))]
+        return self._pieces
+
+    def make_grammar(self, gbnf: str):
+        """A GrammarSampler bound to this vocabulary (EOS allowed at the
+        grammar's accept states); the vocab trie is built once and shared
+        by every grammar."""
+        from vlut_tpu_torch.runtime.grammar import GrammarSampler, VocabTrie
+
+        if getattr(self, "_trie", None) is None:
+            self._trie = VocabTrie(self.pieces())
+        eos = (self.eos_id,) if self.eos_id is not None else ()
+        return GrammarSampler(gbnf, self.pieces(), eos_ids=eos,
+                              trie=self._trie)
