@@ -701,3 +701,85 @@ def test_restore_into_a_captured_engine(dev):
         return nxt.output
 
     assert run(True) == run(False)
+
+
+# The server's cacheless forwards at the flagship's widths (llama3_8b_158):
+# a rerank of 32 documents in a 256 bucket (M 8192) through #3 at the fused
+# tree's four projections, and embeddings of one and three inputs (bucket
+# 16: M 16 and 48) through #1 and #4 at the projections of either tree.
+FLAGSHIP_FUSED = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)]
+FLAGSHIP_UNFUSED = [(4096, 1024), (4096, 14336)]
+
+
+def _card_weights(dev, fmt, k, n, seed):
+    """Random valid packed weights, made on the card (the plain versions
+    below also run there: at these widths the CPU's integer products take
+    minutes)."""
+    from vlut_tpu_torch.ops.packing import (
+        DEFAULT_BLOCK, TRITS_PER_BYTE, padded_k, random_packed_bytes)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    packed = random_packed_bytes(
+        (padded_k(k, fmt) // TRITS_PER_BYTE[fmt], n), fmt, gen, dev)
+    ws = torch.rand(n, generator=gen, device=dev) * 0.09 + 0.01
+    return gen, packed, ws, DEFAULT_BLOCK[fmt]
+
+
+@pytest.mark.parametrize("fmt", ["i2", "i1"])
+@pytest.mark.parametrize("k,n", FLAGSHIP_FUSED)
+def test_tiled_at_the_rerank_shape_matches_plain(dev, fmt, k, n):
+    m = 8192
+    gen, packed, ws, kb = _card_weights(dev, fmt, k, n, seed=k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                       dtype=torch.int8)
+    xs = torch.rand((m, 1), generator=gen, device=dev) * 0.1 + 1e-3
+    got = tg.ternary_gemm_tiled(xq, packed, xs, ws, fmt=fmt, kb=kb, k=k)
+    want = tg._gemm_plain(xq, xs, packed, ws, fmt, kb, k, None,
+                          torch.float32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [16, 48])
+@pytest.mark.parametrize("k,n", FLAGSHIP_FUSED + FLAGSHIP_UNFUSED)
+def test_decode_at_the_embedding_shapes_matches_plain(dev, m, k, n):
+    """#1 in plain mode with a bf16 residual, and #4, bit for bit."""
+    gen, packed, ws, kb = _card_weights(dev, "i2", k, n, seed=m + k + n)
+    x = torch.randn((m, k), generator=gen, device=dev)
+    res = torch.randn((m, n), generator=gen, device=dev).to(torch.bfloat16)
+    got = tg.ternary_gemm_decode(x, packed, ws, residual=res, fmt="i2",
+                                 kb=kb, k=k, out_dtype=torch.bfloat16)
+    codes, xs = tg.decode_prologue(x, None, None, "plain", False, k, 1e-5)
+    assert torch.equal(got, tg._gemm_plain(codes, xs, packed, ws, "i2", kb,
+                                           k, res, torch.bfloat16))
+    got = tg.ternary_gemm_fused_quant(x, packed, ws, fmt="i2", kb=kb, k=k)
+    assert torch.equal(got, tg._gemm_plain(*tg.kernel_quantize(x), packed,
+                                           ws, "i2", kb, k, None,
+                                           torch.float32))
+
+
+def test_embed_rerank_tiny_real_card_equals_cpu(dev):
+    """The server's embeddings (mean, last, cls; one input and four) and
+    rerank scores on the card agree with the CPU's on tiny_real."""
+    import pathlib
+
+    from vlut_tpu_torch.runtime.engine import Engine
+    from vlut_tpu_torch.serving.server import ServerState
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    tok = Tokenizer(pathlib.Path(__file__).parent / "fixtures" / "tiny_real")
+    states = [ServerState(Engine(*_tiny_real(d), n_slots=1, max_len=256),
+                          tok) for d in ("cuda", "cpu")]
+    texts = ["The little model reads the lines of its own repo.", "reads",
+             "of its own repo, and some more words past sixteen", "T"]
+    ids = [tok.encode(t) for t in texts]
+    for batch in (ids[:1], ids):
+        for pooling in ("mean", "last", "cls"):
+            a, b = (st.embed(batch, pooling) for st in states)
+            assert float((a * b).sum(-1).min()) >= 0.9999
+    q = tok.encode("The little model")
+    docs = [tok.encode(d, add_bos=False) for d in
+            (" reads the lines", " zq xv", " of its own repo.", "!!")]
+    a, b = (st.rerank(q, docs) for st in states)
+    np.testing.assert_allclose(a, b, rtol=1e-3)
+    assert np.argsort(a).tolist() == np.argsort(b).tolist()

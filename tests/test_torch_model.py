@@ -297,3 +297,27 @@ def test_char_tokenizer_matches_hf():
     assert ours.decode(ids) == hf.decode(ids, skip_special_tokens=False)
     assert ours.eos_token_id == hf.eos_token_id
     assert ours.bos_token_id == hf.bos_token_id
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["stacked", "fused"])
+@pytest.mark.parametrize("name", ["tiny", "tiny_bitnet", "tiny_real"])
+def test_forward_hidden_matches_jax(name, fused):
+    """``output="hidden"``: the final-norm hidden states (B, T, D) in bf16
+    with no head, against the JAX package's; the head applied to them
+    gives ``forward``'s logits bit for bit."""
+    cfg_j, params, cfg, model = _models(name, fused)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+    pos = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+    want, _ = jax.jit(jt.forward, static_argnums=(1,),
+                      static_argnames=("output",))(
+        params, cfg_j, jnp.asarray(toks), jnp.asarray(pos), None,
+        output="hidden")
+    t_toks, t_pos = torch.from_numpy(toks).long(), torch.from_numpy(pos).long()
+    with torch.inference_mode():
+        got, cache = tt.forward(model, cfg, t_toks, t_pos, output="hidden")
+        logits, _ = tt.forward(model, cfg, t_toks, t_pos)
+    assert cache is None
+    assert got.dtype == torch.bfloat16 and got.shape == (B, T, cfg.d_model)
+    _close(got.float(), np.asarray(want.astype(jnp.float32)))
+    assert torch.equal(tt.project_head(model, got), logits)

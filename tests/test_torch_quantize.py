@@ -171,7 +171,7 @@ def test_moe_stack_raises():
     layers = dict(tree["layers"])
     layers["w_gate"] = {"packed": layers["w_gate"]["packed"][:, None],
                         "scale": layers["w_gate"]["scale"][:, None]}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         requantize_params(cfg, {**tree, "layers": layers}, "i1")
 
 

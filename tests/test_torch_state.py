@@ -137,3 +137,33 @@ def test_state_file_roundtrip_and_mismatch(tmp_path):
     busy.step()
     with pytest.raises(RuntimeError, match="busy"):
         busy.restore_slot(0, path.read_bytes())
+
+
+def test_version1_file_restores_in_both_packages():
+    """A version-1 file from before the q8 cache (``k`` / ``v`` entries, no
+    ``kv_`` prefix), written with numpy, restores into a bf16 cache of
+    either package with the same rows and history, and the port's
+    continuation of it equals a fresh run."""
+    saved, _ = _jax_side(False)
+    arrays = _arrays(saved)
+    buf = io.BytesIO()
+    np.savez(buf, version=1, tokens=arrays["tokens"], k=arrays["kv_k"],
+             v=arrays["kv_v"])
+    old = buf.getvalue()
+    hist = [int(t) for t in arrays["tokens"]]
+    eng = _port_engine(False)
+    eng.restore_slot(1, old)
+    jeng = JaxEngine(CFG_J, _params()[0], impl="pallas_interpret", **KW)
+    jeng.restore_slot(1, old)
+    assert eng.slots[1].history == jeng.slots[1].history == hist
+    for again in (_arrays(eng.save_slot(1)), _arrays(jeng.save_slot(1))):
+        np.testing.assert_array_equal(again["kv_k"], arrays["kv_k"])
+        np.testing.assert_array_equal(again["kv_v"], arrays["kv_v"])
+    req = Request(prompt=hist + MORE, max_new_tokens=6,
+                  sampler=SamplerParams(temperature=0.0))
+    eng.run([req])
+    assert eng.perf.n_reused_tokens == len(hist)
+    want = Request(prompt=hist + MORE, max_new_tokens=6,
+                   sampler=SamplerParams(temperature=0.0))
+    _port_engine(False).run([want])
+    assert req.output == want.output

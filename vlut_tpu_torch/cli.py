@@ -7,9 +7,11 @@
       [--draft-model DIR [--draft-k 4] | --prompt-lookup K | --lookahead
       [--lookahead-window 8] [--lookahead-ngram 3]]
       [--lora DIR [--lora-scale 1]] [--control-vector F
-      [--control-vector-scale 1]] [--device cpu]
-  python -m vlut_tpu_torch.cli serve --model DIR [--port 8080] [--slots 8]
-      [--ctx 4096] [--cache-type bf16|q8] [--decode-attn fused|composed]
+      [--control-vector-scale 1]] [--promote i2|i1]
+      [--override KEY=VALUE ...] [--device cpu]
+  python -m vlut_tpu_torch.cli serve --model [NAME=]DIR [--model NAME=DIR
+      ...] [--port 8080] [--slots 8] [--ctx 4096] [--cache-type bf16|q8]
+      [--decode-attn fused|composed] [--promote i2|i1]
       [--draft-model DIR [--draft-k 4] | --lookahead ...] [--device cpu]
   python -m vlut_tpu_torch.cli batched --model DIR -p PROMPT -np N -n N
       [--temp T] [--repeat-penalty R] [--seed S] [--device cpu]
@@ -30,10 +32,14 @@
 ``generate`` serves one request through the slot engine (with a draft
 model, a grammar, a LoRA adapter or a control vector as asked), or with
 ``--prompt-lookup`` / ``--lookahead`` through the standalone greedy
-speculative loops of ``runtime/speculative.py``; ``serve`` starts
-the completion server; ``batched`` is the shared-prompt np-way fan-out (one
-prompt prefilled into np slots, then n decode steps per slot).  ``bench``
-is the kernel microbenchmark (i2/i1 through the tiled ternary kernel,
+speculative loops of ``runtime/speculative.py``; ``--override`` sets a
+model config field (retyped from the field; a field the port does not
+implement raises) and ``--promote`` repacks the weights at load (i2 <->
+i1, exact).  ``serve`` starts the OpenAI-compatible server
+(``serving/server.py``: completion, chat with tools, infill, embeddings,
+rerank, template, web UI), one engine per ``--model``; ``batched`` is the
+shared-prompt np-way fan-out (one prompt prefilled into np slots, then n
+decode steps per slot).  ``bench`` is the kernel microbenchmark (i2/i1 through the tiled ternary kernel,
 llama.cpp's TQ2_0/TQ1_0 through the TQ kernel); ``bench-sweep`` and
 ``batched-bench`` are the llama-bench and batched-bench analogs; ``ppl``
 and ``eval`` the perplexity harness (with the quantized-vs-dequant KL
@@ -46,6 +52,7 @@ touch no device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -178,16 +185,41 @@ def run_standalone_speculative(model, cfg, ids: list[int], n_predict: int,
     return toks, accs[:, 0].tolist()
 
 
+def override_config(cfg, overrides: list[str]):
+    """``cfg`` with each ``KEY=VALUE`` set, the value retyped from the
+    field's current value (bool, int, float; else the string)."""
+    for spec in overrides:
+        key, _, val = spec.partition("=")
+        if not hasattr(cfg, key):
+            raise SystemExit(f"--override: no config field {key!r}")
+        cur = getattr(cfg, key)
+        if isinstance(cur, bool):
+            val = val.lower() in ("1", "true", "yes")
+        elif isinstance(cur, int):
+            val = int(val)
+        elif isinstance(cur, float):
+            val = float(val)
+        cfg = dataclasses.replace(cfg, **{key: val})
+    return cfg
+
+
 def cmd_generate(args) -> None:
     """One request through the slot engine (the JAX package's engine branch
     of ``vlut-tpu generate``), or through a standalone prompt-lookup or
     lookahead loop."""
     from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+    from vlut_tpu_torch.convert.quantize import promote
+    from vlut_tpu_torch.models.transformer import TransformerLM
     from vlut_tpu_torch.runtime.engine import Engine, Request
     from vlut_tpu_torch.runtime import lora
     from vlut_tpu_torch.utils.tokenizer import Tokenizer
 
     cfg, model, _ = load_checkpoint(args.model, device=args.device)
+    if args.override:
+        cfg = override_config(cfg, args.override)
+        model = TransformerLM(cfg, model.tree())
+    if args.promote:
+        cfg, model = promote(cfg, model, args.promote)
     if args.lora:
         model = lora.apply_lora(model, lora.load_peft_adapter(args.lora, cfg),
                                 scale=args.lora_scale)
@@ -398,6 +430,11 @@ def _generate_parser(p: argparse.ArgumentParser) -> None:
     p.add_argument("--control-vector", default=None,
                    help="control-vector file (.safetensors/.npz)")
     p.add_argument("--control-vector-scale", type=float, default=1.0)
+    p.add_argument("--promote", choices=("i2", "i1"), default=None,
+                   help="repack the weights to this format at load")
+    p.add_argument("--override", action="append", default=[],
+                   metavar="KEY=VALUE",
+                   help="override a model config field (repeatable)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
 
 

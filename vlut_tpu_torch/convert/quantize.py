@@ -34,6 +34,7 @@ from vlut_tpu_torch.convert.checkpoint import (
 from vlut_tpu_torch.models.dims import make_plan
 from vlut_tpu_torch.models.transformer import (
     TransformerLM,
+    _tree_to,
     pack_weight,
     unpack_weight,
     weight_specs,
@@ -68,7 +69,7 @@ def requantize_params(
         if packed.dim() == 4:
             raise NotImplementedError(
                 f"{name}: MoE expert stacks are not ported yet (ROADMAP "
-                "Queue 1 item 10)")
+                "Queue 1 item 4)")
         spec = src_specs[name]
         outs = []
         for li in range(packed.shape[0]):
@@ -83,6 +84,16 @@ def requantize_params(
             "scale": torch.stack([t.scale.reshape(()) for t in outs]),
         }
     return new_cfg, {**tree, "layers": layers}
+
+
+def promote(cfg: ModelConfig, model: TransformerLM,
+            fmt: str) -> tuple[ModelConfig, TransformerLM]:
+    """The load-time repack of ``--promote``: ``model`` in ``fmt`` on its
+    own device (unchanged when it is already in ``fmt``)."""
+    if cfg.weight_fmt == fmt:
+        return cfg, model
+    new_cfg, tree = requantize_params(cfg, model, fmt)
+    return new_cfg, TransformerLM(new_cfg, _tree_to(tree, model.device))
 
 
 _SUB_NORMS = ("attn_sub_norm", "ffn_sub_norm")

@@ -317,7 +317,9 @@ class TransformerLM(nn.Module):
 
     ``lm_head`` is a bf16 (D, Vp) matrix, or after :func:`quantize_head`
     the int8 ``lm_head_q`` with per-column ``lm_head_scale``; tied models
-    use ``embed.T``.
+    use ``embed.T``.  A checkpoint converted from a sequence classifier
+    also carries ``rank_head`` {w (D, 1), b (1,)}, which the server's
+    rerank scores with.
     """
 
     def __init__(self, cfg: ModelConfig, tree: dict[str, Any]):
@@ -341,6 +343,12 @@ class TransformerLM(nn.Module):
                                  head["scale"].to(torch.float32))
         elif head is not None:
             self.register_buffer("lm_head", head)
+        rank = tree.get("rank_head")
+        if rank is not None:
+            # a reranker's classification head (D, 1) [+ bias (1,)]
+            self.register_buffer("rank_head_w", rank["w"])
+            if "b" in rank:
+                self.register_buffer("rank_head_b", rank["b"])
         plan = self.plan
         cos, sin = rope_table(cfg.max_seq_len, plan.hd, cfg.rope_theta,
                               cfg.rope_scaling, pad_to=plan.hd_p)
@@ -371,6 +379,10 @@ class TransformerLM(nn.Module):
             out["lm_head"] = {"q": self.lm_head_q, "scale": self.lm_head_scale}
         elif hasattr(self, "lm_head"):
             out["lm_head"] = self.lm_head
+        if hasattr(self, "rank_head_w"):
+            out["rank_head"] = {"w": self.rank_head_w}
+            if hasattr(self, "rank_head_b"):
+                out["rank_head"]["b"] = self.rank_head_b
         return out
 
     def forward(self, tokens, positions, kv_cache=None, **kw):
@@ -836,6 +848,20 @@ def _int_head(x2d: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xp, q)[:m]
 
 
+def project_head(params: TransformerLM, x: torch.Tensor) -> torch.Tensor:
+    """float32 logits (B, T, Vp) of hidden states x (B, T, D): the int8
+    head (per-row int8 codes, an int32 product, ``(acc * xs) * scale``),
+    or the bf16 ``lm_head`` / ``embed.T`` in float32."""
+    b, t, d = x.shape
+    if hasattr(params, "lm_head_q"):
+        xq, xs = quantize_activations(x.reshape(b * t, d))
+        acc = _int_head(xq, params.lm_head_q)
+        return (acc.to(torch.float32) * xs
+                * params.lm_head_scale[None, :]).reshape(b, t, -1)
+    head = params.lm_head if hasattr(params, "lm_head") else params.embed.T
+    return x.to(torch.float32) @ head.to(torch.float32)
+
+
 def forward(
     params: TransformerLM,
     cfg: ModelConfig,
@@ -849,8 +875,11 @@ def forward(
     slots: torch.Tensor | None = None,  # (B,) cache slot of each row
     decode_attn: str = "fused",
     attn_mask: torch.Tensor | None = None,  # (B, T, S) bool override
+    output: str = "logits",
 ) -> tuple[torch.Tensor, dict | None]:
-    """Returns (float32 logits (B, T', V_padded), kv_cache updated in place).
+    """Returns (float32 logits (B, T', V_padded), kv_cache updated in place),
+    or with ``output="hidden"`` the final-norm hidden states (B, T, D) in
+    the embedding's dtype and no head (the embeddings and rerank path).
 
     With a cache, the T new tokens of row b occupy cache rows
     positions[b, 0] ... positions[b, 0] + T - 1 of slot b, or of slot
@@ -869,6 +898,8 @@ def forward(
         raise ValueError(f"decode_attn must be one of {DECODE_ATTN}")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}")
+    if output not in ("logits", "hidden"):
+        raise ValueError("output must be 'logits' or 'hidden'")
     b = tokens.shape[0]
     plan = params.plan
     x = params.embed[tokens]
@@ -878,19 +909,13 @@ def forward(
                              decode_attn=decode_attn, impl=impl,
                              attn_mask=attn_mask)
     x = _rms(x, params.final_norm, cfg.rms_eps, cfg.d_model)
+    if output == "hidden":
+        return x, kv_cache
     if logits_at is not None:
         x = x[torch.arange(b, device=x.device), logits_at][:, None]
     elif logits_last_only:
         x = x[:, -1:]
-    bq, tq, d = x.shape
-    if hasattr(params, "lm_head_q"):
-        xq, xs = quantize_activations(x.reshape(bq * tq, d))
-        acc = _int_head(xq, params.lm_head_q)
-        logits = (acc.to(torch.float32) * xs
-                  * params.lm_head_scale[None, :]).reshape(bq, tq, -1)
-    else:
-        head = params.lm_head if hasattr(params, "lm_head") else params.embed.T
-        logits = x.to(torch.float32) @ head.to(torch.float32)
+    logits = project_head(params, x)
     if cfg.logit_scale != 1.0:
         logits = logits * cfg.logit_scale
     return logits, kv_cache

@@ -7,7 +7,8 @@ restores in the other:
 * ``version`` (1) and ``tokens`` int64;
 * ``kv_<name>`` for every cache entry: (L, length, Hkv, hd_p) rows of the
   slot (scale planes (L, length, Hkv)), floats stored as float32, the int8
-  codes of a q8 cache as int8.
+  codes of a q8 cache as int8.  Files from before the q8 cache hold ``k``
+  and ``v`` instead, and restore into a bf16 cache.
 
 The port writes the zip entries stored rather than deflated; ``np.load``
 reads either.
@@ -67,6 +68,8 @@ def load_slot_state(cache: dict, slot: int, data: bytes) -> list[int]:
         tokens = z["tokens"]
         arrays = {name[3:]: z[name] for name in z.files
                   if name.startswith("kv_")}
+        if not arrays:  # version-1 files from before the q8 cache
+            arrays = {"k": z["k"], "v": z["v"]}
     if set(arrays) != set(cache):
         raise ValueError(
             f"state keys {sorted(arrays)} don't match cache {sorted(cache)}"

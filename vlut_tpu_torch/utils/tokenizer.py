@@ -1,11 +1,13 @@
 """Tokenizer host layer (port of vlut_tpu/utils/tokenizer.py: encode,
-decode and the grammar engine's view of the vocabulary).
+decode, the chat template and the grammar engine's view of the
+vocabulary).
 
 ``transformers`` is imported when a Tokenizer is made, so the rest of the
 port never needs it.  Where it is not installed, a checkpoint whose
 ``tokenizer.json`` is a character-level WordLevel vocabulary (the
 ``tests/fixtures/tiny_real`` kind) is read by :class:`CharWordLevel`, which
-encodes and decodes as the Hugging Face tokenizer does for such a file.
+encodes and decodes as the Hugging Face tokenizer does for such a file and
+renders the ChatML fallback template without jinja.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import json
 import pathlib
 import re
+from collections.abc import Mapping
+from typing import Any
 
 
 class CharWordLevel:
@@ -50,6 +54,7 @@ class CharWordLevel:
         self.eos_token_id = special_id("eos_token")
         self.bos_token_id = special_id("bos_token")
         self.all_special_ids = sorted(self.special.values())
+        self.chat_template = cfg.get("chat_template")
 
     def __len__(self) -> int:
         return len(self.vocab)
@@ -72,6 +77,17 @@ class CharWordLevel:
             skip_special_tokens and p in self.special))
 
 
+def render_chatml(messages: list[dict[str, Any]],
+                  add_generation_prompt: bool = True) -> str:
+    """ChatML, the reference server's default template for a checkpoint
+    that carries none (common/chat.cpp's chatml fallback, which the JAX
+    package renders through jinja), by string assembly: that template has
+    no whitespace control, so jinja gives this text."""
+    text = "".join(f"<|im_start|>{m['role']}\n{m['content']}<|im_end|>\n"
+                   for m in messages)
+    return text + ("<|im_start|>assistant\n" if add_generation_prompt else "")
+
+
 class Tokenizer:
     def __init__(self, path: str | pathlib.Path):
         try:
@@ -86,6 +102,41 @@ class Tokenizer:
 
     def decode(self, ids: list[int]) -> str:
         return self.tk.decode(ids, skip_special_tokens=False)
+
+    def apply_chat_template(self, messages: list[dict[str, Any]],
+                            add_generation_prompt: bool = True,
+                            tools: list[dict[str, Any]] | None = None,
+                            ) -> list[int]:
+        """Token ids of ``messages`` under the checkpoint's chat template
+        (Hugging Face's jinja), or ChatML (:func:`render_chatml`) where it
+        has none; ``tools`` reach a template that reads them (ChatML does
+        not).  The text is encoded without special tokens, as Hugging
+        Face's ``apply_chat_template`` does."""
+        if getattr(self.tk, "chat_template", None) is None:
+            return list(self.tk.encode(
+                render_chatml(messages, add_generation_prompt),
+                add_special_tokens=False))
+        if isinstance(self.tk, CharWordLevel):
+            raise RuntimeError("rendering a checkpoint's own chat template "
+                               "needs transformers (jinja)")
+        ids = self.tk.apply_chat_template(
+            messages, add_generation_prompt=add_generation_prompt,
+            tokenize=True, return_dict=False,
+            **({"tools": tools} if tools else {}))
+        # some transformers releases answer a BatchEncoding all the same
+        return list(ids["input_ids"] if isinstance(ids, Mapping) else ids)
+
+    @property
+    def fim_prefix_token_id(self) -> int | None:
+        return getattr(self.tk, "fim_prefix_token_id", None)
+
+    @property
+    def fim_suffix_token_id(self) -> int | None:
+        return getattr(self.tk, "fim_suffix_token_id", None)
+
+    @property
+    def fim_middle_token_id(self) -> int | None:
+        return getattr(self.tk, "fim_middle_token_id", None)
 
     @property
     def eos_id(self) -> int | None:
