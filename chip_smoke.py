@@ -17,8 +17,8 @@ Phases (any failure exits non-zero; none is skipped):
   4. real weights: tests/fixtures/tiny_real through the port's ``batched``
      path on the card (graphed and eager) and on the CPU: identical greedy
      tokens; seeded sampling graphed and eager: identical tokens;
-  5. the slot engine at the flagship's full width: 32 slots, ctx 2048, 48
-     greedy requests of 64-1500 prompt tokens (vlut_tpu_torch/bench/
+  5. the slot engine at the flagship's full width: 32 slots, ctx 2048, 40
+     greedy requests of 64-1100 prompt tokens (vlut_tpu_torch/bench/
      engine.py), with the bf16 and the q8 cache, each with the fused and
      the composed decode attention (the A/B of ms per decode step), each
      graphed (the main path) and eager: identical greedy tokens; the fused
@@ -82,8 +82,21 @@ Phases (any failure exits non-zero; none is skipped):
      "model" and a 404; ``generate --promote i1`` against the requantized
      checkpoint; ms per embeddings batch and rerank, #3's device launches
      per embeddings batch;
- 19. one JSON line of every kernel with its launches on the paths of phases
-     3-18, then the card, then ``{"ok": true, "device": ...}`` last.
+ 19. the dense zoo (vlut_tpu_torch/bench/zoo.py): qwen3_4b at full width
+     and depth (16 slots, ctx 2048, 16 greedy requests of 64-512 prompt
+     tokens, 16 new tokens) with bf16 fused (#7), q8 fused (#8) and bf16
+     composed attention, and gemma2_2b at full width and depth (8 slots,
+     ctx 8192, one request of 5,000 tokens past its 4,096 window and 8
+     of 64-512, the ninth admitted beside the long one's decode,
+     composed: its softcap gate), each graphed against
+     eager (identical tokens), with ms per decode step, prompt tok/s and
+     the tied head's time; then each knob family of the CPU tests (d 256,
+     heads of 128, 2 layers) on the card against the CPU (each layer from
+     the CPU's input and the logits within 2e-2 of the largest, the CPU's
+     greedy tokens) and graphed against eager; every kernel the JAX gates
+     send a model to must count launches;
+ 20. one JSON line of every kernel with its launches on the paths of phases
+     3-19, then the card, then ``{"ok": true, "device": ...}`` last.
 
 Phase 2 times #3 (the tiled GEMM) at the flagship prefill (M 4096) and at
 the microbenchmark's i2 lanes (llama3_8b dxd, dxff, ffxd at M 32 and 256)
@@ -105,7 +118,12 @@ microbenchmark's lanes (M 32 and 256), at the e2e prefills (M 512 and
 16384), at the speculative verify's and the lookahead round's M (160 and
 352) and at the server's rerank (M 8192), and at shapes that make its plan
 take each tile and split of K, #1 at the draft model's (bitnet_2b_4t's)
-four projections at M 32, #1 and #4 at the flagship's projections at the
+four projections at M 32, the zoo presets' projections (qwen3_4b's four
+and gemma2_2b's qkv through #1, gemma2_2b's wo, gate|up and down through
+#4) at M 1, 32 and 64 and through #3 at their prefills' M 1024 and 4096
+(and times them at their engines' decode M, 16 and 8, and through #3 at
+M 512; #7/#8 at qwen3_4b's engine, B 16 S 2048, and at a sliding layer
+of gemma2_2b's heads, hd 256, window 4,096 past 5,000 rows), #1 and #4 at the flagship's projections at the
 server's small embedding batches (M 16 and 48), #9
 bit-exact at shapes that make its plan take each tile and split count and
 with every tile and split forced at two shapes, #7 at the e2e benches'
@@ -580,9 +598,60 @@ def phase_kernels(dev) -> dict:
             tiled_timed("ternary_gemm_tiled_lanes", label, m, k, n, "i2",
                         iters=20, rotate=True)
 
+    # --- the zoo presets' projections (phase 19) at their engines' decode
+    # M (qwen3_4b 16 slots, gemma2_2b 8) through #1 or #4 as the JAX gates
+    # send them, and at their prefill bucket (M 512) through #3
+    for label, k, n, mode, sub, has_res, fused in zoo_projections():
+        m = 16 if label.startswith("qwen3") else 8
+        if fused:
+            x1, packed, ws, kw, xq, err = decode_case(label, m, k, n, mode,
+                                                      sub, has_res, "i2")
+            if err != 0.0:
+                fail(f"decode {label} M={m}: differs from the plain version "
+                     f"({err})")
+            rot = Rotation(packed)
+            ms = cuda_ms(lambda: tg.ternary_gemm_decode(
+                x1, rot.next(), ws, **kw), graph=True)
+            plain_ms = cuda_ms(lambda: tg._gemm_plain(
+                *tg.decode_prologue(x1, kw["x2"], kw["norm_g"], mode, sub, k,
+                                    1e-5), packed, ws, "i2", 128, k,
+                kw["residual"], kw["out_dtype"]), iters=3, warmup=1)
+            in_b = x1.element_size() * m * k * (2 if kw["x2"] is not None
+                                                 else 1)
+            nbytes = (in_b + packed.numel() + 4 * n
+                      + (4 * k if kw["norm_g"] is not None else 0)
+                      + (2 * m * n if has_res else 0) + 2 * m * n)
+            name, shape = "ternary_gemm_decode_zoo", f"{label} M={m} {mode}"
+        else:
+            packed, ws, x, xq, err = fused_quant_case(label, m, k, n)
+            rot = Rotation(packed)
+            ms = cuda_ms(lambda: tg.ternary_gemm_fused_quant(
+                x, rot.next(), ws, fmt="i2", kb=128, k=k), graph=True)
+            plain_ms = cuda_ms(lambda: tg._gemm_plain(
+                *tg.kernel_quantize(x), packed, ws, "i2", 128, k, None,
+                torch.float32), iters=3, warmup=1)
+            nbytes = 2 * m * k + packed.numel() + 4 * n + 4 * m * n
+            name, shape = "ternary_gemm_fused_quant_zoo", f"{label} M={m}"
+        lib_ms, lib_name, yard = gemm_yardsticks(xq, trits_i8(packed, "i2", k))
+        b_ms, by = bound_ms(nbytes, 2 * m * k * n)
+        record(name, shape=f"{shape} {k}->{n} i2", ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=by, library_ms=lib_ms,
+               max_abs_err=err, library=lib_name, yardsticks_ms=yard)
+        del rot
+    for label, k, n, *_ in zoo_projections():
+        tiled_timed("ternary_gemm_tiled_zoo", label, 512, k, n, "i2",
+                    iters=5, rotate=False)
+
     # --- #5/#6 KV row writer: a layer's update as the composed path gives it
     kv_kernels(dev, gen, record)
     decode_attention_kernels(dev, gen, record)
+    # #7/#8 at qwen3_4b's engine (B 16, S 2048, 32/8 heads of 128) and at
+    # a sliding layer of gemma2_2b's heads (8/4 of 256) with its 4,096-row
+    # window past 5,000 rows (gemma2_2b itself decodes composed: its
+    # softcap gate)
+    decode_attention_kernels(dev, gen, record, (
+        ("qwen3_4b", 16, 2048, 8, 4, 128, 0, "spread"),
+        ("hd256_w4096", 8, 8192, 4, 2, 256, 4096, 5000)))
     tq_kernels(dev, gen, record)
 
     # --- the other paths' shapes, checked and not timed ---------------------
@@ -649,6 +718,23 @@ def phase_kernels(dev) -> dict:
         err = decode_case(label, 32, k, n, mode, sub, has_res, "i2")[-1]
         checked("ternary_gemm_decode", f"{label} M=32 {k}->{n} i2 {mode}",
                 err)
+    # the zoo presets' projections (phase 19) at decode M 1, 32 and 64: #1
+    # where the JAX gates fuse them (qwen3_4b all four, gemma2_2b qkv with
+    # its (1 + w) gain), #4 where they do not (gemma2_2b wo, gate|up and
+    # down, unfused by its post-norms and gelu)
+    # (the float prologue's codes could differ within check_float_prologue;
+    # at these shapes they must not: max |err| 0)
+    for label, k, n, mode, sub, has_res, m in zoo_decode_shapes():
+        err = decode_case(label, m, k, n, mode, sub, has_res, "i2")[-1]
+        if err != 0.0:
+            fail(f"decode {label} M={m}: differs from the plain version "
+                 f"({err})")
+        checked("ternary_gemm_decode", f"{label} M={m} {k}->{n} i2 {mode}",
+                err)
+    for label, k, n, m in zoo_fused_quant_shapes():
+        err = fused_quant_case(label, m, k, n)[-1]
+        checked("ternary_gemm_fused_quant", f"{label} M={m} {k}->{n} i2", err)
+    torch.cuda.empty_cache()
     # #3 in the microbenchmark's i2/i1 lanes (llama3_8b dxd, dxff, ffxd at
     # M 32 and 256) and in the e2e benches' prefills (pp 512 at batch 1 and
     # 32: M 512 and 16384)
@@ -671,8 +757,12 @@ def phase_kernels(dev) -> dict:
         (1, 1280, 384), (20, 4096, 28672), (65, 1280, 384),
         (200, 4096, 28672), (513, 1280, 384), (300, 4096, 28672),
         (65, 1283, 384), (256, 3000, 640))]
+    # the zoo presets' prefills (phase 19: chunks of 1024 rows and a group
+    # of 4096; the 512 bucket is timed above) at each projection, in their
+    # format (i2)
+    zoo_lanes = zoo_prefill_lanes()
     for fmt in ("i2", "i1"):
-        for label, m, k, n in lanes:
+        for label, m, k, n in lanes + (zoo_lanes if fmt == "i2" else []):
             err = tiled_case(label, m, k, n, fmt)[-1]
             plan = tg.tiled_plan(m, -(-n // 128) * 128, padded_k(k, fmt), fmt,
                                  sms)
@@ -703,6 +793,48 @@ def phase_kernels(dev) -> dict:
             fail(f"{name} {r['label']} rows={r['rows']}: {r['why']}")
         checked(name, f"{r['label']} rows={r['rows']}", r["max_abs_err"])
     return results
+
+
+def zoo_projections() -> list:
+    """(label, K, N, mode, sub_norm, residual?, fused?) of each projection
+    of the zoo presets' serving trees, by the JAX gates: qwen3_4b fuses all
+    four (#1); gemma2_2b fuses qkv (#1, norm with the gain 1 + w) and runs
+    wo, gate|up and down unfused (#4)."""
+    from vlut_tpu_torch.config import PRESETS
+    from vlut_tpu_torch.models.dims import make_plan
+
+    out = []
+    for name in ("qwen3_4b", "gemma2_2b"):
+        c = PRESETS[name]
+        p = make_plan(c)
+        fused = name == "qwen3_4b"
+        out += [
+            (f"{name}_qkv", c.d_model, p.q_dim_p + 2 * p.kv_dim_p, "norm",
+             False, False, True),
+            (f"{name}_wo", p.wo_in_p, c.d_model, "plain", False, True, fused),
+            (f"{name}_gateup", c.d_model, 2 * p.ff_p, "norm", False, False,
+             fused),
+            (f"{name}_down", p.ff_p, c.d_model, "silu_mul", False, True,
+             fused),
+        ]
+    return out
+
+
+def zoo_decode_shapes() -> list:
+    return [(label, k, n, mode, sub, res, m)
+            for label, k, n, mode, sub, res, fused in zoo_projections()
+            if fused for m in (1, 32, 64)]
+
+
+def zoo_fused_quant_shapes() -> list:
+    return [(label, k, n, m)
+            for label, k, n, _, _, _, fused in zoo_projections()
+            if not fused for m in (1, 32, 64)]
+
+
+def zoo_prefill_lanes() -> list:
+    return [(label, m, k, n) for label, k, n, *_ in zoo_projections()
+            for m in (1024, 4096)]
 
 
 def kv_kernels(dev, gen, record) -> None:
@@ -909,7 +1041,7 @@ def tq_kernels(dev, gen, record) -> None:
 ATT_RTOL = ATT_ATOL = 2e-5
 
 
-def decode_attention_kernels(dev, gen, record) -> None:
+def decode_attention_kernels(dev, gen, record, shapes=None) -> None:
     """#7 and #8 at the decode paths' shapes (bench/attention_study.py:
     SHAPES: the flagship engine's B 32, S 2048 with starts spread over
     64-1900, without and with a 512-row window, the flagship batched cache
@@ -928,7 +1060,7 @@ def decode_attention_kernels(dev, gen, record) -> None:
     from vlut_tpu_torch.ops import decode_attention as da
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for label, b, s, hkv, g, hd, window, starts in st.SHAPES:
+    for label, b, s, hkv, g, hd, window, starts in shapes or st.SHAPES:
         for q8 in (False, True):
             name = ("decode_attention_int8" if q8 else "decode_attention") + (
                 "" if label == "engine" else "_" + label)
@@ -1122,9 +1254,14 @@ def main() -> None:
             for graph in (True, False):
                 run = "graph" if graph else "eager"
                 reset()
+                # 40 requests of 64-1100 tokens (8 queued past the slots,
+                # one chunked past 1024): fewer and shorter than the
+                # bench's 48 of 64-1500, to keep the script near its time
                 out = bench_engine.run(
                     device=dev, built=built, kv_quant=cache == "q8",
                     decode_attn=mode, cuda_graph=graph,
+                    requests=bench_engine.make_requests(built[0].vocab_size,
+                                                        n=40, hi=1100),
                     profile_steps=4 if mode == "fused" else 0,
                     check_paths=mode == "fused" and graph)
                 got = read(f"engine_{cache}_{mode}_{run}", (
@@ -1223,7 +1360,12 @@ def main() -> None:
     server_rest_phase(dev, built, fixture, card, reset, read,
                       (cfg, gpu_model, cpu_model))
 
-    # 19. summary
+    # 19. the dense zoo: qwen3_4b and gemma2_2b at full width, and each
+    # knob family on the card against the CPU
+    mark("zoo")
+    zoo_phase(dev, card, reset, read)
+
+    # 20. summary
     mark("summary")
     replaces = {
         "ternary_gemm_decode": ("vlut_tpu_torch/csrc/decode_gemm.cu",
@@ -1941,6 +2083,138 @@ def server_rest_phase(dev, built, fixture, card, reset, read, real) -> None:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         fail(f"server_rest: {bad}")
+
+
+def zoo_phase(dev, card, reset, read) -> None:
+    """Phase 19: the dense zoo.  (a) qwen3_4b and (b) gemma2_2b at full
+    width and depth (random packed weights from the seed) through the
+    engine, graphed against eager; (c) each knob family of the CPU tests
+    (``bench/zoo.py``) on the card against the CPU; (d) the launches of
+    each gated kernel per model (``read`` fails on a zero)."""
+    import torch
+
+    from vlut_tpu_torch.bench import engine as bench_engine
+    from vlut_tpu_torch.bench import flagship
+    from vlut_tpu_torch.bench import zoo
+    from vlut_tpu_torch.models import transformer as tt
+    from vlut_tpu_torch.runtime.engine import Request
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+
+    t_phase = time.time()
+    out: dict = {"phase": "zoo", "card": card}
+
+    def engine_runs(name, built, runs, requests, n_slots, ctx, expect):
+        toks, res = {}, {}
+        for cache, mode in runs:
+            for graph in (True, False):
+                run = "graph" if graph else "eager"
+                reset()
+                # the first cell's graphed run profiles 4 decode steps
+                # (kernels by device time, idle share)
+                prof = 4 if graph and (cache, mode) == runs[0] else 0
+                r = bench_engine.run(
+                    name, device=dev, built=built, kv_quant=cache == "q8",
+                    decode_attn=mode, cuda_graph=graph, n_slots=n_slots,
+                    ctx=ctx, requests=requests(), profile_steps=prof)
+                got = read(f"zoo_{name}_{cache}_{mode}_{run}",
+                           expect(cache, mode))
+                toks[(cache, mode, run)] = r.pop("outputs")
+                res[f"{cache}_{mode}_{run}"] = {
+                    k: r[k] for k in (
+                        "decode_ms_per_step", "replay_ms_per_step",
+                        "replayed_steps", "prompt_tok_per_s",
+                        "decode_tok_per_s", "prompt_tokens", "decode_steps",
+                        "capture_s", "wall_s")} | {"launches": got} | (
+                    {"profile": r["profile"]} if "profile" in r else {})
+                print(json.dumps({"phase": "zoo", "model": name,
+                                  "cache": cache, "decode_attn": mode,
+                                  "run": run, **res[f"{cache}_{mode}_{run}"],
+                                  "card": card}), flush=True)
+                torch.cuda.empty_cache()
+            if toks[(cache, mode, "graph")] != toks[(cache, mode, "eager")]:
+                fail(f"zoo {name} ({cache}, {mode}): the graphed step's "
+                     "greedy tokens differ from the eager step's")
+        return res
+
+    # (a) qwen3_4b: 16 slots, ctx 2048, 16 greedy requests of 64-512 prompt
+    # tokens (seed 12), 16 new tokens; bf16 fused (#7), q8 fused (#8), bf16
+    # composed (#5)
+    built = flagship.build_model("qwen3_4b", dev)
+    cfg_q = built[0]
+    attn_of = {("bf16", "fused"): "decode_attention",
+               ("q8", "fused"): "decode_attention_int8"}
+    out["qwen3_4b"] = engine_runs(
+        "qwen3_4b", built, (("bf16", "fused"), ("q8", "fused"),
+                            ("bf16", "composed")),
+        lambda: bench_engine.make_requests(cfg_q.vocab_size, 16, 64, 512, 16,
+                                           seed=12),
+        16, 2048, lambda c, m: ("ternary_gemm_decode", "ternary_gemm_tiled",
+                                attn_of.get((c, m), "write_rows_pair")))
+    del built
+    torch.cuda.empty_cache()
+
+    # (b) gemma2_2b: 8 slots, ctx 8192, one greedy request of 5,000 tokens
+    # (its 4,096 window bites on the even layers) and 8 of 64-512 tokens,
+    # 16 new tokens (the long one 32, so that it still decodes past its
+    # window when the ninth request is admitted), composed attention (the
+    # softcap gate)
+    built = flagship.build_model("gemma2_2b", dev, max_seq_len=8192)
+    cfg_g, model_g = built
+
+    def gemma_requests():
+        rng = __import__("numpy").random.default_rng(12)
+        long = Request(prompt=[int(t) for t in rng.integers(
+            3, cfg_g.vocab_size, 5000)], max_new_tokens=32,
+            sampler=SamplerParams(temperature=0.0))
+        return [long] + bench_engine.make_requests(cfg_g.vocab_size, 8, 64,
+                                                   512, 16, seed=12)
+
+    out["gemma2_2b"] = engine_runs(
+        "gemma2_2b", built, (("bf16", "composed"),), gemma_requests, 8, 8192,
+        lambda c, m: ("ternary_gemm_decode", "ternary_gemm_fused_quant",
+                      "ternary_gemm_tiled", "write_rows_pair"))
+    # the tied bf16 head (256000 x 2304), cast to float32 per call as the
+    # JAX package does (no kernel of its own), at the engine's decode M 8
+    x = torch.randn((8, 1, cfg_g.d_model), device=dev).to(torch.bfloat16)
+    head_ms = cuda_ms(lambda: tt.project_head(model_g, x), iters=5)
+    n_head = model_g.embed.numel()
+    # the function needs the bf16 head read once, x read and the float32
+    # logits written; the cast adds a float32 copy written and read back
+    need = 2 * n_head + 2 * x.numel() + 4 * 8 * cfg_g.vocab_size
+    head_bound, head_by = bound_ms(need, 2.0 * n_head * 8, F32_OPS_PER_S)
+    out["gemma2_2b_tied_head"] = {
+        "ms": head_ms, "M": 8, "bound_ms": head_bound, "bound_by": head_by,
+        "cast_traffic_ms": bound_ms(n_head * (2 + 4 + 4), 0)[0],
+        "note": "bf16 embed.T cast to float32 then torch.matmul"}
+    print(json.dumps({"phase": "zoo", "tied_head": out["gemma2_2b_tied_head"],
+                      "card": card}), flush=True)
+    del built, model_g
+    torch.cuda.empty_cache()
+
+    # (c) each knob family, card against CPU (each layer from the CPU's
+    # input and the logits within 2e-2 of the largest, the CPU's greedy
+    # tokens, graphed tokens equal to eager ones), its graphed decode the
+    # family's counted path (d)
+    fams = {}
+    for name in zoo.FAMILIES:
+        r = zoo.card_vs_cpu(name, dev, counters=(reset, read))
+        fams[name] = r
+        print(json.dumps({"phase": "zoo_family", **r, "card": card}),
+              flush=True)
+        if not r["within_tol"]:
+            fail(f"zoo family {name}: a layer {r['max_rel_layer_err']} or "
+                 f"the logits {r['max_rel_logit_err']} of the largest off "
+                 f"the CPU's (tolerance {zoo.TOL})")
+        if not r["greedy_equal"]:
+            fail(f"zoo family {name}: the card's greedy tokens differ from "
+                 "the CPU's")
+        if not r["graph_equals_eager"]:
+            fail(f"zoo family {name}: graphed tokens differ from eager ones")
+    out["families"] = {n: {k: r[k] for k in (
+        "max_rel_layer_err", "max_rel_logit_err", "greedy_equal",
+        "free_rel_logit_err", "launches")} for n, r in fams.items()}
+    out["seconds"] = time.time() - t_phase
+    print(json.dumps(out), flush=True)
 
 
 def slice_phases(dev, built, fixture, card, reset, read, real) -> None:

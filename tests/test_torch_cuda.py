@@ -783,3 +783,18 @@ def test_embed_rerank_tiny_real_card_equals_cpu(dev):
     a, b = (st.rerank(q, docs) for st in states)
     np.testing.assert_allclose(a, b, rtol=1e-3)
     assert np.argsort(a).tolist() == np.argsort(b).tolist()
+
+
+@pytest.mark.parametrize("name", ["qwen3", "gemma2", "gemma3", "gptneox",
+                                  "bloom", "olmo2", "cohere2", "gpt_oss",
+                                  "llama4"])
+def test_zoo_family_card_equals_cpu(dev, name):
+    """A knob family of the dense zoo (``bench/zoo.py``) on the card and on
+    the CPU over a prefill and 8 decode steps: each layer from the CPU's
+    input and the logits within 2e-2 of the largest, the CPU's greedy
+    tokens, graphed tokens equal to eager ones."""
+    from vlut_tpu_torch.bench import zoo
+
+    r = zoo.card_vs_cpu(name, dev)
+    assert r["within_tol"] and r["greedy_equal"], r
+    assert r["graph_equals_eager"], r

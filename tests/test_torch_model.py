@@ -283,7 +283,7 @@ def test_unported_config_raises():
         tt.check_supported(dataclasses.replace(PRESETS["tiny"], n_experts=4,
                                                n_experts_used=2))
     with pytest.raises(NotImplementedError):
-        tt.check_supported(PRESETS["tiny_qwen3"])
+        tt.check_supported(PRESETS["tiny_mla"])
 
 
 def test_char_tokenizer_matches_hf():

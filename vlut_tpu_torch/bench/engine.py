@@ -1,6 +1,7 @@
 """Slot-engine workload at the flagship shapes (the serving path of the port).
 
-A packed i2 ternary Llama at ``llama3_8b_158`` shapes with seeded random
+A packed i2 ternary Llama at ``llama3_8b_158`` shapes (or another preset,
+``--model``: the zoo's ``qwen3_4b`` and ``gemma2_2b``) with seeded random
 weights generated on the device (int8 head, fused and unrolled layer tree)
 behind an ``Engine`` with 32 slots and a 2048-row context.  48 greedy
 requests with prompts of 64-1500 random tokens (so the queue exceeds the
@@ -11,16 +12,17 @@ step is a CUDA graph (captured at its second step; the capture's time is
 counted apart, ``capture_s``, and each step program's capture time, graph
 memory and replays are listed).
 
-    python -m vlut_tpu_torch.bench.engine [--cache-type bf16|q8]
-        [--decode-attn fused|composed] [--layers L] [--device cpu]
-        [--ab] [--profile-steps N]
+    python -m vlut_tpu_torch.bench.engine [--model PRESET]
+        [--cache-type bf16|q8] [--decode-attn fused|composed] [--layers L]
+        [--slots 32] [--ctx 2048] [--device cpu] [--ab] [--profile-steps N]
 
 prints one JSON line; with ``--profile-steps`` it also breaks N decode
-steps (taken while all 32 slots decode and none is admitted) down by
-kernel under ``torch.profiler``.  ``--ab`` runs the graphed and the eager
-step in turns on one model (graph, eager, eager, graph; with
-``--profile-steps``, one profiled run of each after them), a line per run,
-and fails unless every run gave the same tokens.
+steps (taken while all slots decode and none is admitted) down by kernel
+under ``torch.profiler``; those steps stay out of the step times.
+``--ab`` runs the graphed and the eager step in turns on one model (graph,
+eager, eager, graph; with ``--profile-steps``, one profiled run of each
+after them), a line per run, and fails unless every run gave the same
+tokens.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from vlut_tpu_torch.bench.flagship import build_model, profile_decode
+from vlut_tpu_torch.config import PRESETS
 from vlut_tpu_torch.device import resolve_device
 from vlut_tpu_torch.models import transformer
 from vlut_tpu_torch.models.transformer import forward
@@ -44,7 +47,16 @@ from vlut_tpu_torch.runtime.engine import Engine, Request
 from vlut_tpu_torch.runtime.sampling import SamplerParams
 
 N_SLOTS, CTX = 32, 2048
+# the counters of decode-step time that a profiled window leaves unchanged
+_STEP_TIMES = ("t_decode_s", "n_decode_steps", "n_decode_tokens",
+               "t_replay_s", "n_replays")
 N_REQUESTS, PROMPT_LO, PROMPT_HI, NEW_TOKENS = 48, 64, 1500, 24
+
+
+def _rope_len(preset: str, ctx: int) -> int | None:
+    """The rope tables' length an engine of ``ctx`` rows needs past the
+    preset's own ``max_seq_len`` (None: the preset's)."""
+    return ctx if ctx > PRESETS[preset].max_seq_len else None
 
 
 def make_requests(vocab: int, n: int = N_REQUESTS, lo: int = PROMPT_LO,
@@ -122,7 +134,8 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
     dev = resolve_device(device)
     if dev.type == "cuda":
         _build.build_all()  # set-up: no kernel is built in a timed step
-    cfg, model = built or build_model(preset, dev, n_layers, seed)
+    cfg, model = built or build_model(preset, dev, n_layers, seed,
+                                      max_seq_len=_rope_len(preset, ctx))
     eng = Engine(cfg, model, n_slots=n_slots, max_len=ctx, kv_quant=kv_quant,
                  decode_attn=decode_attn, cuda_graph=cuda_graph)
     reqs = requests if requests is not None else make_requests(cfg.vocab_size)
@@ -140,9 +153,14 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
                 and steps >= 3 and all(
                     s.req is not None and s.req.max_new_tokens
                     - len(s.req.output) > profile_steps for s in eng.slots)):
+            kept = {k: getattr(eng.perf, k) for k in _STEP_TIMES}
             prof = profile_decode(
                 lambda: [eng.step() for _ in range(profile_steps)],
                 profile_steps)
+            # the profiled steps (slowed by the profiler) stay out of the
+            # step times and rates
+            for k, v in kept.items():
+                setattr(eng.perf, k, v)
             steps += profile_steps
         if not eng.step():
             break
@@ -167,6 +185,10 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
         "decode_s": p.t_decode_s,
         "decode_tok_per_s": p.n_decode_tokens / p.t_decode_s,
         "decode_ms_per_step": p.t_decode_s / p.n_decode_steps * 1e3,
+        # the graphed steady state: steps replayed from a graph
+        "replay_ms_per_step": (p.t_replay_s / p.n_replays * 1e3
+                               if p.n_replays else None),
+        "replayed_steps": p.n_replays,
         "captures": p.n_captures, "capture_s": p.t_capture_s,
         "step_programs": eng.step_programs(),
         "wall_s": wall_s,
@@ -178,8 +200,12 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(prog="python -m vlut_tpu_torch.bench.engine")
-    ap.add_argument("--preset", default="llama3_8b_158")
+    ap.add_argument("--model", dest="preset", default="llama3_8b_158",
+                    help="a preset: llama3_8b_158 (the flagship), qwen3_4b, "
+                    "gemma2_2b, ...")
     ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--slots", type=int, default=N_SLOTS)
+    ap.add_argument("--ctx", type=int, default=CTX)
     ap.add_argument("--device", default=None)
     ap.add_argument("--cache-type", choices=("bf16", "q8"), default="bf16")
     ap.add_argument("--decode-attn", choices=("fused", "composed"),
@@ -188,7 +214,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--ab", action="store_true",
                     help="the graphed and the eager step in turns")
     args = ap.parse_args(argv)
-    kw = dict(kv_quant=args.cache_type == "q8", decode_attn=args.decode_attn)
+    kw = dict(kv_quant=args.cache_type == "q8", decode_attn=args.decode_attn,
+              n_slots=args.slots, ctx=args.ctx)
     if not args.ab:
         out = run(args.preset, args.device, args.layers,
                   profile_steps=args.profile_steps, **kw)
@@ -196,7 +223,8 @@ def main(argv: list[str] | None = None) -> None:
         print(json.dumps(out))
         return
     built = build_model(args.preset, resolve_device(args.device),
-                        args.layers)
+                        args.layers, max_seq_len=_rope_len(args.preset,
+                                                           args.ctx))
     turns = [(g, 0) for g in (True, False, False, True)]
     if args.profile_steps:
         turns += [(True, args.profile_steps), (False, args.profile_steps)]

@@ -1,15 +1,16 @@
 """Flagship batched-decode benchmark of the port (the ``bench.py`` protocol).
 
-A packed i2 ternary Llama at ``llama3_8b_158`` shapes with seeded random
-weights generated on the device (int8 output head, fused and unrolled
-layer tree): one prefill of 32 slots x 128-token prompts, then greedy
+A packed i2 ternary Llama at ``llama3_8b_158`` shapes (or another preset,
+``--model``) with seeded random weights generated on the device (int8
+output head where the head is untied, fused and unrolled layer tree): one prefill of 32 slots x 128-token prompts, then greedy
 batched decode.  The decode step time is the marginal between an n = 8 and
 an n = 40 run (each after a fresh prefill into the same cache, best of
 ``reps``), which cancels the fixed per-run costs.  Device times come from
 CUDA events.  On the card the decode step is one CUDA graph, captured in
 each n's warm-up run (never in a timed one).
 
-    python -m vlut_tpu_torch.bench.flagship [--layers L] [--device cpu]
+    python -m vlut_tpu_torch.bench.flagship [--model PRESET] [--layers L]
+        [--device cpu]
         [--decode-attn fused|composed] [--ab] [--profile]
 
 prints one JSON line with prefill ms, ms per decode step and tokens/s
@@ -52,11 +53,15 @@ N_LO, N_HI = 8, 40
 
 
 def build_model(preset: str, device, n_layers: int | None = None,
-                seed: int = 0):
-    """(cfg, model): the serving tree (int8 head, fused, unrolled)."""
+                seed: int = 0, max_seq_len: int | None = None):
+    """(cfg, model): the serving tree (int8 head unless tied, fused where
+    the gates let, unrolled); ``max_seq_len`` sets the rope tables' length
+    (a context past the preset's)."""
     cfg = PRESETS[preset]
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if max_seq_len:
+        cfg = dataclasses.replace(cfg, max_seq_len=max_seq_len)
     model = init_params_fast(cfg, seed=seed, device=device)
     model = quantize_head(model)
     model = unstack_layers(fuse_projections(model, cfg), cfg)
@@ -217,7 +222,10 @@ def profile_decode(fn, n_steps: int, top: int = 12) -> dict:
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(prog="python -m vlut_tpu_torch.bench.flagship")
-    ap.add_argument("--preset", default="llama3_8b_158")
+    ap.add_argument("--model", "--preset", dest="preset",
+                    default="llama3_8b_158",
+                    help="a preset: llama3_8b_158 (the flagship), qwen3_4b, "
+                    "gemma2_2b, ...")
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--device", default=None)
     ap.add_argument("--decode-attn", choices=("fused", "composed"),

@@ -6,9 +6,10 @@ i2 (2.0 bpw, 4 trits per byte) <-> i1 (1.6 bpw, 5 trits per byte) is exact:
 both store the same trits and only the byte packing changes, so the
 conversion goes through the logical trits of every projection.  The pack
 block sets the chunk padding of wo's K and the FFN width (``dims.make_plan``),
-so the bitnet sub-norm gains, which live in that padded layout, are laid
-out anew as well; the JAX package keeps them in the source layout, and its
-i1 model of a sub-norm checkpoint does not run (ROADMAP Queue 3).  It runs
+so every vector that lives in that padded layout (the bitnet sub-norm
+gains, the FFN's up and gate biases) is laid out anew as well; the JAX
+package keeps them in the source layout, and its i1 model of such a
+checkpoint does not run (ROADMAP Queue 3).  It runs
 on the host and touches no device.
 
     python -m vlut_tpu_torch.convert.quantize SRC DST --fmt i1
@@ -57,9 +58,9 @@ def requantize_params(
     new_cfg = dataclasses.replace(cfg, weight_fmt=fmt)
     layers: dict[str, Any] = {}
     for name, val in tree["layers"].items():
-        if name in _SUB_NORMS:
-            layers[name] = _relayout_sub_norm(name, torch.as_tensor(val).cpu(),
-                                              cfg, new_cfg)
+        if name in _PADDED_VECTORS:
+            layers[name] = _relayout(name, torch.as_tensor(val).cpu(), cfg,
+                                     new_cfg)
             continue
         if not (isinstance(val, dict) and "packed" in val):
             layers[name] = torch.as_tensor(val).cpu()
@@ -96,17 +97,21 @@ def promote(cfg: ModelConfig, model: TransformerLM,
     return new_cfg, TransformerLM(new_cfg, _tree_to(tree, model.device))
 
 
-_SUB_NORMS = ("attn_sub_norm", "ffn_sub_norm")
+# per-layer vectors laid out in the chunk-padded width of wo's input
+# (wo_in_p) or of the FFN (ff_p); the d_model-wide ones (bo, b_down) and
+# the head-wide ones do not depend on the format
+_PADDED_VECTORS = {"attn_sub_norm": "wo", "ffn_sub_norm": "ff",
+                   "b_up": "ff", "b_gate": "ff"}
 
 
-def _relayout_sub_norm(name: str, v: torch.Tensor, cfg: ModelConfig,
-                       new_cfg: ModelConfig) -> torch.Tensor:
-    """(L, padded width) sub-norm gains from ``cfg``'s chunk layout to
+def _relayout(name: str, v: torch.Tensor, cfg: ModelConfig,
+              new_cfg: ModelConfig) -> torch.Tensor:
+    """(L, padded width) vector from ``cfg``'s chunk layout to
     ``new_cfg``'s: each chunk keeps its first min(old, new) padded entries
     (the logical ones and, when the chunk grows, its old pad entries, so an
     i2 -> i1 -> i2 round trip is exact); new pad entries are zero."""
     old, new = make_plan(cfg), make_plan(new_cfg)
-    if name == "attn_sub_norm":
+    if _PADDED_VECTORS[name] == "wo":
         cp_old, cp_new = old.wo_chunk_p, new.wo_chunk_p
     else:
         cp_old, cp_new = old.ff_chunk_p, new.ff_chunk_p

@@ -21,10 +21,23 @@ tree unfused, as in the JAX package.  A control vector is added to the
 residual after each layer.  ``forward(attn_mask=...)`` overrides the causal
 mask (lookahead rounds).
 
+The dense knobs of the JAX package's transformer run here too (the zoo of
+dense HF families its converter takes): q/k/v biases, q/k norms (per head
+or whole, RMS / LayerNorm / weightless L2, before or after rope), q/k/v
+clamps, the activations (silu, gelu, exact gelu, relu, relu^2, xIELU), the
+ungated MLP, the clamped swiglu, embedding scale and norm, learned / ALiBi
+/ no positions, LayerNorm with biases, (1 + w) gains, post-norms and the
+norm-after-block order, attention and final logit softcaps, sliding
+windows (per layer, rolling or chunked, with a local rope base), parallel
+residuals, projection and head biases, partial and interleaved rope, NoPE
+layers, the sigmoid attention gate, attention sinks and NoPE-layer
+temperature tuning.  Which projection runs fused follows the JAX package's
+gates (:func:`_layer_step`).
+
 PyTorch runs eagerly, so there is no scan-versus-unroll trade-off: a
-serving process keeps one tree.  Configurations outside llama/bitnet (MoE,
-MLA, softcaps, sliding windows, ALiBi, qk-norm, tensor/sequence
-parallelism, ...) raise ``NotImplementedError`` (:func:`check_supported`).
+serving process keeps one tree.  MoE, MLA, M-RoPE, per-layer head counts
+and FFN widths, non-causal attention and tensor/sequence parallelism raise
+``NotImplementedError`` (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ from vlut_tpu_torch.models.dims import (
 )
 from vlut_tpu_torch.ops import decode_attention as dattn
 from vlut_tpu_torch.ops.kv_update import write_rows_pair
+from vlut_tpu_torch.ops import norm as nrm
 from vlut_tpu_torch.ops.matmul import ternary_matmul, ternary_matmul_fused
 from vlut_tpu_torch.ops.packing import (
     TRITS_PER_BYTE,
@@ -62,7 +76,7 @@ from vlut_tpu_torch.ops.packing import (
 )
 from vlut_tpu_torch.ops.quant import quantize_activations, true_div
 from vlut_tpu_torch.ops.ternary_gemm import RECIP_127
-from vlut_tpu_torch.ops.rope import apply_rope, rope_table
+from vlut_tpu_torch.ops.rope import rope_prefix, rope_table
 from vlut_tpu_torch.runtime.kv_cache import (
     dequantize_kv,
     is_quantized,
@@ -81,13 +95,44 @@ _SUPPORTED_FIELDS = {
     "arch", "head_dim", "rms_eps", "rope_theta", "rope_scaling",
     "tie_embeddings", "use_subnorms", "weight_fmt", "max_seq_len", "tp_pack",
     "attn_scale", "logit_scale",
+    # the dense knobs
+    "qkv_bias", "qk_norm", "act_fn", "embed_scale", "post_norms",
+    "norm_plus_one", "attn_logit_softcap", "final_logit_softcap",
+    "sliding_window", "sliding_window_pattern", "rope_theta_local",
+    "parallel_residual", "rope_pct", "ffn_gated", "rope_interleaved",
+    "norm_type", "proj_bias", "pos_embed", "embed_norm", "pre_norms",
+    "qk_norm_scope", "qk_norm_post_rope", "qk_norm_type", "qkv_clamp",
+    "swa_layers", "swa_type", "attn_temp_scale", "attn_temp_floor",
+    "attn_temp_offset", "nope_layers", "attn_gate", "alibi_scaled",
+    "attn_sinks", "swiglu_limit",
+}
+# the values of the string knobs this port computes
+_CHOICES = {
+    "act_fn": ("silu", "gelu", "gelu_exact", "relu2", "relu", "xielu"),
+    "norm_type": ("rms", "ln"),
+    "pos_embed": ("rope", "learned", "alibi", "none"),
+    "qk_norm_scope": ("head", "whole"),
+    "qk_norm_type": ("rms", "ln", "l2"),
+    "swa_type": ("window", "chunked"),
+    "attn_gate": ("", "sigmoid"),
 }
 PROJECTIONS = ("wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up", "w_gateup",
-               "w_down")
+               "w_down", "w_attn_gate")
 NORMS = ("attn_norm", "ffn_norm", "attn_sub_norm", "ffn_sub_norm")
-# float32 per-layer vectors a layer tree may carry: the norm gains and the
-# control vector
-LAYER_VECTORS = NORMS + ("cvector",)
+# the knobs' per-layer vectors, kept in their stored dtype: LayerNorm
+# biases, post-norm and q/k-norm gains (+ biases), projection biases,
+# attention sinks and xIELU's alphas
+KNOB_VECTORS = (
+    "attn_norm_b", "ffn_norm_b", "post_attn_norm", "post_ffn_norm",
+    "q_norm", "k_norm", "q_norm_b", "k_norm_b", "bq", "bk", "bv", "bo",
+    "b_gate", "b_up", "b_down", "sinks", "xielu_ap", "xielu_an",
+)
+# per-layer vectors a layer tree may carry: the norm gains (float32), the
+# knobs' vectors and the control vector
+LAYER_VECTORS = NORMS + KNOB_VECTORS + ("cvector",)
+# top-level vectors beside embed / final_norm / lm_head
+TOP_VECTORS = ("pos_embed", "embed_norm", "embed_norm_b", "final_norm_b",
+               "lm_head_b")
 LORA_LEAVES = ("lora_a", "lora_b", "lora_scale")
 # a LoRA on one of these keeps the tree unfused (JAX fuse_projections)
 _UNFUSED_BY_LORA = ("wq", "wk", "wv", "w_gate", "w_up")
@@ -107,10 +152,89 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"config field {f.name}={getattr(cfg, f.name)!r} is not "
                 "ported to vlut_tpu_torch yet"
             )
+    for name, allowed in _CHOICES.items():
+        if getattr(cfg, name) not in allowed:
+            raise NotImplementedError(
+                f"{name}={getattr(cfg, name)!r} is not ported")
     kind = (cfg.rope_scaling or {}).get(
         "rope_type", (cfg.rope_scaling or {}).get("type"))
     if kind == "mrope":
         raise NotImplementedError("M-RoPE is not ported yet")
+
+
+def rope_width(cfg: ModelConfig, plan: DimPlan) -> int:
+    """The rotated width of a head: the logical head (rope_pct 1), or its
+    first rope_pct share rounded down to an even count (JAX run_layers)."""
+    rot = plan.hd
+    if cfg.rope_pct < 1.0:
+        rot = int(plan.hd * cfg.rope_pct) // 2 * 2
+        if plan.hd != plan.hd_p and rot > plan.hd // 2:
+            raise ValueError(
+                f"rope_pct={cfg.rope_pct} needs rot <= head_dim/2 when the "
+                f"head dim is lane-padded ({plan.hd} -> {plan.hd_p})")
+    if cfg.rope_interleaved and plan.hd != plan.hd_p:
+        raise ValueError("rope_interleaved requires an unpadded head dim")
+    return rot
+
+
+def rope_tables(cfg: ModelConfig, plan: DimPlan, with_mscale: bool = True,
+                device="cpu") -> tuple:
+    """(cos, sin, cos_local, sin_local): the global tables (padded to hd_p
+    when the whole head rotates) and, for a model whose sliding-window
+    layers rope with their own base, the local ones (no rope_scaling);
+    else the last two are None."""
+    rot = rope_width(cfg, plan)
+    pad = plan.hd_p if rot == plan.hd else None
+    cos, sin = rope_table(cfg.max_seq_len, rot, cfg.rope_theta,
+                          cfg.rope_scaling, pad_to=pad,
+                          with_mscale=with_mscale, device=device)
+    if not cfg.rope_theta_local:
+        return cos, sin, None, None
+    return (cos, sin) + rope_table(cfg.max_seq_len, rot, cfg.rope_theta_local,
+                                   None, pad_to=pad, with_mscale=with_mscale,
+                                   device=device)
+
+
+def layer_windows(cfg: ModelConfig) -> tuple[int, ...]:
+    """Each layer's sliding window (0: global attention)."""
+    return tuple(cfg.sliding_window if f else 0 for f in cfg.swa_flags())
+
+
+def layer_rope_on(cfg: ModelConfig) -> tuple[bool, ...]:
+    """Each layer's rope flag: False on a NoPE layer, and on every layer of
+    a model without rope positions."""
+    if cfg.pos_embed != "rope":
+        return (False,) * cfg.n_layers
+    if cfg.nope_layers is None:
+        return (True,) * cfg.n_layers
+    return tuple(not f for f in cfg.nope_layers)
+
+
+def shift_tables(cfg: ModelConfig, device="cpu") -> list:
+    """Each layer's unscaled rope tables for a context shift
+    (``kv_cache.seq_shift``): None on a layer whose keys carry no rope, the
+    local tables on a sliding layer of a model with a local rope base,
+    else the global ones (stored keys already carry the mscale)."""
+    cos, sin, cos_l, sin_l = rope_tables(cfg, make_plan(cfg),
+                                         with_mscale=False, device=device)
+    return [None if not on else
+            (cos_l, sin_l) if w and cos_l is not None else (cos, sin)
+            for w, on in zip(layer_windows(cfg), layer_rope_on(cfg))]
+
+
+def alibi_slopes(n_heads: int) -> np.ndarray:
+    """Per-head ALiBi slopes (HF build_alibi_tensor): a geometric schedule
+    over the closest power of two, the extra heads interleaving the doubled
+    one."""
+    m = 1 << int(np.floor(np.log2(n_heads)))
+    base = 2.0 ** (-(2.0 ** -(np.log2(m) - 3)))
+    slopes = base ** np.arange(1, m + 1, dtype=np.float64)
+    if m != n_heads:
+        base2 = 2.0 ** (-(2.0 ** -(np.log2(2 * m) - 3)))
+        extra = base2 ** np.arange(1, 2 * (n_heads - m) + 1, 2,
+                                   dtype=np.float64)
+        slopes = np.concatenate([slopes, extra])
+    return slopes.astype(np.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +251,7 @@ def weight_specs(cfg: ModelConfig,
     plan = plan or make_plan(cfg)
     fmt, kb, d = cfg.weight_fmt, plan.kb, cfg.d_model
     qd, kvd = plan.q_dim_p, plan.kv_dim_p
-    return {
+    specs = {
         "wq": TernarySpec(d, qd, fmt, kb),
         "wk": TernarySpec(d, kvd, fmt, kb),
         "wv": TernarySpec(d, kvd, fmt, kb),
@@ -138,6 +262,10 @@ def weight_specs(cfg: ModelConfig,
         "w_gateup": TernarySpec(d, 2 * plan.ff_p, fmt, kb),
         "w_down": TernarySpec(plan.ff_p, d, fmt, kb),
     }
+    if cfg.attn_gate:
+        # the attention output gate packs exactly like wq
+        specs["w_attn_gate"] = TernarySpec(d, qd, fmt, kb)
+    return specs
 
 
 def pack_weight(name: str, trits: np.ndarray, scale, cfg: ModelConfig,
@@ -146,7 +274,7 @@ def pack_weight(name: str, trits: np.ndarray, scale, cfg: ModelConfig,
     chunk padding (the JAX package's checkpoint layout)."""
     plan = plan or make_plan(cfg)
     hd, hd_p = plan.hd, plan.hd_p
-    if name in ("wq", "wk", "wv"):
+    if name in ("wq", "wk", "wv", "w_attn_gate"):
         heads = cfg.n_kv_heads if name in ("wk", "wv") else cfg.n_heads
         trits = pad_heads_cols(trits, heads, hd, hd_p)
     elif name == "wo":
@@ -177,7 +305,7 @@ def unpack_weight(name: str, t: TernaryTensor, cfg: ModelConfig,
         return w2.reshape(k, heads, hd_p)[
             :, :, head_positions(hd, hd_p)].reshape(k, heads * hd)
 
-    if name in ("wq", "wk", "wv"):
+    if name in ("wq", "wk", "wv", "w_attn_gate"):
         return gather_head_cols(
             w, cfg.n_kv_heads if name in ("wk", "wv") else cfg.n_heads)
     if name == "wo":
@@ -253,10 +381,14 @@ class TernaryLinear(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """One layer's projections (``proj``) and norm gains (buffers)."""
+    """One layer's projections (``proj``) and vectors (buffers: the norm
+    gains in float32, the knobs' vectors as stored)."""
 
     def __init__(self, tree: dict[str, Any], specs: dict[str, TernarySpec]):
         super().__init__()
+        unknown = set(tree) - set(PROJECTIONS) - set(LAYER_VECTORS)
+        if unknown:
+            raise NotImplementedError(f"layer tensors not ported: {unknown}")
         self.proj = nn.ModuleDict({
             name: TernaryLinear(
                 tree[name]["packed"], tree[name]["scale"], specs[name],
@@ -265,14 +397,16 @@ class DecoderLayer(nn.Module):
         })
         for name in LAYER_VECTORS:
             if name in tree:
-                self.register_buffer(name, tree[name].to(torch.float32))
-        unknown = set(tree) - set(PROJECTIONS) - set(LAYER_VECTORS)
-        if unknown:
-            raise NotImplementedError(f"layer tensors not ported: {unknown}")
+                v = tree[name]
+                self.register_buffer(
+                    name, v.to(torch.float32) if name in NORMS else v)
 
     @property
     def fused(self) -> bool:
         return "wqkv" in self.proj
+
+    def vec(self, name: str) -> torch.Tensor | None:
+        return getattr(self, name, None)
 
 
 class StackedLayers(nn.Module):
@@ -313,13 +447,16 @@ class StackedLayers(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """Embedding -> layers -> final RMSNorm -> output head.
+    """Embedding [+ scale, norm, learned positions] -> layers -> final norm
+    -> output head [+ bias].
 
     ``lm_head`` is a bf16 (D, Vp) matrix, or after :func:`quantize_head`
     the int8 ``lm_head_q`` with per-column ``lm_head_scale``; tied models
     use ``embed.T``.  A checkpoint converted from a sequence classifier
     also carries ``rank_head`` {w (D, 1), b (1,)}, which the server's
-    rerank scores with.
+    rerank scores with.  The per-layer windows and rope flags and the rope
+    tables (global, and local for models whose sliding layers rope with
+    their own base) follow from the config.
     """
 
     def __init__(self, cfg: ModelConfig, tree: dict[str, Any]):
@@ -336,6 +473,9 @@ class TransformerLM(nn.Module):
                                         for lp in layers)
         self.register_buffer("embed", tree["embed"])
         self.register_buffer("final_norm", tree["final_norm"].to(torch.float32))
+        for name in TOP_VECTORS:
+            if name in tree:
+                self.register_buffer(name, tree[name])
         head = tree.get("lm_head")
         if isinstance(head, dict):
             self.register_buffer("lm_head_q", head["q"])
@@ -349,13 +489,29 @@ class TransformerLM(nn.Module):
             self.register_buffer("rank_head_w", rank["w"])
             if "b" in rank:
                 self.register_buffer("rank_head_b", rank["b"])
-        plan = self.plan
-        cos, sin = rope_table(cfg.max_seq_len, plan.hd, cfg.rope_theta,
-                              cfg.rope_scaling, pad_to=plan.hd_p)
-        self.register_buffer("rope_cos", cos.to(self.embed.device),
-                             persistent=False)
-        self.register_buffer("rope_sin", sin.to(self.embed.device),
-                             persistent=False)
+        dev = self.embed.device
+        self.rot = rope_width(cfg, self.plan)
+        cos, sin, cos_l, sin_l = rope_tables(cfg, self.plan, device=dev)
+        for name, t in (("rope_cos", cos), ("rope_sin", sin),
+                        ("rope_cos_local", cos_l), ("rope_sin_local", sin_l)):
+            if t is not None:
+                self.register_buffer(name, t, persistent=False)
+        self.windows = layer_windows(cfg)
+        self.rope_on = layer_rope_on(cfg)
+        if cfg.qk_norm and cfg.qk_norm_type == "ln":
+            # 1.0 at a head's logical positions (per-head LayerNorm stats)
+            valid = torch.zeros(self.plan.hd_p)
+            valid[torch.from_numpy(head_positions(self.plan.hd,
+                                                  self.plan.hd_p))] = 1.0
+            self.register_buffer("head_valid", valid.to(dev),
+                                 persistent=False)
+        if cfg.pos_embed == "alibi":
+            slopes = alibi_slopes(cfg.n_heads)
+            if cfg.alibi_scaled:
+                # falcon: (scores + alibi) / sqrt(hd), with q pre-scaled
+                slopes = slopes / np.sqrt(self.plan.hd)
+            self.register_buffer("alibi", torch.from_numpy(slopes).to(dev),
+                                 persistent=False)
 
     @property
     def device(self) -> torch.device:
@@ -370,11 +526,21 @@ class TransformerLM(nn.Module):
             return self.lm_head.shape[-1]
         return self.embed.shape[0]
 
+    def rope_for(self, i: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Layer i's (cos, sin): the local tables on a sliding layer of a
+        model with a local rope base, else the global ones."""
+        if self.windows[i] and hasattr(self, "rope_cos_local"):
+            return self.rope_cos_local, self.rope_sin_local
+        return self.rope_cos, self.rope_sin
+
     def tree(self) -> dict[str, Any]:
         layers = (self.layers.tree() if isinstance(self.layers, StackedLayers)
                   else [_layer_tree(lp) for lp in self.layers])
         out = {"embed": self.embed, "final_norm": self.final_norm,
                "layers": layers}
+        for name in TOP_VECTORS:
+            if hasattr(self, name):
+                out[name] = getattr(self, name)
         if hasattr(self, "lm_head_q"):
             out["lm_head"] = {"q": self.lm_head_q, "scale": self.lm_head_scale}
         elif hasattr(self, "lm_head"):
@@ -402,6 +568,43 @@ def _layer_tree(lp: DecoderLayer) -> dict[str, Any]:
 
 # --- parameter construction ----------------------------------------------------
 
+def _knob_vectors(cfg: ModelConfig, plan: DimPlan, ones, draw) -> dict:
+    """The float vectors the JAX package's ``init_params`` lays out for the
+    config beside the projections (in its order): the pre-norm gains, the
+    LayerNorm biases, the projection and q/k/v biases, the sub-norm, q/k-norm
+    and post-norm gains.  ``ones(width)`` makes an (L, width) gain and
+    ``draw(width)`` an (L, width) bias of standard normals * 0.02."""
+    layers = {"attn_norm": ones(cfg.d_model), "ffn_norm": ones(cfg.d_model)}
+    if cfg.norm_type == "ln":
+        layers["attn_norm_b"] = draw(cfg.d_model)
+        layers["ffn_norm_b"] = draw(cfg.d_model)
+    if cfg.proj_bias:
+        for nm, width in (("bo", cfg.d_model), ("b_up", plan.ff_p),
+                          ("b_down", cfg.d_model)):
+            layers[nm] = draw(width)
+    if cfg.use_subnorms:
+        layers["attn_sub_norm"] = ones(plan.wo_in_p)
+        layers["ffn_sub_norm"] = ones(plan.ff_p)
+    if cfg.qkv_bias:
+        for nm, width in (("bq", plan.q_dim_p), ("bk", plan.kv_dim_p),
+                          ("bv", plan.kv_dim_p)):
+            layers[nm] = draw(width)
+    if cfg.qk_norm:
+        layers["q_norm"] = ones(plan.hd_p)
+        layers["k_norm"] = ones(plan.hd_p)
+    if cfg.post_norms:
+        layers["post_attn_norm"] = ones(cfg.d_model)
+        layers["post_ffn_norm"] = ones(cfg.d_model)
+    return layers
+
+
+def _projection_names(cfg: ModelConfig) -> tuple[str, ...]:
+    names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    if not cfg.ffn_gated:
+        names = tuple(n for n in names if n != "w_gate")
+    return names
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
                 device="cpu") -> TransformerLM:
     """Random ternary model from numpy draws in the JAX package's
@@ -416,7 +619,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
         "w_down": (cfg.d_ff, cfg.d_model),
     }
     layers: dict[str, Any] = {}
-    for name, (k, n) in logical.items():
+    for name in _projection_names(cfg):
+        k, n = logical[name]
         packed, scales = [], []
         for _ in range(cfg.n_layers):
             trits = rng.integers(-1, 2, size=(k, n), dtype=np.int8)
@@ -425,12 +629,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
             scales.append(t.scale)
         layers[name] = {"packed": torch.stack(packed),
                         "scale": torch.stack(scales)}
-    ones = lambda w: torch.ones((cfg.n_layers, w), dtype=torch.float32)  # noqa: E731
-    layers["attn_norm"] = ones(cfg.d_model)
-    layers["ffn_norm"] = ones(cfg.d_model)
-    if cfg.use_subnorms:
-        layers["attn_sub_norm"] = ones(plan.wo_in_p)
-        layers["ffn_sub_norm"] = ones(plan.ff_p)
+    layers.update(_knob_vectors(
+        cfg, plan,
+        lambda w: torch.ones((cfg.n_layers, w), dtype=torch.float32),
+        lambda w: torch.from_numpy(
+            rng.standard_normal((cfg.n_layers, w)) * 0.02).to(torch.float32)))
     tree: dict[str, Any] = {
         "embed": torch.from_numpy(
             rng.standard_normal((cfg.vocab_size, cfg.d_model)) * 0.02
@@ -438,6 +641,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
         "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32),
         "layers": layers,
     }
+    if cfg.norm_type == "ln":
+        tree["final_norm_b"] = torch.from_numpy(
+            rng.standard_normal((cfg.d_model,)) * 0.02).to(torch.float32)
     if not cfg.tie_embeddings:
         head = rng.standard_normal((cfg.d_model, plan.vocab_p)) * 0.02
         head[:, cfg.vocab_size:] = 0.0
@@ -451,7 +657,9 @@ def init_params_fast(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     ``torch.Generator`` (benchmark weights at full size in seconds).
 
     Bytes come from :func:`random_packed_bytes` (valid trits only);
-    padding positions get random trits too.
+    padding positions get random trits too.  The float vectors are those
+    :func:`init_params` lays out (gains of one, biases of normals * 0.02),
+    so every config that runs from ``init_params`` runs from these too.
     """
     check_supported(cfg)
     device = resolve_device(device)
@@ -466,28 +674,27 @@ def init_params_fast(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
                  -(-spec.n // 128) * 128)
         return random_packed_bytes(shape, cfg.weight_fmt, gen, device)
 
+    def randn(*shape) -> torch.Tensor:
+        return torch.randn(shape, generator=gen, device=device)
+
     layers: dict[str, Any] = {}
-    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+    for name in _projection_names(cfg):
         layers[name] = {
             "packed": packed(specs[name]),
             "scale": torch.full((cfg.n_layers,), 0.05, device=device),
         }
-    ones = lambda w: torch.ones((cfg.n_layers, w), device=device)  # noqa: E731
-    layers["attn_norm"] = ones(cfg.d_model)
-    layers["ffn_norm"] = ones(cfg.d_model)
-    if cfg.use_subnorms:
-        layers["attn_sub_norm"] = ones(plan.wo_in_p)
-        layers["ffn_sub_norm"] = ones(plan.ff_p)
+    layers.update(_knob_vectors(
+        cfg, plan, lambda w: torch.ones((cfg.n_layers, w), device=device),
+        lambda w: randn(cfg.n_layers, w) * 0.02))
     tree: dict[str, Any] = {
-        "embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                              device=device) * 0.02).to(dtype),
+        "embed": (randn(cfg.vocab_size, cfg.d_model) * 0.02).to(dtype),
         "final_norm": torch.ones((cfg.d_model,), device=device),
         "layers": layers,
     }
+    if cfg.norm_type == "ln":
+        tree["final_norm_b"] = randn(cfg.d_model) * 0.02
     if not cfg.tie_embeddings:
-        tree["lm_head"] = (torch.randn((cfg.d_model, plan.vocab_p),
-                                       generator=gen, device=device)
-                           * 0.02).to(dtype)
+        tree["lm_head"] = (randn(cfg.d_model, plan.vocab_p) * 0.02).to(dtype)
     return TransformerLM(cfg, tree)
 
 
@@ -520,14 +727,16 @@ def fuse_projections(model: TransformerLM, cfg: ModelConfig) -> TransformerLM:
     """Concatenate wq|wk|wv -> wqkv and w_gate|w_up -> w_gateup along N (the
     byte layout is row-major over K slabs, so packed columns concatenate
     exactly); per-tensor scales become one per-channel vector.  Stacked
-    trees only; a no-op when already fused or unrolled, or when a LoRA sits
-    on wq/wk/wv/w_gate/w_up."""
+    trees only.  As in the JAX package: a no-op when already fused or
+    unrolled, for a model with q/k/v biases, or when a LoRA sits on
+    wq/wk/wv/w_gate/w_up; gate|up fuse only for a gated FFN without
+    projection biases."""
     if not isinstance(model.layers, StackedLayers):
         return model
     tree = model.tree()
     layers = dict(tree["layers"])
-    if "wqkv" in layers or any("lora_a" in layers.get(n, {})
-                               for n in _UNFUSED_BY_LORA):
+    if "wqkv" in layers or cfg.qkv_bias or any(
+            "lora_a" in layers.get(n, {}) for n in _UNFUSED_BY_LORA):
         return model
     plan = make_plan(cfg)
 
@@ -541,9 +750,11 @@ def fuse_projections(model: TransformerLM, cfg: ModelConfig) -> TransformerLM:
         for n in names:
             del layers[n]
 
-    fuse(["wq", "wk", "wv"], [plan.q_dim_p, plan.kv_dim_p, plan.kv_dim_p],
-         "wqkv")
-    fuse(["w_gate", "w_up"], [plan.ff_p, plan.ff_p], "w_gateup")
+    if all(n in layers for n in ("wq", "wk", "wv")):
+        fuse(["wq", "wk", "wv"], [plan.q_dim_p, plan.kv_dim_p, plan.kv_dim_p],
+             "wqkv")
+    if cfg.ffn_gated and not cfg.proj_bias:
+        fuse(["w_gate", "w_up"], [plan.ff_p, plan.ff_p], "w_gateup")
     tree["layers"] = layers
     return TransformerLM(cfg, tree)
 
@@ -569,50 +780,94 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int | None = None,
 
 # --- forward ---------------------------------------------------------------------
 
-def _rms(x: torch.Tensor, weight: torch.Tensor, eps: float,
-         n_logical: int) -> torch.Tensor:
-    """RMSNorm whose zero-padded tail does not skew the mean."""
-    xf = x.to(torch.float32)
-    ss = (xf * xf).sum(dim=-1, keepdim=True)
-    out = (xf * torch.rsqrt(true_div(ss, float(n_logical)) + eps)
-           * weight.to(torch.float32))
-    return out.to(x.dtype)
+def _norm_d(z: torch.Tensor, lp: DecoderLayer, name: str,
+            cfg: ModelConfig) -> torch.Tensor:
+    """A d_model-wide pre/post norm of the layer: RMS or LayerNorm (with
+    the layer's ``<name>_b`` bias where it has one), (1 + w) gains under
+    ``norm_plus_one``."""
+    if cfg.norm_type == "rms":
+        return nrm.rms(z, getattr(lp, name), cfg.rms_eps, cfg.d_model,
+                    cfg.norm_plus_one)
+    return nrm.layer_norm(z, getattr(lp, name), lp.vec(name + "_b"),
+                          cfg.rms_eps, cfg.d_model, cfg.norm_plus_one)
+
+
+def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(true_div(x, cap))
+
+
+def _mask(kp, qp, window: int, chunked: bool, override=None):
+    """The mask of key positions kp against query positions qp: causal, or
+    ``override`` (B, T, S) where given (the caller owns causality), and the
+    sliding window when window > 0: rolling (kp > qp - window) or chunked
+    (kp and qp in the same window-wide chunk).  (The JAX package drops the
+    window under an override, so its lookahead rounds on a sliding-window
+    model attend past the window.)"""
+    if override is not None:
+        mask = override[:, None, None, :, :]
+    else:
+        mask = (kp <= qp) & (kp >= 0)
+    if window > 0:
+        if chunked:
+            mask = mask & (torch.div(kp, window, rounding_mode="floor")
+                           == torch.div(qp, window, rounding_mode="floor"))
+        else:
+            mask = mask & (kp > qp - window)
+    return mask
 
 
 def _attention(q, k, v, q_pos, k_pos, hd_logical, scale=0.0, k_scale=None,
-               v_scale=None, mask_override=None):
+               v_scale=None, mask_override=None, softcap=0.0, window=0,
+               alibi=None, sinks=None, chunked_window=False):
     """Causal GQA attention.  q (B, T, H, hd), k/v (B, S, Hkv, hd); returns
     float32 (B, T, H, hd).  ``mask_override`` (B, T, S) bool replaces the
-    causal mask (the caller owns causality).
+    causal mask (the caller owns causality); the window still applies.
+
+    The scores take, in the JAX package's order: the int8 key scales, the
+    ``softcap`` (tanh capping), the ALiBi bias ``alibi`` (H,) slopes times
+    (k_pos - q_pos), the mask (causal, and the sliding ``window`` when > 0:
+    rolling, or chunked with ``chunked_window``); ``sinks`` (H,) logits
+    join the softmax's denominator without a value row.
 
     k_scale/v_scale (B, S, Hkv): deferred int8-KV dequantization; the codes
     stay int8 and the per-row scales fold into the scores (scores·ks) and
     the probabilities (p·vs).  Short KV takes one dense softmax; past
     ``ATTN_CHUNK`` keys it streams chunks through an online softmax
     (:func:`_attention_chunked`, which takes dequantized values)."""
+    kw = dict(softcap=softcap, window=window, alibi=alibi, sinks=sinks,
+              chunked_window=chunked_window)
     if k.shape[1] > ATTN_CHUNK:
         if k_scale is not None:
             k = dequantize_kv(k, k_scale)
             v = dequantize_kv(v, v_scale)
         return _attention_chunked(q, k, v, q_pos, k_pos, hd_logical, scale,
-                                  mask_override=mask_override)
+                                  mask_override=mask_override, **kw)
     b, t, h, hd = q.shape
     hkv = k.shape[2]
+    g = h // hkv
     qf = q.to(torch.float32) * (scale or 1.0 / math.sqrt(hd_logical))
-    qf = qf.reshape(b, t, hkv, h // hkv, hd)
+    qf = qf.reshape(b, t, hkv, g, hd)
     scores = torch.einsum("bthgd,bshd->bhgts", qf, k.to(torch.float32))
     if k_scale is not None:
         # true scores = q · (codes * ks) == (q · codes) * ks
         scores = scores * k_scale.to(torch.float32).permute(0, 2, 1)[
             :, :, None, None, :]
-    if mask_override is not None:
-        mask = mask_override[:, None, None, :, :]
-    else:
-        kp = k_pos[:, None, None, None, :]
-        qp = q_pos[:, None, None, :, None]
-        mask = (kp <= qp) & (kp >= 0)
+    if softcap:
+        scores = _softcap(scores, softcap)
+    kp = k_pos[:, None, None, None, :]
+    qp = q_pos[:, None, None, :, None]
+    if alibi is not None:
+        scores = scores + (alibi.to(torch.float32).reshape(1, hkv, g, 1, 1)
+                           * (kp - qp).to(torch.float32))
+    mask = _mask(kp, qp, window, chunked_window, mask_override)
     scores = scores.masked_fill(~mask, -1e30)
-    p = torch.softmax(scores, dim=-1)
+    if sinks is not None:
+        sk = sinks.to(torch.float32).reshape(1, hkv, g, 1)
+        m = torch.maximum(scores.amax(dim=-1), sk)
+        p = torch.exp(scores - m[..., None]).masked_fill(~mask, 0.0)
+        p = p / (p.sum(dim=-1) + torch.exp(sk - m))[..., None]
+    else:
+        p = torch.softmax(scores, dim=-1)
     if v_scale is not None:
         # out = p · (codes * vs) == (p * vs) · codes
         p = p * v_scale.to(torch.float32).permute(0, 2, 1)[:, :, None, None, :]
@@ -621,27 +876,39 @@ def _attention(q, k, v, q_pos, k_pos, hd_logical, scale=0.0, k_scale=None,
 
 
 def _attention_chunked(q, k, v, q_pos, k_pos, hd_logical, scale=0.0,
-                       chunk=ATTN_CHUNK, mask_override=None):
+                       chunk=ATTN_CHUNK, mask_override=None, softcap=0.0,
+                       window=0, alibi=None, sinks=None, chunked_window=False):
     """Online-softmax attention over KV chunks (same semantics as the dense
-    path; O(T * chunk) live scores instead of O(T * S))."""
+    path; O(T * chunk) live scores instead of O(T * S)).  Sinks enter as the
+    recurrence's initial state (m0 = sink logit, l0 = 1, acc = 0)."""
     b, t, h, hd = q.shape
     hkv, s = k.shape[2], k.shape[1]
     g = h // hkv
     qf = q.to(torch.float32) * (scale or 1.0 / math.sqrt(hd_logical))
     qf = qf.reshape(b, t, hkv, g, hd)
     qp = q_pos[:, None, None, :, None]
-    m = torch.full((b, hkv, g, t), -math.inf, device=q.device)
-    l = torch.zeros((b, hkv, g, t), device=q.device)
+    if sinks is not None:
+        m = sinks.to(torch.float32).reshape(1, hkv, g, 1).expand(
+            b, hkv, g, t).clone()
+        l = torch.ones((b, hkv, g, t), device=q.device)
+    else:
+        m = torch.full((b, hkv, g, t), -math.inf, device=q.device)
+        l = torch.zeros((b, hkv, g, t), device=q.device)
     acc = torch.zeros((b, hkv, g, t, v.shape[-1]), device=q.device)
+    slopes = (alibi.to(torch.float32).reshape(1, hkv, g, 1, 1)
+              if alibi is not None else None)
     for off in range(0, s, chunk):
         kc = k[:, off:off + chunk].to(torch.float32)
         vc = v[:, off:off + chunk].to(torch.float32)
         kp = k_pos[:, off:off + chunk][:, None, None, None, :]
         sc = torch.einsum("bthgd,bshd->bhgts", qf, kc)
-        if mask_override is not None:
-            masked = ~mask_override[:, None, None, :, off:off + chunk]
-        else:
-            masked = ~((kp <= qp) & (kp >= 0))
+        if softcap:
+            sc = _softcap(sc, softcap)
+        if slopes is not None:
+            sc = sc + slopes * (kp - qp).to(torch.float32)
+        masked = ~_mask(kp, qp, window, chunked_window,
+                        None if mask_override is None
+                        else mask_override[:, :, off:off + chunk])
         sc.masked_fill_(masked, -1e30)
         m_new = torch.maximum(m, sc.amax(dim=-1))
         corr = torch.exp(m - m_new)
@@ -734,27 +1001,122 @@ def _fused_attn_ok(cfg: ModelConfig, plan: DimPlan, t: int,
     )
 
 
-def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, cos, sin,
+_ACT = {
+    "silu": torch.nn.functional.silu,
+    # "gelu" is the tanh approximation, "gelu_exact" the erf form
+    "gelu": lambda z: torch.nn.functional.gelu(z, approximate="tanh"),
+    "gelu_exact": torch.nn.functional.gelu,
+    "relu2": lambda z: torch.square(torch.relu(z)),
+    "relu": torch.relu,
+}
+
+
+def _glu(gate, up, cfg: ModelConfig) -> torch.Tensor:
+    """float32 act(gate) * up, or the clamped swiglu under ``swiglu_limit``:
+    gate clamped to (-inf, limit], up to [-limit, limit], out =
+    gate * sigmoid(1.702 * gate) * (up + 1)."""
+    gate, up = gate.to(torch.float32), up.to(torch.float32)
+    if cfg.swiglu_limit:
+        lim = cfg.swiglu_limit
+        gate = torch.clamp(gate, max=lim)
+        up = torch.clamp(up, -lim, lim)
+        return gate * torch.sigmoid(1.702 * gate) * (up + 1.0)
+    return _ACT[cfg.act_fn](gate) * up
+
+
+def _xielu(up, lp: DecoderLayer) -> torch.Tensor:
+    """float32 xIELU with the layer's alphas (stored softplus-inverse)."""
+    upf = up.to(torch.float32)
+    sp = torch.nn.functional.softplus
+    ap = sp(lp.xielu_ap.to(torch.float32))
+    an = 0.5 + sp(lp.xielu_an.to(torch.float32))
+    return torch.where(
+        upf > 0, ap * upf * upf + 0.5 * upf,
+        (torch.expm1(torch.clamp(upf, max=-1e-6)) - upf) * an + 0.5 * upf)
+
+
+def _add(x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    return x if bias is None else x + bias.to(x.dtype)
+
+
+def _qk_norm(q, k, lp: DecoderLayer, cfg: ModelConfig, plan: DimPlan,
+             params: TransformerLM):
+    """The q/k norm of the config: per-head LayerNorm (chameleon), one RMS
+    over the whole width (olmo2), or per-head RMS (qwen3/gemma3)."""
+    if cfg.qk_norm_type == "ln":
+        valid = params.head_valid
+        return (nrm.head_layer_norm(q, lp.q_norm, lp.q_norm_b, valid,
+                                    plan.hd).to(q.dtype),
+                nrm.head_layer_norm(k, lp.k_norm, lp.k_norm_b, valid,
+                                    plan.hd).to(k.dtype))
+    if cfg.qk_norm_scope == "whole":
+        return (nrm.rms_whole(q, lp.q_norm, cfg.rms_eps, cfg.n_heads * plan.hd),
+                nrm.rms_whole(k, lp.k_norm, cfg.rms_eps,
+                              cfg.n_kv_heads * plan.hd))
+    p1 = cfg.norm_plus_one
+    return (nrm.rms(q, lp.q_norm, cfg.rms_eps, plan.hd, p1),
+            nrm.rms(k, lp.k_norm, cfg.rms_eps, plan.hd, p1))
+
+
+def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
                 safe_pos, rope_pos, k_pos, write_start, decode_attn, impl,
                 attn_mask=None):
+    """One layer, the JAX package's ``layer_step`` for the dense knobs, in
+    its order and with its fused gates: qkv fuses (#1 at M <= 64, norm +
+    quant + GEMM) under an RMS pre-norm; wo fuses with its residual without
+    post-norms, a parallel residual or projection biases; the FFN fuses
+    for a silu-gated one under the same terms plus an RMS pre-norm and no
+    swiglu clamp.  Any projection a gate leaves unfused runs #4 / #3."""
     b, t = x.shape[:2]
     hd_p, eps, d = plan.hd_p, cfg.rms_eps, cfg.d_model
     proj = lp.proj
-    if lp.fused:
+    std_norm = cfg.norm_type == "rms"
+    window, r_on = params.windows[li], params.rope_on[li]
+    h_attn = None
+    if lp.fused and std_norm and cfg.pre_norms:
         # attn_norm + activation quant + qkv GEMM in one projection
-        qkv = proj["wqkv"](x, impl, mode="norm", norm_g=lp.attn_norm,
+        qkv = proj["wqkv"](x, impl, mode="norm",
+                           norm_g=nrm.gain(lp.attn_norm, cfg.norm_plus_one),
                            norm_n=d, eps=eps)
+    else:
+        h_attn = _norm_d(x, lp, "attn_norm", cfg) if cfg.pre_norms else x
+        qkv = proj["wqkv"](h_attn, impl) if lp.fused else None
+    if qkv is not None:
         qd, kvd = plan.q_dim_p, plan.kv_dim_p
         q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
     else:
-        h = _rms(x, lp.attn_norm, eps, d)
-        q, k, v = proj["wq"](h, impl), proj["wk"](h, impl), proj["wv"](h, impl)
-    q = apply_rope(q.reshape(b, t, -1, hd_p), rope_pos, cos, sin)
-    k = apply_rope(k.reshape(b, t, -1, hd_p), rope_pos, cos, sin)
+        q, k, v = (proj[n](h_attn, impl) for n in ("wq", "wk", "wv"))
+    if cfg.qkv_bias and hasattr(lp, "bq"):
+        q, k, v = _add(q, lp.bq), _add(k, lp.bk), _add(v, lp.bv)
+    q = q.reshape(b, t, -1, hd_p)
+    k = k.reshape(b, t, -1, hd_p)
     v = v.reshape(b, t, -1, hd_p)
+    if cfg.qk_norm and not cfg.qk_norm_post_rope:
+        q, k = _qk_norm(q, k, lp, cfg, plan, params)
+    if cfg.qkv_clamp:
+        c = cfg.qkv_clamp
+        q, k, v = (torch.clamp(z, -c, c) for z in (q, k, v))
+    if cfg.pos_embed == "rope":
+        cos, sin = params.rope_for(li)
+        rot = hd_p if params.rot == plan.hd else params.rot
+        q = rope_prefix(q, rope_pos, cos, sin, rot, cfg.rope_interleaved, r_on)
+        k = rope_prefix(k, rope_pos, cos, sin, rot, cfg.rope_interleaved, r_on)
+    if cfg.qk_norm and cfg.qk_norm_post_rope:
+        if cfg.qk_norm_type == "l2":
+            # weightless, on rope layers only
+            if r_on:
+                q, k = (nrm.l2_norm(z, eps, plan.hd) for z in (q, k))
+        else:
+            q, k = _qk_norm(q, k, lp, cfg, plan, params)
+    if cfg.attn_temp_scale and not r_on:
+        # temperature tuning of NoPE layers' queries
+        tf = torch.log(torch.floor(true_div(
+            safe_pos.to(torch.float32) + cfg.attn_temp_offset,
+            float(cfg.attn_temp_floor))) + 1.0) * cfg.attn_temp_scale + 1.0
+        q = q * tf[..., None, None].to(q.dtype)
     if _fused_attn_ok(cfg, plan, t, kvio, decode_attn, attn_mask):
         att = kvio.fused_attend(
-            q, k, v, write_start, 0,
+            q, k, v, write_start, window,
             cfg.attn_scale or 1.0 / math.sqrt(plan.hd))
     else:
         k_sc = v_sc = None
@@ -762,76 +1124,130 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, cos, sin,
             k, v, k_sc, v_sc = kvio.update(k, v, write_start)
         att = _attention(q, k, v, safe_pos, k_pos, plan.hd,
                          scale=cfg.attn_scale, k_scale=k_sc, v_scale=v_sc,
-                         mask_override=attn_mask)
+                         mask_override=attn_mask,
+                         softcap=cfg.attn_logit_softcap, window=window,
+                         alibi=getattr(params, "alibi", None),
+                         sinks=lp.sinks if cfg.attn_sinks else None,
+                         chunked_window=cfg.swa_type == "chunked")
+    if cfg.attn_gate and "w_attn_gate" in proj:
+        # sigmoid gate of the attention output, from the attn-normed input
+        if h_attn is None:
+            h_attn = _norm_d(x, lp, "attn_norm", cfg)
+        gate = proj["w_attn_gate"](h_attn, impl)
+        att = att.reshape(b, t, -1).to(torch.float32) * torch.sigmoid(
+            gate.to(torch.float32))
     # chunk-pad into wo's packed-K layout (a no-op when chunk == chunk_p)
     att = att.reshape(b, t, plan.tp_pack, plan.wo_chunk)
     if plan.wo_chunk_p != plan.wo_chunk:
         att = torch.nn.functional.pad(att, (0, plan.wo_chunk_p - plan.wo_chunk))
     att = att.reshape(b, t, plan.wo_in_p)
-    if proj["wo"].has_lora:
-        # unfused: the delta needs the sub-normed input
-        if cfg.use_subnorms:
-            att = _rms(att, lp.attn_sub_norm, eps, cfg.n_heads * plan.hd)
-        x = x + proj["wo"](att, impl).to(x.dtype)
-    else:
+    par = cfg.parallel_residual
+    attn_out = None
+    if (not proj["wo"].has_lora and not cfg.post_norms and not par
+            and not cfg.proj_bias):
         # [attn_sub_norm] + quant + wo GEMM + residual (both trees)
         x = proj["wo"](
             att, impl, mode="norm" if cfg.use_subnorms else "plain",
             norm_g=getattr(lp, "attn_sub_norm", None),
             norm_n=cfg.n_heads * plan.hd, eps=eps, residual=x,
             out_dtype=x.dtype)
+    else:
+        if cfg.use_subnorms:
+            att = nrm.rms(att, lp.attn_sub_norm, eps, cfg.n_heads * plan.hd)
+        o = proj["wo"](att, impl)
+        if cfg.proj_bias:
+            o = _add(o, lp.vec("bo"))
+        if cfg.post_norms:
+            o = nrm.rms(o, lp.post_attn_norm, eps, d, cfg.norm_plus_one)
+        if par:
+            # the FFN branches off the same layer input; both branch
+            # outputs join the residual at the end
+            attn_out = o
+        else:
+            x = x + o.to(x.dtype)
     ffl = plan.ff_p
-    if "w_gateup" in proj and not proj["w_down"].has_lora:
+    if ("w_gateup" in proj and not proj["w_down"].has_lora
+            and cfg.act_fn == "silu" and not cfg.post_norms and std_norm
+            and cfg.pre_norms and not cfg.swiglu_limit and not par
+            and not cfg.proj_bias):
         # ffn_norm + quant + gate|up GEMM; silu*up [+ sub-norm] + quant +
         # down GEMM + residual
-        gu = proj["w_gateup"](x, impl, mode="norm", norm_g=lp.ffn_norm,
+        gu = proj["w_gateup"](x, impl, mode="norm",
+                              norm_g=nrm.gain(lp.ffn_norm, cfg.norm_plus_one),
                               norm_n=d, eps=eps)
         x = proj["w_down"](
             gu[..., :ffl], impl, mode="silu_mul", x2=gu[..., ffl:],
             sub_norm=cfg.use_subnorms,
             norm_g=getattr(lp, "ffn_sub_norm", None), norm_n=cfg.d_ff,
             eps=eps, residual=x, out_dtype=x.dtype)
+        return _add(x, lp.vec("cvector"))
+    if par and not hasattr(lp, "ffn_norm"):
+        # single-norm parallel residual: the FFN reads the attention
+        # branch's normed input
+        h = h_attn if h_attn is not None else _norm_d(x, lp, "attn_norm", cfg)
+    elif not cfg.pre_norms:
+        # norm after the block: the FFN reads the raw residual
+        h = x
     else:
-        h = _rms(x, lp.ffn_norm, eps, d)
+        h = _norm_d(x, lp, "ffn_norm", cfg)
+    if not cfg.ffn_gated:
+        up = proj["w_up"](h, impl)
+        if cfg.proj_bias:
+            up = _add(up, lp.vec("b_up"))
+        a = (_xielu(up, lp) if cfg.act_fn == "xielu"
+             else _ACT[cfg.act_fn](up.to(torch.float32)))
+    else:
         if "w_gateup" in proj:
             gu = proj["w_gateup"](h, impl)
             gate, up = gu[..., :ffl], gu[..., ffl:]
         else:
             gate, up = proj["w_gate"](h, impl), proj["w_up"](h, impl)
-        a = (torch.nn.functional.silu(gate.to(torch.float32))
-             * up.to(torch.float32)).to(x.dtype)
-        if cfg.use_subnorms:
-            a = _rms(a, lp.ffn_sub_norm, eps, cfg.d_ff)
-        x = x + proj["w_down"](a, impl).to(x.dtype)
-    if hasattr(lp, "cvector"):
-        # control-vector steering, after the layer's residual adds
-        x = x + lp.cvector.to(x.dtype)
-    return x
+            if cfg.proj_bias:
+                gate, up = _add(gate, lp.vec("b_gate")), _add(up, lp.vec("b_up"))
+        a = _glu(gate, up, cfg)
+    a = a.to(x.dtype)
+    if cfg.use_subnorms:
+        a = nrm.rms(a, lp.ffn_sub_norm, eps, cfg.d_ff)
+    dn = proj["w_down"](a, impl)
+    if cfg.proj_bias:
+        dn = _add(dn, lp.vec("b_down"))
+    if cfg.post_norms:
+        dn = nrm.rms(dn, lp.post_ffn_norm, eps, d, cfg.norm_plus_one)
+    if par:
+        x = x + attn_out.to(x.dtype) + dn.to(x.dtype)
+    else:
+        x = x + dn.to(x.dtype)
+    # control-vector steering, after the layer's residual adds
+    return _add(x, lp.vec("cvector"))
 
 
-def run_layers(layers, x, positions, kv: dict | None, *, cfg: ModelConfig,
-               plan: DimPlan, cos, sin, slots: torch.Tensor | None = None,
+def run_layers(params: TransformerLM, x, positions, kv: dict | None, *,
+               cfg: ModelConfig, slots: torch.Tensor | None = None,
                decode_attn: str = "fused", impl: str = "auto",
                attn_mask: torch.Tensor | None = None):
     """Run the layer stack (either tree) over x (B, T, D).  With ``slots``
     the B rows are those slots of the cache ``kv``."""
+    layers = params.layers
     b = positions.shape[0]
     safe_pos = torch.clamp(positions, min=0)
     # the rope gather clamps past the table as JAX's gather does (only pad
     # tokens of a prefill bucket reach there)
-    rope_pos = torch.clamp(safe_pos, max=cos.shape[0] - 1)
+    rope_pos = torch.clamp(safe_pos, max=params.rope_cos.shape[0] - 1)
     if kv is not None:
         s = max_len_of(kv)
         k_pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
-        write_start = safe_pos[:, 0]
+        # a row past the cache (an idle slot's draft step) lands on the
+        # scratch row S-1, as the JAX package's clamped update puts it
+        write_start = torch.clamp(safe_pos[:, 0], max=s - 1)
     else:
         k_pos, write_start = positions, None
     for i in range(len(layers)):
         x = _layer_step(
             x, layers[i], _SlotKV(kv, i, slots) if kv is not None else None,
-            cfg=cfg, plan=plan, cos=cos, sin=sin, safe_pos=safe_pos,
-            rope_pos=rope_pos, k_pos=k_pos, write_start=write_start,
-            decode_attn=decode_attn, impl=impl, attn_mask=attn_mask,
+            cfg=cfg, plan=params.plan, params=params, li=i,
+            safe_pos=safe_pos, rope_pos=rope_pos, k_pos=k_pos,
+            write_start=write_start, decode_attn=decode_attn, impl=impl,
+            attn_mask=attn_mask,
         )
     return x, kv
 
@@ -901,21 +1317,45 @@ def forward(
     if output not in ("logits", "hidden"):
         raise ValueError("output must be 'logits' or 'hidden'")
     b = tokens.shape[0]
-    plan = params.plan
     x = params.embed[tokens]
-    x, kv_cache = run_layers(params.layers, x, positions, kv_cache, cfg=cfg,
-                             plan=plan, cos=params.rope_cos,
-                             sin=params.rope_sin, slots=slots,
-                             decode_attn=decode_attn, impl=impl,
+    if cfg.embed_scale:
+        x = (x.to(torch.float32) * cfg.embed_scale).to(x.dtype)
+    if cfg.embed_norm:
+        x = nrm.layer_norm(x, params.embed_norm,
+                           getattr(params, "embed_norm_b", None), cfg.rms_eps,
+                           cfg.d_model)
+    if cfg.pos_embed == "learned":
+        table = params.pos_embed
+        pe = table[torch.clamp(positions, 0, table.shape[0] - 1)]
+        x = x + pe.to(x.dtype)
+    x, kv_cache = run_layers(params, x, positions, kv_cache, cfg=cfg,
+                             slots=slots, decode_attn=decode_attn, impl=impl,
                              attn_mask=attn_mask)
-    x = _rms(x, params.final_norm, cfg.rms_eps, cfg.d_model)
+    if cfg.norm_type == "ln":
+        x = nrm.layer_norm(x, params.final_norm,
+                           getattr(params, "final_norm_b", None), cfg.rms_eps,
+                           cfg.d_model, cfg.norm_plus_one)
+    else:
+        x = nrm.rms(x, params.final_norm, cfg.rms_eps, cfg.d_model,
+                 cfg.norm_plus_one)
     if output == "hidden":
         return x, kv_cache
     if logits_at is not None:
         x = x[torch.arange(b, device=x.device), logits_at][:, None]
     elif logits_last_only:
         x = x[:, -1:]
+    return head_logits(params, cfg, x), kv_cache
+
+
+def head_logits(params: TransformerLM, cfg: ModelConfig,
+                x: torch.Tensor) -> torch.Tensor:
+    """The head on final-norm hidden states, then its bias, the logit scale
+    and the final softcap."""
     logits = project_head(params, x)
+    if hasattr(params, "lm_head_b"):
+        logits = logits + params.lm_head_b.to(logits.dtype)
     if cfg.logit_scale != 1.0:
         logits = logits * cfg.logit_scale
-    return logits, kv_cache
+    if cfg.final_logit_softcap:
+        logits = _softcap(logits, cfg.final_logit_softcap)
+    return logits

@@ -1,7 +1,10 @@
-"""Rotary position embeddings (NEOX split-half), port of vlut_tpu/ops/rope.py.
+"""Rotary position embeddings (NEOX split-half), port of vlut_tpu/ops/rope.py
+and of the rope knobs of vlut_tpu/models/transformer.py.
 
-Frequency scaling modes: none, linear, llama3, yarn, longrope.  M-RoPE is
-not in this port yet.
+Frequency scaling modes: none, linear, llama3, yarn, longrope.  Partial
+rotary (the first ``rot`` dims) and the original-GPT interleaved pairing
+(an even|odd permutation of the rotated dims before the split-half
+rotation) are :func:`rope_prefix`'s.  M-RoPE is not in this port yet.
 """
 
 from __future__ import annotations
@@ -110,3 +113,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cos: torch.Tensor,
     """x (..., T, H, hd); positions (..., T) int; tables (max_len, hd/2)."""
     return apply_rope_rows(x, cos[positions][..., None, :],
                            sin[positions][..., None, :])
+
+
+def rope_prefix(z: torch.Tensor, positions: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor, rot: int, interleaved: bool = False,
+                on: bool = True) -> torch.Tensor:
+    """Rope on the first ``rot`` dims of z (..., T, H, hd_p); the rest pass
+    through.  ``rot`` equal to the head width rotates the whole (padded)
+    head with tables padded to it.  ``interleaved`` permutes even|odd
+    channels inside the rotated prefix first (the inverse permutation
+    cancels in the q.k dot, so it is dropped); with ``on`` False (a NoPE
+    layer) the permuted z comes back unrotated, as the JAX package's
+    per-layer select returns it."""
+    full = rot >= z.shape[-1]
+    if interleaved:
+        zp = z if full else z[..., :rot]
+        parts = [zp[..., 0::2], zp[..., 1::2]]
+        z = torch.cat(parts if full else parts + [z[..., rot:]], dim=-1)
+    if not on:
+        return z
+    if full:
+        return apply_rope(z, positions, cos, sin)
+    return torch.cat([apply_rope(z[..., :rot], positions, cos, sin),
+                      z[..., rot:]], dim=-1)

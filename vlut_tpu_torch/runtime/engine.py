@@ -9,7 +9,7 @@ full-bucket chunks), samples each first token, and then runs one decode
 step over all slots at a time (idle slots included: their write lands on
 the scratch row ``max_len - 1``).  A slot one row from capacity shifts its
 context (keeps ``n_keep`` tokens, drops half of the rest, re-rotates the
-moved keys).
+moved keys' rotary dims on each rope layer with that layer's table).
 
 Prefill runs eagerly, so nothing is compiled per shape: the bucket sizes
 only set the prefill groups and the chunk size, kept as in the JAX package
@@ -66,7 +66,6 @@ import numpy as np
 import torch
 
 from vlut_tpu_torch.config import ModelConfig
-from vlut_tpu_torch.models.dims import make_plan
 from vlut_tpu_torch.models.transformer import (
     DECODE_ATTN,
     TransformerLM,
@@ -74,9 +73,9 @@ from vlut_tpu_torch.models.transformer import (
     fuse_projections,
     init_kv_cache,
     quantize_head,
+    shift_tables,
     unstack_layers,
 )
-from vlut_tpu_torch.ops.rope import rope_table
 from vlut_tpu_torch.runtime import kv_cache as kvc
 from vlut_tpu_torch.runtime import speculative as spec_mod
 from vlut_tpu_torch.runtime import state as state_mod
@@ -170,6 +169,10 @@ class PerfCounters:
     # decode-step captures (CUDA graphs), kept out of t_decode_s
     n_captures: int = 0
     t_capture_s: float = 0.0
+    # the decode steps (or rounds) replayed from a graph, inside t_decode_s:
+    # the steady state of a graphed engine
+    n_replays: int = 0
+    t_replay_s: float = 0.0
     # speculative / lookahead rounds: proposals made and accepted
     n_spec_drafted: int = 0
     n_spec_accepted: int = 0
@@ -305,6 +308,7 @@ class Engine:
 
         self.context_shift = context_shift
         self._rope_tables = None
+        self._replayed = False
         self.perf = PerfCounters()
 
     # --- host API ------------------------------------------------------------
@@ -523,14 +527,9 @@ class Engine:
         n_keep = min(N_KEEP, used - 1)
         n_discard = max(1, (used - n_keep) // 2)
         if self._rope_tables is None:
-            plan = make_plan(self.cfg)
-            # unit-magnitude tables: stored keys already carry the mscale
-            self._rope_tables = rope_table(
-                self.cfg.max_seq_len, plan.hd, self.cfg.rope_theta,
-                self.cfg.rope_scaling, pad_to=plan.hd_p, with_mscale=False,
-                device=self.device)
-        cos, sin = self._rope_tables
-        kvc.seq_shift(self.cache, i, n_keep + n_discard, n_discard, cos, sin)
+            self._rope_tables = shift_tables(self.cfg, self.device)
+        kvc.seq_shift(self.cache, i, n_keep + n_discard, n_discard,
+                      self._rope_tables)
         if slot.generated - 1 >= n_discard:
             slot.generated -= n_discard
         else:
@@ -701,11 +700,24 @@ class Engine:
         if prog.shapes:
             draw_noise(self._gens, prog.shapes, self.device, out=prog.noise)
         fresh = not prog.run.captured
+        replays = getattr(prog.run, "replays", 0)
         out = prog.run()
+        self._replayed = getattr(prog.run, "replays", 0) > replays
         if fresh and prog.run.captured:
             self.perf.n_captures += 1
             self.perf.t_capture_s += prog.run.capture_s
         return out
+
+    def _count_step(self, t0: float, captures: float) -> None:
+        """Add a step's (or round's) host seconds since ``t0`` less the
+        captures made in it, and the same to the replay time when the step
+        was replayed from a graph."""
+        dt = time.perf_counter() - t0 - (self.perf.t_capture_s - captures)
+        self.perf.t_decode_s += dt
+        self.perf.n_decode_steps += 1
+        if self._replayed:
+            self.perf.t_replay_s += dt
+            self.perf.n_replays += 1
 
     def step_programs(self) -> list[dict]:
         """Each step program: its key (the decode step's features, with
@@ -768,9 +780,7 @@ class Engine:
         captures = self.perf.t_capture_s
         tgt, n_acc = self._run_step(self._round_program(key, fn))
         tgt, n_acc = tgt.tolist(), n_acc.tolist()
-        self.perf.t_decode_s += (time.perf_counter() - t0
-                                 - (self.perf.t_capture_s - captures))
-        self.perf.n_decode_steps += 1
+        self._count_step(t0, captures)
         self.perf.n_spec_rounds += 1
         self._commit_rounds(active, fed, tgt, n_acc, drafted)
         return True
@@ -826,10 +836,8 @@ class Engine:
             p_id, p_lp = top_id.cpu().numpy(), top_lp.cpu().numpy()
             p_chosen = chosen.cpu().tolist()
         nxt = nxt.tolist()
-        self.perf.t_decode_s += (time.perf_counter() - t0
-                                 - (self.perf.t_capture_s - captures))
+        self._count_step(t0, captures)
         self.perf.n_decode_tokens += len(active)
-        self.perf.n_decode_steps += 1
         for i in active:
             req = self.slots[i].req
             # the token fed this step had its KV row written

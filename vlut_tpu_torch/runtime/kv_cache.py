@@ -78,12 +78,20 @@ def seq_cp(cache: dict, src: int, dst: int, length: int) -> dict:
 
 @torch.no_grad()
 def seq_shift(cache: dict, slot: int, start: int, count: int,
-              cos: torch.Tensor, sin: torch.Tensor) -> dict:
+              tables: list) -> dict:
     """Context shift, in place: drop rows [start-count, start) of ``slot``,
     slide the tail left, and rotate the moved keys by -count positions so
-    their RoPE phase matches their new position.  ``cos``/``sin`` are the
-    unscaled tables (``rope_table(with_mscale=False)``).  A q8 cache
-    dequantizes the moved keys, rotates them and quantizes them again."""
+    their rope phase matches their new position.
+
+    ``tables`` holds each layer's unscaled rope tables (``rope_table(
+    with_mscale=False)``) as a (cos, sin) pair, or None for a layer whose
+    keys carry no rope (a NoPE layer, learned / ALiBi / no positions): its
+    keys move unrotated.  A table of width w/2 rotates the first w dims of
+    the head (the whole padded head, or a partial-rope prefix); the other
+    dims move as they are.  (The JAX package rotates every layer's whole
+    head with the global tables, which is right only for full rope on
+    rope layers.)  A q8 cache dequantizes the moved keys, rotates them and
+    quantizes them again."""
     quant = is_quantized(cache)
     k0 = cache["k"][0]
     dev, max_len = k0.device, k0.shape[1]
@@ -91,27 +99,38 @@ def seq_shift(cache: dict, slot: int, start: int, count: int,
     moved = idx >= start - count
     src_rows = torch.clamp(torch.where(moved, idx + count, idx), 0,
                            max_len - 1)
-    c = cos[count].to(dev)
-    s = -sin[count].to(dev)
     for i in range(len(cache["k"])):
         k = cache["k"][i]
         ks = k[slot][src_rows]
-        if quant:
-            ksc = cache["k_scale"][i][slot][src_rows]
-            ksf = dequantize_kv(ks, ksc)
+        if tables[i] is None:
+            k[slot] = ks
+            if quant:
+                ksc = cache["k_scale"][i]
+                ksc[slot] = ksc[slot][src_rows]
         else:
-            ksf = ks
-        half = k.shape[-1] // 2
-        k1, k2 = ksf[..., :half], ksf[..., half:]
-        kr = torch.cat([k1 * c - k2 * s, k2 * c + k1 * s], dim=-1)
+            cos, sin = tables[i]
+            c = cos[count].to(dev)
+            s = -sin[count].to(dev)
+            if quant:
+                ksc = cache["k_scale"][i][slot][src_rows]
+                ksf = dequantize_kv(ks, ksc)
+            else:
+                ksf = ks
+            half = c.shape[-1]
+            k1, k2 = ksf[..., :half], ksf[..., half:2 * half]
+            kr = torch.cat([k1 * c - k2 * s, k2 * c + k1 * s,
+                            ksf[..., 2 * half:]], dim=-1)
+            if quant:
+                krq, krs = quantize_kv(kr)
+                k[slot] = torch.where(moved[:, None, None], krq, ks)
+                cache["k_scale"][i][slot] = torch.where(moved[:, None], krs,
+                                                        ksc)
+            else:
+                k[slot] = torch.where(moved[:, None, None], kr, ksf).to(
+                    k.dtype)
         if quant:
-            krq, krs = quantize_kv(kr)
-            k[slot] = torch.where(moved[:, None, None], krq, ks)
-            cache["k_scale"][i][slot] = torch.where(moved[:, None], krs, ksc)
             vsc = cache["v_scale"][i]
             vsc[slot] = vsc[slot][src_rows]
-        else:
-            k[slot] = torch.where(moved[:, None, None], kr, ksf).to(k.dtype)
         v = cache["v"][i]
         v[slot] = v[slot][src_rows]
     return cache
