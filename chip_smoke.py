@@ -95,8 +95,20 @@ Phases (any failure exits non-zero; none is skipped):
      the CPU's input and the logits within 2e-2 of the largest, the CPU's
      greedy tokens) and graphed against eager; every kernel the JAX gates
      send a model to must count launches;
- 20. one JSON line of every kernel with its launches on the paths of phases
-     3-19, then the card, then ``{"ok": true, "device": ...}`` last.
+ 20. heterogeneous stacks and MoE: ``mixtral_8x7b`` (Mixtral-8x7B's
+     published widths: d 4096, 32 layers, 32/8 heads of 128, 8 experts of
+     14336, top 2, vocabulary 32000) at full width and depth, random packed
+     weights from seed 0, through the engine (16 slots, ctx 2048, 16 greedy
+     requests of 64-512 prompt tokens, seed 13, 16 new tokens): bf16 fused
+     (#7) graphed and eager (identical tokens; the graphed run profiles 4
+     steps), q8 fused (#8) and bf16 composed (#5) graphed, every expert's
+     gate, up and down through #4 at decode and #3 at prefill; then each
+     MoE and per-layer family of ``bench/zoo.py`` (router kinds, shared,
+     chunk and residual experts, dense lead layers, per-layer heads, deci's
+     layer kinds) on the card against the CPU, layer by layer, and graphed
+     against eager;
+ 21. one JSON line of every kernel with its launches on the paths of phases
+     3-20, then the card, then ``{"ok": true, "device": ...}`` last.
 
 Phase 2 times #3 (the tiled GEMM) at the flagship prefill (M 4096) and at
 the microbenchmark's i2 lanes (llama3_8b dxd, dxff, ffxd at M 32 and 256)
@@ -122,8 +134,13 @@ four projections at M 32, the zoo presets' projections (qwen3_4b's four
 and gemma2_2b's qkv through #1, gemma2_2b's wo, gate|up and down through
 #4) at M 1, 32 and 64 and through #3 at their prefills' M 1024 and 4096
 (and times them at their engines' decode M, 16 and 8, and through #3 at
-M 512; #7/#8 at qwen3_4b's engine, B 16 S 2048, and at a sliding layer
-of gemma2_2b's heads, hd 256, window 4,096 past 5,000 rows), #1 and #4 at the flagship's projections at the
+M 512; #7/#8 at qwen3_4b's engine, B 16 S 2048, which is also
+mixtral_8x7b's, at a sliding layer of gemma2_2b's heads, hd 256, window
+4,096 past 5,000 rows, and at a heterogeneous stack's narrower layer, 2
+query heads over its own KV head), mixtral_8x7b's qkv and wo through #1
+and each expert's gate / up (4096 -> 14336) and down (14336 -> 4096)
+through #4 at M 1, 16, 32 and 64 and through #3 at M 512, 1024 and 4096
+(phase 20's shapes), #1 and #4 at the flagship's projections at the
 server's small embedding batches (M 16 and 48), #9
 bit-exact at shapes that make its plan take each tile and split count and
 with every tile and split forced at two shapes, #7 at the e2e benches'
@@ -602,7 +619,7 @@ def phase_kernels(dev) -> dict:
     # M (qwen3_4b 16 slots, gemma2_2b 8) through #1 or #4 as the JAX gates
     # send them, and at their prefill bucket (M 512) through #3
     for label, k, n, mode, sub, has_res, fused in zoo_projections():
-        m = 16 if label.startswith("qwen3") else 8
+        m = 8 if label.startswith("gemma2") else 16
         if fused:
             x1, packed, ws, kw, xq, err = decode_case(label, m, k, n, mode,
                                                       sub, has_res, "i2")
@@ -652,6 +669,12 @@ def phase_kernels(dev) -> dict:
     decode_attention_kernels(dev, gen, record, (
         ("qwen3_4b", 16, 2048, 8, 4, 128, 0, "spread"),
         ("hd256_w4096", 8, 8192, 4, 2, 256, 4096, 5000)))
+    # #7/#8 at a heterogeneous stack's narrower layer (phase 20's
+    # hetero_heads: 2 query heads over 1 KV head in a model of 4 over 2,
+    # the layer's cache holding its own head; mixtral_8x7b's 32/8 heads of
+    # 128 at B 16 S 2048 are qwen3_4b's shape above)
+    decode_attention_kernels(dev, gen, record, (
+        ("hetero_hkv1", 4, 2048, 1, 2, 128, 0, "spread"),))
     tq_kernels(dev, gen, record)
 
     # --- the other paths' shapes, checked and not timed ---------------------
@@ -799,11 +822,24 @@ def zoo_projections() -> list:
     """(label, K, N, mode, sub_norm, residual?, fused?) of each projection
     of the zoo presets' serving trees, by the JAX gates: qwen3_4b fuses all
     four (#1); gemma2_2b fuses qkv (#1, norm with the gain 1 + w) and runs
-    wo, gate|up and down unfused (#4)."""
+    wo, gate|up and down unfused (#4); mixtral_8x7b (phase 20) fuses qkv
+    and wo (#1) and runs each expert's gate and up (4096 -> 14336) and down
+    (14336 -> 4096) through #4, its gate and up apart (a MoE model's gate|up
+    does not fuse)."""
     from vlut_tpu_torch.config import PRESETS
     from vlut_tpu_torch.models.dims import make_plan
 
-    out = []
+    c = PRESETS["mixtral_8x7b"]
+    p = make_plan(c)
+    out = [
+        ("mixtral_8x7b_qkv", c.d_model, p.q_dim_p + 2 * p.kv_dim_p, "norm",
+         False, False, True),
+        ("mixtral_8x7b_wo", p.wo_in_p, c.d_model, "plain", False, True, True),
+        ("mixtral_8x7b_expert_gate", c.d_model, p.ff_p, "plain", False,
+         False, False),
+        ("mixtral_8x7b_expert_down", p.ff_p, c.d_model, "plain", False,
+         False, False),
+    ]
     for name in ("qwen3_4b", "gemma2_2b"):
         c = PRESETS[name]
         p = make_plan(c)
@@ -1365,7 +1401,12 @@ def main() -> None:
     mark("zoo")
     zoo_phase(dev, card, reset, read)
 
-    # 20. summary
+    # 20. heterogeneous stacks and MoE: Mixtral-8x7B's widths at full
+    # width and depth, and the MoE / per-layer zoo families
+    mark("moe")
+    moe_phase(dev, card, reset, read)
+
+    # 21. summary
     mark("summary")
     replaces = {
         "ternary_gemm_decode": ("vlut_tpu_torch/csrc/decode_gemm.cu",
@@ -2210,6 +2251,98 @@ def zoo_phase(dev, card, reset, read) -> None:
                  "the CPU's")
         if not r["graph_equals_eager"]:
             fail(f"zoo family {name}: graphed tokens differ from eager ones")
+    out["families"] = {n: {k: r[k] for k in (
+        "max_rel_layer_err", "max_rel_logit_err", "greedy_equal",
+        "free_rel_logit_err", "launches")} for n, r in fams.items()}
+    out["seconds"] = time.time() - t_phase
+    print(json.dumps(out), flush=True)
+
+
+def moe_phase(dev, card, reset, read) -> None:
+    """Phase 20: heterogeneous stacks and mixture of experts.  (a)
+    Mixtral-8x7B's published widths (``mixtral_8x7b``: d 4096, 32 layers,
+    32/8 heads of 128, 8 experts of 14336, top 2, vocabulary 32000) at full
+    width and depth, random packed weights from seed 0, through the engine
+    (16 slots, ctx 2048, 16 greedy requests of 64-512 prompt tokens, seed
+    13, 16 new tokens): bf16 fused (#7) graphed and eager (identical
+    tokens, the graphed run profiling 4 steps), q8 fused (#8) graphed and
+    bf16 composed (#5) graphed; (b) each MoE / heterogeneous family of the
+    zoo (``bench/zoo.py`` MOE_FAMILIES) on the card against the CPU and
+    graphed against eager.  ``read`` fails on a gated kernel launched no
+    time."""
+    import torch
+
+    from vlut_tpu_torch.bench import engine as bench_engine
+    from vlut_tpu_torch.bench import flagship
+    from vlut_tpu_torch.bench import zoo
+
+    t_phase = time.time()
+    out: dict = {"phase": "moe", "card": card}
+    name = "mixtral_8x7b"
+    t0 = time.time()
+    built = flagship.build_model(name, dev)
+    cfg = built[0]
+    out["build_s"] = time.time() - t0
+    out["weight_bytes"] = sum(t.numel() * t.element_size()
+                              for t in built[1].buffers())
+
+    def requests():
+        return bench_engine.make_requests(cfg.vocab_size, 16, 64, 512, 16,
+                                          seed=13)
+
+    runs = {}
+    toks = {}
+    for cache, mode, graph, attn_kernel in (
+            ("bf16", "fused", True, "decode_attention"),
+            ("bf16", "fused", False, "decode_attention"),
+            ("q8", "fused", True, "decode_attention_int8"),
+            ("bf16", "composed", True, "write_rows_pair")):
+        run = "graph" if graph else "eager"
+        reset()
+        r = bench_engine.run(
+            name, device=dev, built=built, kv_quant=cache == "q8",
+            decode_attn=mode, cuda_graph=graph, n_slots=16, ctx=2048,
+            requests=requests(),
+            profile_steps=4 if (cache, mode, graph) == ("bf16", "fused", True)
+            else 0)
+        got = read(f"moe_{name}_{cache}_{mode}_{run}", (
+            "ternary_gemm_decode", "ternary_gemm_fused_quant",
+            "ternary_gemm_tiled", attn_kernel))
+        toks[(cache, mode, run)] = r.pop("outputs")
+        res = {k: r[k] for k in (
+            "decode_ms_per_step", "replay_ms_per_step", "replayed_steps",
+            "prompt_tok_per_s", "decode_tok_per_s", "prompt_tokens",
+            "decode_steps", "capture_s", "wall_s")} | {"launches": got} | (
+            {"profile": r["profile"]} if "profile" in r else {}) | (
+            {"step_programs": r["step_programs"]} if "step_programs" in r
+            else {})
+        runs[f"{cache}_{mode}_{run}"] = res
+        print(json.dumps({"phase": "moe", "model": name, "cache": cache,
+                          "decode_attn": mode, "run": run, **res,
+                          "card": card}), flush=True)
+        torch.cuda.empty_cache()
+    if toks[("bf16", "fused", "graph")] != toks[("bf16", "fused", "eager")]:
+        fail(f"{name} (bf16, fused): the graphed step's greedy tokens differ "
+             "from the eager step's")
+    out[name] = runs
+    del built
+    torch.cuda.empty_cache()
+
+    fams = {}
+    for fam in zoo.MOE_FAMILIES:
+        r = zoo.card_vs_cpu(fam, dev, counters=(reset, read))
+        fams[fam] = r
+        print(json.dumps({"phase": "moe_family", **r, "card": card}),
+              flush=True)
+        if not r["within_tol"]:
+            fail(f"zoo family {fam}: a layer {r['max_rel_layer_err']} or "
+                 f"the logits {r['max_rel_logit_err']} of the largest off "
+                 f"the CPU's (tolerance {zoo.TOL})")
+        if not r["greedy_equal"]:
+            fail(f"zoo family {fam}: the card's greedy tokens differ from "
+                 "the CPU's")
+        if not r["graph_equals_eager"]:
+            fail(f"zoo family {fam}: graphed tokens differ from eager ones")
     out["families"] = {n: {k: r[k] for k in (
         "max_rel_layer_err", "max_rel_logit_err", "greedy_equal",
         "free_rel_logit_err", "launches")} for n, r in fams.items()}

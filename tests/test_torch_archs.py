@@ -154,18 +154,25 @@ def test_presets_run_from_fast_random_weights(name):
 
 
 def test_unported_configs_raise():
+    """What still refuses (MLA, M-RoPE, non-causal attention, the diffusion
+    fields, cogvlm's visual experts) raises; MoE and per-layer heads and
+    FFN widths, ported since, do not."""
     base = PRESETS["tiny"]
-    for change in (dict(n_experts=4, n_experts_used=2),
-                   dict(causal_attn=False),
-                   dict(heads_per_layer=((4, 2), (4, 2))),
-                   dict(d_ff_per_layer=(256, 128)),
+    for change in (dict(causal_attn=False), dict(q_lora_rank=64),
+                   dict(dual_expert=True),
+                   dict(diffusion_shift_logits=False),
                    dict(rope_scaling={"rope_type": "mrope",
                                       "mrope_section": [4, 6, 6]})):
         with pytest.raises(NotImplementedError):
             tt.check_supported(dataclasses.replace(base, **change))
     with pytest.raises(NotImplementedError):
         tt.check_supported(PRESETS["tiny_mla"])
-    for name in ("qwen3_4b", "gemma2_2b") + tuple(TINY_PRESETS):
+    for change in (dict(n_experts=4, n_experts_used=2),
+                   dict(heads_per_layer=((4, 2), (4, 2))),
+                   dict(d_ff_per_layer=(256, 128))):
+        tt.check_supported(dataclasses.replace(base, **change))
+    for name in ("qwen3_4b", "gemma2_2b", "tiny_moe", "mixtral_8x7b") + tuple(
+            TINY_PRESETS):
         tt.check_supported(PRESETS[name])
 
 

@@ -123,8 +123,9 @@ def test_generate_override_matches_jax(monkeypatch):
 
 
 def test_generate_override_of_unported_field_raises():
-    with pytest.raises(NotImplementedError, match="n_experts"):
-        cli.main(GEN + ["--override", "n_experts=4", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="causal_attn"):
+        cli.main(GEN + ["--override", "causal_attn=False", "--device",
+                        "cpu"])
     with pytest.raises(SystemExit, match="no config field"):
         cli.main(GEN + ["--override", "nope=1", "--device", "cpu"])
 

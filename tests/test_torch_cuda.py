@@ -798,3 +798,56 @@ def test_zoo_family_card_equals_cpu(dev, name):
     r = zoo.card_vs_cpu(name, dev)
     assert r["within_tol"] and r["greedy_equal"], r
     assert r["graph_equals_eager"], r
+
+
+# --- heterogeneous stacks and mixture of experts ---------------------------
+
+@pytest.mark.parametrize("m", [1, 16, 33, 64])
+def test_mixtral_expert_shapes_match_plain(dev, m):
+    """#4 at Mixtral-8x7B's expert projections (gate and up 4096 -> 14336,
+    down 14336 -> 4096) at a decode step's M, and #3 at a prefill chunk's
+    M 512 past it: bit for bit against the plain versions."""
+    for k, n in ((4096, 14336), (14336, 4096)):
+        t = _weights(k, n, "i2", seed=m + k)
+        packed, ws = t.packed.to(dev), t.scale_vector().to(dev)
+        rng = np.random.default_rng(m + n)
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+        want = tg.ternary_gemm_fused_quant(x, t.packed, t.scale_vector(),
+                                           fmt="i2", kb=t.kb, k=k)
+        before = tg.ternary_gemm_fused_quant.launches
+        got = tg.ternary_gemm_fused_quant(x.to(dev), packed, ws, fmt="i2",
+                                          kb=t.kb, k=k)
+        torch.cuda.synchronize()
+        assert tg.ternary_gemm_fused_quant.launches == before + 1
+        assert torch.equal(got.cpu(), want)
+        if m == 16:
+            _tiled_matches_plain(dev, "i2", 512, k, n, seed=k)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+def test_hetero_layer_attention_matches_plain(dev, q8):
+    """#7/#8 on the narrower layer of a heterogeneous stack (bench/zoo.py
+    hetero_heads: 2 query heads over 1 KV head in a model of 4 over 2), on
+    that layer's cache as ``init_kv_cache`` makes it (its own head), and
+    the wider layer's: the kernels against their plain versions."""
+    from vlut_tpu_torch.bench import zoo
+    from vlut_tpu_torch.models import transformer as tt
+
+    cfg = zoo.family_config("hetero_heads")
+    cache = tt.init_kv_cache(cfg, 4, 200, device=dev, quantized=q8)
+    assert [c.shape[2] for c in cache["k"]] == [1, 2]
+    for i, (nh, nkv) in enumerate(cfg.heads_per_layer):
+        _attn_check(dev, q8, 4, 200, nkv, nh // nkv, 128, 0, None, False,
+                    seed=i)
+
+
+def test_moe_and_hetero_families_card_equals_cpu(dev):
+    """Two zoo families on the card against the CPU, each layer from the
+    CPU's input (bench/zoo.py card_vs_cpu): a Mixtral-style MoE and the
+    per-layer heads; graphed tokens equal eager ones."""
+    from vlut_tpu_torch.bench import zoo
+
+    for fam in ("moe_mixtral", "hetero_heads"):
+        r = zoo.card_vs_cpu(fam, dev, n_decode=3)
+        assert r["within_tol"] and r["greedy_equal"], r
+        assert r["graph_equals_eager"], r

@@ -256,7 +256,8 @@ def test_temperature_sampling_distribution():
 def test_unported_sampler_transforms_raise():
     """The sampler chain is ported (a top-k feature set builds), grammar
     constraints are too (a grammar request is served under its mask), and
-    a config outside the ported subset, a MoE one, still raises."""
+    a config outside the ported subset, an MLA one, still raises (a MoE
+    one, ported since, does not)."""
     import dataclasses
 
     from vlut_tpu_torch.runtime.engine import Engine, Request
@@ -272,17 +273,19 @@ def test_unported_sampler_transforms_raise():
     assert "".join(pieces[t] for t in req.output) == "ab" + pieces[
         req.output[-1]] and pieces[req.output[-1]].isdigit()
     with pytest.raises(NotImplementedError):
-        tt.check_supported(dataclasses.replace(PRESETS["tiny"], n_experts=4,
-                                               n_experts_used=2))
+        tt.check_supported(dataclasses.replace(PRESETS["tiny"],
+                                               kv_lora_rank=64))
+    tt.check_supported(dataclasses.replace(PRESETS["tiny"], n_experts=4,
+                                           n_experts_used=2))
 
 
 def test_unported_config_raises():
     import dataclasses
 
-    with pytest.raises(NotImplementedError):
-        tt.check_supported(dataclasses.replace(PRESETS["tiny"], n_experts=4,
-                                               n_experts_used=2))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tt.check_supported(dataclasses.replace(PRESETS["tiny"],
+                                               causal_attn=False))
+    with pytest.raises(NotImplementedError, match="item 4c"):
         tt.check_supported(PRESETS["tiny_mla"])
 
 

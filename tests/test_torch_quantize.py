@@ -166,13 +166,25 @@ def test_unpack_weight_inverts_pack_weight(name, fmt):
 
 
 def test_moe_stack_raises():
-    cfg = PRESETS["tiny"]
-    tree = tt.init_params(cfg, seed=0).tree()
-    layers = dict(tree["layers"])
-    layers["w_gate"] = {"packed": layers["w_gate"]["packed"][:, None],
-                        "scale": layers["w_gate"]["scale"][:, None]}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        requantize_params(cfg, {**tree, "layers": layers}, "i1")
+    """Expert stacks, refused before MoE was ported, now repack: a tiny_moe
+    tree's (L, E, ...) stacks to i1 byte for byte as the JAX package's
+    ``requantize_params`` repacks them (a tuple-layers tree, which the JAX
+    package's takes neither, still raises)."""
+    cfg = PRESETS["tiny_moe"]
+    params = jt.init_params(JAX_PRESETS["tiny_moe"], seed=0)
+    pn = jax.tree.map(np.asarray, params)
+    _, want = jax_requantize(JAX_PRESETS["tiny_moe"], pn, "i1")
+    _, got = requantize_params(cfg, tt.init_params(cfg, seed=0), "i1")
+    for name in ("w_gate", "w_up", "w_down"):
+        assert got["layers"][name]["packed"].dim() == 4
+        for leaf in ("packed", "scale"):
+            np.testing.assert_array_equal(
+                _as_np(got["layers"][name][leaf]),
+                want["layers"][name][leaf], err_msg=name)
+    hetero = dataclasses.replace(PRESETS["tiny"], head_dim=32,
+                                 heads_per_layer=((4, 2), (2, 1)))
+    with pytest.raises(ValueError, match="tuple-layers"):
+        requantize_params(hetero, tt.init_params(hetero, seed=0), "i1")
 
 
 def test_quantize_and_inspect_cli(tmp_path):

@@ -1,6 +1,6 @@
-"""The dense transformer zoo on the card: each knob family as a small
-random-weight model, held against the same model's plain versions on the
-CPU, and the two zoo presets served at full width.
+"""The transformer zoo on the card: each knob, MoE and per-layer family
+as a small random-weight model, held against the same model's plain
+versions on the CPU, and the zoo presets served at full width.
 
 Families (:data:`FAMILIES`) are configs at d 256, heads of 128 (2 query
 heads over 1 KV head), 2 layers and a 512-token vocabulary, each with the
@@ -16,9 +16,14 @@ gains); the same tree is then served on the card and on the CPU.
         [--set KEY=VALUE ...] [--trace]
 
 prints one JSON line per family (:func:`card_vs_cpu`; with ``--trace``,
-the first intermediates that part from the CPU, :func:`trace`).  The presets'
-serving runs are ``python -m vlut_tpu_torch.bench.engine --model qwen3_4b``
-(or ``gemma2_2b``).
+the first intermediates that part from the CPU, :func:`trace`).
+:data:`MOE_FAMILIES` adds experts of d_ff 256 (router kinds, shared,
+chunk and residual experts, dense lead layers) and per-layer heads and
+FFN widths (deci's layer kinds among them) on the same base; their trees
+come from ``init_params`` too (one per layer where the shapes differ).
+The presets' serving runs are ``python -m vlut_tpu_torch.bench.engine
+--model qwen3_4b`` (or ``gemma2_2b``, or ``mixtral_8x7b``: Mixtral-8x7B's
+widths, the MoE model of ``chip_smoke.py`` phase 20).
 """
 
 from __future__ import annotations
@@ -84,28 +89,99 @@ FAMILIES: dict[str, dict[str, Any]] = {
                    swa_type="chunked", sliding_window_pattern=2),
     "nopos_relu2": dict(pos_embed="none", ffn_gated=False, act_fn="relu2"),
 }
+# the MoE and heterogeneous families: experts of d_ff 256 (4 of top 2
+# unless named), each family one group of the MoE / per-layer HF families
+# the CPU tests hold against the JAX package (tests/test_torch_moe*.py,
+# test_torch_hetero*.py)
+MOE = dict(n_experts=4, n_experts_used=2, d_ff=256)
+MOE_FAMILIES: dict[str, dict[str, Any]] = {
+    # mixtral / qwen3-moe / olmoe: softmax top-k renormalized
+    "moe_mixtral": dict(MOE),
+    # deepseek V3 / dots1 / glm4-moe: sigmoid scores, a selection bias,
+    # grouped top-k, routed scale, a shared expert, a dense lead layer
+    "moe_grouped": dict(MOE, n_experts=8, moe_score="sigmoid",
+                        n_expert_groups=4, topk_groups=2, routed_scale=2.5,
+                        n_shared_experts=1, first_k_dense=1, d_ff_dense=768),
+    # qwen2-moe: gated shared expert at its own width, no top-k renorm, a
+    # dense layer at d_ff_dense (dense_layers)
+    "moe_shared": dict(MOE, moe_norm_topk=False, n_shared_experts=1,
+                       d_ff_shared=384, dense_layers=(False, True),
+                       d_ff_dense=512),
+    # llama4: sigmoid top-1 scaling the experts' input, a shared expert
+    "moe_llama4": dict(MOE, n_experts_used=1, moe_score="sigmoid",
+                       moe_weight_before=True, n_shared_experts=1),
+    # gpt-oss: per-expert biases, a router logits bias, the clamped swiglu
+    "moe_gpt_oss": dict(MOE, moe_expert_bias=True, swiglu_limit=0.5),
+    # smallthinker: the router reads the raw layer input
+    "moe_router_input": dict(MOE, moe_router_input="layer_input"),
+    # grovemoe: 2 chunk experts over the routed output
+    "moe_grove": dict(MOE, moe_chunk_experts=2, d_ff_chunk=128,
+                      moe_chunk_scale=0.5),
+    # arctic: the routed branch from its own norm of the layer input beside
+    # a residual MLP
+    "moe_arctic": dict(MOE, moe_parallel="arctic", d_ff_dense=384),
+    # openelm: per-layer query / KV heads and FFN widths
+    "hetero_heads": dict(n_heads=4, n_kv_heads=2,
+                         heads_per_layer=((2, 1), (4, 2)),
+                         d_ff_per_layer=(384, 640)),
+    # deci: attention, linear "attention", neither, and an FFN-free layer
+    "hetero_deci": dict(n_layers=4, heads_per_layer=((2, 1), (2, 0), (0, 0),
+                                                     (2, 1)),
+                        d_ff_per_layer=(512, 512, 384, 0)),
+}
+ALL_FAMILIES = {**FAMILIES, **MOE_FAMILIES}
 TOL = 2e-2  # of the largest value, as the CPU tests hold the JAX package
 
 
 def family_config(name: str, overrides: dict | None = None) -> ModelConfig:
-    return dataclasses.replace(BASE, **{**FAMILIES[name], **(overrides or {})})
+    return dataclasses.replace(BASE, **{**ALL_FAMILIES[name],
+                                        **(overrides or {})})
 
 
 def family_tree(cfg: ModelConfig, seed: int = 0) -> dict:
-    """The stacked tree of ``init_params`` with every float vector moved by
-    0.1 * normals and the knobs' extra tensors, on the host."""
+    """The tree of ``init_params`` (stacked, or one per layer for a
+    heterogeneous stack) with every float vector moved by 0.1 * normals and
+    the knobs' extra tensors, on the host.  A MoE layer also gets a
+    selection bias under sigmoid scores, a router logits bias beside expert
+    biases and a shared-expert gate beside an explicit shared width."""
     rng = np.random.default_rng(seed + 1)
     plan = make_plan(cfg)
     tree = tt.init_params(cfg, seed=seed).tree()
-    layers, l = dict(tree["layers"]), cfg.n_layers
+    l = cfg.n_layers
 
     def move(v):
         return v + torch.from_numpy(
             0.1 * rng.standard_normal(tuple(v.shape))).to(v.dtype)
 
+    def moe_extras(lp, lead=()):
+        if "router" not in lp:
+            return
+        e = cfg.n_experts
+        if cfg.moe_score == "sigmoid":
+            lp["router_bias"] = torch.from_numpy(
+                0.5 * rng.standard_normal(lead + (e,))).float()
+        if cfg.moe_expert_bias:
+            lp["router_b"] = torch.from_numpy(
+                0.1 * rng.standard_normal(lead + (e,))).float()
+        if cfg.d_ff_shared:
+            lp["shared_gate"] = torch.from_numpy(
+                0.1 * rng.standard_normal(lead + (cfg.d_model,))).float()
+
+    if isinstance(tree["layers"], list):
+        layers = []
+        for lp in tree["layers"]:
+            lp = {k: v if isinstance(v, dict) else move(v)
+                  for k, v in lp.items()}
+            moe_extras(lp)
+            layers.append(lp)
+        tree["layers"] = layers
+        tree["final_norm"] = move(tree["final_norm"])
+        return tree
+    layers = dict(tree["layers"])
     for k, v in list(layers.items()):
         if not isinstance(v, dict):
             layers[k] = move(v)
+    moe_extras(layers, (l,))
     tree["final_norm"] = move(tree["final_norm"])
 
     def head_vec(*lead):  # heads of 128 are unpadded: no pad to keep zero
@@ -163,32 +239,43 @@ def serving_model(cfg: ModelConfig, tree: dict, device) -> tt.TransformerLM:
 def expected_kernels(cfg: ModelConfig, model: tt.TransformerLM,
                      decode_attn: str = "fused") -> tuple[str, ...]:
     """The kernel wrappers a prefill of more than 64 rows plus decode steps
-    must launch on the card, by the JAX package's gates: the tiled GEMM
-    (#3) for the prefill, the fused decode projection (#1) for every
-    projection a gate fuses, the fused-quant GEMM (#4) for every other
-    one, and the decode attention (#7) where its gate lets it run, else
-    the KV row writer (#5)."""
-    lp = model.layers[0]
+    must launch on the card, by the JAX package's gates, layer by layer:
+    the tiled GEMM (#3) for the prefill, the fused decode projection (#1)
+    for every projection a gate fuses, the fused-quant GEMM (#4) for every
+    other one (every expert's gate, up and down among them), and the
+    decode attention (#7) on each layer whose own heads its gate takes,
+    else the KV row writer (#5)."""
     std = cfg.norm_type == "rms"
-    fused_qkv = lp.fused and std and cfg.pre_norms
-    fused_wo = not (cfg.post_norms or cfg.parallel_residual or cfg.proj_bias)
-    fused_ffn = ("w_gateup" in lp.proj and cfg.act_fn == "silu" and std
-                 and cfg.pre_norms and not (cfg.post_norms
-                                            or cfg.swiglu_limit
-                                            or cfg.parallel_residual
-                                            or cfg.proj_bias))
-    out = ["ternary_gemm_tiled"]
-    if fused_qkv or fused_wo or fused_ffn:
-        out.append("ternary_gemm_decode")
-    if not (fused_qkv and fused_wo and fused_ffn) or cfg.attn_gate:
-        out.append("ternary_gemm_fused_quant")
-    attn = (decode_attn == "fused" and cfg.pos_embed != "alibi"
-            and not cfg.attn_sinks and not cfg.attn_logit_softcap
-            and cfg.swa_type != "chunked"
-            and dattn.supports(cfg.n_heads, cfg.n_kv_heads,
-                               make_plan(cfg).hd_p))
-    out.append("decode_attention" if attn else "write_rows_pair")
-    return tuple(out)
+    found = {"ternary_gemm_tiled"}
+    for i, lp in enumerate(model.layers):
+        if not lp.has_ffn:
+            continue  # deci's FFN-free layer skips the block
+        fused_qkv = lp.fused and std and cfg.pre_norms
+        fused_wo = lp.has_attn and not (cfg.post_norms
+                                        or cfg.parallel_residual
+                                        or cfg.proj_bias)
+        fused_ffn = (not cfg.n_experts and "w_gateup" in lp.proj
+                     and cfg.act_fn == "silu" and std and cfg.pre_norms
+                     and not (cfg.post_norms or cfg.swiglu_limit
+                              or cfg.parallel_residual or cfg.proj_bias))
+        if fused_qkv or fused_wo or fused_ffn:
+            found.add("ternary_gemm_decode")
+        if (not fused_ffn or cfg.attn_gate or "w_lin_attn" in lp.proj
+                or (lp.has_attn and not (fused_qkv and fused_wo))):
+            found.add("ternary_gemm_fused_quant")
+        if not lp.has_attn:
+            continue
+        cl = tt.layer_config(cfg, i)
+        attn = (decode_attn == "fused" and cfg.pos_embed != "alibi"
+                and not cfg.attn_sinks and not cfg.attn_logit_softcap
+                and cfg.swa_type != "chunked"
+                and dattn.supports(cl.n_heads, cl.n_kv_heads,
+                                   make_plan(cl).hd_p))
+        found.add("decode_attention" if attn else "write_rows_pair")
+    order = ("ternary_gemm_tiled", "ternary_gemm_decode",
+             "ternary_gemm_fused_quant", "decode_attention",
+             "write_rows_pair")
+    return tuple(k for k in order if k in found)
 
 
 @torch.inference_mode()
@@ -373,7 +460,8 @@ def card_vs_cpu(name: str, device, counters=None, n_decode: int = 8,
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(prog="python -m vlut_tpu_torch.bench.zoo")
-    ap.add_argument("--family", action="append", choices=list(FAMILIES))
+    ap.add_argument("--family", action="append",
+                    choices=list(ALL_FAMILIES))
     ap.add_argument("--device", default=None)
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="override a field of each family's config")
@@ -388,7 +476,7 @@ def main(argv: list[str] | None = None) -> None:
         except (ValueError, SyntaxError):
             overrides[key] = value
     bad = []
-    for name in args.family or list(FAMILIES):
+    for name in args.family or list(ALL_FAMILIES):
         if args.trace:
             print(json.dumps({"family": name, "overrides": overrides,
                               "first_differences": trace(

@@ -264,6 +264,16 @@ PRESETS: dict[str, ModelConfig] = {
         sliding_window=4096, sliding_window_pattern=2,
         attn_scale=256 ** -0.5, tie_embeddings=True,
     ),
+    # mistralai/Mixtral-8x7B-v0.1 widths (its config.json): 8 experts of
+    # 14336 with top-2 softmax routing, 32/8 heads of 128, no sliding
+    # window, untied head; what the JAX converter's config_from_hf makes of
+    # it (tests/test_torch_moe.py holds the two equal).  Port-only: the
+    # full-width MoE model of the port's card runs (chip_smoke.py phase 20)
+    "mixtral_8x7b": ModelConfig(
+        arch="llama", vocab_size=32000, d_model=4096, n_layers=32,
+        n_heads=32, n_kv_heads=8, d_ff=14336, head_dim=128, rms_eps=1e-5,
+        rope_theta=1e6, max_seq_len=32768, n_experts=8, n_experts_used=2,
+    ),
     # tiny configs for tests
     "tiny": ModelConfig(
         arch="llama", vocab_size=256, d_model=128, n_layers=2,

@@ -25,7 +25,7 @@ import torch
 
 from vlut_tpu_torch.config import ModelConfig
 from vlut_tpu_torch.device import resolve_device
-from vlut_tpu_torch.models.transformer import TransformerLM
+from vlut_tpu_torch.models.transformer import TransformerLM, layers_tuple
 
 FORMAT_VERSION = 1
 
@@ -130,20 +130,27 @@ def save_checkpoint(
 ) -> None:
     """Write ``vlut_config.json`` + ``model.safetensors`` (+ the tokenizer
     files of ``tokenizer_src``).  An unrolled layer list is stacked back
-    into (L, ...) tensors, the layout checkpoints keep."""
+    into (L, ...) tensors, the layout checkpoints keep; a config whose
+    layers differ in shape (:func:`layers_tuple`) keeps one tree per layer
+    under the sortable keys ``layers.t0000.`` ..., as the JAX package
+    writes them (``"layers_tuple": true``)."""
     path = pathlib.Path(path)
     path.mkdir(parents=True, exist_ok=True)
     tree = (model_or_tree.tree() if isinstance(model_or_tree, TransformerLM)
             else dict(model_or_tree))
     layers = tree.get("layers")
+    per_layer = layers_tuple(cfg)
     if isinstance(layers, (list, tuple)):
-        tree["layers"] = _stack_layers(list(layers))
+        tree["layers"] = ({f"t{i:04d}": lp for i, lp in enumerate(layers)}
+                          if per_layer else _stack_layers(list(layers)))
+    elif per_layer:
+        raise ValueError("a per-layer config keeps the tuple-layers tree")
     write_safetensors(path / "model.safetensors", _flatten(tree))
     meta = {
         "format_version": FORMAT_VERSION,
         "model_family": "transformer",
         "model_config": dataclasses.asdict(cfg),
-        "layers_tuple": False,
+        "layers_tuple": per_layer,
         **(extra_meta or {}),
     }
     (path / "vlut_config.json").write_text(json.dumps(meta, indent=2))
@@ -195,10 +202,18 @@ def load_checkpoint(
     if meta.get("format_version") != FORMAT_VERSION:
         raise ValueError(f"unsupported checkpoint version: {meta}")
     family = meta.get("model_family", "transformer")
-    if family != "transformer" or meta.get("layers_tuple"):
+    if family != "transformer":
         raise NotImplementedError(
-            f"model family {family!r} (layers_tuple="
-            f"{bool(meta.get('layers_tuple'))}) is not ported yet")
+            f"model family {family!r} is not ported yet (ROADMAP Queue 1 "
+            "item 7)")
     cfg = config_from_meta(meta)
     tree = unflatten(read_safetensors(path / "model.safetensors", dev))
+    if meta.get("layers_tuple"):
+        tree["layers"] = tuple_layers(tree["layers"])
     return cfg, TransformerLM(cfg, tree), meta
+
+
+def tuple_layers(layers: dict[str, Any]) -> list[dict[str, Any]]:
+    """A ``layers_tuple`` checkpoint's ``t0000`` ... trees -> the list of
+    per-layer trees, in key order (the JAX ``load_checkpoint``)."""
+    return [layers[k] for k in sorted(layers)]

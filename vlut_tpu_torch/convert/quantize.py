@@ -36,9 +36,11 @@ from vlut_tpu_torch.models.dims import make_plan
 from vlut_tpu_torch.models.transformer import (
     TransformerLM,
     _tree_to,
+    layer_specs,
+    layers_tuple,
+    pack_config,
     pack_weight,
     unpack_weight,
-    weight_specs,
 )
 from vlut_tpu_torch.ops.packing import TernaryTensor
 
@@ -48,13 +50,18 @@ def requantize_params(
 ) -> tuple[ModelConfig, dict[str, Any]]:
     """Exact in-memory i2 <-> i1 repack of a stacked tree (same trits, new
     byte format); returns (new cfg, new tree; its packed weights lie on the
-    CPU)."""
+    CPU).  A MoE model's expert stacks ((L, E, ...) packed bytes) repack
+    expert by expert, as the JAX package's ``requantize_params`` repacks
+    them, and so do its shared, residual and chunk experts at their own
+    widths (:func:`pack_config`)."""
     tree = params.tree() if isinstance(params, TransformerLM) else params
     if cfg.weight_fmt == fmt:
         return cfg, tree
-    if not isinstance(tree["layers"], dict):
-        raise ValueError("requantize takes the stacked (checkpoint) tree")
-    src_specs = weight_specs(cfg)
+    if not isinstance(tree["layers"], dict) or layers_tuple(cfg):
+        raise ValueError("requantize takes the stacked (checkpoint) tree of "
+                         "a uniform stack (the JAX package's takes no "
+                         "tuple-layers tree either)")
+    src_specs = layer_specs(cfg)
     new_cfg = dataclasses.replace(cfg, weight_fmt=fmt)
     layers: dict[str, Any] = {}
     for name, val in tree["layers"].items():
@@ -67,22 +74,24 @@ def requantize_params(
             continue
         packed = torch.as_tensor(val["packed"]).cpu()
         scale = torch.as_tensor(val["scale"]).to(torch.float32).cpu()
-        if packed.dim() == 4:
-            raise NotImplementedError(
-                f"{name}: MoE expert stacks are not ported yet (ROADMAP "
-                "Queue 1 item 4)")
+        lead = packed.shape[:-2]  # (L,) or, for an expert stack, (L, E)
+        packed = packed.reshape((-1,) + packed.shape[-2:])
+        scale = scale.reshape(-1)
         spec = src_specs[name]
+        c_old, c_new = pack_config(cfg, name), pack_config(new_cfg, name)
         outs = []
-        for li in range(packed.shape[0]):
+        for j in range(packed.shape[0]):
             # the padded layouts differ per format (the pack block shapes
             # the plan), so round-trip through the logical trits
-            t = TernaryTensor(packed[li], scale[li], spec.k, spec.n,
+            t = TernaryTensor(packed[j], scale[j], spec.k, spec.n,
                               spec.fmt, spec.kb)
-            trits = unpack_weight(name, t, cfg)
-            outs.append(pack_weight(name, trits, scale[li], new_cfg))
+            trits = unpack_weight(name, t, c_old)
+            outs.append(pack_weight(name, trits, scale[j], c_new))
+        out_p = torch.stack([t.packed for t in outs])
         layers[name] = {
-            "packed": torch.stack([t.packed for t in outs]),
-            "scale": torch.stack([t.scale.reshape(()) for t in outs]),
+            "packed": out_p.reshape(lead + out_p.shape[1:]),
+            "scale": torch.stack([t.scale.reshape(()) for t in outs]
+                                 ).reshape(lead),
         }
     return new_cfg, {**tree, "layers": layers}
 
@@ -98,15 +107,17 @@ def promote(cfg: ModelConfig, model: TransformerLM,
 
 
 # per-layer vectors laid out in the chunk-padded width of wo's input
-# (wo_in_p) or of the FFN (ff_p); the d_model-wide ones (bo, b_down) and
-# the head-wide ones do not depend on the format
+# (wo_in_p) or of the FFN (ff_p; gpt-oss's expert biases (L, E, ff_p) at
+# the experts' width); the d_model-wide ones (bo, b_down, eb_down) and the
+# head-wide ones do not depend on the format
 _PADDED_VECTORS = {"attn_sub_norm": "wo", "ffn_sub_norm": "ff",
-                   "b_up": "ff", "b_gate": "ff"}
+                   "b_up": "ff", "b_gate": "ff", "eb_gate": "ff",
+                   "eb_up": "ff"}
 
 
 def _relayout(name: str, v: torch.Tensor, cfg: ModelConfig,
               new_cfg: ModelConfig) -> torch.Tensor:
-    """(L, padded width) vector from ``cfg``'s chunk layout to
+    """(..., padded width) vector from ``cfg``'s chunk layout to
     ``new_cfg``'s: each chunk keeps its first min(old, new) padded entries
     (the logical ones and, when the chunk grows, its old pad entries, so an
     i2 -> i1 -> i2 round trip is exact); new pad entries are zero."""
@@ -116,9 +127,10 @@ def _relayout(name: str, v: torch.Tensor, cfg: ModelConfig,
     else:
         cp_old, cp_new = old.ff_chunk_p, new.ff_chunk_p
     c = min(cp_old, cp_new)
-    out = torch.zeros((v.shape[0], old.tp_pack, cp_new), dtype=v.dtype)
-    out[:, :, :c] = v.reshape(v.shape[0], old.tp_pack, cp_old)[:, :, :c]
-    return out.reshape(v.shape[0], old.tp_pack * cp_new)
+    lead = v.shape[:-1]
+    out = torch.zeros(lead + (old.tp_pack, cp_new), dtype=v.dtype)
+    out[..., :c] = v.reshape(lead + (old.tp_pack, cp_old))[..., :c]
+    return out.reshape(lead + (old.tp_pack * cp_new,))
 
 
 def requantize(src: str | pathlib.Path, dst: str | pathlib.Path,
@@ -132,6 +144,9 @@ def requantize(src: str | pathlib.Path, dst: str | pathlib.Path,
     cfg = config_from_meta(meta)
     if cfg.weight_fmt == fmt:
         raise ValueError(f"checkpoint already {fmt}")
+    if meta.get("layers_tuple"):
+        raise ValueError("requantize takes a stacked checkpoint (the JAX "
+                         "package's takes no tuple-layers checkpoint either)")
     tree = unflatten(read_safetensors(src / "model.safetensors", "cpu"))
     new_cfg, new_tree = requantize_params(cfg, tree, fmt)
     save_checkpoint(

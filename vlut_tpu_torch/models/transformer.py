@@ -34,10 +34,23 @@ layers, the sigmoid attention gate, attention sinks and NoPE-layer
 temperature tuning.  Which projection runs fused follows the JAX package's
 gates (:func:`_layer_step`).
 
+Heterogeneous stacks run too: per-layer head counts and FFN widths
+(``heads_per_layer`` / ``d_ff_per_layer``: each layer has its own
+:class:`DimPlan` and spec table, :func:`layer_config`), deci's linear
+"attention" and its attention-free and FFN-free layers, and the dense lead
+layers of MoE models.  Their checkpoints keep a tuple of per-layer trees
+(``layers_tuple``), which loads here as the unrolled list.  Mixture of
+experts runs the JAX package's ``build_moe_ffn`` analog (:func:`_moe_block`):
+a float32 router with softmax or sigmoid scores, a selection bias,
+grouped top-k, the top-k norm and routed scale, then every expert over
+every row in index order into a float32 accumulator (static shapes, so a
+decode step stays one CUDA graph), with shared, chunk (grovemoe) and
+parallel residual (arctic) experts beside it.
+
 PyTorch runs eagerly, so there is no scan-versus-unroll trade-off: a
-serving process keeps one tree.  MoE, MLA, M-RoPE, per-layer head counts
-and FFN widths, non-causal attention and tensor/sequence parallelism raise
-``NotImplementedError`` (:func:`check_supported`).
+serving process keeps one tree.  MLA, M-RoPE, non-causal attention, the
+diffusion fields, cogvlm's visual experts and tensor/sequence parallelism
+raise ``NotImplementedError`` (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -105,6 +118,23 @@ _SUPPORTED_FIELDS = {
     "swa_layers", "swa_type", "attn_temp_scale", "attn_temp_floor",
     "attn_temp_offset", "nope_layers", "attn_gate", "alibi_scaled",
     "attn_sinks", "swiglu_limit",
+    # heterogeneous stacks
+    "heads_per_layer", "d_ff_per_layer",
+    # mixture of experts
+    "n_experts", "n_experts_used", "moe_score", "moe_norm_topk",
+    "n_expert_groups", "topk_groups", "routed_scale", "n_shared_experts",
+    "d_ff_shared", "first_k_dense", "d_ff_dense", "dense_layers",
+    "moe_expert_bias", "moe_weight_before", "moe_router_input",
+    "moe_parallel", "moe_chunk_experts", "moe_chunk_scale", "d_ff_chunk",
+}
+# the fields still refused, by the ROADMAP Queue 1 item that ports them
+_REFUSED = {
+    "q_lora_rank": "4c (MLA)", "kv_lora_rank": "4c (MLA)",
+    "qk_nope_dim": "4c (MLA)", "qk_rope_dim": "4c (MLA)",
+    "causal_attn": "7 (non-causal attention)",
+    "mask_token_id": "7 (diffusion LMs)",
+    "diffusion_shift_logits": "7 (diffusion LMs)",
+    "dual_expert": "8 (cogvlm's visual experts)",
 }
 # the values of the string knobs this port computes
 _CHOICES = {
@@ -115,10 +145,20 @@ _CHOICES = {
     "qk_norm_type": ("rms", "ln", "l2"),
     "swa_type": ("window", "chunked"),
     "attn_gate": ("", "sigmoid"),
+    "moe_score": ("softmax", "sigmoid"),
+    "moe_router_input": ("hidden", "layer_input"),
+    "moe_parallel": ("", "arctic"),
 }
 PROJECTIONS = ("wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up", "w_gateup",
-               "w_down", "w_attn_gate")
-NORMS = ("attn_norm", "ffn_norm", "attn_sub_norm", "ffn_sub_norm")
+               "w_down", "w_attn_gate", "w_lin_attn", "w_shared_gate",
+               "w_shared_up", "w_shared_down", "w_res_gate", "w_res_up",
+               "w_res_down")
+# projections that carry an experts dim in MoE layers: (E, Kp/r, Np) packed
+# bytes and (E,) scales per layer; w_ch_* are grovemoe's chunk experts
+EXPERT_PROJECTIONS = ("w_gate", "w_up", "w_down", "w_ch_gate", "w_ch_up",
+                      "w_ch_down")
+NORMS = ("attn_norm", "ffn_norm", "attn_sub_norm", "ffn_sub_norm",
+         "moe_norm")
 # the knobs' per-layer vectors, kept in their stored dtype: LayerNorm
 # biases, post-norm and q/k-norm gains (+ biases), projection biases,
 # attention sinks and xIELU's alphas
@@ -127,9 +167,14 @@ KNOB_VECTORS = (
     "q_norm", "k_norm", "q_norm_b", "k_norm_b", "bq", "bk", "bv", "bo",
     "b_gate", "b_up", "b_down", "sinks", "xielu_ap", "xielu_an",
 )
+# a MoE layer's vectors, as stored: the router (D, E), its selection-only
+# bias and its logits bias (E,), the per-expert projection biases (E, ff_p)
+# and (E, D), and the shared expert's sigmoid gate (D,)
+MOE_VECTORS = ("router", "router_bias", "router_b", "eb_gate", "eb_up",
+               "eb_down", "shared_gate")
 # per-layer vectors a layer tree may carry: the norm gains (float32), the
-# knobs' vectors and the control vector
-LAYER_VECTORS = NORMS + KNOB_VECTORS + ("cvector",)
+# knobs' and MoE vectors and the control vector
+LAYER_VECTORS = NORMS + KNOB_VECTORS + MOE_VECTORS + ("cvector",)
 # top-level vectors beside embed / final_norm / lm_head
 TOP_VECTORS = ("pos_embed", "embed_norm", "embed_norm_b", "final_norm_b",
                "lm_head_b")
@@ -148,10 +193,11 @@ def check_supported(cfg: ModelConfig) -> None:
         if f.name in _SUPPORTED_FIELDS:
             continue
         if getattr(cfg, f.name) != getattr(base, f.name):
+            item = _REFUSED.get(f.name)
             raise NotImplementedError(
                 f"config field {f.name}={getattr(cfg, f.name)!r} is not "
-                "ported to vlut_tpu_torch yet"
-            )
+                "ported to vlut_tpu_torch yet" + (
+                    f" (ROADMAP Queue 1 item {item})" if item else ""))
     for name, allowed in _CHOICES.items():
         if getattr(cfg, name) not in allowed:
             raise NotImplementedError(
@@ -159,7 +205,50 @@ def check_supported(cfg: ModelConfig) -> None:
     kind = (cfg.rope_scaling or {}).get(
         "rope_type", (cfg.rope_scaling or {}).get("type"))
     if kind == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet")
+        raise NotImplementedError(
+            "M-RoPE is not ported yet (ROADMAP Queue 1 item 4c)")
+
+
+def layer_config(cfg: ModelConfig, i: int) -> ModelConfig:
+    """Layer i's config: ``cfg`` itself, or for per-layer head counts and
+    FFN widths the JAX package's per-layer swap (its ``run_layers``): that
+    layer's (at least one) heads and KV heads and its FFN width."""
+    if not (cfg.heads_per_layer or cfg.d_ff_per_layer):
+        return cfg
+    nh, nkv = (cfg.heads_per_layer[i] if cfg.heads_per_layer
+               else (cfg.n_heads, cfg.n_kv_heads))
+    ff = cfg.d_ff_per_layer[i] if cfg.d_ff_per_layer else cfg.d_ff
+    return dataclasses.replace(
+        cfg, n_heads=max(nh, 1), n_kv_heads=max(nkv or nh, 1),
+        d_ff=max(ff, 1), heads_per_layer=None, d_ff_per_layer=None)
+
+
+def layer_kv_heads(cfg: ModelConfig) -> tuple[int, ...]:
+    """Each layer's KV heads in the cache: its own count, 0 for a layer
+    without softmax attention (deci's linear and attention-free layers)."""
+    if not cfg.heads_per_layer:
+        return (cfg.n_kv_heads,) * cfg.n_layers
+    return tuple(nkv if nh else 0 for nh, nkv in cfg.heads_per_layer)
+
+
+def layers_tuple(cfg: ModelConfig) -> bool:
+    """Whether the config's checkpoints keep a tuple of per-layer trees
+    (the JAX converter's rule: dense lead layers, or per-layer heads or
+    FFN widths)."""
+    return bool(cfg.first_k_dense or (cfg.dense_layers
+                                      and any(cfg.dense_layers))
+                or cfg.heads_per_layer or cfg.d_ff_per_layer)
+
+
+def moe_layers(cfg: ModelConfig) -> tuple[bool, ...]:
+    """Each layer's kind in a MoE model's per-layer tree: True where it
+    routes over the experts, False for a dense lead layer
+    (``first_k_dense`` / ``dense_layers``); all False without experts."""
+    if not cfg.n_experts:
+        return (False,) * cfg.n_layers
+    dense = cfg.dense_layers or (False,) * cfg.n_layers
+    return tuple(not (i < cfg.first_k_dense or dense[i])
+                 for i in range(cfg.n_layers))
 
 
 def rope_width(cfg: ModelConfig, plan: DimPlan) -> int:
@@ -265,6 +354,66 @@ def weight_specs(cfg: ModelConfig,
     if cfg.attn_gate:
         # the attention output gate packs exactly like wq
         specs["w_attn_gate"] = TernarySpec(d, qd, fmt, kb)
+    if cfg.heads_per_layer and any(nh and not nkv
+                                   for nh, nkv in cfg.heads_per_layer):
+        # deci's linear "attention": a plain (D, D) projection
+        specs["w_lin_attn"] = TernarySpec(d, d, fmt, kb)
+    return specs
+
+
+def _ffn_cfg(cfg: ModelConfig, d_ff: int) -> ModelConfig:
+    """A uniform config of FFN width ``d_ff`` (the plan of a MoE model's
+    experts, dense lead, shared, residual and chunk FFNs)."""
+    return dataclasses.replace(cfg, d_ff=d_ff, n_experts=0,
+                               heads_per_layer=None, d_ff_per_layer=None)
+
+
+def _side_ffns(cfg: ModelConfig) -> list[tuple[str, int, int]]:
+    """(prefix, FFN width, experts) of the shared expert, arctic's residual
+    MLP and grovemoe's chunk experts the config has."""
+    out = []
+    if cfg.n_shared_experts:
+        out.append(("w_shared_", cfg.d_ff_shared
+                    or cfg.n_shared_experts * cfg.d_ff, 0))
+    if cfg.moe_parallel:
+        out.append(("w_res_", cfg.d_ff_dense or cfg.d_ff, 0))
+    if cfg.moe_chunk_experts:
+        out.append(("w_ch_", cfg.d_ff_chunk or cfg.d_ff,
+                    cfg.moe_chunk_experts))
+    return out
+
+
+def _ffn_specs(cfg: ModelConfig, d_ff: int, prefix: str) -> dict:
+    """The gate, up and down specs of a gated FFN of width ``d_ff`` under
+    ``prefix`` (its plan's padding, as the JAX package's per-width spec
+    tables)."""
+    c = _ffn_cfg(cfg, d_ff)
+    s = weight_specs(c, make_plan(c))
+    return {f"{prefix}gate": s["w_gate"], f"{prefix}up": s["w_up"],
+            f"{prefix}down": s["w_down"]}
+
+
+def layer_specs(cfg: ModelConfig, i: int = 0,
+                moe: bool | None = None) -> dict[str, TernarySpec]:
+    """Layer i's spec table: its own heads and FFN width
+    (:func:`layer_config`, plus deci's linear projection), and in a MoE
+    model the routed experts at ``d_ff`` (one expert's shapes), a dense
+    lead layer's FFN at ``d_ff_dense`` when ``moe`` is False, the shared
+    expert at ``d_ff_shared`` (or ``n_shared_experts * d_ff``), arctic's
+    residual MLP at ``d_ff_dense`` and grovemoe's chunk experts at
+    ``d_ff_chunk`` (the JAX package's ``specs_dense`` / ``specs_shared`` /
+    ``specs_chunk``)."""
+    specs = weight_specs(layer_config(cfg, i))
+    lin = weight_specs(cfg).get("w_lin_attn")
+    if lin:  # the per-layer config drops heads_per_layer, which gates it
+        specs["w_lin_attn"] = lin
+    if not cfg.n_experts:
+        return specs
+    specs.update(_ffn_specs(
+        cfg, cfg.d_ff if moe is not False else cfg.d_ff_dense or cfg.d_ff,
+        "w_"))
+    for prefix, width, _ in _side_ffns(cfg):
+        specs.update(_ffn_specs(cfg, width, prefix))
     return specs
 
 
@@ -281,13 +430,20 @@ def pack_weight(name: str, trits: np.ndarray, scale, cfg: ModelConfig,
         trits = pad_heads_rows(trits, cfg.n_heads, hd, hd_p)
         trits = scatter_rows(trits, plan.wo_chunk, plan.wo_chunk_p,
                              plan.wo_in_p)
-    elif name in ("w_gate", "w_up"):
+    elif name in _FFN_IN:
+        # the shared, residual and chunk experts pack like the FFN at
+        # their own width (the caller passes a cfg of that d_ff)
         trits = scatter_cols(trits, plan.ff_chunk, plan.ff_chunk_p, plan.ff_p)
-    elif name == "w_down":
+    elif name in _FFN_OUT:
         trits = scatter_rows(trits, plan.ff_chunk, plan.ff_chunk_p, plan.ff_p)
-    else:
+    elif name != "w_lin_attn":  # deci's (D, D): plain packing
         raise KeyError(name)
     return pack_ternary(trits, scale, cfg.weight_fmt, plan.kb)
+
+
+_FFN_IN = ("w_gate", "w_up", "w_shared_gate", "w_shared_up", "w_res_gate",
+           "w_res_up", "w_ch_gate", "w_ch_up")
+_FFN_OUT = ("w_down", "w_shared_down", "w_res_down", "w_ch_down")
 
 
 def unpack_weight(name: str, t: TernaryTensor, cfg: ModelConfig,
@@ -315,10 +471,12 @@ def unpack_weight(name: str, t: TernaryTensor, cfg: ModelConfig,
             w = w.reshape(cfg.n_heads, hd_p, -1)[
                 :, head_positions(hd, hd_p)].reshape(cfg.n_heads * hd, -1)
         return w
-    if name in ("w_gate", "w_up"):
+    if name in _FFN_IN:
         return w[:, chunk_positions(cfg.d_ff, plan.ff_chunk, plan.ff_chunk_p)]
-    if name == "w_down":
+    if name in _FFN_OUT:
         return w[chunk_positions(cfg.d_ff, plan.ff_chunk, plan.ff_chunk_p)]
+    if name == "w_lin_attn":
+        return w
     raise KeyError(name)
 
 
@@ -380,20 +538,62 @@ class TernaryLinear(nn.Module):
                 else {})
 
 
+class ExpertStack(nn.Module):
+    """A MoE layer's bank of E experts for one projection: ``packed`` (E,
+    Kp/r, Np) uint8 and ``scale`` (E,) float32 buffers; :meth:`tensor`
+    gives expert e's (K, N) :class:`TernaryTensor` (views, no copy)."""
+
+    def __init__(self, packed: torch.Tensor, scale: torch.Tensor,
+                 spec: TernarySpec):
+        super().__init__()
+        if packed.dim() != 3 or packed.shape[1] * TRITS_PER_BYTE[
+                spec.fmt] != padded_k(spec.k, spec.fmt, spec.kb):
+            raise ValueError(f"expert stack {tuple(packed.shape)} does not "
+                             f"fit K={spec.k} ({spec.fmt})")
+        self.k, self.n, self.fmt, self.kb = spec.k, spec.n, spec.fmt, spec.kb
+        self.register_buffer("packed", packed)
+        self.register_buffer("scale", scale.to(torch.float32))
+        self.register_buffer("w_scale", torch.stack([
+            TernaryTensor(packed[e], self.scale[e], self.k, self.n, self.fmt,
+                          self.kb).scale_vector()
+            for e in range(packed.shape[0])]), persistent=False)
+
+    def __len__(self) -> int:
+        return self.packed.shape[0]
+
+    def tensor(self, e: int) -> TernaryTensor:
+        return TernaryTensor(self.packed[e], self.w_scale[e], self.k, self.n,
+                             self.fmt, self.kb)
+
+
 class DecoderLayer(nn.Module):
-    """One layer's projections (``proj``) and vectors (buffers: the norm
-    gains in float32, the knobs' vectors as stored)."""
+    """One layer's projections (``proj``), its expert stacks (``experts``,
+    in a MoE layer) and vectors (buffers: the norm gains in float32, the
+    knobs' and MoE vectors as stored)."""
 
     def __init__(self, tree: dict[str, Any], specs: dict[str, TernarySpec]):
         super().__init__()
-        unknown = set(tree) - set(PROJECTIONS) - set(LAYER_VECTORS)
+        unknown = (set(tree) - set(PROJECTIONS) - set(EXPERT_PROJECTIONS)
+                   - set(LAYER_VECTORS))
         if unknown:
             raise NotImplementedError(f"layer tensors not ported: {unknown}")
+        for name in PROJECTIONS + EXPERT_PROJECTIONS:
+            leaves = tree.get(name, {})
+            if "dense" in leaves:
+                raise NotImplementedError(
+                    f"{name}: float-twin ('dense') weights are not ported")
+        stacks = {name for name in EXPERT_PROJECTIONS if name in tree
+                  and tree[name]["packed"].dim() == 3}
         self.proj = nn.ModuleDict({
             name: TernaryLinear(
                 tree[name]["packed"], tree[name]["scale"], specs[name],
                 {k: tree[name][k] for k in LORA_LEAVES if k in tree[name]})
-            for name in PROJECTIONS if name in tree
+            for name in PROJECTIONS if name in tree and name not in stacks
+        })
+        self.experts = nn.ModuleDict({
+            name: ExpertStack(tree[name]["packed"], tree[name]["scale"],
+                              specs[name])
+            for name in EXPERT_PROJECTIONS if name in stacks
         })
         for name in LAYER_VECTORS:
             if name in tree:
@@ -404,6 +604,18 @@ class DecoderLayer(nn.Module):
     @property
     def fused(self) -> bool:
         return "wqkv" in self.proj
+
+    @property
+    def has_attn(self) -> bool:
+        """Softmax attention (deci's linear and attention-free layers have
+        none)."""
+        return "wq" in self.proj or "wqkv" in self.proj
+
+    @property
+    def has_ffn(self) -> bool:
+        """An FFN, dense or routed (deci's FFN-free layers have none)."""
+        return (hasattr(self, "router") or any(
+            n in self.proj for n in ("w_gate", "w_up", "w_gateup")))
 
     def vec(self, name: str) -> torch.Tensor | None:
         return getattr(self, name, None)
@@ -464,13 +676,26 @@ class TransformerLM(nn.Module):
         check_supported(cfg)
         self.cfg = cfg
         self.plan = make_plan(cfg)
-        specs = weight_specs(cfg, self.plan)
+        # each layer's plan (its own heads and FFN width; the model's plan
+        # on a uniform stack)
+        hetero = cfg.heads_per_layer or cfg.d_ff_per_layer
+        self.plans = [make_plan(layer_config(cfg, i)) if hetero else self.plan
+                      for i in range(cfg.n_layers)]
         layers = tree["layers"]
         if isinstance(layers, dict):
-            self.layers = StackedLayers(layers, specs, cfg.n_layers)
+            if hetero:
+                raise ValueError("per-layer head counts or FFN widths take "
+                                 "the tuple-layers tree (one per layer)")
+            self.layers = StackedLayers(
+                layers, layer_specs(cfg, moe="router" in layers),
+                cfg.n_layers)
         else:
-            self.layers = nn.ModuleList(DecoderLayer(lp, specs)
-                                        for lp in layers)
+            if len(layers) != cfg.n_layers:
+                raise ValueError(f"{len(layers)} layer trees for "
+                                 f"n_layers={cfg.n_layers}")
+            self.layers = nn.ModuleList(
+                DecoderLayer(lp, layer_specs(cfg, i, moe="router" in lp))
+                for i, lp in enumerate(layers))
         self.register_buffer("embed", tree["embed"])
         self.register_buffer("final_norm", tree["final_norm"].to(torch.float32))
         for name in TOP_VECTORS:
@@ -560,6 +785,8 @@ def _layer_tree(lp: DecoderLayer) -> dict[str, Any]:
         name: {"packed": m.packed, "scale": m.scale, **m.lora_tree()}
         for name, m in lp.proj.items()
     }
+    out.update({name: {"packed": m.packed, "scale": m.scale}
+                for name, m in lp.experts.items()})
     for name in LAYER_VECTORS:
         if hasattr(lp, name):
             out[name] = getattr(lp, name)
@@ -598,48 +825,102 @@ def _knob_vectors(cfg: ModelConfig, plan: DimPlan, ones, draw) -> dict:
     return layers
 
 
-def _projection_names(cfg: ModelConfig) -> tuple[str, ...]:
-    names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-    if not cfg.ffn_gated:
-        names = tuple(n for n in names if n != "w_gate")
-    return names
+def pack_config(cfg: ModelConfig, name: str) -> ModelConfig:
+    """The config whose plan packs projection ``name`` of a uniform stack:
+    a MoE model's shared expert, arctic's residual MLP and grovemoe's chunk
+    experts at their own FFN widths, every other projection at ``cfg``'s
+    (:func:`layer_specs`' widths)."""
+    for prefix, width, _ in _side_ffns(cfg):
+        if name.startswith(prefix):
+            return _ffn_cfg(cfg, width)
+    return cfg
+
+
+def _layer_projections(cfg: ModelConfig, i: int) -> dict:
+    """Layer i's projections in the JAX package's ``init_params`` order:
+    name -> (K, N, the config that packs it, experts or 0)."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    cl = layer_config(cfg, i)
+    nh, nkv = (cfg.heads_per_layer[i] if cfg.heads_per_layer
+               else (cfg.n_heads, cfg.n_kv_heads))
+    ff = cfg.d_ff_per_layer[i] if cfg.d_ff_per_layer else cfg.d_ff
+    out: dict = {}
+    if nh and nkv:
+        out.update(wq=(d, nh * hd, cl, 0), wk=(d, nkv * hd, cl, 0),
+                   wv=(d, nkv * hd, cl, 0), wo=(nh * hd, d, cl, 0))
+    elif nh:
+        out["w_lin_attn"] = (d, d, cl, 0)
+    if not ff:
+        return out
+    experts, fc = 0, cl
+    if cfg.n_experts:
+        if moe_layers(cfg)[i]:
+            experts, fc = cfg.n_experts, _ffn_cfg(cfg, cfg.d_ff)
+        else:
+            ff = cfg.d_ff_dense or cfg.d_ff
+            fc = _ffn_cfg(cfg, ff)
+    if cfg.ffn_gated:
+        out["w_gate"] = (d, ff, fc, experts)
+    out["w_up"] = (d, ff, fc, experts)
+    out["w_down"] = (ff, d, fc, experts)
+    return out
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
                 device="cpu") -> TransformerLM:
     """Random ternary model from numpy draws in the JAX package's
-    ``init_params`` order (synthetic models for tests)."""
+    ``init_params`` order (synthetic models for tests).
+
+    A MoE model gets its expert stacks (E packed projections per layer)
+    and a float32 router of normals * 0.02 as the JAX package lays them
+    out; the parts the JAX package's ``init_params`` does not lay out are
+    drawn after everything it draws: the shared expert, arctic's residual
+    MLP (with its ``moe_norm`` gain of ones), grovemoe's chunk experts and
+    gpt-oss's expert biases.  Dense lead layers and per-layer head counts
+    or FFN widths (deci's linear and attention-free layers among them)
+    give the tuple-layers tree, one dict per layer."""
     check_supported(cfg)
     rng = np.random.default_rng(seed)
     plan = make_plan(cfg)
-    logical = {
-        "wq": (cfg.d_model, cfg.q_dim), "wk": (cfg.d_model, cfg.kv_dim),
-        "wv": (cfg.d_model, cfg.kv_dim), "wo": (cfg.q_dim, cfg.d_model),
-        "w_gate": (cfg.d_model, cfg.d_ff), "w_up": (cfg.d_model, cfg.d_ff),
-        "w_down": (cfg.d_ff, cfg.d_model),
-    }
-    layers: dict[str, Any] = {}
-    for name in _projection_names(cfg):
-        k, n = logical[name]
-        packed, scales = [], []
-        for _ in range(cfg.n_layers):
+    n_l = cfg.n_layers
+    per = [_layer_projections(cfg, i) for i in range(n_l)]
+    hetero = bool(cfg.heads_per_layer or cfg.d_ff_per_layer)
+    if hetero and (cfg.qkv_bias or cfg.proj_bias or cfg.use_subnorms):
+        raise NotImplementedError("init_params lays out no per-layer-width "
+                                  "biases or sub-norms")
+
+    def draw_packed(k, n, name, c, experts):
+        def one():
             trits = rng.integers(-1, 2, size=(k, n), dtype=np.int8)
-            t = pack_weight(name, trits, np.float32(0.05), cfg, plan)
-            packed.append(t.packed)
-            scales.append(t.scale)
-        layers[name] = {"packed": torch.stack(packed),
-                        "scale": torch.stack(scales)}
-    layers.update(_knob_vectors(
+            t = pack_weight(name, trits, np.float32(0.05), c, make_plan(c))
+            return t.packed, t.scale
+        if not experts:
+            return one()
+        ps, ss = zip(*(one() for _ in range(experts)))
+        return torch.stack(ps), torch.stack(ss)
+
+    layers = [dict() for _ in range(n_l)]
+    for name in ("wq", "wk", "wv", "wo", "w_lin_attn", "w_gate", "w_up",
+                 "w_down"):
+        for i in range(n_l):
+            if name in per[i]:
+                k, n, c, experts = per[i][name]
+                p_, s_ = draw_packed(k, n, name, c, experts)
+                layers[i][name] = {"packed": p_, "scale": s_}
+    vectors = _knob_vectors(
         cfg, plan,
-        lambda w: torch.ones((cfg.n_layers, w), dtype=torch.float32),
+        lambda w: torch.ones((n_l, w), dtype=torch.float32),
         lambda w: torch.from_numpy(
-            rng.standard_normal((cfg.n_layers, w)) * 0.02).to(torch.float32)))
+            rng.standard_normal((n_l, w)) * 0.02).to(torch.float32))
+    moe = moe_layers(cfg)
+    if cfg.n_experts:
+        vectors["router"] = torch.from_numpy(rng.standard_normal(
+            (n_l, cfg.d_model, cfg.n_experts)) * 0.02).to(torch.float32)
     tree: dict[str, Any] = {
         "embed": torch.from_numpy(
             rng.standard_normal((cfg.vocab_size, cfg.d_model)) * 0.02
         ).to(dtype),
         "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32),
-        "layers": layers,
     }
     if cfg.norm_type == "ln":
         tree["final_norm_b"] = torch.from_numpy(
@@ -648,6 +929,39 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
         head = rng.standard_normal((cfg.d_model, plan.vocab_p)) * 0.02
         head[:, cfg.vocab_size:] = 0.0
         tree["lm_head"] = torch.from_numpy(head).to(dtype)
+    # the parts the JAX package's init_params does not lay out
+    for prefix, width, experts in _side_ffns(cfg):
+        c = _ffn_cfg(cfg, width)
+        for i in range(n_l):
+            if not moe[i]:
+                continue
+            for nm, (k, n) in ((prefix + "gate", (cfg.d_model, width)),
+                               (prefix + "up", (cfg.d_model, width)),
+                               (prefix + "down", (width, cfg.d_model))):
+                p_, s_ = draw_packed(k, n, nm, c, experts)
+                layers[i][nm] = {"packed": p_, "scale": s_}
+    if cfg.moe_parallel:
+        vectors["moe_norm"] = torch.ones((n_l, cfg.d_model))
+    if cfg.moe_expert_bias:
+        ff_p = make_plan(_ffn_cfg(cfg, cfg.d_ff)).ff_p
+        for nm, w in (("eb_gate", ff_p), ("eb_up", ff_p),
+                      ("eb_down", cfg.d_model)):
+            vectors[nm] = torch.from_numpy(rng.standard_normal(
+                (n_l, cfg.n_experts, w)) * 0.02).to(torch.float32)
+    for nm, v in vectors.items():
+        for i in range(n_l):
+            if nm in MOE_VECTORS + ("moe_norm",) and not moe[i]:
+                continue
+            layers[i][nm] = v[i]
+    if layers_tuple(cfg):
+        tree["layers"] = layers
+    else:
+        tree["layers"] = {
+            nm: ({leaf: torch.stack([lp[nm][leaf] for lp in layers])
+                  for leaf in layers[0][nm]}
+                 if isinstance(layers[0][nm], dict)
+                 else torch.stack([lp[nm] for lp in layers]))
+            for nm in layers[0]}
     return TransformerLM(cfg, _tree_to(tree, device))
 
 
@@ -662,27 +976,51 @@ def init_params_fast(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     so every config that runs from ``init_params`` runs from these too.
     """
     check_supported(cfg)
+    if layers_tuple(cfg):
+        raise NotImplementedError(
+            "init_params_fast lays out stacked trees; per-layer stacks come "
+            "from init_params")
     device = resolve_device(device)
     plan = make_plan(cfg)
-    specs = weight_specs(cfg, plan)
+    specs = layer_specs(cfg)
     r = TRITS_PER_BYTE[cfg.weight_fmt]
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    n_e = cfg.n_experts
 
-    def packed(spec: TernarySpec) -> torch.Tensor:
-        shape = (cfg.n_layers, padded_k(spec.k, spec.fmt, spec.kb) // r,
-                 -(-spec.n // 128) * 128)
-        return random_packed_bytes(shape, cfg.weight_fmt, gen, device)
+    def packed(spec: TernarySpec, experts: int = 0) -> torch.Tensor:
+        shape = ((experts,) if experts else ()) + (
+            padded_k(spec.k, spec.fmt, spec.kb) // r, -(-spec.n // 128) * 128)
+        if not experts:
+            return random_packed_bytes((cfg.n_layers,) + shape,
+                                       cfg.weight_fmt, gen, device)
+        # an expert bank one layer at a time: its int32 draws take four
+        # times its bytes at once
+        out = torch.empty((cfg.n_layers,) + shape, dtype=torch.uint8,
+                          device=device)
+        for i in range(cfg.n_layers):
+            out[i] = random_packed_bytes(shape, cfg.weight_fmt, gen, device)
+        return out
 
     def randn(*shape) -> torch.Tensor:
         return torch.randn(shape, generator=gen, device=device)
 
     layers: dict[str, Any] = {}
-    for name in _projection_names(cfg):
+    names = ("wq", "wk", "wv", "wo") + ("w_gate",) * cfg.ffn_gated + (
+        "w_up", "w_down")
+    for name in names:
+        experts = n_e if name.startswith("w_") else 0
         layers[name] = {
-            "packed": packed(specs[name]),
-            "scale": torch.full((cfg.n_layers,), 0.05, device=device),
+            "packed": packed(specs[name], experts),
+            "scale": torch.full((cfg.n_layers,) + ((experts,) if experts
+                                                   else ()), 0.05,
+                                device=device),
         }
+    if n_e:
+        # the JAX package's fast router: one bf16 linspace per layer
+        layers["router"] = torch.linspace(
+            -0.02, 0.02, n_e, device=device).to(torch.bfloat16).expand(
+                cfg.n_layers, cfg.d_model, n_e).contiguous()
     layers.update(_knob_vectors(
         cfg, plan, lambda w: torch.ones((cfg.n_layers, w), device=device),
         lambda w: randn(cfg.n_layers, w) * 0.02))
@@ -728,9 +1066,11 @@ def fuse_projections(model: TransformerLM, cfg: ModelConfig) -> TransformerLM:
     byte layout is row-major over K slabs, so packed columns concatenate
     exactly); per-tensor scales become one per-channel vector.  Stacked
     trees only.  As in the JAX package: a no-op when already fused or
-    unrolled, for a model with q/k/v biases, or when a LoRA sits on
+    unrolled (the tuple-layers trees of heterogeneous stacks stay apart),
+    for a model with q/k/v biases, or when a LoRA sits on
     wq/wk/wv/w_gate/w_up; gate|up fuse only for a gated FFN without
-    projection biases."""
+    projection biases, and never in a MoE model (its experts keep their
+    stacks)."""
     if not isinstance(model.layers, StackedLayers):
         return model
     tree = model.tree()
@@ -753,7 +1093,7 @@ def fuse_projections(model: TransformerLM, cfg: ModelConfig) -> TransformerLM:
     if all(n in layers for n in ("wq", "wk", "wv")):
         fuse(["wq", "wk", "wv"], [plan.q_dim_p, plan.kv_dim_p, plan.kv_dim_p],
              "wqkv")
-    if cfg.ffn_gated and not cfg.proj_bias:
+    if not cfg.n_experts and cfg.ffn_gated and not cfg.proj_bias:
         fuse(["w_gate", "w_up"], [plan.ff_p, plan.ff_p], "w_gateup")
     tree["layers"] = layers
     return TransformerLM(cfg, tree)
@@ -772,9 +1112,12 @@ def unstack_layers(model: TransformerLM, cfg: ModelConfig) -> TransformerLM:
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int | None = None,
                   dtype=torch.bfloat16, device="cpu",
                   quantized: bool = False) -> dict:
+    """The slot cache: each layer's rows hold that layer's own KV heads
+    (:func:`layer_kv_heads`; cfg.n_kv_heads, the largest, on every layer
+    of a uniform stack) of the padded head width."""
     plan = make_plan(cfg)
-    return new_cache(cfg.n_layers, batch, max_len or cfg.max_seq_len,
-                     cfg.n_kv_heads, plan.hd_p, dtype=dtype, device=device,
+    return new_cache(batch, max_len or cfg.max_seq_len, layer_kv_heads(cfg),
+                     plan.hd_p, dtype=dtype, device=device,
                      quantized=quantized)
 
 
@@ -982,13 +1325,14 @@ class _SlotKV:
                                       scale=scale)
 
 
-def _fused_attn_ok(cfg: ModelConfig, plan: DimPlan, t: int,
-                   kvio: _SlotKV | None, decode_attn: str,
+def _fused_attn_ok(cfg: ModelConfig, heads: tuple[int, int], hd_p: int,
+                   t: int, kvio: _SlotKV | None, decode_attn: str,
                    attn_mask: torch.Tensor | None = None) -> bool:
     """The decode-attention gate: one token per slot over the whole cache
     under the causal mask (no ``attn_mask`` override), a model whose
     attention the kernels compute (no ALiBi, sinks, softcap, chunked
-    windows or bidirectional attention), and the kernels' head shapes."""
+    windows or bidirectional attention), and the kernels' head shapes:
+    the layer's own (query heads, KV heads) and padded head width."""
     return (
         decode_attn == "fused" and attn_mask is None
         and kvio is not None and kvio.slots is None and t == 1
@@ -997,7 +1341,7 @@ def _fused_attn_ok(cfg: ModelConfig, plan: DimPlan, t: int,
         and not cfg.attn_logit_softcap
         and getattr(cfg, "swa_type", "window") != "chunked"
         and getattr(cfg, "causal_attn", True)
-        and dattn.supports(cfg.n_heads, cfg.n_kv_heads, plan.hd_p)
+        and dattn.supports(heads[0], heads[1], hd_p)
     )
 
 
@@ -1066,7 +1410,39 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
     quant + GEMM) under an RMS pre-norm; wo fuses with its residual without
     post-norms, a parallel residual or projection biases; the FFN fuses
     for a silu-gated one under the same terms plus an RMS pre-norm and no
-    swiglu clamp.  Any projection a gate leaves unfused runs #4 / #3."""
+    swiglu clamp, in a model without experts.  Any projection a gate leaves
+    unfused runs #4 / #3, every expert's gate, up and down among them.
+
+    ``plan`` is the layer's own (its heads and FFN width).  deci's layer
+    kinds: a layer without an FFN returns its input whole (the reference
+    skips the block, attention included), a layer without attention adds
+    nothing in its place, or with ``w_lin_attn`` adds that projection of
+    its attn-normed input."""
+    if not lp.has_ffn:
+        return x
+    x_in = x
+    h_attn = attn_out = None
+    if lp.has_attn:
+        x, h_attn, attn_out = _attn_block(
+            x, lp, kvio, cfg=cfg, plan=plan, params=params, li=li,
+            safe_pos=safe_pos, rope_pos=rope_pos, k_pos=k_pos,
+            write_start=write_start, decode_attn=decode_attn, impl=impl,
+            attn_mask=attn_mask)
+    elif "w_lin_attn" in lp.proj:
+        o = lp.proj["w_lin_attn"](_norm_d(x, lp, "attn_norm", cfg), impl)
+        x = x + o.to(x.dtype)[..., :cfg.d_model]
+    return _ffn_block(x, x_in, h_attn, attn_out, lp, cfg=cfg, plan=plan,
+                      impl=impl)
+
+
+def _attn_block(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
+                safe_pos, rope_pos, k_pos, write_start, decode_attn, impl,
+                attn_mask=None):
+    """The attention half of a layer: (x after the attention residual, the
+    attn-normed input where it was materialised, the parallel residual's
+    attention branch or None)."""
+
+
     b, t = x.shape[:2]
     hd_p, eps, d = plan.hd_p, cfg.rms_eps, cfg.d_model
     proj = lp.proj
@@ -1114,7 +1490,8 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
             safe_pos.to(torch.float32) + cfg.attn_temp_offset,
             float(cfg.attn_temp_floor))) + 1.0) * cfg.attn_temp_scale + 1.0
         q = q * tf[..., None, None].to(q.dtype)
-    if _fused_attn_ok(cfg, plan, t, kvio, decode_attn, attn_mask):
+    if _fused_attn_ok(cfg, (q.shape[2], k.shape[2]), hd_p, t, kvio,
+                      decode_attn, attn_mask):
         att = kvio.fused_attend(
             q, k, v, write_start, window,
             cfg.attn_scale or 1.0 / math.sqrt(plan.hd))
@@ -1165,8 +1542,22 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
             attn_out = o
         else:
             x = x + o.to(x.dtype)
+    return x, h_attn, attn_out
+
+
+def _ffn_block(x, x_in, h_attn, attn_out, lp: DecoderLayer, *, cfg, plan,
+               impl):
+    """The FFN half of a layer: dense (fused where the gates let), a MoE
+    block (:func:`_moe_block`) where the layer has a router, or a MoE
+    model's dense lead FFN; then the residual adds and the control
+    vector."""
+    eps, d = cfg.rms_eps, cfg.d_model
+    proj = lp.proj
+    std_norm = cfg.norm_type == "rms"
+    par = cfg.parallel_residual
     ffl = plan.ff_p
-    if ("w_gateup" in proj and not proj["w_down"].has_lora
+    if (not cfg.n_experts and "w_gateup" in proj
+            and not proj["w_down"].has_lora
             and cfg.act_fn == "silu" and not cfg.post_norms and std_norm
             and cfg.pre_norms and not cfg.swiglu_limit and not par
             and not cfg.proj_bias):
@@ -1190,7 +1581,13 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
         h = x
     else:
         h = _norm_d(x, lp, "ffn_norm", cfg)
-    if not cfg.ffn_gated:
+    if cfg.n_experts and hasattr(lp, "router"):
+        x, dn = _moe_block(x, x_in, h, lp, cfg, impl)
+    elif cfg.n_experts:
+        # a dense lead layer (first_k_dense / dense_layers) at d_ff_dense
+        a = _glu(proj["w_gate"](h, impl), proj["w_up"](h, impl), cfg)
+        dn = proj["w_down"](a.to(x.dtype), impl)
+    elif not cfg.ffn_gated:
         up = proj["w_up"](h, impl)
         if cfg.proj_bias:
             up = _add(up, lp.vec("b_up"))
@@ -1205,10 +1602,11 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
             if cfg.proj_bias:
                 gate, up = _add(gate, lp.vec("b_gate")), _add(up, lp.vec("b_up"))
         a = _glu(gate, up, cfg)
-    a = a.to(x.dtype)
-    if cfg.use_subnorms:
-        a = nrm.rms(a, lp.ffn_sub_norm, eps, cfg.d_ff)
-    dn = proj["w_down"](a, impl)
+    if not cfg.n_experts:
+        a = a.to(x.dtype)
+        if cfg.use_subnorms:
+            a = nrm.rms(a, lp.ffn_sub_norm, eps, cfg.d_ff)
+        dn = proj["w_down"](a, impl)
     if cfg.proj_bias:
         dn = _add(dn, lp.vec("b_down"))
     if cfg.post_norms:
@@ -1219,6 +1617,144 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
         x = x + dn.to(x.dtype)
     # control-vector steering, after the layer's residual adds
     return _add(x, lp.vec("cvector"))
+
+
+def _top_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest values along the last dim, the lower index
+    first among equal values: ``jax.lax.top_k``'s order (``torch.topk``
+    promises none), by a stable descending sort."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def _scatter_weights(idx: torch.Tensor, w: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """Dense (..., n) float32 combine weights: w[..., j] added at column
+    idx[..., j], j in order (columns may repeat: grovemoe's chunk ids)."""
+    comb = torch.zeros(idx.shape[:-1] + (n,), dtype=torch.float32,
+                       device=idx.device)
+    for j in range(idx.shape[-1]):
+        comb.scatter_add_(-1, idx[..., j:j + 1], w[..., j:j + 1])
+    return comb
+
+
+def _dense_ffn(hh, gate_t: TernaryTensor, up_t: TernaryTensor,
+               down_t: TernaryTensor, lp: DecoderLayer, cfg: ModelConfig,
+               impl: str, dtype, biases=(None, None, None)) -> torch.Tensor:
+    """The JAX package's ``dense_ffn`` of an expert: the gate and up
+    products [+ the expert's biases], act(gate) * up in float32 rounded to
+    the layer's ``dtype`` [+ the sub-norm], the down product [+ its bias];
+    each product #4 at M <= 64, #3 past it (``ternary_matmul``)."""
+    gate = ternary_matmul(hh, gate_t, impl=impl)
+    up = ternary_matmul(hh, up_t, impl=impl)
+    bg, bu, bd = biases
+    if bg is not None:
+        gate, up = gate + bg.to(gate.dtype), up + bu.to(up.dtype)
+    a = _glu(gate, up, cfg).to(dtype)
+    if cfg.use_subnorms:
+        a = nrm.rms(a, lp.ffn_sub_norm, cfg.rms_eps, cfg.d_ff)
+    out = ternary_matmul(a, down_t, impl=impl)
+    return out if bd is None else out + bd.to(out.dtype)
+
+
+def _expert_scan(h, lp: DecoderLayer, prefix: str, comb: torch.Tensor,
+                 cfg: ModelConfig, impl: str, dtype,
+                 biases=None) -> torch.Tensor:
+    """float32 sum over the experts ``prefix``gate/up/down of the layer, in
+    index order, every expert over every row (static shapes: the JAX
+    package's expert scan): ``acc + w_e * out_e`` (a product then a sum,
+    two roundings), or with ``moe_weight_before`` (llama4) the expert's
+    weight scaling its input instead."""
+    stacks = [lp.experts[prefix + n] for n in ("gate", "up", "down")]
+    acc = torch.zeros(h.shape[:-1] + (cfg.d_model,), dtype=torch.float32,
+                      device=h.device)
+    for e in range(len(stacks[0])):
+        w_e = comb[..., e, None]
+        ts = [st.tensor(e) for st in stacks]
+        bias = ((biases[0][e], biases[1][e], biases[2][e]) if biases
+                else (None, None, None))
+        if cfg.moe_weight_before:
+            h_e = (h.to(torch.float32) * w_e).to(h.dtype)
+            acc = acc + _dense_ffn(h_e, *ts, lp, cfg, impl, dtype,
+                                   bias).to(torch.float32)
+        else:
+            out = _dense_ffn(h, *ts, lp, cfg, impl, dtype, bias)
+            acc = acc + w_e * out.to(torch.float32)
+    return acc
+
+
+def _moe_block(x, x_in, h, lp: DecoderLayer, cfg: ModelConfig, impl: str):
+    """The JAX package's MoE block (``build_moe_ffn``): returns (x, the
+    block's output in x's dtype).
+
+    The router logits in float32 (a plain product: it sits outside any
+    kernel) from the FFN's normed input, or the raw layer input
+    (``moe_router_input="layer_input"``, smallthinker), plus ``router_b``
+    (gpt-oss); softmax or sigmoid scores; ``router_bias`` biases the
+    selection only (deepseek V3); grouped routing keeps ``topk_groups``
+    groups ranked by the sum of each group's top two, the others set to 0
+    (not -inf); the top k by :func:`_top_k`, their scores normed by
+    ``sum + 1e-20`` and times ``routed_scale``; the dense (B, T, E) combine
+    weights; the expert scan (:func:`_expert_scan`).  grovemoe's chunk
+    experts take a second pass over the routed output, arctic's routed
+    branch reads ``moe_norm`` of the layer input while its residual MLP
+    adds to x first, and the shared expert (times the sigmoid of
+    ``shared_gate`` where the layer has one) joins the routed output."""
+    h_res = h
+    if cfg.moe_parallel == "arctic":
+        h = _norm_d(x_in, lp, "moe_norm", cfg)
+    r_in = x_in if cfg.moe_router_input == "layer_input" else h
+    logits = torch.matmul(r_in.to(torch.float32),
+                          lp.router.to(torch.float32))
+    if lp.vec("router_b") is not None:
+        logits = logits + lp.router_b.to(torch.float32)
+    scores = (torch.sigmoid(logits) if cfg.moe_score == "sigmoid"
+              else torch.softmax(logits, dim=-1))
+    sel = scores
+    if lp.vec("router_bias") is not None:
+        sel = sel + lp.router_bias.to(torch.float32)
+    if cfg.n_expert_groups:
+        g = cfg.n_expert_groups
+        rank = torch.topk(sel.reshape(sel.shape[:-1] + (g, -1)), 2,
+                          dim=-1).values.sum(-1)
+        keep = torch.zeros_like(rank).scatter_(
+            -1, _top_k(rank, cfg.topk_groups), 1.0) > 0
+        sel = torch.where(keep.repeat_interleave(sel.shape[-1] // g, dim=-1),
+                          sel, torch.zeros_like(sel))
+    idx = _top_k(sel, cfg.n_experts_used)
+    w = torch.gather(scores, -1, idx)
+    if cfg.moe_norm_topk:
+        w = w / (w.sum(-1, keepdim=True) + 1e-20)
+    if cfg.routed_scale != 1.0:
+        w = w * cfg.routed_scale
+    comb = _scatter_weights(idx, w, cfg.n_experts)
+    eb = ((lp.eb_gate, lp.eb_up, lp.eb_down)
+          if cfg.moe_expert_bias and lp.vec("eb_gate") is not None else None)
+    dn = _expert_scan(h, lp, "w_", comb, cfg, impl, x.dtype, eb)
+    if cfg.moe_chunk_experts and "w_ch_gate" in lp.experts:
+        ch = cfg.moe_chunk_experts
+        idx_ch = torch.div(_top_k(logits, min(cfg.n_experts_used, ch)),
+                           cfg.n_experts // ch, rounding_mode="floor")
+        w_ch = torch.gather(scores, -1, idx_ch)
+        w_ch = w_ch / (w_ch.sum(-1, keepdim=True) + 1e-20)
+        dn = dn + cfg.moe_chunk_scale * _expert_scan(
+            dn.to(x.dtype), lp, "w_ch_", _scatter_weights(idx_ch, w_ch, ch),
+            cfg, impl, x.dtype)
+    proj = lp.proj
+    if "w_shared_gate" in proj:
+        sh = _dense_ffn(h, *(proj[f"w_shared_{n}"].tensor()
+                             for n in ("gate", "up", "down")),
+                        lp, cfg, impl, x.dtype).to(torch.float32)
+        if lp.vec("shared_gate") is not None:
+            sh = sh * torch.sigmoid(torch.matmul(
+                h.to(torch.float32),
+                lp.shared_gate.to(torch.float32)))[..., None]
+        dn = dn + sh
+    if cfg.moe_parallel == "arctic":
+        res = _dense_ffn(h_res, *(proj[f"w_res_{n}"].tensor()
+                                  for n in ("gate", "up", "down")),
+                         lp, cfg, impl, x.dtype)
+        x = x + res.to(x.dtype)
+    return x, dn.to(x.dtype)
 
 
 def run_layers(params: TransformerLM, x, positions, kv: dict | None, *,
@@ -1244,7 +1780,7 @@ def run_layers(params: TransformerLM, x, positions, kv: dict | None, *,
     for i in range(len(layers)):
         x = _layer_step(
             x, layers[i], _SlotKV(kv, i, slots) if kv is not None else None,
-            cfg=cfg, plan=params.plan, params=params, li=i,
+            cfg=cfg, plan=params.plans[i], params=params, li=i,
             safe_pos=safe_pos, rope_pos=rope_pos, k_pos=k_pos,
             write_start=write_start, decode_attn=decode_attn, impl=impl,
             attn_mask=attn_mask,

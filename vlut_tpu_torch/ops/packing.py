@@ -63,8 +63,9 @@ class TernaryTensor:
         """Weight scale broadcast to (n_padded,) float32, zero past n."""
         s = self.scale.to(torch.float32)
         np_ = self.n_padded
-        if s.dim() == 0:
-            return s.expand(np_).contiguous()
+        if s.dim() == 0 or s.shape == (1,):
+            # per-tensor (a tuple-layers checkpoint stores it as (1,))
+            return s.reshape(()).expand(np_).contiguous()
         if s.shape[0] == np_:
             return s.contiguous()
         if s.shape != (self.n,):

@@ -4,7 +4,9 @@ per-layer "layers" layout only).
 The cache is a dict of per-layer tensor lists, so every layer's rows
 update in place:
 
-* bf16: ``{"k": [L x (n_slots, max_len, Hkv, hd)], "v": [...]}``;
+* bf16: ``{"k": [L x (n_slots, max_len, Hkv, hd)], "v": [...]}``, Hkv
+  the layer's own KV heads (they differ between the layers of a
+  heterogeneous stack);
 * q8 (int8 codes with one float32 scale per (slot, row, head)):
   ``"k"``/``"v"`` int8 of that shape plus ``"k_scale"``/``"v_scale"``
   float32 (n_slots, max_len, Hkv).
@@ -21,22 +23,24 @@ from vlut_tpu_torch.ops.ternary_gemm import RECIP_127
 
 
 def new_cache(
-    n_layers: int, n_slots: int, max_len: int, n_kv_heads: int,
-    head_dim: int, dtype=torch.bfloat16, device="cpu", quantized: bool = False,
+    n_slots: int, max_len: int, kv_heads: tuple[int, ...], head_dim: int,
+    dtype=torch.bfloat16, device="cpu", quantized: bool = False,
 ) -> dict[str, list[torch.Tensor]]:
-    shape = (n_slots, max_len, n_kv_heads, head_dim)
-    entries = {"k": (shape, dtype), "v": (shape, dtype)}
-    if quantized:
-        entries = {
-            "k": (shape, torch.int8), "v": (shape, torch.int8),
-            "k_scale": (shape[:-1], torch.float32),
-            "v_scale": (shape[:-1], torch.float32),
-        }
-    return {
-        name: [torch.zeros(sh, dtype=dt, device=device)
-               for _ in range(n_layers)]
-        for name, (sh, dt) in entries.items()
-    }
+    """Zeroed caches, one per layer, layer i holding ``kv_heads[i]`` KV heads
+    (a heterogeneous stack's layers differ; one without attention has 0)."""
+
+    def entries(h):
+        shape = (n_slots, max_len, h, head_dim)
+        if quantized:
+            return {"k": (shape, torch.int8), "v": (shape, torch.int8),
+                    "k_scale": (shape[:-1], torch.float32),
+                    "v_scale": (shape[:-1], torch.float32)}
+        return {"k": (shape, dtype), "v": (shape, dtype)}
+
+    per = [entries(h) for h in kv_heads]
+    return {name: [torch.zeros(e[name][0], dtype=e[name][1], device=device)
+                   for e in per]
+            for name in per[0]}
 
 
 def is_quantized(cache: dict) -> bool:

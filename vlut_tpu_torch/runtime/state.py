@@ -8,7 +8,10 @@ restores in the other:
 * ``kv_<name>`` for every cache entry: (L, length, Hkv, hd_p) rows of the
   slot (scale planes (L, length, Hkv)), floats stored as float32, the int8
   codes of a q8 cache as int8.  Files from before the q8 cache hold ``k``
-  and ``v`` instead, and restore into a bf16 cache.
+  and ``v`` instead, and restore into a bf16 cache.  In a heterogeneous
+  stack, whose layers hold their own KV heads, Hkv is the largest; a
+  layer's rows fill its first heads and zeros the rest, as the JAX
+  package's cache of the largest count holds them.
 
 The port writes the zip entries stored rather than deflated; ``np.load``
 reads either.
@@ -41,7 +44,15 @@ def _store(t: torch.Tensor) -> np.ndarray:
 def save_slot_state(cache: dict, slot: int, length: int,
                     history: list[int]) -> bytes:
     """Serialize rows [0, length) of ``slot`` and its token history."""
-    arrays = {name: np.stack([_store(a[slot, :length]) for a in arrs])
+    heads = max(a.shape[2] for a in cache["k"])
+
+    def rows(a):
+        r = _store(a[slot, :length])
+        pad = [(0, 0)] * r.ndim
+        pad[1] = (0, heads - r.shape[1])
+        return np.pad(r, pad)
+
+    arrays = {name: np.stack([rows(a) for a in arrs])
               for name, arrs in cache.items()}
     buf = io.BytesIO()
     # stored, not deflated (the JAX package deflates; np.load reads both):
@@ -77,14 +88,15 @@ def load_slot_state(cache: dict, slot: int, data: bytes) -> list[int]:
     length = arrays["k"].shape[1]
     if length > max_len_of(cache):
         raise ValueError("state longer than cache capacity")
+    heads = max(a.shape[2] for a in cache["k"])
     for name, arrs in cache.items():
         rows = arrays[name]
-        if rows.shape[0] != len(arrs) or rows.shape[2:] != tuple(
-                arrs[0].shape[2:]):
+        if rows.shape[0] != len(arrs) or rows.shape[2] != heads or (
+                rows.shape[3:] != tuple(arrs[0].shape[3:])):
             raise ValueError(f"state entry {name} {rows.shape} does not fit "
                              f"the cache {tuple(arrs[0].shape)}")
         for i, a in enumerate(arrs):
-            a[slot, :length].copy_(torch.from_numpy(rows[i]))
+            a[slot, :length].copy_(torch.from_numpy(rows[i][:, :a.shape[2]]))
     return [int(t) for t in tokens]
 
 
