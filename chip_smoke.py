@@ -107,8 +107,23 @@ Phases (any failure exits non-zero; none is skipped):
      chunk and residual experts, dense lead layers, per-layer heads, deci's
      layer kinds) on the card against the CPU, layer by layer, and graphed
      against eager;
- 21. one JSON line of every kernel with its launches on the paths of phases
-     3-20, then the card, then ``{"ok": true, "device": ...}`` last.
+ 21. MLA, M-RoPE and the stacked cache: ``deepseek_v2_lite``
+     (DeepSeek-V2-Lite's published widths: d 2048, 27 layers, 16 MLA heads
+     over a latent of 512 with rope 64, 64 experts of 1408, top 6, 2
+     shared experts, one dense lead layer of 10944, vocabulary 102400) at
+     full width and depth, random packed weights from seed 0, through the
+     engine (16 slots, ctx 2048, 16 greedy requests of 64-512 prompt
+     tokens, seed 14, 16 new tokens): bf16 graphed (4 steps profiled),
+     bf16 eager for 4 new tokens (the graphed run's first tokens), q8
+     graphed, and one request past a 512-row context (the latent rows'
+     context shift); every latent row write through #5, every MLA
+     projection and expert through #4 at decode and #3 at prefill, wo
+     through #1; then each MLA and M-RoPE family of ``bench/zoo.py`` on the
+     card against the CPU, layer by layer, and graphed against eager; then
+     ``Engine(unroll=False)`` over a stacked cache on tiny_real and on an
+     MLA family: the unrolled engine's tokens;
+ 22. one JSON line of every kernel with its launches on the paths of phases
+     3-21, then the card, then ``{"ok": true, "device": ...}`` last.
 
 Phase 2 times #3 (the tiled GEMM) at the flagship prefill (M 4096) and at
 the microbenchmark's i2 lanes (llama3_8b dxd, dxff, ffxd at M 32 and 256)
@@ -140,7 +155,11 @@ mixtral_8x7b's, at a sliding layer of gemma2_2b's heads, hd 256, window
 query heads over its own KV head), mixtral_8x7b's qkv and wo through #1
 and each expert's gate / up (4096 -> 14336) and down (14336 -> 4096)
 through #4 at M 1, 16, 32 and 64 and through #3 at M 512, 1024 and 4096
-(phase 20's shapes), #1 and #4 at the flagship's projections at the
+(phase 20's shapes), deepseek_v2_lite's wo through #1 and its wq_full,
+wkv_a (576 wide, packed to 640), each expert's, the shared experts' and
+the dense lead layer's projections through #4 at M 1, 16, 32 and 64 and
+through #3 at M 512, 1024 and 4096 (phase 21's shapes), #1 and #4 at the
+flagship's projections at the
 server's small embedding batches (M 16 and 48), #9
 bit-exact at shapes that make its plan take each tile and split count and
 with every tile and split forced at two shapes, #7 at the e2e benches'
@@ -151,9 +170,11 @@ slot does not see, and replayed from a CUDA graph (cache bit-exact, output
 within 2e-5, two calls bit-identical).  #5 (the KV row writer) takes a
 layer's update as the composed path gives it (V a strided slice of the
 fused qkv, int64 starts; q8: codes and both scale planes in one call) at
-the batched cache, the engine's (bf16 and q8) and tiny_real's heads: bit
-for bit against the plain assignment (int32 starts too, a start out of
-range skipped, the one-array form), one call the writer's kernel alone,
+the batched cache, the engine's (bf16 and q8), tiny_real's heads and
+deepseek_v2_lite's latent rows (one head of 640 at B 16 S 2048, bf16 and
+q8): bit for bit against the plain assignment (int32 starts too, a start out of
+range skipped, the one-array form), one call the writer's kernel alone
+in a profiler trace and in a CUDA graph of it,
 timed in graphs of 20 calls beside one index_put_ per array.  #7 and #8
 are timed at the decode paths' shapes (the flagship engine's B 32 S 2048
 without and with a 512-row window, the batched cache B 32 S 184,
@@ -349,17 +370,20 @@ def decode_parts_ms(x1, rot, ws, kw) -> dict:
             "memset_ms": memset_ms, "plan": [bn, splits]}
 
 
-def device_kernels(fn) -> list[str]:
+def device_kernels(fn, capture: bool = True) -> list[str]:
     """The names of the device kernels (and memsets, copies) that one call
-    of ``fn`` runs, from torch.profiler."""
+    of ``fn`` runs, from torch.profiler.  A trace without any device event
+    is the profiler's miss, not a call that launched nothing (seen for the
+    1.5 us KV row writer, whose output its caller had checked, twice, the
+    second time in three traces running): it is taken again, at most
+    twice, and then one call is read from a CUDA graph instead
+    (:func:`graph_kernels`; ``capture`` False for a call that a graph
+    cannot hold)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # a trace without any device event is the profiler's miss (seen once
-    # for the 1.5 us KV row writer, whose output its caller had checked),
-    # not a call that launched nothing: it is taken again, at most twice
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
@@ -367,8 +391,52 @@ def device_kernels(fn) -> list[str]:
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         if names:
-            break
-    return names
+            return names
+    if not capture:
+        return names
+    print("device_kernels: three profiler traces without a device event; "
+          "reading the call from a CUDA graph", file=sys.stderr, flush=True)
+    return graph_kernels(fn)
+
+
+def graph_kernels(fn) -> list[str]:
+    """The nodes that one call of ``fn`` puts in a CUDA graph, in order:
+    a kernel by its (mangled) name, any other node by its type (MEMCPY,
+    MEMSET, ...), read from the graph's debug dump (``BUILD_DIR``)."""
+    import re
+    import warnings
+
+    import torch
+
+    from vlut_tpu_torch.ops import _build
+
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    g.enable_debug_mode()
+    with torch.cuda.graph(g):
+        fn()
+    torch.cuda.synchronize()
+    path = _build.BUILD_DIR / "device_kernels.dot"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the dump's own DEBUG notes
+        g.debug_dump(str(path))
+    text = path.read_text()
+    path.unlink()
+    del g
+    nodes = []
+    for node in re.split(r'"graph_\d+_node_\d+"\[', text)[1:]:
+        kind = re.search(r'label="\{\s*(\w+)', node)
+        name = re.search(r"ID \| (\d+) \(topoId: \d+\) \| ([^\s\\]+)", node)
+        if kind is None:
+            fail(f"graph_kernels: a node the dump reader does not know: "
+                 f"{node[:200]!r}")
+        if kind.group(1) == "KERNEL" and name is not None:
+            nodes.append((int(name.group(1)), name.group(2)))
+        else:
+            ident = re.search(r"\{(\d+) \(topoId: \d+\)", node)
+            nodes.append((int(ident.group(1)) if ident else len(nodes),
+                          kind.group(1)))
+    return [name for _, name in sorted(nodes)]
 
 
 def check_two_kernels(name, launched) -> None:
@@ -618,8 +686,7 @@ def phase_kernels(dev) -> dict:
     # --- the zoo presets' projections (phase 19) at their engines' decode
     # M (qwen3_4b 16 slots, gemma2_2b 8) through #1 or #4 as the JAX gates
     # send them, and at their prefill bucket (M 512) through #3
-    for label, k, n, mode, sub, has_res, fused in zoo_projections():
-        m = 8 if label.startswith("gemma2") else 16
+    def zoo_timed(label, k, n, mode, sub, has_res, fused, m):
         if fused:
             x1, packed, ws, kw, xq, err = decode_case(label, m, k, n, mode,
                                                       sub, has_res, "i2")
@@ -655,6 +722,9 @@ def phase_kernels(dev) -> dict:
                bound_ms=b_ms, bound_by=by, library_ms=lib_ms,
                max_abs_err=err, library=lib_name, yardsticks_ms=yard)
         del rot
+
+    for proj in zoo_projections():
+        zoo_timed(*proj, 8 if proj[0].startswith("gemma2") else 16)
     for label, k, n, *_ in zoo_projections():
         tiled_timed("ternary_gemm_tiled_zoo", label, 512, k, n, "i2",
                     iters=5, rotate=False)
@@ -815,6 +885,37 @@ def phase_kernels(dev) -> dict:
         if r["why"]:
             fail(f"{name} {r['label']} rows={r['rows']}: {r['why']}")
         checked(name, f"{r['label']} rows={r['rows']}", r["max_abs_err"])
+
+    # deepseek_v2_lite (phase 21), drawn after every other shape: wo
+    # through #1 and the rest through #4 at the engine's decode M 16, #3 at
+    # the prefill bucket (M 512), timed; #1 / #4 at M 1, 32 and 64 and #3
+    # at M 1024 and 4096, checked; #5 at its latent rows (one head of 640;
+    # V a strided slice here, where the layer's own rows are contiguous)
+    for proj in v2_lite_projections():
+        zoo_timed(*proj, 16)
+    for label, k, n, *_ in v2_lite_projections():
+        tiled_timed("ternary_gemm_tiled_zoo", label, 512, k, n, "i2",
+                    iters=5, rotate=False)
+    kv_kernels(dev, gen, record, (("mla_v2_lite", 16, 2048, 1, False, 640),
+                                  ("mla_v2_lite_q8", 16, 2048, 1, True,
+                                   640)))
+    for label, k, n, mode, sub, has_res, fused in v2_lite_projections():
+        for m in (1, 32, 64):
+            if fused:
+                err = decode_case(label, m, k, n, mode, sub, has_res,
+                                  "i2")[-1]
+                checked("ternary_gemm_decode",
+                        f"{label} M={m} {k}->{n} i2 {mode}", err)
+            else:
+                err = fused_quant_case(label, m, k, n)[-1]
+                checked("ternary_gemm_fused_quant",
+                        f"{label} M={m} {k}->{n} i2", err)
+            if err != 0.0:
+                fail(f"{label} M={m}: differs from the plain version ({err})")
+        for m in (1024, 4096):
+            err = tiled_case(label, m, k, n, "i2")[-1]
+            checked("ternary_gemm_tiled", f"{label} M={m} {k}->{n} i2", err)
+        torch.cuda.empty_cache()
     return results
 
 
@@ -856,6 +957,43 @@ def zoo_projections() -> list:
     return out
 
 
+def v2_lite_projections() -> list:
+    """As :func:`zoo_projections`, deepseek_v2_lite's (phase 21): wo fused
+    with its residual (#1, plain mode), the MLA projections, every
+    expert's, the shared experts' and the dense lead layer's through #4 (a
+    MoE model fuses no gate|up); wkv_a's 576 is packed 640 wide."""
+    from vlut_tpu_torch.config import PRESETS
+    from vlut_tpu_torch.models.dims import make_plan
+    from vlut_tpu_torch.models.transformer import _ffn_cfg
+
+    c = PRESETS["deepseek_v2_lite"]
+    p = make_plan(c)
+    q_w = c.n_heads * (c.qk_nope_dim + c.qk_rope_dim)
+    kv_w = -(-(c.kv_lora_rank + c.qk_rope_dim) // 128) * 128
+    sh_p = make_plan(_ffn_cfg(c, c.n_shared_experts * c.d_ff)).ff_p
+    dn_p = make_plan(_ffn_cfg(c, c.d_ff_dense)).ff_p
+    return [
+        ("deepseek_v2_lite_wo", p.wo_in_p, c.d_model, "plain", False, True,
+         True),
+        ("deepseek_v2_lite_wq_full", c.d_model, q_w, "plain", False, False,
+         False),
+        ("deepseek_v2_lite_wkv_a", c.d_model, kv_w, "plain", False, False,
+         False),
+        ("deepseek_v2_lite_expert_gate", c.d_model, p.ff_p, "plain", False,
+         False, False),
+        ("deepseek_v2_lite_expert_down", p.ff_p, c.d_model, "plain", False,
+         False, False),
+        ("deepseek_v2_lite_shared_gate", c.d_model, sh_p, "plain", False,
+         False, False),
+        ("deepseek_v2_lite_shared_down", sh_p, c.d_model, "plain", False,
+         False, False),
+        ("deepseek_v2_lite_dense_gate", c.d_model, dn_p, "plain", False,
+         False, False),
+        ("deepseek_v2_lite_dense_down", dn_p, c.d_model, "plain", False,
+         False, False),
+    ]
+
+
 def zoo_decode_shapes() -> list:
     return [(label, k, n, mode, sub, res, m)
             for label, k, n, mode, sub, res, fused in zoo_projections()
@@ -873,15 +1011,16 @@ def zoo_prefill_lanes() -> list:
             for m in (1024, 4096)]
 
 
-def kv_kernels(dev, gen, record) -> None:
+def kv_kernels(dev, gen, record, shapes=None) -> None:
     """#5/#6 at ``bench/kv_study.py:SHAPES``, a layer's update as the
     composed path gives it (``kv_study.layer_update``): one call (and the
     same with int32 starts, and with a start out of range, which the kernel
     skips) must equal the plain assignment bit for bit, and the one-array
     form likewise; one call must run the writer's kernel alone (no cast or
-    copy).  Timed as the median of five CUDA graphs of 20 calls, beside
+    copy), in a profiler trace and in a CUDA graph of it.  Timed as the median of five CUDA graphs of 20 calls, beside
     one ``index_put_`` per array (the library call) and the plain version
-    (``bench/kv_study.py`` times it in turns with other builds)."""
+    (``bench/kv_study.py`` times it in turns with other builds).
+    ``shapes``: (label, B, S, Hkv, q8, hd) in place of the study's."""
     import statistics
 
     import torch
@@ -892,8 +1031,9 @@ def kv_kernels(dev, gen, record) -> None:
     def median_ms(fn):
         return statistics.median(cuda_ms(fn, graph=True) for _ in range(5))
 
-    for label, b, s, hkv, q8 in kv_study.SHAPES:
-        caches, rows, start = kv_study.layer_update(gen, b, s, hkv, q8)
+    for label, b, s, hkv, q8, *hd in shapes or kv_study.SHAPES:
+        hd = hd[0] if hd else 128
+        caches, rows, start = kv_study.layer_update(gen, b, s, hkv, q8, hd=hd)
         scales = tuple(caches[2:] + rows[2:]) or None
 
         def call(st=start):
@@ -922,10 +1062,11 @@ def kv_kernels(dev, gen, record) -> None:
             fail(f"KV row writer ({label}): a start out of range was "
                  "written, or the one-array form differs")
         del one, w1, want
-        launched = device_kernels(call)
-        if len(launched) != 1 or "write_rows_kernel" not in launched[0]:
-            fail(f"KV row writer ({label}): one call ran {launched}, not the "
-                 "writer's kernel alone")
+        launched, captured = device_kernels(call), graph_kernels(call)
+        for seen in (launched, captured):  # the trace, and a graph of it
+            if len(seen) != 1 or "write_rows_kernel" not in seen[0]:
+                fail(f"KV row writer ({label}): one call ran {seen}, not "
+                     "the writer's kernel alone")
         ms = median_ms(call)
         plain_ms = cuda_ms(lambda: [kv_update._write_plain(c, u, start)
                                     for c, u in zip(caches, rows)])
@@ -939,7 +1080,7 @@ def kv_kernels(dev, gen, record) -> None:
         b_ms, by = bound_ms(nbytes, 0)
         record("write_rows_pair" + ("" if label == "batched" else
                                     "_" + label),
-               shape=f"{label} B={b} S={s} Hkv={hkv} hd=128 arrays="
+               shape=f"{label} B={b} S={s} Hkv={hkv} hd={hd} arrays="
                f"{len(caches)} " + ("q8" if q8 else "bf16"),
                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                library_ms=lib_ms, max_abs_err=0.0, launched=launched,
@@ -1105,7 +1246,7 @@ def decode_attention_kernels(dev, gen, record, shapes=None) -> None:
             why, err = st.check_case(case)
             if why:
                 fail(f"{name}: {why}")
-            launched = st.device_kernels(case.call())
+            launched = device_kernels(case.call())
             if len(launched) != 1 or "decode_attn_kernel" not in launched[0]:
                 fail(f"{name}: one call ran {launched}, not the attention "
                      "kernel alone")
@@ -1406,7 +1547,12 @@ def main() -> None:
     mark("moe")
     moe_phase(dev, card, reset, read)
 
-    # 21. summary
+    # 21. MLA, M-RoPE and the stacked cache: DeepSeek-V2-Lite's widths at
+    # full width and depth, the MLA / M-RoPE zoo families, unroll=False
+    mark("mla")
+    mla_phase(dev, fixture, card, reset, read)
+
+    # 22. summary
     mark("summary")
     replaces = {
         "ternary_gemm_decode": ("vlut_tpu_torch/csrc/decode_gemm.cu",
@@ -1998,7 +2144,8 @@ def server_rest_phase(dev, built, fixture, card, reset, read, real) -> None:
     st.embed(ids_full, "mean")
     out["tiled_launches_per_embed_batch"] = (
         tg.ternary_gemm_tiled.launches - before)
-    launched = device_kernels(lambda: st.embed(ids_full, "mean"))
+    launched = device_kernels(lambda: st.embed(ids_full, "mean"),
+                              capture=False)
     out["tiled_device_kernels_per_embed_batch"] = sum(
         "tiled_gemm_kernel" in k for k in launched)
     out["device_kernels_per_embed_batch"] = len(launched)
@@ -2346,6 +2493,144 @@ def moe_phase(dev, card, reset, read) -> None:
     out["families"] = {n: {k: r[k] for k in (
         "max_rel_layer_err", "max_rel_logit_err", "greedy_equal",
         "free_rel_logit_err", "launches")} for n, r in fams.items()}
+    out["seconds"] = time.time() - t_phase
+    print(json.dumps(out), flush=True)
+
+
+def mla_phase(dev, fixture, card, reset, read) -> None:
+    """Phase 21: MLA, M-RoPE and the stacked cache.  (a) DeepSeek-V2-Lite's
+    published widths (``deepseek_v2_lite``) at full width and depth, random
+    packed weights from seed 0, through the engine (16 slots, ctx 2048, 16
+    greedy requests of 64-512 prompt tokens, seed 14, 16 new tokens): bf16
+    graphed (4 steps profiled), bf16 eager for 4 new tokens (they must be
+    the graphed run's first 4), q8 graphed, and one request of 500 prompt
+    tokens decoding 24 past a 512-row context (the latent rows' context
+    shift); (b) each MLA / M-RoPE family of the zoo (``bench/zoo.py``
+    MLA_FAMILIES) on the card against the CPU and graphed against eager;
+    (c) ``Engine(unroll=False)`` over a stacked cache on tiny_real and on
+    the ``mla_plm`` family: the unrolled engine's tokens.  ``read`` fails
+    on a gated kernel launched no time."""
+    import torch
+
+    from vlut_tpu_torch.bench import engine as bench_engine
+    from vlut_tpu_torch.bench import flagship
+    from vlut_tpu_torch.bench import zoo
+    from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+    from vlut_tpu_torch.models import transformer as tt
+    from vlut_tpu_torch.runtime.engine import Engine, Request
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+
+    t_phase = time.time()
+    out: dict = {"phase": "mla", "card": card}
+    name = "deepseek_v2_lite"
+    t0 = time.time()
+    built = flagship.build_model(name, dev)
+    cfg, model = built
+    out["build_s"] = time.time() - t0
+    out["weight_bytes"] = sum(t.numel() * t.element_size()
+                              for t in model.buffers())
+    expect = ("ternary_gemm_decode", "ternary_gemm_fused_quant",
+              "ternary_gemm_tiled", "write_rows_pair")
+
+    def requests(new_tokens):
+        return bench_engine.make_requests(cfg.vocab_size, 16, 64, 512,
+                                          new_tokens, seed=14)
+
+    runs, toks = {}, {}
+    for cache, graph, new in (("bf16", True, 16), ("bf16", False, 4),
+                              ("q8", True, 16)):
+        run = "graph" if graph else "eager"
+        reset()
+        r = bench_engine.run(
+            name, device=dev, built=built, kv_quant=cache == "q8",
+            cuda_graph=graph, n_slots=16, ctx=2048, requests=requests(new),
+            profile_steps=4 if (cache, graph) == ("bf16", True) else 0)
+        got = read(f"mla_{name}_{cache}_{run}", expect)
+        toks[(cache, run)] = r.pop("outputs")
+        res = {k: r[k] for k in (
+            "decode_ms_per_step", "replay_ms_per_step", "replayed_steps",
+            "prompt_tok_per_s", "decode_tok_per_s", "prompt_tokens",
+            "decode_steps", "capture_s", "wall_s", "step_programs")} | {
+                "launches": got} | (
+            {"profile": r["profile"]} if "profile" in r else {})
+        runs[f"{cache}_{run}"] = res
+        print(json.dumps({"phase": "mla", "model": name, "cache": cache,
+                          "run": run, **res, "card": card}), flush=True)
+        torch.cuda.empty_cache()
+    graphed = [t[:4] for t in toks[("bf16", "graph")]]
+    if graphed != toks[("bf16", "eager")]:
+        fail(f"{name} (bf16): the eager step's greedy tokens differ from the "
+             "graphed step's first ones")
+    # one request past a 512-row context: the latent rows' context shift
+    reset()
+    eng = Engine(cfg, model, n_slots=1, max_len=512)
+    rng = __import__("numpy").random.default_rng(14)
+    req = Request(prompt=[int(t) for t in rng.integers(3, cfg.vocab_size,
+                                                        500)],
+                  max_new_tokens=24, sampler=SamplerParams(temperature=0.0))
+    t0 = time.time()
+    eng.run([req])
+    got = read(f"mla_{name}_context_shift", expect)
+    shift = {"shifted_tokens": eng.perf.n_shifted_tokens,
+             "tokens": req.output, "seconds": time.time() - t0,
+             "launches": got}
+    print(json.dumps({"phase": "mla", "model": name, "context_shift": shift,
+                      "card": card}), flush=True)
+    if (eng.perf.n_shifted_tokens == 0 or len(req.output) != 24
+            or not all(0 <= t < cfg.vocab_size for t in req.output)):
+        fail(f"{name}: the request past the context did not shift and "
+             "finish")
+    out[name] = runs | {"context_shift": shift}
+    del built, model, eng
+    torch.cuda.empty_cache()
+
+    fams = {}
+    for fam in zoo.MLA_FAMILIES:
+        r = zoo.card_vs_cpu(fam, dev, counters=(reset, read))
+        fams[fam] = r
+        print(json.dumps({"phase": "mla_family", **r, "card": card}),
+              flush=True)
+        if not r["within_tol"]:
+            fail(f"zoo family {fam}: a layer {r['max_rel_layer_err']} or "
+                 f"the logits {r['max_rel_logit_err']} of the largest off "
+                 f"the CPU's (tolerance {zoo.TOL})")
+        if not r["greedy_equal"]:
+            fail(f"zoo family {fam}: the card's greedy tokens differ from "
+                 "the CPU's")
+        if not r["graph_equals_eager"]:
+            fail(f"zoo family {fam}: graphed tokens differ from eager ones")
+    out["families"] = {n: {k: r[k] for k in (
+        "max_rel_layer_err", "max_rel_logit_err", "greedy_equal",
+        "free_rel_logit_err", "launches")} for n, r in fams.items()}
+
+    # (c) the stacked tree over a stacked cache against the unrolled engine
+    stacked = {}
+    cfg_r, model_r, _ = load_checkpoint(fixture, device="cuda")
+    cfg_p = zoo.family_config("mla_plm")
+    model_p = tt.TransformerLM(cfg_p, tt._tree_to(zoo.family_tree(cfg_p),
+                                                  dev))
+    for label, c, m in (("tiny_real", cfg_r, model_r),
+                        ("mla_plm", cfg_p, model_p)):
+        outs = []
+        for unroll in (True, False):
+            reset()
+            eng = Engine(c, m, n_slots=4, max_len=256, unroll=unroll)
+            reqs = [Request(prompt=[2] + list(b), max_new_tokens=12,
+                            sampler=SamplerParams(temperature=0.0))
+                    for b in (b"The little model", b"reads the lines",
+                              b"of its own repo.", b"re")]
+            eng.run(reqs)
+            read(f"mla_stacked_{label}_{'unrolled' if unroll else 'stacked'}",
+                 ("ternary_gemm_decode",))
+            outs.append([r.output for r in reqs])
+            if not unroll and eng.cache["k"].dim() != 5:
+                fail(f"{label}: unroll=False did not serve a stacked cache")
+        stacked[label] = {"tokens": outs[1][0],
+                          "identical": outs[0] == outs[1]}
+        if outs[0] != outs[1]:
+            fail(f"{label}: the stacked engine's tokens differ from the "
+                 "unrolled engine's")
+    out["stacked"] = stacked
     out["seconds"] = time.time() - t_phase
     print(json.dumps(out), flush=True)
 

@@ -64,20 +64,22 @@ def trees(cfg_j, params, cfg):
 def check_pair(cfg_j, params_j, cfg, model, tokens: np.ndarray,
                n_decode: int = 3, max_len: int = 32,
                decode_attn: str = "fused",
-               jax_cached: bool = True) -> np.ndarray:
+               jax_cached: bool = True, quantized: bool = False) -> np.ndarray:
     """Prefill ``tokens`` (B, T) into a cache, then ``n_decode`` greedy
     cached steps, in both packages; logits compared at every step.  With
     ``jax_cached`` False the JAX side runs without a cache, over the whole
-    sequence so far at every step (its last row compared).  Returns the
-    prefill's logits (the JAX package's)."""
+    sequence so far at every step (its last row compared); ``quantized``
+    takes the q8 cache in both.  Returns the prefill's logits (the JAX
+    package's)."""
     b, t = tokens.shape
     v = cfg.vocab_size
     pos = np.tile(np.arange(t, dtype=np.int32), (b, 1))
-    jc = jt.init_kv_cache(cfg_j, b, max_len=max_len) if jax_cached else None
+    jc = (jt.init_kv_cache(cfg_j, b, max_len=max_len, quantized=quantized)
+          if jax_cached else None)
     seq = tokens
     jl, jc = jax_forward(params_j, cfg_j, jnp.asarray(tokens, jnp.int32),
                          jnp.asarray(pos), jc)
-    tc = tt.init_kv_cache(cfg, b, max_len=max_len)
+    tc = tt.init_kv_cache(cfg, b, max_len=max_len, quantized=quantized)
     with torch.inference_mode():
         tl, tc = tt.forward(model, cfg, torch.from_numpy(tokens).long(),
                             torch.from_numpy(pos).long(), tc)
@@ -126,7 +128,8 @@ def per_tensor_scales(params):
     return {**params, "layers": tuple(fix(lp) for lp in params["layers"])}
 
 
-def hf_case(hf_model, tmp_path, t: int = 9, seed: int = 7, ternarize=None):
+def hf_case(hf_model, tmp_path, t: int = 9, seed: int = 7, ternarize=None,
+            jax_cached: bool = True):
     """A tiny HF model with exact-ternary projections (``ternarize``: the
     functions that make them so), converted once by the
     JAX package's ``convert_hf`` and loaded by each package's
@@ -134,7 +137,9 @@ def hf_case(hf_model, tmp_path, t: int = 9, seed: int = 7, ternarize=None):
     trees (prefill + cached greedy decode), and both against the HF
     logits as a sanity check (the checkpoint keeps bf16 embeddings and
     the GEMMs quantize activations to int8, so only the greedy token of
-    most rows and the logits' scale are held).  Returns the port's cfg."""
+    most rows and the logits' scale are held).  ``jax_cached`` False holds
+    the port against the JAX forward without a cache (:func:`check_pair`).
+    Returns the port's cfg."""
     from test_archs_hf import _ternarize_model as ternarize_a
     from test_archs_hf2 import _ternarize_model as ternarize_b
 
@@ -159,7 +164,8 @@ def hf_case(hf_model, tmp_path, t: int = 9, seed: int = 7, ternarize=None):
     with torch.no_grad():
         want = hf_model(torch.from_numpy(tokens).long()).logits.numpy()
     for label, p, m in trees(cfg_j, params, cfg):
-        got = check_pair(cfg_j, p, cfg, m, tokens, max_len=t + 8)
+        got = check_pair(cfg_j, p, cfg, m, tokens, max_len=t + 8,
+                         jax_cached=jax_cached)
         got = got[..., :want.shape[-1]]
         agree = float((got.argmax(-1) == want.argmax(-1)).mean())
         scale = np.abs(want).max()
@@ -701,28 +707,36 @@ class _Written(Exception):
     pass
 
 
-def written_by(test_fn, tmp_path, monkeypatch) -> Any:
-    """Run a JAX transcription test up to its first ``convert_hf`` call (its
-    writer and the JAX converter, not its own logits); returns the
-    converted checkpoint's directory."""
+def written_by(test_fn, tmp_path, monkeypatch, nth: int = 0) -> Any:
+    """Run a JAX transcription test up to its ``nth`` ``convert_hf`` call
+    (counting from 0: its writer and the JAX converter, not its own
+    logits); returns that converted checkpoint's directory."""
     import sys
 
+    import vlut_tpu.convert.convert as conv
+
     mod = sys.modules[test_fn.__module__]
-    real = mod.convert_hf
+    real = conv.convert_hf
     out = []
 
     def convert_then_stop(src, dst, **kw):
         real(src, dst, **kw)
         out.append(dst)
-        raise _Written
+        if len(out) > nth:
+            raise _Written
 
-    monkeypatch.setattr(mod, "convert_hf", convert_then_stop)
+    # the test module's own name, and the converter module's for a test
+    # that imports it inside its body
+    owners = [conv] + ([mod] if hasattr(mod, "convert_hf") else [])
+    for owner in owners:
+        monkeypatch.setattr(owner, "convert_hf", convert_then_stop)
     try:
         test_fn(tmp_path)
     except _Written:
         pass
-    monkeypatch.setattr(mod, "convert_hf", real)
-    return out[0]
+    for owner in owners:
+        monkeypatch.setattr(owner, "convert_hf", real)
+    return out[nth]
 
 
 def jax_cache_reads_own_heads(cfg) -> bool:
@@ -737,14 +751,16 @@ def jax_cache_reads_own_heads(cfg) -> bool:
         for nh, nkv in cfg.heads_per_layer)
 
 
-def checkpoint_case(ckpt, seed: int = 3, t: int = 7, b: int = 2):
+def checkpoint_case(ckpt, seed: int = 3, t: int = 7, b: int = 2,
+                    jax_cached: bool | None = None):
     """A converted checkpoint loaded by both packages, the port held
     against the JAX forward on the stacked and the fused tree (for a
     tuple-layers checkpoint the two are one unrolled tree), prefill and
     cached greedy decode (:func:`check_pair`); where the JAX package's
     cached forward misreads a layer's KV heads
     (:func:`jax_cache_reads_own_heads`), against its cacheless forward
-    over the whole sequence at every step.  Returns the port's cfg."""
+    over the whole sequence at every step (or as ``jax_cached`` says).
+    Returns the port's cfg."""
     from vlut_tpu.convert.checkpoint import load_checkpoint as jax_load
     from vlut_tpu_torch.convert.checkpoint import load_checkpoint
 
@@ -755,7 +771,8 @@ def checkpoint_case(ckpt, seed: int = 3, t: int = 7, b: int = 2):
     tt.check_supported(cfg)
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
-    cached = jax_cache_reads_own_heads(cfg_j)
+    cached = (jax_cache_reads_own_heads(cfg_j) if jax_cached is None
+              else jax_cached)
     for label, p, m in trees(cfg_j, params, cfg):
         check_pair(cfg_j, p, cfg, m, tokens, max_len=t + 8,
                    jax_cached=cached)

@@ -154,25 +154,25 @@ def test_presets_run_from_fast_random_weights(name):
 
 
 def test_unported_configs_raise():
-    """What still refuses (MLA, M-RoPE, non-causal attention, the diffusion
-    fields, cogvlm's visual experts) raises; MoE and per-layer heads and
-    FFN widths, ported since, do not."""
+    """What still refuses (non-causal attention, the diffusion fields,
+    cogvlm's visual experts) raises, naming its ROADMAP item; MoE,
+    per-layer heads and FFN widths, MLA and M-RoPE, ported since, do
+    not."""
     base = PRESETS["tiny"]
-    for change in (dict(causal_attn=False), dict(q_lora_rank=64),
-                   dict(dual_expert=True),
-                   dict(diffusion_shift_logits=False),
-                   dict(rope_scaling={"rope_type": "mrope",
-                                      "mrope_section": [4, 6, 6]})):
-        with pytest.raises(NotImplementedError):
+    for change, item in ((dict(causal_attn=False), "7"),
+                         (dict(mask_token_id=5), "7"),
+                         (dict(diffusion_shift_logits=False), "7"),
+                         (dict(dual_expert=True), "8")):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             tt.check_supported(dataclasses.replace(base, **change))
-    with pytest.raises(NotImplementedError):
-        tt.check_supported(PRESETS["tiny_mla"])
     for change in (dict(n_experts=4, n_experts_used=2),
                    dict(heads_per_layer=((4, 2), (4, 2))),
-                   dict(d_ff_per_layer=(256, 128))):
+                   dict(d_ff_per_layer=(256, 128)), dict(q_lora_rank=64),
+                   dict(rope_scaling={"rope_type": "mrope",
+                                      "mrope_section": [4, 6, 6]})):
         tt.check_supported(dataclasses.replace(base, **change))
-    for name in ("qwen3_4b", "gemma2_2b", "tiny_moe", "mixtral_8x7b") + tuple(
-            TINY_PRESETS):
+    for name in ("qwen3_4b", "gemma2_2b", "tiny_moe", "mixtral_8x7b",
+                 "tiny_mla", "deepseek_v2_lite") + tuple(TINY_PRESETS):
         tt.check_supported(PRESETS[name])
 
 

@@ -851,3 +851,107 @@ def test_moe_and_hetero_families_card_equals_cpu(dev):
         r = zoo.card_vs_cpu(fam, dev, n_decode=3)
         assert r["within_tol"] and r["greedy_equal"], r
         assert r["graph_equals_eager"], r
+
+
+# --- MLA (DeepSeek-V2-Lite's widths), M-RoPE and the stacked cache ----------
+
+# (K, N as the checkpoint stores them) of DeepSeek-V2-Lite's projections
+# that #4 runs at decode: wq_full, wkv_a (576 packed 640 wide), an expert's
+# gate / up and down (1408 chunk-padded to 2048 by the plan's tp_pack 8),
+# the shared experts' (2 x 1408 -> 3072) and the dense lead layer's (10944
+# -> 11264)
+V2_LITE_FUSED_QUANT = [(2048, 3072), (2048, 640), (2048, 2048),
+                       (2048, 3072), (3072, 2048), (2048, 11264),
+                       (11264, 2048)]
+
+
+@pytest.mark.parametrize("m", [1, 16, 64])
+def test_v2_lite_projection_shapes_match_plain(dev, m):
+    """#4 at DeepSeek-V2-Lite's projections at a decode step's M and #3 at
+    the prefill bucket's M 512 (at M 16), bit for bit against the plain
+    versions; wo (2048 -> 2048) runs #1, whose shapes the flagship's
+    checks cover."""
+    for k, n in V2_LITE_FUSED_QUANT:
+        t = _weights(k, n, "i2", seed=m + k + n)
+        packed, ws = t.packed.to(dev), t.scale_vector().to(dev)
+        rng = np.random.default_rng(m + n)
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+        want = tg.ternary_gemm_fused_quant(x, t.packed, t.scale_vector(),
+                                           fmt="i2", kb=t.kb, k=k)
+        got = tg.ternary_gemm_fused_quant(x.to(dev), packed, ws, fmt="i2",
+                                          kb=t.kb, k=k)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (k, n)
+        if m == 16:
+            _tiled_matches_plain(dev, "i2", 512, k, n, seed=k)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8"])
+def test_kv_writer_takes_the_latent_rows(dev, q8):
+    """#5 writes MLA's latent rows (one head of 640: [latent | k_pe | 0] and
+    [latent | 0], as ``_mla_attention`` builds them contiguous; q8: the
+    codes and one scale per row) in one launch, bit for bit as the plain
+    assignment."""
+    from vlut_tpu_torch.runtime.kv_cache import quantize_kv
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    b, s, w = 16, 2048, 640
+    cache = [torch.randn((b, s, 1, w), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2)]
+    rows = [torch.randn((b, 1, 1, w), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2)]
+    rows[0][..., 576:] = 0
+    rows[1][..., 512:] = 0
+    start = torch.linspace(0, s - 1, b, device=dev).long()
+    if q8:
+        (kc, ksc), (vc, vsc) = quantize_kv(cache[0]), quantize_kv(cache[1])
+        (kq, ks), (vq, vs) = quantize_kv(rows[0]), quantize_kv(rows[1])
+        cache, rows = [kc, vc, ksc, vsc], [kq, vq, ks, vs]
+    want = [c.clone() for c in cache]
+    for c, u in zip(want, rows):
+        kv_update._write_plain(c, u, start)
+    before = kv_update.write_rows_pair.launches
+    kv_update.write_rows_pair(cache[0], cache[1], rows[0], rows[1], start,
+                              scales=tuple(cache[2:] + rows[2:]) or None)
+    torch.cuda.synchronize()
+    assert kv_update.write_rows_pair.launches == before + 1
+    for got, w_ in zip(cache, want):
+        assert torch.equal(got, w_)
+
+
+@pytest.mark.parametrize("name", ["mla_deepseek_v2", "mla_minicpm3",
+                                  "mrope_qwen2vl"])
+def test_mla_and_mrope_families_card_equals_cpu(dev, name):
+    """An MLA or M-RoPE family of the zoo on the card against the CPU, each
+    layer from the CPU's input; graphed tokens equal eager ones."""
+    from vlut_tpu_torch.bench import zoo
+
+    r = zoo.card_vs_cpu(name, dev, n_decode=3)
+    assert r["within_tol"] and r["greedy_equal"], r
+    assert r["graph_equals_eager"], r
+
+
+@pytest.mark.parametrize("name", ["tiny_real", "mla_plm"])
+def test_stacked_engine_equals_unrolled_on_the_card(dev, name):
+    """``Engine(unroll=False)`` over a stacked cache, graphed, gives the
+    unrolled engine's tokens."""
+    from vlut_tpu_torch.bench import zoo
+    from vlut_tpu_torch.models import transformer as tt
+    from vlut_tpu_torch.runtime.engine import Engine, Request
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+
+    if name == "tiny_real":
+        cfg, model = _tiny_real("cuda")
+    else:
+        cfg = zoo.family_config(name)
+        model = tt.TransformerLM(cfg, tt._tree_to(zoo.family_tree(cfg),
+                                                  "cuda"))
+    outs = []
+    for unroll in (True, False):
+        eng = Engine(cfg, model, n_slots=2, max_len=128, unroll=unroll)
+        reqs = [Request(prompt=[2, 5 + i, 9, 11, 3], max_new_tokens=8,
+                        sampler=SamplerParams(temperature=0.0))
+                for i in range(3)]
+        eng.run(reqs)
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]

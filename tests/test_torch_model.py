@@ -256,8 +256,8 @@ def test_temperature_sampling_distribution():
 def test_unported_sampler_transforms_raise():
     """The sampler chain is ported (a top-k feature set builds), grammar
     constraints are too (a grammar request is served under its mask), and
-    a config outside the ported subset, an MLA one, still raises (a MoE
-    one, ported since, does not)."""
+    a config outside the ported subset, a non-causal one, still raises (a
+    MoE and an MLA one, ported since, do not)."""
     import dataclasses
 
     from vlut_tpu_torch.runtime.engine import Engine, Request
@@ -274,9 +274,11 @@ def test_unported_sampler_transforms_raise():
         req.output[-1]] and pieces[req.output[-1]].isdigit()
     with pytest.raises(NotImplementedError):
         tt.check_supported(dataclasses.replace(PRESETS["tiny"],
-                                               kv_lora_rank=64))
+                                               causal_attn=False))
     tt.check_supported(dataclasses.replace(PRESETS["tiny"], n_experts=4,
                                            n_experts_used=2))
+    tt.check_supported(dataclasses.replace(PRESETS["tiny"],
+                                           kv_lora_rank=64))
 
 
 def test_unported_config_raises():
@@ -285,8 +287,10 @@ def test_unported_config_raises():
     with pytest.raises(NotImplementedError, match="item 7"):
         tt.check_supported(dataclasses.replace(PRESETS["tiny"],
                                                causal_attn=False))
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        tt.check_supported(PRESETS["tiny_mla"])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tt.check_supported(dataclasses.replace(PRESETS["tiny"],
+                                               dual_expert=True))
+    tt.check_supported(PRESETS["tiny_mla"])
 
 
 def test_char_tokenizer_matches_hf():

@@ -2,9 +2,10 @@
 routing, layouts, checkpoints and requantization, held against the JAX
 package on the CPU.
 
-* ``check_supported`` takes the MoE and per-layer fields and still refuses
-  MLA, M-RoPE, non-causal attention, the diffusion fields and cogvlm's
-  visual experts, each naming its ROADMAP item;
+* ``check_supported`` takes the MoE and per-layer fields (and MLA's and
+  M-RoPE, ported since) and still refuses non-causal attention, the
+  diffusion fields and cogvlm's visual experts, each naming its ROADMAP
+  item;
 * top-k selects as ``jax.lax.top_k`` does on ties (the lower index first),
   so a router of exact ties picks the JAX package's experts; identical
   experts make the output independent of the router;
@@ -59,12 +60,13 @@ PORTED = dict(
     dense_layers=(False, True), moe_expert_bias=True, moe_weight_before=True,
     moe_router_input="layer_input", moe_parallel="arctic",
     moe_chunk_experts=2, moe_chunk_scale=0.5, d_ff_chunk=64)
-# the fields still refused, with the ROADMAP item their error names
+# the fields refused before this slice, with the ROADMAP item their error
+# names, or None for those taken since (MLA's fields and M-RoPE, item 4c)
 REFUSED = [
-    (dict(q_lora_rank=64), "4c"), (dict(kv_lora_rank=64), "4c"),
-    (dict(qk_nope_dim=64), "4c"), (dict(qk_rope_dim=32), "4c"),
+    (dict(q_lora_rank=64), None), (dict(kv_lora_rank=64), None),
+    (dict(qk_nope_dim=64), None), (dict(qk_rope_dim=32), None),
     (dict(rope_scaling={"rope_type": "mrope", "mrope_section": [4, 6, 6]}),
-     "4c"),
+     None),
     (dict(causal_attn=False), "7"), (dict(mask_token_id=5), "7"),
     (dict(diffusion_shift_logits=False), "7"), (dict(dual_expert=True), "8"),
 ]
@@ -79,8 +81,12 @@ def test_check_supported_takes_the_field(field):
 @pytest.mark.parametrize("change,item", REFUSED,
                          ids=[next(iter(c)) for c, _ in REFUSED])
 def test_check_supported_refuses(change, item):
+    cfg = dataclasses.replace(PRESETS["tiny"], **change)
+    if item is None:
+        tt.check_supported(cfg)  # ported by item 4c
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tt.check_supported(dataclasses.replace(PRESETS["tiny"], **change))
+        tt.check_supported(cfg)
 
 
 def test_top_k_breaks_ties_as_jax():

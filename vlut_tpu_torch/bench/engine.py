@@ -1,7 +1,8 @@
 """Slot-engine workload at the flagship shapes (the serving path of the port).
 
 A packed i2 ternary Llama at ``llama3_8b_158`` shapes (or another preset,
-``--model``: the zoo's ``qwen3_4b`` and ``gemma2_2b``) with seeded random
+``--model``: the zoo's ``qwen3_4b`` and ``gemma2_2b``, the MoE
+``mixtral_8x7b``, the MLA ``deepseek_v2_lite``) with seeded random
 weights generated on the device (int8 head, fused and unrolled layer tree)
 behind an ``Engine`` with 32 slots and a 2048-row context.  48 greedy
 requests with prompts of 64-1500 random tokens (so the queue exceeds the
@@ -202,7 +203,7 @@ def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(prog="python -m vlut_tpu_torch.bench.engine")
     ap.add_argument("--model", dest="preset", default="llama3_8b_158",
                     help="a preset: llama3_8b_158 (the flagship), qwen3_4b, "
-                    "gemma2_2b, ...")
+                    "gemma2_2b, mixtral_8x7b, deepseek_v2_lite, ...")
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--slots", type=int, default=N_SLOTS)
     ap.add_argument("--ctx", type=int, default=CTX)

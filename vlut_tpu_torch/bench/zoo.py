@@ -21,9 +21,13 @@ the first intermediates that part from the CPU, :func:`trace`).
 chunk and residual experts, dense lead layers) and per-layer heads and
 FFN widths (deci's layer kinds among them) on the same base; their trees
 come from ``init_params`` too (one per layer where the shapes differ).
+:data:`MLA_FAMILIES` adds deepseek's latent attention (V2's and V3's
+routing, minicpm3's narrow v head, plm's MLP) and M-RoPE (chunked and
+interleaved, over synthetic position rows, :func:`mrope_rows`).
 The presets' serving runs are ``python -m vlut_tpu_torch.bench.engine
 --model qwen3_4b`` (or ``gemma2_2b``, or ``mixtral_8x7b``: Mixtral-8x7B's
-widths, the MoE model of ``chip_smoke.py`` phase 20).
+widths, the MoE model of ``chip_smoke.py`` phase 20, or
+``deepseek_v2_lite``: DeepSeek-V2-Lite's, the MLA model of phase 21).
 """
 
 from __future__ import annotations
@@ -129,7 +133,44 @@ MOE_FAMILIES: dict[str, dict[str, Any]] = {
                                                      (2, 1)),
                         d_ff_per_layer=(512, 512, 384, 0)),
 }
-ALL_FAMILIES = {**FAMILIES, **MOE_FAMILIES}
+# MLA and M-RoPE families on the same base: MLA's heads are its own (2
+# query heads of nope 128 + rope 64 over a latent of 256, v heads of 128
+# unless named), each family one group of the HF families the CPU tests
+# hold against the JAX package (tests/test_torch_archs_mla*.py)
+MLA = dict(n_kv_heads=2, kv_lora_rank=256, qk_nope_dim=128, qk_rope_dim=64,
+           attn_scale=192 ** -0.5)
+MLA_FAMILIES: dict[str, dict[str, Any]] = {
+    # deepseek V2 (V2-Lite's kinds): no q-LoRA, softmax top-k without
+    # renormalisation, 2 shared experts, a dense lead layer, yarn
+    "mla_deepseek_v2": dict(MLA, **MOE) | dict(
+                            moe_norm_topk=False, n_shared_experts=2,
+                            first_k_dense=1, d_ff_dense=512,
+                            rope_scaling={"type": "yarn", "factor": 40,
+                                          "original_max_position_embeddings":
+                                          64, "beta_fast": 32,
+                                          "beta_slow": 1}),
+    # deepseek V3: q-LoRA, sigmoid grouped routing with a selection bias,
+    # routed scale, a shared expert, a dense lead layer
+    "mla_deepseek_v3": dict(MLA, **MOE) | dict(q_lora_rank=256, n_experts=8,
+                            moe_score="sigmoid", n_expert_groups=4,
+                            topk_groups=2, routed_scale=2.5,
+                            n_shared_experts=1, first_k_dense=1,
+                            d_ff_dense=512),
+    # minicpm3: q-LoRA, a v head of 64 (lane-padded into wo's rows)
+    "mla_minicpm3": dict(MLA, q_lora_rank=128, kv_lora_rank=128,
+                         qk_nope_dim=64, qk_rope_dim=64, head_dim=64,
+                         attn_scale=128 ** -0.5),
+    # plm: no q-LoRA, an ungated relu^2 MLP
+    "mla_plm": dict(MLA, ffn_gated=False, act_fn="relu2"),
+    # qwen2-vl: chunked M-RoPE sections (synthetic position rows)
+    "mrope_qwen2vl": dict(rope_scaling={"rope_type": "mrope",
+                                        "mrope_section": [16, 24, 24]}),
+    # qwen3-vl: interleaved M-RoPE, per-head q/k norms
+    "mrope_qwen3vl": dict(qk_norm=True, rms_eps=1e-6, rope_scaling={
+        "rope_type": "mrope", "mrope_section": [24, 20, 20],
+        "mrope_interleaved": True}),
+}
+ALL_FAMILIES = {**FAMILIES, **MOE_FAMILIES, **MLA_FAMILIES}
 TOL = 2e-2  # of the largest value, as the CPU tests hold the JAX package
 
 
@@ -266,7 +307,8 @@ def expected_kernels(cfg: ModelConfig, model: tt.TransformerLM,
         if not lp.has_attn:
             continue
         cl = tt.layer_config(cfg, i)
-        attn = (decode_attn == "fused" and cfg.pos_embed != "alibi"
+        attn = (decode_attn == "fused" and not lp.mla
+                and cfg.pos_embed != "alibi"
                 and not cfg.attn_sinks and not cfg.attn_logit_softcap
                 and cfg.swa_type != "chunked"
                 and dattn.supports(cl.n_heads, cl.n_kv_heads,
@@ -278,6 +320,24 @@ def expected_kernels(cfg: ModelConfig, model: tt.TransformerLM,
     return tuple(k for k in order if k in found)
 
 
+def mrope_rows(cfg: ModelConfig, b: int, t: int) -> torch.Tensor | None:
+    """Synthetic (b, 3, t) M-RoPE position rows for an M-RoPE config (a
+    run of text, then a 4 x 4 grid of image positions, then text again),
+    else None."""
+    if "mrope_section" not in (cfg.rope_scaling or {}):
+        return None
+    pos = np.tile(np.arange(t), (3, 1))
+    grid = np.arange(16)
+    lo = min(8, t)
+    img = slice(lo, min(lo + 16, t))
+    n = img.stop - img.start
+    pos[0, img] = lo
+    pos[1, img] = lo + grid[:n] // 4
+    pos[2, img] = lo + grid[:n] % 4
+    pos[:, img.stop:] = np.arange(t - img.stop) + lo + 4
+    return torch.from_numpy(np.broadcast_to(pos, (b, 3, t)).copy())
+
+
 @torch.inference_mode()
 def logits_run(model: tt.TransformerLM, cfg: ModelConfig,
                tokens: torch.Tensor, n_decode: int,
@@ -285,13 +345,16 @@ def logits_run(model: tt.TransformerLM, cfg: ModelConfig,
                decode_attn: str = "fused") -> list[torch.Tensor]:
     """float32 logits (on the host) of a prefill of ``tokens`` (B, T) and
     ``n_decode`` cached decode steps; step i feeds ``feed[i]`` (B,) where
-    given, else the greedy token."""
+    given, else the greedy token.  An M-RoPE config's prefill takes the
+    synthetic position rows of :func:`mrope_rows`."""
     dev = model.device
     b, t = tokens.shape
     cache = tt.init_kv_cache(cfg, b, max_len=t + n_decode + 8, device=dev)
     pos = torch.arange(t, device=dev)[None].repeat(b, 1)
+    rows = mrope_rows(cfg, b, t)
     lg, _ = tt.forward(model, cfg, tokens.to(dev), pos, cache,
-                       logits_at=torch.full((b,), t - 1, device=dev))
+                       logits_at=torch.full((b,), t - 1, device=dev),
+                       mrope_pos=None if rows is None else rows.to(dev))
     out = [lg[:, 0, :cfg.vocab_size].float().cpu()]
     for i in range(n_decode):
         nxt = feed[i] if feed is not None else out[-1].argmax(-1)

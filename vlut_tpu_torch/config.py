@@ -274,6 +274,27 @@ PRESETS: dict[str, ModelConfig] = {
         n_heads=32, n_kv_heads=8, d_ff=14336, head_dim=128, rms_eps=1e-5,
         rope_theta=1e6, max_seq_len=32768, n_experts=8, n_experts_used=2,
     ),
+    # deepseek-ai/DeepSeek-V2-Lite widths (its config.json): MLA attention
+    # (16 heads, no q-LoRA, a latent of 512, nope 128, rope 64, v 128, yarn
+    # factor 40), 64 routed experts of 1408, top 6 softmax without
+    # renormalisation, 2 shared experts, one dense lead layer of 10944,
+    # vocabulary 102400, untied head; what the JAX converter's
+    # config_from_hf makes of it (its max_seq_len capped at 131072; tests/
+    # test_torch_archs_mla.py holds the two equal).  Port-only: the
+    # full-width MLA model of the port's card runs (chip_smoke.py phase 21)
+    "deepseek_v2_lite": ModelConfig(
+        arch="llama", vocab_size=102400, d_model=2048, n_layers=27,
+        n_heads=16, n_kv_heads=16, d_ff=1408, head_dim=128, rms_eps=1e-6,
+        rope_theta=10000.0, rope_scaling={
+            "beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 0.707,
+            "mscale_all_dim": 0.707, "original_max_position_embeddings": 4096,
+            "type": "yarn"},
+        max_seq_len=131072, attn_scale=(128 + 64) ** -0.5,
+        kv_lora_rank=512, qk_nope_dim=128, qk_rope_dim=64,
+        n_experts=64, n_experts_used=6, moe_norm_topk=False,
+        n_expert_groups=1, topk_groups=1, n_shared_experts=2,
+        first_k_dense=1, d_ff_dense=10944,
+    ),
     # tiny configs for tests
     "tiny": ModelConfig(
         arch="llama", vocab_size=256, d_model=128, n_layers=2,

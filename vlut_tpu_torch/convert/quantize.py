@@ -53,7 +53,10 @@ def requantize_params(
     CPU).  A MoE model's expert stacks ((L, E, ...) packed bytes) repack
     expert by expert, as the JAX package's ``requantize_params`` repacks
     them, and so do its shared, residual and chunk experts at their own
-    widths (:func:`pack_config`)."""
+    widths (:func:`pack_config`).  An MLA model's projections repack with
+    their plain layout and its float ``w_uk`` / ``w_uv`` pass through (the
+    JAX package's raises on them: its ``unpack_weight`` knows no MLA
+    name)."""
     tree = params.tree() if isinstance(params, TransformerLM) else params
     if cfg.weight_fmt == fmt:
         return cfg, tree
@@ -68,6 +71,10 @@ def requantize_params(
         if name in _PADDED_VECTORS:
             layers[name] = _relayout(name, torch.as_tensor(val).cpu(), cfg,
                                      new_cfg)
+            continue
+        if isinstance(val, dict) and "dense" in val:
+            # MLA's float factors w_uk / w_uv: no packing to change
+            layers[name] = {"dense": torch.as_tensor(val["dense"]).cpu()}
             continue
         if not (isinstance(val, dict) and "packed" in val):
             layers[name] = torch.as_tensor(val).cpu()

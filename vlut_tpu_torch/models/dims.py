@@ -61,6 +61,8 @@ def make_plan(cfg: ModelConfig, tp_pack: int | None = None) -> DimPlan:
     tp = math.gcd(tp, cfg.n_heads)  # wo chunking needs tp_pack | n_heads
     kb = DEFAULT_BLOCK[cfg.weight_fmt]
     align = math.lcm(kb, LANES)
+    # an MLA model's head_dim is its v head (the converter's mapping): wo's
+    # rows pad by it, as minicpm3's 64 pads to 128
     hd = cfg.head_dim_
     hd_p = _round_up(hd, LANES)
     q_dim_p = cfg.n_heads * hd_p

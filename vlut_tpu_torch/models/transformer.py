@@ -47,8 +47,17 @@ every row in index order into a float32 accumulator (static shapes, so a
 decode step stays one CUDA graph), with shared, chunk (grovemoe) and
 parallel residual (arctic) experts beside it.
 
-PyTorch runs eagerly, so there is no scan-versus-unroll trade-off: a
-serving process keeps one tree.  MLA, M-RoPE, non-causal attention, the
+MLA, deepseek's latent-KV attention (:func:`_mla_attention`), runs as the
+JAX package's ``mla_attention``: the q path with or without q-LoRA, one
+latent row of ``kv_lora_rank + qk_rope_dim`` (lane-padded) per position in
+a one-head cache, the absorbed ``q_nope . w_uk`` and ``ctx . w_uv`` float32
+products and the composed attention over the latent.  M-RoPE
+(``rope_scaling`` "mrope") rotates each frequency by its own position row
+where ``forward`` is given ``mrope_pos``, and is plain rope without.
+
+PyTorch runs eagerly, so there is no scan-versus-unroll trade-off in the
+computation: the serving engine keeps the unrolled tree, or the stacked one
+over a stacked cache (``Engine(unroll=False)``).  Non-causal attention, the
 diffusion fields, cogvlm's visual experts and tensor/sequence parallelism
 raise ``NotImplementedError`` (:func:`check_supported`).
 """
@@ -89,7 +98,13 @@ from vlut_tpu_torch.ops.packing import (
 )
 from vlut_tpu_torch.ops.quant import quantize_activations, true_div
 from vlut_tpu_torch.ops.ternary_gemm import RECIP_127
-from vlut_tpu_torch.ops.rope import rope_prefix, rope_table
+from vlut_tpu_torch.ops.rope import (
+    apply_mrope,
+    apply_rope,
+    mrope_row_map,
+    rope_prefix,
+    rope_table,
+)
 from vlut_tpu_torch.runtime.kv_cache import (
     dequantize_kv,
     is_quantized,
@@ -126,11 +141,11 @@ _SUPPORTED_FIELDS = {
     "d_ff_shared", "first_k_dense", "d_ff_dense", "dense_layers",
     "moe_expert_bias", "moe_weight_before", "moe_router_input",
     "moe_parallel", "moe_chunk_experts", "moe_chunk_scale", "d_ff_chunk",
+    # MLA
+    "q_lora_rank", "kv_lora_rank", "qk_nope_dim", "qk_rope_dim",
 }
 # the fields still refused, by the ROADMAP Queue 1 item that ports them
 _REFUSED = {
-    "q_lora_rank": "4c (MLA)", "kv_lora_rank": "4c (MLA)",
-    "qk_nope_dim": "4c (MLA)", "qk_rope_dim": "4c (MLA)",
     "causal_attn": "7 (non-causal attention)",
     "mask_token_id": "7 (diffusion LMs)",
     "diffusion_shift_logits": "7 (diffusion LMs)",
@@ -149,16 +164,23 @@ _CHOICES = {
     "moe_router_input": ("hidden", "layer_input"),
     "moe_parallel": ("", "arctic"),
 }
+# MLA's projections, in the JAX package's init order: plain packing (no
+# head permutation), each through ternary_matmul (the JAX package's ``mm``:
+# no fused prologue, no LoRA)
+MLA_PROJECTIONS = ("wkv_a", "wq_a", "wq_b", "wq_full")
 PROJECTIONS = ("wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up", "w_gateup",
                "w_down", "w_attn_gate", "w_lin_attn", "w_shared_gate",
                "w_shared_up", "w_shared_down", "w_res_gate", "w_res_up",
-               "w_res_down")
+               "w_res_down") + MLA_PROJECTIONS
+# MLA's absorbed float factors, stored as {"dense": ...} leaves: w_uk (H, dn,
+# r_kv) and w_uv (H, r_kv, v)
+MLA_DENSE = ("w_uk", "w_uv")
 # projections that carry an experts dim in MoE layers: (E, Kp/r, Np) packed
 # bytes and (E,) scales per layer; w_ch_* are grovemoe's chunk experts
 EXPERT_PROJECTIONS = ("w_gate", "w_up", "w_down", "w_ch_gate", "w_ch_up",
                       "w_ch_down")
 NORMS = ("attn_norm", "ffn_norm", "attn_sub_norm", "ffn_sub_norm",
-         "moe_norm")
+         "moe_norm", "q_a_norm", "kv_a_norm")
 # the knobs' per-layer vectors, kept in their stored dtype: LayerNorm
 # biases, post-norm and q/k-norm gains (+ biases), projection biases,
 # attention sinks and xIELU's alphas
@@ -202,11 +224,6 @@ def check_supported(cfg: ModelConfig) -> None:
         if getattr(cfg, name) not in allowed:
             raise NotImplementedError(
                 f"{name}={getattr(cfg, name)!r} is not ported")
-    kind = (cfg.rope_scaling or {}).get(
-        "rope_type", (cfg.rope_scaling or {}).get("type"))
-    if kind == "mrope":
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP Queue 1 item 4c)")
 
 
 def layer_config(cfg: ModelConfig, i: int) -> ModelConfig:
@@ -271,7 +288,13 @@ def rope_tables(cfg: ModelConfig, plan: DimPlan, with_mscale: bool = True,
     """(cos, sin, cos_local, sin_local): the global tables (padded to hd_p
     when the whole head rotates) and, for a model whose sliding-window
     layers rope with their own base, the local ones (no rope_scaling);
-    else the last two are None."""
+    else the last two are None.  An MLA model's tables are its rope dims'
+    (``qk_rope_dim``, with the config's scaling: the JAX package's
+    ``cos_m`` / ``sin_m``)."""
+    if cfg.kv_lora_rank:
+        return rope_table(cfg.max_seq_len, cfg.qk_rope_dim, cfg.rope_theta,
+                          cfg.rope_scaling, with_mscale=with_mscale,
+                          device=device) + (None, None)
     rot = rope_width(cfg, plan)
     pad = plan.hd_p if rot == plan.hd else None
     cos, sin = rope_table(cfg.max_seq_len, rot, cfg.rope_theta,
@@ -303,9 +326,13 @@ def shift_tables(cfg: ModelConfig, device="cpu") -> list:
     """Each layer's unscaled rope tables for a context shift
     (``kv_cache.seq_shift``): None on a layer whose keys carry no rope, the
     local tables on a sliding layer of a model with a local rope base,
-    else the global ones (stored keys already carry the mscale)."""
+    else the global ones (stored keys already carry the mscale).  An MLA
+    layer's entry is (cos, sin, kv_lora_rank): its latent row's rope dims
+    [r_kv, r_kv + qk_rope_dim) rotate, the latent does not."""
     cos, sin, cos_l, sin_l = rope_tables(cfg, make_plan(cfg),
                                          with_mscale=False, device=device)
+    if cfg.kv_lora_rank:
+        return [(cos, sin, cfg.kv_lora_rank)] * cfg.n_layers
     return [None if not on else
             (cos_l, sin_l) if w and cos_l is not None else (cos, sin)
             for w, on in zip(layer_windows(cfg), layer_rope_on(cfg))]
@@ -358,6 +385,17 @@ def weight_specs(cfg: ModelConfig,
                                    for nh, nkv in cfg.heads_per_layer):
         # deci's linear "attention": a plain (D, D) projection
         specs["w_lin_attn"] = TernarySpec(d, d, fmt, kb)
+    if cfg.kv_lora_rank:
+        # MLA: the latent and k_pe (wkv_a), q with or without its LoRA
+        dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+        specs["wkv_a"] = TernarySpec(d, cfg.kv_lora_rank + dr, fmt, kb)
+        if cfg.q_lora_rank:
+            specs["wq_a"] = TernarySpec(d, cfg.q_lora_rank, fmt, kb)
+            specs["wq_b"] = TernarySpec(cfg.q_lora_rank,
+                                        cfg.n_heads * (dn + dr), fmt, kb)
+        else:
+            specs["wq_full"] = TernarySpec(d, cfg.n_heads * (dn + dr), fmt,
+                                           kb)
     return specs
 
 
@@ -436,9 +474,16 @@ def pack_weight(name: str, trits: np.ndarray, scale, cfg: ModelConfig,
         trits = scatter_cols(trits, plan.ff_chunk, plan.ff_chunk_p, plan.ff_p)
     elif name in _FFN_OUT:
         trits = scatter_rows(trits, plan.ff_chunk, plan.ff_chunk_p, plan.ff_p)
-    elif name != "w_lin_attn":  # deci's (D, D): plain packing
+    elif name not in ("w_lin_attn",) + MLA_PROJECTIONS:
+        # deci's (D, D) and MLA's projections: plain packing
         raise KeyError(name)
-    return pack_ternary(trits, scale, cfg.weight_fmt, plan.kb)
+    t = pack_ternary(trits, scale, cfg.weight_fmt, plan.kb)
+    if name in ("wq_b", "wq_full") and t.packed.shape[1] != trits.shape[1]:
+        # q reshapes per head, so its width must be lane-exact (true of the
+        # real models: H * (128 + 64) is a multiple of 128)
+        raise ValueError(f"MLA projection {name} width {trits.shape[1]} "
+                         "must be a lane multiple")
+    return t
 
 
 _FFN_IN = ("w_gate", "w_up", "w_shared_gate", "w_shared_up", "w_res_gate",
@@ -475,7 +520,7 @@ def unpack_weight(name: str, t: TernaryTensor, cfg: ModelConfig,
         return w[:, chunk_positions(cfg.d_ff, plan.ff_chunk, plan.ff_chunk_p)]
     if name in _FFN_OUT:
         return w[chunk_positions(cfg.d_ff, plan.ff_chunk, plan.ff_chunk_p)]
-    if name == "w_lin_attn":
+    if name in ("w_lin_attn",) + MLA_PROJECTIONS:
         return w
     raise KeyError(name)
 
@@ -569,12 +614,13 @@ class ExpertStack(nn.Module):
 class DecoderLayer(nn.Module):
     """One layer's projections (``proj``), its expert stacks (``experts``,
     in a MoE layer) and vectors (buffers: the norm gains in float32, the
-    knobs' and MoE vectors as stored)."""
+    knobs' and MoE vectors as stored, MLA's float factors ``w_uk`` /
+    ``w_uv``)."""
 
     def __init__(self, tree: dict[str, Any], specs: dict[str, TernarySpec]):
         super().__init__()
         unknown = (set(tree) - set(PROJECTIONS) - set(EXPERT_PROJECTIONS)
-                   - set(LAYER_VECTORS))
+                   - set(LAYER_VECTORS) - set(MLA_DENSE))
         if unknown:
             raise NotImplementedError(f"layer tensors not ported: {unknown}")
         for name in PROJECTIONS + EXPERT_PROJECTIONS:
@@ -582,6 +628,11 @@ class DecoderLayer(nn.Module):
             if "dense" in leaves:
                 raise NotImplementedError(
                     f"{name}: float-twin ('dense') weights are not ported")
+            if name in MLA_PROJECTIONS and "lora_a" in leaves:
+                # the JAX package runs them through mm, which adds no delta
+                raise ValueError(
+                    f"a LoRA on MLA's {name} is not applied (the reference "
+                    "adds none to the MLA projections)")
         stacks = {name for name in EXPERT_PROJECTIONS if name in tree
                   and tree[name]["packed"].dim() == 3}
         self.proj = nn.ModuleDict({
@@ -600,16 +651,23 @@ class DecoderLayer(nn.Module):
                 v = tree[name]
                 self.register_buffer(
                     name, v.to(torch.float32) if name in NORMS else v)
+        for name in MLA_DENSE:
+            if name in tree:
+                self.register_buffer(name, tree[name]["dense"])
 
     @property
     def fused(self) -> bool:
         return "wqkv" in self.proj
 
     @property
+    def mla(self) -> bool:
+        return "wkv_a" in self.proj
+
+    @property
     def has_attn(self) -> bool:
-        """Softmax attention (deci's linear and attention-free layers have
-        none)."""
-        return "wq" in self.proj or "wqkv" in self.proj
+        """Softmax attention, MLA's included (deci's linear and
+        attention-free layers have none)."""
+        return "wq" in self.proj or "wqkv" in self.proj or self.mla
 
     @property
     def has_ffn(self) -> bool:
@@ -723,6 +781,13 @@ class TransformerLM(nn.Module):
                 self.register_buffer(name, t, persistent=False)
         self.windows = layer_windows(cfg)
         self.rope_on = layer_rope_on(cfg)
+        sections = (cfg.rope_scaling or {}).get("mrope_section")
+        if sections:
+            # each frequency's M-RoPE position row (0 T, 1 H, 2 W)
+            self.register_buffer("mrope_rows", mrope_row_map(
+                tuple(sections), self.rope_cos.shape[-1],
+                bool(cfg.rope_scaling.get("mrope_interleaved"))).to(dev),
+                persistent=False)
         if cfg.qk_norm and cfg.qk_norm_type == "ln":
             # 1.0 at a head's logical positions (per-head LayerNorm stats)
             valid = torch.zeros(self.plan.hd_p)
@@ -790,10 +855,29 @@ def _layer_tree(lp: DecoderLayer) -> dict[str, Any]:
     for name in LAYER_VECTORS:
         if hasattr(lp, name):
             out[name] = getattr(lp, name)
+    for name in MLA_DENSE:
+        if hasattr(lp, name):
+            out[name] = {"dense": getattr(lp, name)}
     return out
 
 
 # --- parameter construction ----------------------------------------------------
+
+def _mla_vectors(cfg: ModelConfig, ones, draw) -> dict:
+    """MLA's per-layer float tensors in the JAX package's ``init_params``
+    order: the latent norm's gain (and q-LoRA's), ones; the absorbed
+    factors w_uk (L, H, dn, r_kv) and w_uv (L, H, r_kv, v) as ``dense``
+    leaves, ``draw(shape)`` each (normals * 0.03)."""
+    if not cfg.kv_lora_rank:
+        return {}
+    h, dn, r_kv = cfg.n_heads, cfg.qk_nope_dim, cfg.kv_lora_rank
+    out = {"kv_a_norm": ones(r_kv)}
+    if cfg.q_lora_rank:
+        out["q_a_norm"] = ones(cfg.q_lora_rank)
+    out["w_uk"] = {"dense": draw((h, dn, r_kv))}
+    out["w_uv"] = {"dense": draw((h, r_kv, cfg.head_dim_))}
+    return out
+
 
 def _knob_vectors(cfg: ModelConfig, plan: DimPlan, ones, draw) -> dict:
     """The float vectors the JAX package's ``init_params`` lays out for the
@@ -845,7 +929,11 @@ def _layer_projections(cfg: ModelConfig, i: int) -> dict:
                else (cfg.n_heads, cfg.n_kv_heads))
     ff = cfg.d_ff_per_layer[i] if cfg.d_ff_per_layer else cfg.d_ff
     out: dict = {}
-    if nh and nkv:
+    if cfg.kv_lora_rank:
+        # MLA: wo, then (after the FFN) wkv_a and the q projections, in the
+        # JAX package's order
+        out["wo"] = (nh * hd, d, cl, 0)
+    elif nh and nkv:
         out.update(wq=(d, nh * hd, cl, 0), wk=(d, nkv * hd, cl, 0),
                    wv=(d, nkv * hd, cl, 0), wo=(nh * hd, d, cl, 0))
     elif nh:
@@ -863,6 +951,22 @@ def _layer_projections(cfg: ModelConfig, i: int) -> dict:
         out["w_gate"] = (d, ff, fc, experts)
     out["w_up"] = (d, ff, fc, experts)
     out["w_down"] = (ff, d, fc, experts)
+    out.update(_mla_projections(cfg))
+    return out
+
+
+def _mla_projections(cfg: ModelConfig) -> dict:
+    """MLA's projections in the JAX package's ``init_params`` order: name
+    -> (K, N, cfg, 0)."""
+    if not cfg.kv_lora_rank:
+        return {}
+    d, qw = cfg.d_model, cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim)
+    out = {"wkv_a": (d, cfg.kv_lora_rank + cfg.qk_rope_dim, cfg, 0)}
+    if cfg.q_lora_rank:
+        out["wq_a"] = (d, cfg.q_lora_rank, cfg, 0)
+        out["wq_b"] = (cfg.q_lora_rank, qw, cfg, 0)
+    else:
+        out["wq_full"] = (d, qw, cfg, 0)
     return out
 
 
@@ -901,12 +1005,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
 
     layers = [dict() for _ in range(n_l)]
     for name in ("wq", "wk", "wv", "wo", "w_lin_attn", "w_gate", "w_up",
-                 "w_down"):
+                 "w_down") + MLA_PROJECTIONS:
         for i in range(n_l):
             if name in per[i]:
                 k, n, c, experts = per[i][name]
                 p_, s_ = draw_packed(k, n, name, c, experts)
                 layers[i][name] = {"packed": p_, "scale": s_}
+    mla = _mla_vectors(cfg, lambda w: torch.ones((n_l, w)),
+                       lambda shape: torch.from_numpy(
+                           rng.standard_normal((n_l,) + shape) * 0.03).to(
+                               torch.float32))
     vectors = _knob_vectors(
         cfg, plan,
         lambda w: torch.ones((n_l, w), dtype=torch.float32),
@@ -948,11 +1056,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
                       ("eb_down", cfg.d_model)):
             vectors[nm] = torch.from_numpy(rng.standard_normal(
                 (n_l, cfg.n_experts, w)) * 0.02).to(torch.float32)
-    for nm, v in vectors.items():
+    for nm, v in {**mla, **vectors}.items():
         for i in range(n_l):
             if nm in MOE_VECTORS + ("moe_norm",) and not moe[i]:
                 continue
-            layers[i][nm] = v[i]
+            layers[i][nm] = ({"dense": v["dense"][i]} if nm in MLA_DENSE
+                             else v[i])
     if layers_tuple(cfg):
         tree["layers"] = layers
     else:
@@ -972,62 +1081,85 @@ def init_params_fast(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
 
     Bytes come from :func:`random_packed_bytes` (valid trits only);
     padding positions get random trits too.  The float vectors are those
-    :func:`init_params` lays out (gains of one, biases of normals * 0.02),
-    so every config that runs from ``init_params`` runs from these too.
+    :func:`init_params` lays out (gains of one, biases of normals * 0.02,
+    MLA's absorbed factors normals * 0.03), so every config that runs from
+    ``init_params`` runs from these too.  A MoE layer gets its expert
+    banks, its shared / residual / chunk experts and the JAX package's fast
+    router; a config whose layers differ (dense lead layers, per-layer
+    heads) gets the tuple-layers tree, one dict per layer.
     """
     check_supported(cfg)
-    if layers_tuple(cfg):
-        raise NotImplementedError(
-            "init_params_fast lays out stacked trees; per-layer stacks come "
-            "from init_params")
     device = resolve_device(device)
     plan = make_plan(cfg)
-    specs = layer_specs(cfg)
     r = TRITS_PER_BYTE[cfg.weight_fmt]
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    n_e = cfg.n_experts
 
-    def packed(spec: TernarySpec, experts: int = 0) -> torch.Tensor:
-        shape = ((experts,) if experts else ()) + (
-            padded_k(spec.k, spec.fmt, spec.kb) // r, -(-spec.n // 128) * 128)
-        if not experts:
-            return random_packed_bytes((cfg.n_layers,) + shape,
-                                       cfg.weight_fmt, gen, device)
+    def packed(spec: TernarySpec, lead: tuple) -> torch.Tensor:
+        shape = (padded_k(spec.k, spec.fmt, spec.kb) // r,
+                 -(-spec.n // 128) * 128)
+        if len(lead) == 1:
+            return random_packed_bytes(lead + shape, cfg.weight_fmt, gen,
+                                       device)
         # an expert bank one layer at a time: its int32 draws take four
         # times its bytes at once
-        out = torch.empty((cfg.n_layers,) + shape, dtype=torch.uint8,
-                          device=device)
-        for i in range(cfg.n_layers):
-            out[i] = random_packed_bytes(shape, cfg.weight_fmt, gen, device)
+        out = torch.empty(lead + shape, dtype=torch.uint8, device=device)
+        for i in range(lead[0]):
+            out[i] = random_packed_bytes(lead[1:] + shape, cfg.weight_fmt,
+                                         gen, device)
         return out
 
     def randn(*shape) -> torch.Tensor:
         return torch.randn(shape, generator=gen, device=device)
 
-    layers: dict[str, Any] = {}
-    names = ("wq", "wk", "wv", "wo") + ("w_gate",) * cfg.ffn_gated + (
-        "w_up", "w_down")
-    for name in names:
-        experts = n_e if name.startswith("w_") else 0
-        layers[name] = {
-            "packed": packed(specs[name], experts),
-            "scale": torch.full((cfg.n_layers,) + ((experts,) if experts
-                                                   else ()), 0.05,
-                                device=device),
-        }
-    if n_e:
-        # the JAX package's fast router: one bf16 linspace per layer
-        layers["router"] = torch.linspace(
-            -0.02, 0.02, n_e, device=device).to(torch.bfloat16).expand(
-                cfg.n_layers, cfg.d_model, n_e).contiguous()
-    layers.update(_knob_vectors(
-        cfg, plan, lambda w: torch.ones((cfg.n_layers, w), device=device),
-        lambda w: randn(cfg.n_layers, w) * 0.02))
+    def stack(n_l: int, i: int, moe: bool) -> dict:
+        """n_l layers shaped as layer i: the layer tree with (n_l, ...)
+        leaves."""
+        specs = layer_specs(cfg, i, moe=moe if cfg.n_experts else None)
+        names = {n: e for n, (*_, e) in _layer_projections(cfg, i).items()}
+        if moe:
+            names.update({p + n: e for p, _, e in _side_ffns(cfg)
+                          for n in ("gate", "up", "down")})
+        layers: dict[str, Any] = {}
+        for name, e in names.items():
+            lead = (n_l,) + ((e,) if e else ())
+            layers[name] = {"packed": packed(specs[name], lead),
+                            "scale": torch.full(lead, 0.05, device=device)}
+        if moe:
+            # the JAX package's fast router: one bf16 linspace per layer
+            layers["router"] = torch.linspace(
+                -0.02, 0.02, cfg.n_experts, device=device).to(
+                    torch.bfloat16).expand(n_l, cfg.d_model,
+                                           cfg.n_experts).contiguous()
+            if cfg.moe_parallel:
+                layers["moe_norm"] = torch.ones((n_l, cfg.d_model),
+                                                device=device)
+        layers.update(_mla_vectors(
+            cfg, lambda w: torch.ones((n_l, w), device=device),
+            lambda shape: randn(n_l, *shape) * 0.03))
+        layers.update(_knob_vectors(
+            cfg, plan, lambda w: torch.ones((n_l, w), device=device),
+            lambda w: randn(n_l, w) * 0.02))
+        return layers
+
+    if layers_tuple(cfg):
+        if cfg.qkv_bias or cfg.proj_bias or cfg.use_subnorms:
+            raise NotImplementedError("init_params_fast lays out no "
+                                      "per-layer-width biases or sub-norms")
+        moe = moe_layers(cfg)
+        tree_layers: Any = []
+        for i in range(cfg.n_layers):
+            one = stack(1, i, moe[i])
+            tree_layers.append({
+                k: ({leaf: t[0] for leaf, t in v.items()}
+                    if isinstance(v, dict) else v[0])
+                for k, v in one.items()})
+    else:
+        tree_layers = stack(cfg.n_layers, 0, bool(cfg.n_experts))
     tree: dict[str, Any] = {
         "embed": (randn(cfg.vocab_size, cfg.d_model) * 0.02).to(dtype),
         "final_norm": torch.ones((cfg.d_model,), device=device),
-        "layers": layers,
+        "layers": tree_layers,
     }
     if cfg.norm_type == "ln":
         tree["final_norm_b"] = randn(cfg.d_model) * 0.02
@@ -1111,14 +1243,22 @@ def unstack_layers(model: TransformerLM, cfg: ModelConfig) -> TransformerLM:
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int | None = None,
                   dtype=torch.bfloat16, device="cpu",
-                  quantized: bool = False) -> dict:
+                  quantized: bool = False, layout: str = "layers") -> dict:
     """The slot cache: each layer's rows hold that layer's own KV heads
     (:func:`layer_kv_heads`; cfg.n_kv_heads, the largest, on every layer
-    of a uniform stack) of the padded head width."""
-    plan = make_plan(cfg)
-    return new_cache(batch, max_len or cfg.max_seq_len, layer_kv_heads(cfg),
-                     plan.hd_p, dtype=dtype, device=device,
-                     quantized=quantized)
+    of a uniform stack) of the padded head width.  An MLA model's holds one
+    latent row per position: one head of ``kv_lora_rank + qk_rope_dim``
+    padded to a multiple of 128 (k = [latent | k_pe | 0], v = [latent |
+    0]).  ``layout`` "stacked" gives (L, ...) tensors (runtime/kv_cache.py)."""
+    s = max_len or cfg.max_seq_len
+    if cfg.kv_lora_rank:
+        w_row = cfg.kv_lora_rank + cfg.qk_rope_dim
+        return new_cache(batch, s, (1,) * cfg.n_layers, w_row + (-w_row) % 128,
+                         dtype=dtype, device=device, quantized=quantized,
+                         layout=layout)
+    return new_cache(batch, s, layer_kv_heads(cfg), make_plan(cfg).hd_p,
+                     dtype=dtype, device=device, quantized=quantized,
+                     layout=layout)
 
 
 # --- forward ---------------------------------------------------------------------
@@ -1404,7 +1544,7 @@ def _qk_norm(q, k, lp: DecoderLayer, cfg: ModelConfig, plan: DimPlan,
 
 def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
                 safe_pos, rope_pos, k_pos, write_start, decode_attn, impl,
-                attn_mask=None):
+                attn_mask=None, mrope_pos=None):
     """One layer, the JAX package's ``layer_step`` for the dense knobs, in
     its order and with its fused gates: qkv fuses (#1 at M <= 64, norm +
     quant + GEMM) under an RMS pre-norm; wo fuses with its residual without
@@ -1427,7 +1567,7 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
             x, lp, kvio, cfg=cfg, plan=plan, params=params, li=li,
             safe_pos=safe_pos, rope_pos=rope_pos, k_pos=k_pos,
             write_start=write_start, decode_attn=decode_attn, impl=impl,
-            attn_mask=attn_mask)
+            attn_mask=attn_mask, mrope_pos=mrope_pos)
     elif "w_lin_attn" in lp.proj:
         o = lp.proj["w_lin_attn"](_norm_d(x, lp, "attn_norm", cfg), impl)
         x = x + o.to(x.dtype)[..., :cfg.d_model]
@@ -1437,12 +1577,126 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
 
 def _attn_block(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
                 safe_pos, rope_pos, k_pos, write_start, decode_attn, impl,
-                attn_mask=None):
+                attn_mask=None, mrope_pos=None):
     """The attention half of a layer: (x after the attention residual, the
     attn-normed input where it was materialised, the parallel residual's
     attention branch or None)."""
+    window = params.windows[li]
+    if lp.mla:
+        h_attn, att = _mla_attention(
+            x, lp, kvio, cfg=cfg, plan=plan, params=params,
+            safe_pos=safe_pos, rope_pos=rope_pos, k_pos=k_pos,
+            write_start=write_start, impl=impl, window=window,
+            attn_mask=attn_mask)
+    else:
+        h_attn, att = _softmax_attention(
+            x, lp, kvio, cfg=cfg, plan=plan, params=params, li=li,
+            safe_pos=safe_pos, rope_pos=rope_pos, k_pos=k_pos,
+            write_start=write_start, decode_attn=decode_attn, impl=impl,
+            attn_mask=attn_mask, mrope_pos=mrope_pos)
+    return _attn_out(x, att, h_attn, lp, cfg=cfg, plan=plan, impl=impl)
 
 
+def _rope(z, cfg: ModelConfig, params, li: int, plan: DimPlan, rope_pos,
+          mrope_pos=None):
+    """Layer li's rope of q or k (B, T, H, hd_p): the rotated prefix
+    (:func:`rope_prefix`), or with ``mrope_pos`` (B, 3, T) on an M-RoPE
+    config each frequency by its own position row (after the interleave
+    permutation where the config has one)."""
+    cos, sin = params.rope_for(li)
+    rot = plan.hd_p if params.rot == plan.hd else params.rot
+    sections = (cfg.rope_scaling or {}).get("mrope_section")
+    if mrope_pos is None or not sections:
+        return rope_prefix(z, rope_pos, cos, sin, rot, cfg.rope_interleaved,
+                           params.rope_on[li])
+    z = rope_prefix(z, rope_pos, cos, sin, rot, cfg.rope_interleaved, False)
+    if not params.rope_on[li]:
+        return z
+    # the global tables, as the JAX package's M-RoPE takes them
+    return apply_mrope(z, mrope_pos, params.rope_cos, params.rope_sin,
+                       params.mrope_rows)
+
+
+def _il(z: torch.Tensor) -> torch.Tensor:
+    """deepseek's interleaved rope pairing as an even|odd permutation of
+    the rope dims (applied to q_pe and k_pe alike, it cancels in the score
+    dot)."""
+    return torch.cat([z[..., 0::2], z[..., 1::2]], dim=-1)
+
+
+def _mla_attention(x, lp: DecoderLayer, kvio, *, cfg, plan, params, safe_pos,
+                   rope_pos, k_pos, write_start, impl, window=0,
+                   attn_mask=None):
+    """deepseek's MLA with the absorbed factors, the JAX package's
+    ``mla_attention``: (the attn-normed input, the float32 attention output
+    (B, T, H, hd_p)).
+
+    q from ``wq_full``, or from ``wq_a``, its RMS norm and ``wq_b``;
+    ``wkv_a`` gives the latent (RMS-normed by ``kv_a_norm``, in x's dtype)
+    and k_pe; q_pe and k_pe take :func:`_il` then rope with the MLA tables.
+    The cache row is k = [latent | k_pe | 0] and v = [latent | 0], padded
+    to a multiple of 128; q_eff = [q_nope . w_uk (float32) | q_pe] in x's
+    dtype with the same zero tail, so the scores over the latent row are
+    q_nope . k_nope + q_pe . k_pe; the context over ``v[..., :r_kv]``
+    times ``w_uv`` (float32) is the head output.  A q8 cache is attended
+    dequantized, as the JAX package's update returns it."""
+    dn, dr, r_kv, hh = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank,
+                        cfg.n_heads)
+    b, t = x.shape[:2]
+    proj = lp.proj
+    h = _norm_d(x, lp, "attn_norm", cfg)
+    if "wq_a" in proj:
+        qa = nrm.rms(proj["wq_a"](h, impl), lp.q_a_norm, cfg.rms_eps,
+                     cfg.q_lora_rank)
+        q = proj["wq_b"](qa, impl)
+    else:
+        q = proj["wq_full"](h, impl)
+    q = q.reshape(b, t, hh, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    kvr = proj["wkv_a"](h, impl)
+    lat = nrm.rms(kvr[..., :r_kv], lp.kv_a_norm, cfg.rms_eps, r_kv)
+    k_pe = kvr[..., r_kv:r_kv + dr].reshape(b, t, 1, dr)
+    cos, sin = params.rope_cos, params.rope_sin
+    q_pe = apply_rope(_il(q_pe), rope_pos, cos, sin)
+    k_pe = apply_rope(_il(k_pe), rope_pos, cos, sin)
+    q_abs = torch.einsum("bthd,hdr->bthr", q_nope.to(torch.float32),
+                         lp.w_uk.to(torch.float32))
+    w_pad = (-(r_kv + dr)) % 128
+    pad = torch.nn.functional.pad
+    q_eff = pad(torch.cat([q_abs, q_pe.to(torch.float32)], dim=-1).to(
+        x.dtype), (0, w_pad))
+    lat4 = lat.reshape(b, t, 1, r_kv)
+    k_row = pad(torch.cat([lat4, k_pe.to(lat4.dtype)], dim=-1), (0, w_pad))
+    v_row = pad(lat4, (0, dr + w_pad))
+    if kvio is not None:
+        k_all, v_all, k_sc, v_sc = kvio.update(k_row, v_row, write_start)
+        if k_sc is not None:
+            k_all, v_all = dequantize_kv(k_all, k_sc), dequantize_kv(v_all,
+                                                                     v_sc)
+    else:
+        k_all, v_all = k_row, v_row
+    ctx = _attention(q_eff, k_all, v_all[..., :r_kv], safe_pos, k_pos,
+                     dn + dr, scale=cfg.attn_scale, mask_override=attn_mask,
+                     window=window)
+    att = torch.einsum("bthr,hrv->bthv", ctx, lp.w_uv.to(torch.float32))
+    if plan.hd != plan.hd_p:
+        # a v head that is not lane-aligned (minicpm3): its halves go to
+        # head_positions, wo's padded-row layout (slices: no host index
+        # inside a captured step)
+        half, half_p = plan.hd // 2, plan.hd_p // 2
+        att_p = att.new_zeros((b, t, hh, plan.hd_p))
+        att_p[..., :half] = att[..., :half]
+        att_p[..., half_p:half_p + half] = att[..., half:]
+        att = att_p
+    return h, att
+
+
+def _softmax_attention(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
+                       safe_pos, rope_pos, k_pos, write_start, decode_attn,
+                       impl, attn_mask=None, mrope_pos=None):
+    """The q/k/v projections and the attention of a softmax-attention
+    layer: (the attn-normed input where it was materialised, the float32
+    attention output (B, T, H, hd_p))."""
     b, t = x.shape[:2]
     hd_p, eps, d = plan.hd_p, cfg.rms_eps, cfg.d_model
     proj = lp.proj
@@ -1473,10 +1727,8 @@ def _attn_block(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
         c = cfg.qkv_clamp
         q, k, v = (torch.clamp(z, -c, c) for z in (q, k, v))
     if cfg.pos_embed == "rope":
-        cos, sin = params.rope_for(li)
-        rot = hd_p if params.rot == plan.hd else params.rot
-        q = rope_prefix(q, rope_pos, cos, sin, rot, cfg.rope_interleaved, r_on)
-        k = rope_prefix(k, rope_pos, cos, sin, rot, cfg.rope_interleaved, r_on)
+        q = _rope(q, cfg, params, li, plan, rope_pos, mrope_pos)
+        k = _rope(k, cfg, params, li, plan, rope_pos, mrope_pos)
     if cfg.qk_norm and cfg.qk_norm_post_rope:
         if cfg.qk_norm_type == "l2":
             # weightless, on rope layers only
@@ -1506,6 +1758,15 @@ def _attn_block(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
                          alibi=getattr(params, "alibi", None),
                          sinks=lp.sinks if cfg.attn_sinks else None,
                          chunked_window=cfg.swa_type == "chunked")
+    return h_attn, att
+
+
+def _attn_out(x, att, h_attn, lp: DecoderLayer, *, cfg, plan, impl):
+    """The attention output's gate, wo and residual: (x, h_attn, the
+    parallel residual's attention branch or None)."""
+    b, t = x.shape[:2]
+    eps, d = cfg.rms_eps, cfg.d_model
+    proj = lp.proj
     if cfg.attn_gate and "w_attn_gate" in proj:
         # sigmoid gate of the attention output, from the attn-normed input
         if h_attn is None:
@@ -1760,7 +2021,8 @@ def _moe_block(x, x_in, h, lp: DecoderLayer, cfg: ModelConfig, impl: str):
 def run_layers(params: TransformerLM, x, positions, kv: dict | None, *,
                cfg: ModelConfig, slots: torch.Tensor | None = None,
                decode_attn: str = "fused", impl: str = "auto",
-               attn_mask: torch.Tensor | None = None):
+               attn_mask: torch.Tensor | None = None,
+               mrope_pos: torch.Tensor | None = None):
     """Run the layer stack (either tree) over x (B, T, D).  With ``slots``
     the B rows are those slots of the cache ``kv``."""
     layers = params.layers
@@ -1783,7 +2045,7 @@ def run_layers(params: TransformerLM, x, positions, kv: dict | None, *,
             cfg=cfg, plan=params.plans[i], params=params, li=i,
             safe_pos=safe_pos, rope_pos=rope_pos, k_pos=k_pos,
             write_start=write_start, decode_attn=decode_attn, impl=impl,
-            attn_mask=attn_mask,
+            attn_mask=attn_mask, mrope_pos=mrope_pos,
         )
     return x, kv
 
@@ -1828,6 +2090,7 @@ def forward(
     decode_attn: str = "fused",
     attn_mask: torch.Tensor | None = None,  # (B, T, S) bool override
     output: str = "logits",
+    mrope_pos: torch.Tensor | None = None,  # (B, 3, T) M-RoPE rows
 ) -> tuple[torch.Tensor, dict | None]:
     """Returns (float32 logits (B, T', V_padded), kv_cache updated in place),
     or with ``output="hidden"`` the final-norm hidden states (B, T, D) in
@@ -1844,7 +2107,10 @@ def forward(
     accuracy reference).  ``logits_at`` projects one row per sequence,
     ``logits_last_only`` the last.  ``attn_mask`` (B, T, S) bool replaces
     the causal mask over the cache rows (the T rows are written first); it
-    takes the composed attention.
+    takes the composed attention.  ``mrope_pos`` (B, 3, T) int gives an
+    M-RoPE config's temporal, height and width position rows (clamped
+    into the tables); without it an M-RoPE config ropes as plain rope, as
+    text serving does.
     """
     if decode_attn not in DECODE_ATTN:
         raise ValueError(f"decode_attn must be one of {DECODE_ATTN}")
@@ -1864,9 +2130,11 @@ def forward(
         table = params.pos_embed
         pe = table[torch.clamp(positions, 0, table.shape[0] - 1)]
         x = x + pe.to(x.dtype)
+    if mrope_pos is not None:
+        mrope_pos = torch.clamp(mrope_pos, 0, params.rope_cos.shape[0] - 1)
     x, kv_cache = run_layers(params, x, positions, kv_cache, cfg=cfg,
                              slots=slots, decode_attn=decode_attn, impl=impl,
-                             attn_mask=attn_mask)
+                             attn_mask=attn_mask, mrope_pos=mrope_pos)
     if cfg.norm_type == "ln":
         x = nrm.layer_norm(x, params.final_norm,
                            getattr(params, "final_norm_b", None), cfg.rms_eps,

@@ -1,10 +1,12 @@
 """Rotary position embeddings (NEOX split-half), port of vlut_tpu/ops/rope.py
 and of the rope knobs of vlut_tpu/models/transformer.py.
 
-Frequency scaling modes: none, linear, llama3, yarn, longrope.  Partial
-rotary (the first ``rot`` dims) and the original-GPT interleaved pairing
-(an even|odd permutation of the rotated dims before the split-half
-rotation) are :func:`rope_prefix`'s.  M-RoPE is not in this port yet.
+Frequency scaling modes: none, linear, llama3, yarn, longrope, and the
+unscaled frequencies of M-RoPE (``"mrope"``, whose ``mrope_section`` the
+positions side consumes: :func:`mrope_row_map`, :func:`apply_mrope`).
+Partial rotary (the first ``rot`` dims) and the original-GPT interleaved
+pairing (an even|odd permutation of the rotated dims before the
+split-half rotation) are :func:`rope_prefix`'s.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ def _inv_freq(head_dim: int, theta: float,
     if not scaling:
         return inv, 1.0
     kind = scaling.get("rope_type", scaling.get("type"))
-    if kind == "default":
+    if kind in ("default", "mrope"):
+        # M-RoPE (qwen2-vl): unscaled frequencies; its sections select the
+        # position row per frequency (apply_mrope)
         return inv, 1.0
     if kind == "llama3":
         factor = scaling.get("factor", 8.0)
@@ -96,6 +100,40 @@ def rope_table(
         cos = torch.nn.functional.pad(cos, (0, extra), value=1.0)
         sin = torch.nn.functional.pad(sin, (0, extra), value=0.0)
     return cos.to(device), sin.to(device)
+
+
+def mrope_row_map(sections, n_freqs: int, interleaved: bool) -> torch.Tensor:
+    """(n_freqs,) int64: the position row (0 T, 1 H, 2 W) of each frequency.
+
+    Chunked (qwen2-vl ``mrope_section``): [T] * s0 + [H] * s1 + [W] * s2,
+    cycled.  Interleaved (qwen3-vl): T everywhere, except frequency f takes
+    H when f % 3 == 1 and f < 3 * s1, W when f % 3 == 2 and f < 3 * s2.
+    Frequencies past the mapped range (the lane padding) take row 0; their
+    table entries are identity rotations."""
+    rows = torch.zeros(n_freqs, dtype=torch.int64)
+    if interleaved:
+        for dim in (1, 2):
+            rows[dim:min(sections[dim] * 3, n_freqs):3] = dim
+    else:
+        lo = 0
+        for i, n in enumerate(sections):
+            rows[lo:lo + n] = i % 3
+            lo += n
+    return rows
+
+
+def apply_mrope(x: torch.Tensor, mrope_pos: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor, row_map: torch.Tensor) -> torch.Tensor:
+    """x (B, T, H, hd); mrope_pos (B, 3, T) int (temporal, height, width
+    rows); tables (max_len, hd/2); row_map from :func:`mrope_row_map` on
+    the tables' device: each frequency rotates by the angle of its own
+    position row."""
+    # (B, 3, T, half) gathered per row, then each frequency's own row
+    idx = row_map[None, None, None, :].expand(
+        mrope_pos.shape[0], 1, mrope_pos.shape[2], -1)
+    c = cos[mrope_pos].to(torch.float32).gather(1, idx)[:, 0]
+    s = sin[mrope_pos].to(torch.float32).gather(1, idx)[:, 0]
+    return apply_rope_rows(x, c[..., None, :], s[..., None, :])
 
 
 def apply_rope_rows(x: torch.Tensor, c: torch.Tensor,

@@ -68,6 +68,7 @@ import torch
 from vlut_tpu_torch.config import ModelConfig
 from vlut_tpu_torch.models.transformer import (
     DECODE_ATTN,
+    StackedLayers,
     TransformerLM,
     forward,
     fuse_projections,
@@ -206,10 +207,14 @@ class Engine:
     """Single-device slot engine over a :class:`TransformerLM`, on the
     model's device; the model is served as the fused, unrolled tree (left
     unfused where a LoRA needs it) with a bf16 or int8 (``kv_quant``)
-    cache.  ``draft=(cfg, model[, (d2t, t2d)])`` speculates with a draft
-    model (k_draft proposals per round), ``lookahead=(W, G)`` with the
-    draft-free lookahead; the two exclude each other.  ``cuda_graph=False``
-    runs every step program eagerly on the card too."""
+    cache, or with ``unroll=False`` as the stacked tree over a stacked
+    cache (one (L, ...) tensor per entry, its layer views updated in place:
+    the JAX engine's ``unroll=False``).  An MLA model's cache holds one
+    latent row per position (``init_kv_cache``).  ``draft=(cfg, model[,
+    (d2t, t2d)])`` speculates with a draft model (k_draft proposals per
+    round), ``lookahead=(W, G)`` with the draft-free lookahead; the two
+    exclude each other.  ``cuda_graph=False`` runs every step program
+    eagerly on the card too."""
 
     def __init__(
         self,
@@ -227,6 +232,7 @@ class Engine:
         mesh: Any = None,
         decode_attn: str = "fused",
         cuda_graph: bool = True,
+        unroll: bool = True,
     ):
         if mesh is not None:
             raise _not_ported("multi-device serving (mesh=)", "6")
@@ -240,7 +246,12 @@ class Engine:
         self.cfg = cfg
         if head_quant:
             params = quantize_head(params)
-        self.params = unstack_layers(fuse_projections(params, cfg), cfg)
+        self.params = fuse_projections(params, cfg)
+        if unroll:
+            self.params = unstack_layers(self.params, cfg)
+        elif not isinstance(self.params.layers, StackedLayers):
+            raise ValueError("unroll=False serves a stacked tree (a "
+                             "uniform stack)")
         self.device = self.params.device
         self.n_slots = n_slots
         self.max_len = max_len or cfg.max_seq_len
@@ -248,7 +259,8 @@ class Engine:
         self.prefill_buckets = tuple(
             b for b in prefill_buckets if b <= self.max_len) or (self.max_len,)
         self.cache = init_kv_cache(cfg, n_slots, self.max_len,
-                                   device=self.device, quantized=kv_quant)
+                                   device=self.device, quantized=kv_quant,
+                                   layout="layers" if unroll else "stacked")
         self.slots = [_Slot() for _ in range(n_slots)]
         self.queue: list[Request] = []
         self._next_rid = 0
