@@ -122,8 +122,23 @@ Phases (any failure exits non-zero; none is skipped):
      card against the CPU, layer by layer, and graphed against eager; then
      ``Engine(unroll=False)`` over a stacked cache on tiny_real and on an
      MLA family: the unrolled engine's tokens;
- 22. one JSON line of every kernel with its launches on the paths of phases
-     3-21, then the card, then ``{"ok": true, "device": ...}`` last.
+ 22. the recurrent families: ``mamba_2_8b`` (Mamba-2.8B's published widths:
+     d 2560, 64 layers, state 16, conv 4, expand 2, dt rank 160, vocabulary
+     50280, tied embeddings) at full width and depth, random packed weights
+     from seed 0, through the engine (16 slots, ctx 2048, 16 greedy
+     requests of 64-1000 prompt tokens, seed 15, 16 new tokens) graphed (4
+     steps profiled) and eager (identical tokens), every in_proj / out_proj
+     through #4 at decode and #3 at prefill, the launches of one decode step
+     and of one 1000-token prefill; one completion through the server (its
+     tokens a direct engine run's); ``codestral_mamba_7b`` (Mamba2 at
+     Mamba-Codestral-7B's widths: d 4096, 64 layers, 128 heads of 64, 8
+     groups, state 128, vocabulary 32768) through ``generate``'s
+     state-carrying loop, greedy and seeded; then each family of
+     ``bench/recurrent_zoo.py`` (Mamba, Mamba2, RWKV7, arwkv7, RWKV6 and 11
+     hybrid cases) on the card against the CPU, layer by layer, and a tiny
+     Mamba engine graphed, eager and on the CPU (identical tokens);
+ 23. one JSON line of every kernel with its launches on the paths of phases
+     3-22, then the card, then ``{"ok": true, "device": ...}`` last.
 
 Phase 2 times #3 (the tiled GEMM) at the flagship prefill (M 4096) and at
 the microbenchmark's i2 lanes (llama3_8b dxd, dxff, ffxd at M 32 and 256)
@@ -155,7 +170,9 @@ mixtral_8x7b's, at a sliding layer of gemma2_2b's heads, hd 256, window
 query heads over its own KV head), mixtral_8x7b's qkv and wo through #1
 and each expert's gate / up (4096 -> 14336) and down (14336 -> 4096)
 through #4 at M 1, 16, 32 and 64 and through #3 at M 512, 1024 and 4096
-(phase 20's shapes), deepseek_v2_lite's wo through #1 and its wq_full,
+(phase 20's shapes), mamba_2_8b's and codestral_mamba_7b's in_proj and out_proj
+through #4 at M 1, 16 and 64 and #3 at their prefills' M (phase 22's
+shapes), deepseek_v2_lite's wo through #1 and its wq_full,
 wkv_a (576 wide, packed to 640), each expert's, the shared experts' and
 the dense lead layer's projections through #4 at M 1, 16, 32 and 64 and
 through #3 at M 512, 1024 and 4096 (phase 21's shapes), #1 and #4 at the
@@ -916,6 +933,32 @@ def phase_kernels(dev) -> dict:
             err = tiled_case(label, m, k, n, "i2")[-1]
             checked("ternary_gemm_tiled", f"{label} M={m} {k}->{n} i2", err)
         torch.cuda.empty_cache()
+
+    # mamba_2_8b's and codestral_mamba_7b's in_proj / out_proj (phase 22):
+    # #4 at the engine's decode M 16 and #3 at a 1024-token prefill, timed;
+    # bit-exact at M 1, 16 and 64 (#4) and at the prefills' M (#3:
+    # Mamba-2.8B's groups of 1024 and 4096 rows, Codestral's 128-token
+    # generate prompt and 1024)
+    for proj in recurrent_projections():
+        zoo_timed(*proj, 16)
+    for label, k, n, *_ in recurrent_projections():
+        tiled_timed("ternary_gemm_tiled_zoo", label, 1024, k, n, "i2",
+                    iters=5, rotate=False)
+    for label, k, n, *_ in recurrent_projections():
+        for m in (1, 16, 64):
+            err = fused_quant_case(label, m, k, n)[-1]
+            checked("ternary_gemm_fused_quant", f"{label} M={m} {k}->{n} i2",
+                    err)
+            if err != 0.0:
+                fail(f"{label} M={m}: #4 differs from its plain version "
+                     f"({err})")
+        for m in ((1024, 4096) if label.startswith("mamba") else (128, 1024)):
+            err = tiled_case(label, m, k, n, "i2")[-1]
+            checked("ternary_gemm_tiled", f"{label} M={m} {k}->{n} i2", err)
+            if err != 0.0:
+                fail(f"{label} M={m}: #3 differs from its plain version "
+                     f"({err})")
+        torch.cuda.empty_cache()
     return results
 
 
@@ -992,6 +1035,18 @@ def v2_lite_projections() -> list:
         ("deepseek_v2_lite_dense_down", dn_p, c.d_model, "plain", False,
          False, False),
     ]
+
+
+def recurrent_projections() -> list:
+    """As :func:`zoo_projections`, the recurrent presets' (phase 22): the
+    in_proj and out_proj of ``mamba_2_8b`` (2560 -> 10240, 5120 -> 2560)
+    and of ``codestral_mamba_7b`` (4096 -> 18560: d_inner 8192, conv_dim
+    10240, 128 heads; 8192 -> 4096), unfused: #4 at M <= 64, #3 above."""
+    from vlut_tpu_torch.models.ssm import PRESETS, _proj_widths
+
+    return [(f"{name}_{proj}", k, n, "plain", False, False, False)
+            for name in ("mamba_2_8b", "codestral_mamba_7b")
+            for proj, (k, n) in _proj_widths(PRESETS[name]).items()]
 
 
 def zoo_decode_shapes() -> list:
@@ -1552,7 +1607,13 @@ def main() -> None:
     mark("mla")
     mla_phase(dev, fixture, card, reset, read)
 
-    # 22. summary
+    # 22. the recurrent families: Mamba-2.8B's widths through the engine and
+    # the server, Mamba2 at Codestral's through generate, and each family
+    # card against CPU
+    mark("recurrent")
+    recurrent_phase(dev, fixture, card, reset, read)
+
+    # 23. summary
     mark("summary")
     replaces = {
         "ternary_gemm_decode": ("vlut_tpu_torch/csrc/decode_gemm.cu",
@@ -2631,6 +2692,203 @@ def mla_phase(dev, fixture, card, reset, read) -> None:
             fail(f"{label}: the stacked engine's tokens differ from the "
                  "unrolled engine's")
     out["stacked"] = stacked
+    out["seconds"] = time.time() - t_phase
+    print(json.dumps(out), flush=True)
+
+
+def recurrent_phase(dev, fixture, card, reset, read) -> None:
+    """Phase 22: the recurrent families.  (a) Mamba-2.8B's published widths
+    (``mamba_2_8b``) at full width and depth, random packed weights from
+    seed 0, through the engine (16 slots, ctx 2048, 16 greedy requests of
+    64-1000 prompt tokens, seed 15, 16 new tokens), graphed (4 steps
+    profiled) and eager: identical tokens; the launches of #4 / #3 in one
+    decode step over 16 slots and in one 1000-token prefill; (b) one
+    greedy completion through the server: the tokens of a direct engine
+    run; (c) Mamba2 at Mamba-Codestral-7B's widths (``codestral_mamba_7b``)
+    through ``generate``'s loop, 128 prompt tokens then 16 greedy tokens,
+    and 8 seeded ones twice (identical); (d) each family of
+    ``bench/recurrent_zoo.py`` on the card against the CPU, layer by layer;
+    a tiny Mamba engine graphed, eager and on the CPU: identical tokens.
+    ``read`` fails on a gated kernel launched no time."""
+    import http.client
+
+    import numpy as np
+    import torch
+
+    from vlut_tpu_torch.bench import engine as bench_engine
+    from vlut_tpu_torch.bench import flagship
+    from vlut_tpu_torch.bench import recurrent_zoo as rz
+    from vlut_tpu_torch.cli import family_generate
+    from vlut_tpu_torch.models import ssm
+    from vlut_tpu_torch.runtime.engine import Engine, Request
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+    from vlut_tpu_torch.serving.server import serve
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    t_phase = time.time()
+    out: dict = {"phase": "recurrent", "card": card}
+    expect = ("ternary_gemm_fused_quant", "ternary_gemm_tiled")
+    name = "mamba_2_8b"
+    t0 = time.time()
+    built = flagship.build_model(name, dev)
+    cfg, model = built
+    torch.cuda.synchronize()
+    out["build_s"] = time.time() - t0
+    out["weight_bytes"] = {
+        "packed": sum(t.numel() for n_, t in model.named_buffers()
+                      if n_.endswith("_packed")),
+        "all": sum(t.numel() * t.element_size() for t in model.buffers())}
+    rng = np.random.default_rng(15)
+    greedy = SamplerParams(temperature=0.0)
+
+    # the kernels of one decode step over 16 slots and of one 1000-token
+    # prefill (counted here, then reset for the main path)
+    counts = {}
+    with torch.inference_mode():
+        st = ssm.init_state(cfg, 16, dev)
+        reset()
+        ssm.forward(model, cfg, torch.zeros((16, 1), dtype=torch.long,
+                                            device=dev), st, inplace=True)
+        counts["decode_step_16_slots"] = read(f"recurrent_{name}_one_step",
+                                              ("ternary_gemm_fused_quant",))
+        reset()
+        ssm.forward(model, cfg, torch.from_numpy(
+            rng.integers(3, cfg.vocab_size, (1, 1000))).to(dev),
+            ssm.init_state(cfg, 1, dev), logits_last_only=True)
+        counts["prefill_1000"] = read(f"recurrent_{name}_one_prefill",
+                                      ("ternary_gemm_tiled",))
+    out["launches_per_call"] = {k: {n_: v for n_, v in c.items() if v}
+                                for k, c in counts.items()}
+    del st
+    torch.cuda.empty_cache()
+
+    def requests():
+        return bench_engine.make_requests(cfg.vocab_size, 16, 64, 1000, 16,
+                                          seed=15)
+
+    runs, toks = {}, {}
+    for graph in (True, False):
+        run = "graph" if graph else "eager"
+        reset()
+        r = bench_engine.run(name, device=dev, built=built, cuda_graph=graph,
+                             n_slots=16, ctx=2048, requests=requests(),
+                             profile_steps=4 if graph else 0)
+        got = read(f"recurrent_{name}_{run}", expect)
+        toks[run] = r.pop("outputs")
+        res = {k: r[k] for k in (
+            "decode_ms_per_step", "replay_ms_per_step", "replayed_steps",
+            "prompt_tok_per_s", "decode_tok_per_s", "prompt_tokens",
+            "prompt_s", "decode_steps", "capture_s", "wall_s",
+            "step_programs")} | {"launches": got} | (
+            {"profile": r["profile"]} if "profile" in r else {})
+        runs[run] = res
+        print(json.dumps({"phase": "recurrent", "model": name, "run": run,
+                          **res, "card": card}), flush=True)
+        torch.cuda.empty_cache()
+    if toks["graph"] != toks["eager"]:
+        fail(f"{name}: the graphed step's greedy tokens differ from the "
+             "eager step's")
+    out[name] = runs
+
+    # (b) one completion through the server against a direct engine run
+    ids = [int(t) for t in rng.integers(3, cfg.vocab_size, 300)]
+    reset()
+    engine = Engine(cfg, model, n_slots=16, max_len=2048)
+    httpd, state = serve(engine, Tokenizer(fixture), port=0)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          httpd.server_address[1],
+                                          timeout=600)
+        conn.request("POST", "/completion", body=json.dumps({
+            "prompt": ids, "n_predict": 16, "temperature": 0.0,
+            "ignore_eos": True, "return_tokens": True}),
+            headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        answer = json.loads(resp.read().decode())
+        conn.close()
+    finally:
+        state.stop()
+        httpd.shutdown()
+        httpd.server_close()
+    got = read(f"recurrent_{name}_server", expect)
+    direct = Request(prompt=ids, max_new_tokens=16, sampler=greedy)
+    Engine(cfg, model, n_slots=16, max_len=2048).run([direct])
+    server = {"status": resp.status, "tokens": answer.get("tokens"),
+              "direct_tokens": direct.output, "launches": got}
+    print(json.dumps({"phase": "recurrent_server", **server}), flush=True)
+    if resp.status != 200 or answer.get("tokens") != direct.output:
+        fail(f"{name}: the server's completion differs from a direct engine "
+             "run")
+    out["server"] = server
+    del built, model, engine
+    torch.cuda.empty_cache()
+
+    # (c) Mamba2 at Codestral's widths through generate's loop
+    name2 = "codestral_mamba_7b"
+    t0 = time.time()
+    cfg2, model2 = flagship.build_model(name2, dev)
+    build2 = time.time() - t0
+    ids2 = [int(t) for t in rng.integers(3, cfg2.vocab_size, 128)]
+    reset()
+    t0 = time.time()
+    toks2 = family_generate(model2, cfg2, ids2, 16)
+    torch.cuda.synchronize()
+    gen_s = time.time() - t0
+    got = read(f"recurrent_{name2}_generate", expect)
+    sampled = [family_generate(model2, cfg2, ids2, 8, temp=0.8, seed=7)
+               for _ in range(2)]
+    gen2 = {"layers": cfg2.n_layers, "build_s": build2,
+            "prompt_tokens": len(ids2), "tokens": toks2, "seconds": gen_s,
+            "sampled": sampled[0], "launches": got}
+    print(json.dumps({"phase": "recurrent_mamba2", **gen2}), flush=True)
+    if (len(toks2) != 16 or not all(0 <= t < cfg2.vocab_size for t in toks2)
+            or sampled[0] != sampled[1]):
+        fail(f"{name2}: generate did not give 16 tokens in the vocabulary, "
+             "or its seeded draws did not repeat")
+    out[name2] = gen2
+    del model2
+    torch.cuda.empty_cache()
+
+    # (d) each family card against CPU; a tiny Mamba engine graphed / eager /
+    # on the CPU
+    fams = {}
+    for fam in rz.FAMILIES:
+        r = rz.card_vs_cpu(fam, dev, counters=(reset, read), prompt=40)
+        fams[fam] = r
+        print(json.dumps({"phase": "recurrent_family", **r, "card": card}),
+              flush=True)
+        if not r["within_tol"]:
+            fail(f"recurrent family {fam}: a layer {r['max_rel_layer_err']} "
+                 f"(tolerance {rz.TOL}) or the logits "
+                 f"{r['max_rel_logit_err']} (tolerance {rz.LOGIT_TOL}) of "
+                 "the largest off the CPU's")
+        if not r["greedy_equal"]:
+            fail(f"recurrent family {fam}: the card's greedy tokens differ "
+                 "from the CPU's")
+    out["families"] = {n_: {k: r[k] for k in (
+        "max_rel_layer_err", "max_rel_logit_err", "greedy_equal",
+        "free_rel_logit_err", "launches")} for n_, r in fams.items()}
+    cfg_m, tree = rz.family("mamba")
+    prompts = [[int(t) for t in rng.integers(1, cfg_m.vocab_size, n_)]
+               for n_ in (5, 40, 17, 90, 1, 33)]
+    engines = {}
+    for label, device, graph in (("graph", dev, True), ("eager", dev, False),
+                                 ("cpu", "cpu", True)):
+        eng = Engine(cfg_m, rz.model_on(cfg_m, tree, device), n_slots=4,
+                     max_len=256, cuda_graph=graph)
+        reqs = [Request(prompt=p_, max_new_tokens=12, sampler=greedy)
+                for p_ in prompts]
+        if label == "graph":
+            reset()
+        eng.run(reqs)
+        if label == "graph":
+            read("recurrent_tiny_mamba_engine", expect)
+        engines[label] = [r_.output for r_ in reqs]
+    out["tiny_mamba_engine"] = {"tokens": engines["graph"][0],
+                                "identical": engines["graph"] == engines[
+                                    "eager"] == engines["cpu"]}
+    if not out["tiny_mamba_engine"]["identical"]:
+        fail("tiny Mamba engine: graphed, eager and CPU tokens differ")
     out["seconds"] = time.time() - t_phase
     print(json.dumps(out), flush=True)
 

@@ -955,3 +955,42 @@ def test_stacked_engine_equals_unrolled_on_the_card(dev, name):
         eng.run(reqs)
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("name", ["mamba", "mamba2", "rwkv7", "arwkv7",
+                                  "rwkv6", "jamba", "falcon_h1",
+                                  "qwen3next_moe", "plamo2",
+                                  "nemotron_h_moe"])
+def test_recurrent_families_card_equals_cpu(dev, name):
+    """A recurrent family of ``bench/recurrent_zoo.py`` on the card against
+    the CPU, each layer from the CPU's input: layers within 2e-2 of the
+    largest value, logits within 1e-5, the CPU's greedy tokens (float32
+    products in full float32)."""
+    from vlut_tpu_torch.bench import recurrent_zoo as rz
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = rz.card_vs_cpu(name, dev, n_decode=3, prompt=40)
+    assert r["within_tol"] and r["greedy_equal"], r
+
+
+def test_mamba_engine_graphed_equals_eager_and_cpu(dev):
+    """The tiny Mamba of the recurrent zoo through the engine: the graphed
+    step, the eager step and the CPU give the same greedy tokens."""
+    from vlut_tpu_torch.bench import recurrent_zoo as rz
+    from vlut_tpu_torch.runtime.engine import Engine, Request
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+
+    cfg, tree = rz.family("mamba")
+    rng = np.random.default_rng(3)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in (5, 40, 17, 90, 1)]
+    outs = []
+    for device, graph in (("cuda", True), ("cuda", False), ("cpu", True)):
+        eng = Engine(cfg, rz.model_on(cfg, tree, device), n_slots=4,
+                     max_len=256, cuda_graph=graph)
+        reqs = [Request(prompt=p, max_new_tokens=10,
+                        sampler=SamplerParams(temperature=0.0))
+                for p in prompts]
+        eng.run(reqs)
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1] == outs[2]

@@ -223,12 +223,28 @@ def test_cancel_keeps_history_and_unported_features_raise():
     data = eng.save_slot(0)
     eng.restore_slot(0, data)
     assert eng.slots[0].history[:3] == [4, 5, 6]
-    # what still refuses: multi-device meshes and recurrent models
+    # what still refuses: multi-device meshes; a recurrent (Mamba) engine
+    # refuses a draft, lookahead and a prompt past the largest bucket with
+    # the JAX engine's messages
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(cfg, model, mesh=object())
-    recurrent = type("MambaConfig", (), {})()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(recurrent, model)
+    from vlut_tpu_torch.models import ssm
+
+    m_cfg = ssm.MambaConfig(vocab_size=96, d_model=64, n_layers=1,
+                            d_state=8)
+    mamba = ssm.init_params(m_cfg, seed=0)
+    with pytest.raises(ValueError, match="recurrent models cannot rewind "
+                       r"\(reference has the same limit\)"):
+        Engine(m_cfg, mamba, draft=(m_cfg, mamba))
+    with pytest.raises(ValueError, match="lookahead needs KV row rewind; "
+                       "recurrent models cannot rewind"):
+        Engine(m_cfg, mamba, lookahead=(3, 3))
+    eng = Engine(m_cfg, mamba, n_slots=1, max_len=64,
+                 prefill_buckets=(16,))
+    with pytest.raises(ValueError, match=r"prompt length 17 exceeds max "
+                       r"bucket 16 \(recurrent models cannot chunk "
+                       r"prefill\)"):
+        eng.submit(Request(prompt=list(range(17)), max_new_tokens=1))
 
 
 def test_seeded_sampling_is_reproducible_and_in_range():

@@ -2,8 +2,10 @@
 
 A packed i2 ternary Llama at ``llama3_8b_158`` shapes (or another preset,
 ``--model``: the zoo's ``qwen3_4b`` and ``gemma2_2b``, the MoE
-``mixtral_8x7b``, the MLA ``deepseek_v2_lite``) with seeded random
-weights generated on the device (int8 head, fused and unrolled layer tree)
+``mixtral_8x7b``, the MLA ``deepseek_v2_lite``, the recurrent
+``mamba_2_8b``: Mamba-2.8B's widths, whose slots hold conv/ssm state)
+with seeded random weights generated on the device (int8 head, fused and
+unrolled layer tree; a Mamba's tree as ``models/ssm.py`` makes it)
 behind an ``Engine`` with 32 slots and a 2048-row context.  48 greedy
 requests with prompts of 64-1500 random tokens (so the queue exceeds the
 slots and prompts past 1024 tokens are prefilled in chunks) each generate
@@ -57,6 +59,8 @@ N_REQUESTS, PROMPT_LO, PROMPT_HI, NEW_TOKENS = 48, 64, 1500, 24
 def _rope_len(preset: str, ctx: int) -> int | None:
     """The rope tables' length an engine of ``ctx`` rows needs past the
     preset's own ``max_seq_len`` (None: the preset's)."""
+    if preset not in PRESETS:  # a recurrent preset has no rope tables
+        return None
     return ctx if ctx > PRESETS[preset].max_seq_len else None
 
 
@@ -139,7 +143,11 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
                                       max_seq_len=_rope_len(preset, ctx))
     eng = Engine(cfg, model, n_slots=n_slots, max_len=ctx, kv_quant=kv_quant,
                  decode_attn=decode_attn, cuda_graph=cuda_graph)
-    reqs = requests if requests is not None else make_requests(cfg.vocab_size)
+    # a recurrent model's prompts stay within the largest prefill bucket (it
+    # prefills no chunks)
+    reqs = requests if requests is not None else make_requests(
+        cfg.vocab_size, hi=eng.prefill_buckets[-1] if eng._recurrent
+        else PROMPT_HI)
     for r in reqs:
         eng.submit(r)
     prof = paths = None
@@ -203,7 +211,8 @@ def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(prog="python -m vlut_tpu_torch.bench.engine")
     ap.add_argument("--model", dest="preset", default="llama3_8b_158",
                     help="a preset: llama3_8b_158 (the flagship), qwen3_4b, "
-                    "gemma2_2b, mixtral_8x7b, deepseek_v2_lite, ...")
+                    "gemma2_2b, mixtral_8x7b, deepseek_v2_lite, "
+                    "mamba_2_8b, ...")
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--slots", type=int, default=N_SLOTS)
     ap.add_argument("--ctx", type=int, default=CTX)

@@ -56,7 +56,16 @@ def build_model(preset: str, device, n_layers: int | None = None,
                 seed: int = 0, max_seq_len: int | None = None):
     """(cfg, model): the serving tree (int8 head unless tied, fused where
     the gates let, unrolled); ``max_seq_len`` sets the rope tables' length
-    (a context past the preset's)."""
+    (a context past the preset's).  A recurrent preset
+    (``models/ssm.py:PRESETS``, e.g. ``mamba_2_8b``) is served as it is
+    made (``ssm.init_params_fast``)."""
+    from vlut_tpu_torch.models import ssm
+
+    if preset in ssm.PRESETS:
+        cfg = ssm.PRESETS[preset]
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        return cfg, ssm.init_params_fast(cfg, seed=seed, device=device)
     cfg = PRESETS[preset]
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)

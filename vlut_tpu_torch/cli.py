@@ -32,10 +32,14 @@
 ``generate`` serves one request through the slot engine (with a draft
 model, a grammar, a LoRA adapter or a control vector as asked), or with
 ``--prompt-lookup`` / ``--lookahead`` through the standalone greedy
-speculative loops of ``runtime/speculative.py``; ``--override`` sets a
-model config field (retyped from the field; a field the port does not
-implement raises) and ``--promote`` repacks the weights at load (i2 <->
-i1, exact).  ``serve`` starts the OpenAI-compatible server
+speculative loops of ``runtime/speculative.py``; a Mamba checkpoint goes
+through the engine too, a Mamba2 or RWKV checkpoint through its own
+state-carrying loop and a hybrid one through a loop that recomputes the
+whole sequence for each token (:func:`family_generate`, greedy or
+``--temp`` sampling from a generator seeded by ``--seed``);
+``--override`` sets a model config field (retyped from the field; a field
+the port does not implement raises) and ``--promote`` repacks the weights
+at load (i2 <-> i1, exact).  ``serve`` starts the OpenAI-compatible server
 (``serving/server.py``: completion, chat with tools, infill, embeddings,
 rerank, template, web UI), one engine per ``--model``; ``batched`` is the
 shared-prompt np-way fan-out (one prompt prefilled into np slots, then n
@@ -185,6 +189,65 @@ def run_standalone_speculative(model, cfg, ids: list[int], n_predict: int,
     return toks, accs[:, 0].tolist()
 
 
+def _categorical(logits: torch.Tensor, temp: float,
+                 gen: torch.Generator) -> int:
+    """A draw from softmax(logits / temp): the argmax of the scaled logits
+    plus Gumbel noise (``jax.random.categorical``'s method; torch's Philox
+    stands in for threefry, so the draws match in distribution only)."""
+    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    u = u.clamp(min=torch.finfo(torch.float32).tiny)
+    return int((logits / temp - torch.log(-torch.log(u))).argmax())
+
+
+@torch.inference_mode()
+def family_generate(model, cfg, ids: list[int], n_predict: int,
+                    temp: float = 0.0, seed: int = 0,
+                    eos_id: int | None = None) -> list[int]:
+    """The JAX CLI's ``generate`` loops of the families the engine does not
+    serve: Mamba2 and RWKV carry their state (one prefill, then one-token
+    steps), a hybrid recomputes the whole sequence for each token.  Greedy
+    at ``temp`` 0, else sampled; stops after ``eos_id``."""
+    from vlut_tpu_torch.models import hybrid, rwkv, ssm
+
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = cfg.vocab_size
+
+    def pick(logits) -> int:
+        return (_categorical(logits, temp, gen) if temp > 0
+                else int(logits.argmax()))
+
+    out: list[int] = []
+    if isinstance(cfg, hybrid.HybridConfig):
+        for _ in range(n_predict):
+            toks = torch.tensor([ids + out], device=dev)
+            out.append(pick(hybrid.forward(model, cfg, toks)[0, -1, :v]))
+            if out[-1] == eos_id:
+                break
+        return out
+    if isinstance(cfg, ssm.Mamba2Config):
+        def fwd(toks, st):
+            return ssm.forward2(model, cfg, toks, st, logits_last_only=True,
+                                inplace=True)
+        st = ssm.init_state2(cfg, 1, dev)
+    elif isinstance(cfg, (rwkv.Rwkv7Config, rwkv.Rwkv6Config)):
+        f = (rwkv.forward6 if isinstance(cfg, rwkv.Rwkv6Config)
+             else rwkv.forward)
+
+        def fwd(toks, st):
+            return f(model, cfg, toks, st)
+        st = rwkv.init_state(cfg, 1, dev)
+    else:
+        raise ValueError(f"no generate loop for {type(cfg).__name__}")
+    lg, st = fwd(torch.tensor([ids], device=dev), st)
+    for _ in range(n_predict):
+        out.append(pick(lg[0, -1, :v]))
+        if out[-1] == eos_id or len(out) == n_predict:
+            break
+        lg, st = fwd(torch.tensor([[out[-1]]], device=dev), st)
+    return out
+
+
 def override_config(cfg, overrides: list[str]):
     """``cfg`` with each ``KEY=VALUE`` set, the value retyped from the
     field's current value (bool, int, float; else the string)."""
@@ -207,14 +270,32 @@ def cmd_generate(args) -> None:
     """One request through the slot engine (the JAX package's engine branch
     of ``vlut-tpu generate``), or through a standalone prompt-lookup or
     lookahead loop."""
+    from vlut_tpu_torch.config import ModelConfig
     from vlut_tpu_torch.convert.checkpoint import load_checkpoint
     from vlut_tpu_torch.convert.quantize import promote
+    from vlut_tpu_torch.models.ssm import MambaConfig
     from vlut_tpu_torch.models.transformer import TransformerLM
     from vlut_tpu_torch.runtime.engine import Engine, Request
     from vlut_tpu_torch.runtime import lora
     from vlut_tpu_torch.utils.tokenizer import Tokenizer
 
     cfg, model, _ = load_checkpoint(args.model, device=args.device)
+    if not isinstance(cfg, ModelConfig):
+        if args.lora or args.control_vector or args.promote or args.override:
+            raise SystemExit("--lora, --control-vector, --promote and "
+                             "--override apply to transformer checkpoints")
+        if not isinstance(cfg, MambaConfig):
+            tok = Tokenizer(args.model)
+            t0 = time.time()
+            out = family_generate(model, cfg, tok.encode(args.prompt),
+                                  args.n_predict, args.temp, args.seed,
+                                  tok.eos_id)
+            dt = time.time() - t0
+            print(tok.decode(out))
+            print(f"\n[{len(out)} tokens, {len(out) / max(dt, 1e-9):.1f} "
+                  f"tok/s | {type(cfg).__name__} | {model.device}]",
+                  file=sys.stderr)
+            return
     if args.override:
         cfg = override_config(cfg, args.override)
         model = TransformerLM(cfg, model.tree())

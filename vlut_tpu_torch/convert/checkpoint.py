@@ -1,5 +1,10 @@
-"""The JAX package's packed-ternary checkpoints (transformer family): load
-and save.
+"""The JAX package's checkpoints: load and save.
+
+Families (``model_family`` in the meta): ``transformer`` (packed ternary),
+``mamba`` and ``mamba2`` (packed ternary projections, float SSM tensors;
+``models/ssm.py``), ``rwkv7``, ``rwkv6`` and ``hybrid`` (float weights;
+``models/rwkv.py``, ``models/hybrid.py``).  ``encoder``, ``t5`` and
+``gemma3n`` are refused (ROADMAP Queue 1 item 7).
 
 A checkpoint directory holds ``vlut_config.json`` (ModelConfig + format
 metadata), ``model.safetensors`` (packed uint8 trits, float32 scales and
@@ -22,12 +27,14 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch import nn
 
 from vlut_tpu_torch.config import ModelConfig
 from vlut_tpu_torch.device import resolve_device
 from vlut_tpu_torch.models.transformer import TransformerLM, layers_tuple
 
 FORMAT_VERSION = 1
+FAMILIES = ("transformer", "mamba", "mamba2", "rwkv7", "rwkv6", "hybrid")
 
 _DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16,
@@ -133,13 +140,16 @@ def save_checkpoint(
     into (L, ...) tensors, the layout checkpoints keep; a config whose
     layers differ in shape (:func:`layers_tuple`) keeps one tree per layer
     under the sortable keys ``layers.t0000.`` ..., as the JAX package
-    writes them (``"layers_tuple": true``)."""
+    writes them (``"layers_tuple": true``).  A recurrent or hybrid model
+    is saved under its family; a hybrid's layer list per layer."""
     path = pathlib.Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    tree = (model_or_tree.tree() if isinstance(model_or_tree, TransformerLM)
+    tree = (dict(model_or_tree.tree()) if isinstance(model_or_tree, nn.Module)
             else dict(model_or_tree))
     layers = tree.get("layers")
-    per_layer = layers_tuple(cfg)
+    family = family_of(cfg)
+    per_layer = (layers_tuple(cfg) if family == "transformer"
+                 else isinstance(layers, (list, tuple)))
     if isinstance(layers, (list, tuple)):
         tree["layers"] = ({f"t{i:04d}": lp for i, lp in enumerate(layers)}
                           if per_layer else _stack_layers(list(layers)))
@@ -148,7 +158,7 @@ def save_checkpoint(
     write_safetensors(path / "model.safetensors", _flatten(tree))
     meta = {
         "format_version": FORMAT_VERSION,
-        "model_family": "transformer",
+        "model_family": family,
         "model_config": dataclasses.asdict(cfg),
         "layers_tuple": per_layer,
         **(extra_meta or {}),
@@ -182,13 +192,13 @@ def unflatten(flat: dict[str, Any]) -> dict[str, Any]:
     return tree
 
 
-def config_from_meta(meta: dict[str, Any]) -> ModelConfig:
+def config_from_meta(meta: dict[str, Any]):
     mc = dict(meta["model_config"])
     for k, v in mc.items():
         # JSON round-trips tuples as lists
         if isinstance(v, list):
             mc[k] = tuple(tuple(e) if isinstance(e, list) else e for e in v)
-    return ModelConfig(**mc)
+    return _family_config(meta.get("model_family", "transformer"))(**mc)
 
 
 def load_checkpoint(
@@ -202,7 +212,7 @@ def load_checkpoint(
     if meta.get("format_version") != FORMAT_VERSION:
         raise ValueError(f"unsupported checkpoint version: {meta}")
     family = meta.get("model_family", "transformer")
-    if family != "transformer":
+    if family not in FAMILIES:
         raise NotImplementedError(
             f"model family {family!r} is not ported yet (ROADMAP Queue 1 "
             "item 7)")
@@ -210,7 +220,47 @@ def load_checkpoint(
     tree = unflatten(read_safetensors(path / "model.safetensors", dev))
     if meta.get("layers_tuple"):
         tree["layers"] = tuple_layers(tree["layers"])
-    return cfg, TransformerLM(cfg, tree), meta
+    return cfg, model_from_tree(cfg, tree), meta
+
+
+def _family_config(family: str):
+    """The config class of a ``model_family``."""
+    if family == "transformer":
+        return ModelConfig
+    from vlut_tpu_torch.models import hybrid, rwkv, ssm
+
+    return {"mamba": ssm.MambaConfig, "mamba2": ssm.Mamba2Config,
+            "rwkv7": rwkv.Rwkv7Config, "rwkv6": rwkv.Rwkv6Config,
+            "hybrid": hybrid.HybridConfig}[family]
+
+
+def family_of(cfg) -> str:
+    """The ``model_family`` a config is saved under."""
+    for family in FAMILIES:
+        if type(cfg) is _family_config(family):
+            return family
+    raise TypeError(f"no model family for {type(cfg).__name__}")
+
+
+def model_from_tree(cfg, tree: dict[str, Any]):
+    """The port's model of a config over a checkpoint tree: a
+    TransformerLM, a RecurrentLM (Mamba, Mamba2), or a TreeLM (RWKV, the
+    hybrids; float tensors made float32, as the JAX package promotes them
+    in every product)."""
+    if isinstance(cfg, ModelConfig):
+        return TransformerLM(cfg, tree)
+    from vlut_tpu_torch.models import ssm
+
+    if family_of(cfg) in ("mamba", "mamba2"):
+        return ssm.RecurrentLM(cfg, tree)
+
+    def f32(node):
+        if isinstance(node, dict):
+            return {k: f32(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [f32(v) for v in node]
+        return node.to(torch.float32) if node.is_floating_point() else node
+    return ssm.TreeLM(cfg, f32(tree))
 
 
 def tuple_layers(layers: dict[str, Any]) -> list[dict[str, Any]]:

@@ -33,10 +33,12 @@ def _convert(node) -> Any:
     return to_tensor(node)
 
 
-def params_from_numpy(params_np: dict[str, Any], cfg: ModelConfig,
-                      device: str | torch.device = "cpu") -> TransformerLM:
+def params_from_numpy(params_np: dict[str, Any], cfg,
+                      device: str | torch.device = "cpu"):
     """JAX params tree (stacked or unstacked layers, fused or not, bf16 or
-    int8 head) -> TransformerLM on ``device``."""
+    int8 head) -> TransformerLM on ``device``; a Mamba / Mamba2, RWKV or
+    hybrid config's tree -> its family's model
+    (``convert.checkpoint.model_from_tree``)."""
     tree = _convert(params_np)
 
     def move(node):
@@ -46,4 +48,8 @@ def params_from_numpy(params_np: dict[str, Any], cfg: ModelConfig,
             return [move(v) for v in node]
         return node.to(device)
 
-    return TransformerLM(cfg, move(tree))
+    if isinstance(cfg, ModelConfig):
+        return TransformerLM(cfg, move(tree))
+    from vlut_tpu_torch.convert.checkpoint import model_from_tree
+
+    return model_from_tree(cfg, move(tree))

@@ -52,8 +52,22 @@ equal plain greedy decoding.  ``save_slot`` / ``restore_slot`` move a
 slot's rows through the JAX package's npz format (``runtime/state.py``);
 a restore writes the cache in place.
 
-Not ported (each raises ``NotImplementedError``): multi-device meshes and
-recurrent models (ROADMAP Queue 1 items 6 and 7).
+A Mamba model (``MambaConfig``) is served through the same slots, each
+holding its conv and ssm state (``models/ssm.py``) in place of KV rows,
+as the JAX engine serves it: a group's prompts prefill left-padded with a
+``valid`` mask, from a zero state, and their final states are written
+into the slots; the decode step runs the one-token recurrence over every
+slot and writes each active slot's state in place (an idle slot's state
+stays as it is); the step is one CUDA graph as for a transformer.  A
+recurrent slot has no prefix reuse, no context shift and no capacity
+limit but the request's own; a draft model or lookahead (both need to
+rewind the state) and a prompt past the largest prefill bucket (no
+chunked recurrent prefill) are refused with the JAX package's messages.
+``save_slot`` / ``restore_slot`` / ``fork_slot`` move a slot's whole
+state.
+
+Not ported (raises ``NotImplementedError``): multi-device meshes (ROADMAP
+Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -66,6 +80,7 @@ import numpy as np
 import torch
 
 from vlut_tpu_torch.config import ModelConfig
+from vlut_tpu_torch.models import ssm
 from vlut_tpu_torch.models.transformer import (
     DECODE_ATTN,
     StackedLayers,
@@ -204,12 +219,13 @@ class _StepProgram:
 
 
 class Engine:
-    """Single-device slot engine over a :class:`TransformerLM`, on the
-    model's device; the model is served as the fused, unrolled tree (left
-    unfused where a LoRA needs it) with a bf16 or int8 (``kv_quant``)
-    cache, or with ``unroll=False`` as the stacked tree over a stacked
-    cache (one (L, ...) tensor per entry, its layer views updated in place:
-    the JAX engine's ``unroll=False``).  An MLA model's cache holds one
+    """Single-device slot engine over a :class:`TransformerLM` (or a
+    Mamba ``RecurrentLM``, ``models/ssm.py``), on the model's device; the
+    model is served as the fused, unrolled tree (left unfused where a LoRA
+    needs it) with a bf16 or int8 (``kv_quant``) cache, or with
+    ``unroll=False`` as the stacked tree over a stacked cache (one (L, ...)
+    tensor per entry, its layer views updated in place: the JAX engine's
+    ``unroll=False``).  An MLA model's cache holds one
     latent row per position (``init_kv_cache``).  ``draft=(cfg, model[,
     (d2t, t2d)])`` speculates with a draft model (k_draft proposals per
     round), ``lookahead=(W, G)`` with the draft-free lookahead; the two
@@ -239,28 +255,43 @@ class Engine:
         if lookahead is not None and draft is not None:
             raise ValueError("lookahead and draft are mutually exclusive "
                              "decode modes")
-        if type(cfg).__name__ == "MambaConfig":
-            raise _not_ported("recurrent models", "7")
+        # recurrent family (Mamba): per-slot conv/ssm state in place of KV
+        # rows, served through the same slots with left-padded prefill
+        self._recurrent = isinstance(cfg, ssm.MambaConfig)
+        if self._recurrent:
+            if draft is not None:
+                raise ValueError(
+                    "speculative decoding needs state rewind; recurrent "
+                    "models cannot rewind (reference has the same limit)")
+            if lookahead is not None:
+                raise ValueError("lookahead needs KV row rewind; "
+                                 "recurrent models cannot rewind")
+            context_shift = False  # recurrent context never shifts
         if decode_attn not in DECODE_ATTN:
             raise ValueError(f"decode_attn must be one of {DECODE_ATTN}")
         self.cfg = cfg
-        if head_quant:
-            params = quantize_head(params)
-        self.params = fuse_projections(params, cfg)
-        if unroll:
-            self.params = unstack_layers(self.params, cfg)
-        elif not isinstance(self.params.layers, StackedLayers):
-            raise ValueError("unroll=False serves a stacked tree (a "
-                             "uniform stack)")
+        if self._recurrent:
+            self.params = params
+        else:
+            if head_quant:
+                params = quantize_head(params)
+            self.params = fuse_projections(params, cfg)
+            if unroll:
+                self.params = unstack_layers(self.params, cfg)
+            elif not isinstance(self.params.layers, StackedLayers):
+                raise ValueError("unroll=False serves a stacked tree (a "
+                                 "uniform stack)")
         self.device = self.params.device
         self.n_slots = n_slots
         self.max_len = max_len or cfg.max_seq_len
         self.decode_attn = decode_attn
         self.prefill_buckets = tuple(
             b for b in prefill_buckets if b <= self.max_len) or (self.max_len,)
-        self.cache = init_kv_cache(cfg, n_slots, self.max_len,
-                                   device=self.device, quantized=kv_quant,
-                                   layout="layers" if unroll else "stacked")
+        self.cache = (ssm.init_state(cfg, n_slots, self.device)
+                      if self._recurrent else
+                      init_kv_cache(cfg, n_slots, self.max_len,
+                                    device=self.device, quantized=kv_quant,
+                                    layout="layers" if unroll else "stacked"))
         self.slots = [_Slot() for _ in range(n_slots)]
         self.queue: list[Request] = []
         self._next_rid = 0
@@ -326,6 +357,8 @@ class Engine:
     # --- host API ------------------------------------------------------------
 
     def submit(self, req: Request) -> int:
+        if self._recurrent:
+            self._bucket(len(req.prompt))  # refused before it is queued
         req.rid = self._next_rid
         self._next_rid += 1
         self.queue.append(req)
@@ -335,6 +368,12 @@ class Engine:
         for b in self.prefill_buckets:
             if t <= b:
                 return b
+        if self._recurrent:
+            # the left-padded recurrent prefill cannot split
+            raise ValueError(
+                f"prompt length {t} exceeds max bucket "
+                f"{self.prefill_buckets[-1]} (recurrent models cannot "
+                f"chunk prefill)")
         # longer prompts run chunked: full largest-bucket rounds first, the
         # remainder lands here
         return self.prefill_buckets[-1]
@@ -384,9 +423,9 @@ class Engine:
                 self.slots[s].history, prompt))
             reuse = min(self._common_prefix(self.slots[i].history, prompt),
                         len(prompt) - 1)
-            if self._spec is not None:
-                # the draft cache holds no tracked prefix: both models see
-                # the whole prompt
+            if self._spec is not None or self._recurrent:
+                # the draft cache holds no tracked prefix, and a recurrent
+                # state is cumulative: the whole prompt is prefilled
                 reuse = 0
             slot = self.slots[i]
             slot.req = req
@@ -454,6 +493,11 @@ class Engine:
         m = len(rows)
         t0 = time.perf_counter()
         dev = self.device
+        if self._recurrent:
+            logits = self._prefill_recurrent(tb, rows)
+            self.perf.n_prompt_tokens += sum(len(r[2]) for r in rows)
+            self.perf.t_prompt_s += time.perf_counter() - t0
+            return logits
         toks = torch.zeros((m, tb), dtype=torch.long)
         pos = torch.zeros((m, tb), dtype=torch.long)
         slots = torch.zeros((m,), dtype=torch.long)
@@ -483,6 +527,28 @@ class Engine:
         self.perf.n_prompt_tokens += int(nv.sum())
         self.perf.t_prompt_s += time.perf_counter() - t0
         return logits
+
+    def _prefill_recurrent(self, tb: int, rows) -> torch.Tensor:
+        """The group's prompts left-padded to ``tb`` (pads first, so each row
+        ends in its unpadded state), run from a zero state with the
+        ``valid`` mask; the final states are written into the rows' slots.
+        Returns the (m, V) last-token logits."""
+        m, dev = len(rows), self.device
+        toks = torch.zeros((m, tb), dtype=torch.long)
+        valid = torch.zeros((m, tb), dtype=torch.bool)
+        for r, (_, _, new) in enumerate(rows):
+            toks[r, tb - len(new):] = torch.tensor(new, dtype=torch.long)
+            valid[r, tb - len(new):] = True
+        slots = torch.tensor([i for i, _, _ in rows], device=dev)
+        logits, new = ssm.forward(
+            self.params, self.cfg, toks.to(dev),
+            ssm.init_state(self.cfg, m, dev), logits_last_only=True,
+            valid=valid.to(dev))
+        for k, a in self.cache.items():
+            a[:, slots] = new[k]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return logits[:, 0]
 
     @torch.inference_mode()
     def _first_token(self, i: int, req: Request, last_logits: torch.Tensor):
@@ -555,7 +621,9 @@ class Engine:
         slot = self.slots[i]
         req = slot.req
         n_out = len(req.output)
-        at_capacity = slot.length + slot.generated >= self.max_len - 1
+        # a recurrent state has no capacity: the request's own limit ends it
+        at_capacity = (not self._recurrent
+                       and slot.length + slot.generated >= self.max_len - 1)
         stop = tok in req.stop_tokens or n_out >= req.max_new_tokens
         if at_capacity and self.context_shift and not stop:
             self._maybe_context_shift(i)
@@ -637,9 +705,15 @@ class Engine:
         sampler chain, ring update.  Returns the (B,) next tokens and the
         (B, V) float32 logits."""
         tokens, lengths = self._step_in
-        logits, _ = forward(self.params, self.cfg, tokens[:, None],
-                            lengths[:, None], self.cache,
-                            decode_attn=self.decode_attn)
+        if self._recurrent:
+            # the active slots' rows carry their row (>= 0), the idle ones -1
+            logits, _ = ssm.forward(self.params, self.cfg, tokens[:, None],
+                                    self.cache, inplace=True,
+                                    hold=lengths < 0)
+        else:
+            logits, _ = forward(self.params, self.cfg, tokens[:, None],
+                                lengths[:, None], self.cache,
+                                decode_attn=self.decode_attn)
         logits = _mask_pad_vocab(logits[:, 0].to(torch.float32),
                                  self.cfg.vocab_size)
         valid = _window_mask(self.ring_cnt, self._sp["penalty_last_n"])
@@ -831,8 +905,10 @@ class Engine:
         if self._la and self._can_round(active, self._la["t_total"] + 1):
             return self._step_lookahead(active)
         # idle slots still run; their row write lands on row max_len - 1,
-        # which is never part of a reusable prefix
-        fed = self._fill_inputs(active, self.max_len - 1)
+        # which is never part of a reusable prefix (a recurrent idle slot is
+        # marked -1 and keeps its state)
+        fed = self._fill_inputs(active, -1 if self._recurrent
+                                else self.max_len - 1)
         k_probs = max(self.slots[i].req.n_probs for i in active)
         t0 = time.perf_counter()
         grammar = self._grammar_mask(active)
@@ -873,8 +949,11 @@ class Engine:
     # --- sequence/state ops ----------------------------------------------------
 
     def save_slot(self, i: int) -> bytes:
-        """Serialize slot i's cached prefix (the JAX package's npz)."""
+        """Serialize slot i's cached prefix (the JAX package's npz; a
+        recurrent slot's whole state)."""
         hist = self.slots[i].history
+        if self._recurrent:
+            return state_mod.save_recurrent_state(self.cache, i, hist)
         return state_mod.save_slot_state(self.cache, i, len(hist), hist)
 
     def restore_slot(self, i: int, data: bytes) -> None:
@@ -882,14 +961,20 @@ class Engine:
         request admitted there reuses it through the prefix cache."""
         if self.slots[i].req is not None:
             raise RuntimeError(f"slot {i} is busy")
-        self.slots[i].history = state_mod.load_slot_state(self.cache, i, data)
+        load = (state_mod.load_recurrent_state if self._recurrent
+                else state_mod.load_slot_state)
+        self.slots[i].history = load(self.cache, i, data)
         self.slots[i].length = 0
 
     def fork_slot(self, src: int, dst: int) -> None:
         """Copy slot src's cached prefix to idle slot dst (seq_cp)."""
         if self.slots[dst].req is not None:
             raise RuntimeError(f"slot {dst} is busy")
-        kvc.seq_cp(self.cache, src, dst, len(self.slots[src].history))
+        if self._recurrent:
+            for a in self.cache.values():
+                a[:, dst].copy_(a[:, src])
+        else:
+            kvc.seq_cp(self.cache, src, dst, len(self.slots[src].history))
         self.slots[dst].history = list(self.slots[src].history)
         self.slots[dst].length = 0
 

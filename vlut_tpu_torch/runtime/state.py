@@ -13,6 +13,11 @@ restores in the other:
   layer's rows fill its first heads and zeros the rest, as the JAX
   package's cache of the largest count holds them.
 
+A recurrent model's slot (Mamba) holds no rows: its whole state
+serializes (:func:`save_recurrent_state`): ``version``, ``recurrent`` (1),
+``tokens`` and ``rs_<name>`` (L, ...) float32 for each state entry
+(``conv``, ``ssm``).
+
 The port writes the zip entries stored rather than deflated; ``np.load``
 reads either.
 
@@ -73,9 +78,8 @@ def load_slot_state(cache: dict, slot: int, data: bytes) -> list[int]:
         if int(z["version"]) != STATE_VERSION:
             raise ValueError("unsupported state version")
         if "recurrent" in z.files:
-            raise NotImplementedError(
-                "recurrent slot state is not ported to vlut_tpu_torch "
-                "(recurrent models are refused)")
+            raise ValueError("a recurrent slot state does not restore into a "
+                             "KV cache")
         tokens = z["tokens"]
         arrays = {name[3:]: z[name] for name in z.files
                   if name.startswith("kv_")}
@@ -97,6 +101,38 @@ def load_slot_state(cache: dict, slot: int, data: bytes) -> list[int]:
                              f"the cache {tuple(arrs[0].shape)}")
         for i, a in enumerate(arrs):
             a[slot, :length].copy_(torch.from_numpy(rows[i][:, :a.shape[2]]))
+    return [int(t) for t in tokens]
+
+
+def save_recurrent_state(state: dict[str, torch.Tensor], slot: int,
+                         history: list[int]) -> bytes:
+    """Serialize the whole recurrent state of ``slot`` (every entry's
+    (L, ...) slice) and its token history."""
+    buf = io.BytesIO()
+    np.savez(buf, version=STATE_VERSION, recurrent=np.int64(1),
+             tokens=np.asarray(history, np.int64),
+             **{f"rs_{name}": _store(a[:, slot]) for name, a in state.items()})
+    return buf.getvalue()
+
+
+@torch.no_grad()
+def load_recurrent_state(state: dict[str, torch.Tensor], slot: int,
+                         data: bytes) -> list[int]:
+    """Write a serialized recurrent slot into ``slot`` of ``state`` in
+    place; returns its token history."""
+    with np.load(io.BytesIO(data)) as z:
+        if int(z["version"]) != STATE_VERSION or "recurrent" not in z.files:
+            raise ValueError("not a recurrent slot state")
+        tokens = z["tokens"]
+        arrays = {name[3:]: z[name] for name in z.files
+                  if name.startswith("rs_")}
+    if set(arrays) != set(state):
+        raise ValueError("state keys don't match recurrent cache")
+    for name, a in state.items():
+        if arrays[name].shape != tuple(a[:, slot].shape):
+            raise ValueError(f"state entry {name} {arrays[name].shape} does "
+                             f"not fit the state {tuple(a[:, slot].shape)}")
+        a[:, slot].copy_(torch.from_numpy(arrays[name]))
     return [int(t) for t in tokens]
 
 

@@ -32,7 +32,10 @@ completion, chat choice or infill answer, and to the last event of a
 stream.  A slot save keeps the state in the server's memory under
 ``filename`` (default ``slot<id>``).  Several models are served by
 repeating ``--model NAME=DIR``; a request picks one by its ``model`` field
-(an unknown name answers 404 when more than one is loaded).
+(an unknown name answers 404 when more than one is loaded).  A Mamba
+checkpoint is served by the same engine (completion, chat, infill, slot
+actions); embeddings and rerank refuse it, and the other recurrent and
+hybrid families run through ``generate`` only.
 
     python -m vlut_tpu_torch.serving.server --model [NAME=]DIR
         [--model NAME=DIR ...] [--port 8080] [--slots 8] [--ctx 4096]
@@ -193,12 +196,21 @@ class ServerState:
     # long embedding batch thus delays the next decode step of every model
     # on its device by its own time.
 
+    def _transformer_only(self, route: str) -> None:
+        """Embeddings and rerank read a transformer's hidden states; the JAX
+        server fails on a Mamba engine there (its transformer forward gets
+        Mamba weights), the port refuses it."""
+        if self.engine._recurrent:
+            raise ValueError(f"{route} need a transformer checkpoint; this "
+                             "server serves a recurrent (Mamba) model")
+
     def embed(self, ids_list: list[list[int]],
               pooling: str = "mean") -> np.ndarray:
         """L2-normalised pooled final hidden states (B, D) float32 of token
         id lists, in one padded forward (pooling: mean | last | cls)."""
         if pooling not in POOLINGS:
             raise ValueError(f"pooling must be one of {POOLINGS}")
+        self._transformer_only("embeddings")
         eng = self.engine
         toks, pos, lens = _padded(ids_list, eng.device)
         with self.lock, torch.inference_mode():
@@ -215,6 +227,7 @@ class ServerState:
         the mean log-prob of the document tokens given the query, from one
         padded forward and a head applied ``RERANK_CHUNK`` rows of T at a
         time (logits cut to the vocabulary)."""
+        self._transformer_only("rerank")
         eng, cfg = self.engine, self.engine.cfg
         params = eng.params
         seqs = [list(query_ids) + list(d) for d in doc_ids_list]
@@ -401,7 +414,7 @@ def make_handler(router: Router):
                     "model": self.st.model_name,
                     "n_ctx": eng.max_len,
                     "n_slots": eng.n_slots,
-                    "arch": cfg.arch,
+                    "arch": getattr(cfg, "arch", "mamba"),
                     "weight_fmt": cfg.weight_fmt,
                     "vocab_size": cfg.vocab_size,
                     "bos_token_id": self.st.tok.bos_id,
@@ -903,7 +916,9 @@ def add_server_args(ap: argparse.ArgumentParser) -> None:
 
 
 def start_from_args(args) -> tuple[ThreadingHTTPServer, Router]:
+    from vlut_tpu_torch.config import ModelConfig
     from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+    from vlut_tpu_torch.models.ssm import MambaConfig
     from vlut_tpu_torch.convert.quantize import promote
     from vlut_tpu_torch.utils.tokenizer import Tokenizer
 
@@ -921,6 +936,11 @@ def start_from_args(args) -> tuple[ThreadingHTTPServer, Router]:
         name, _, path = spec.rpartition("=")
         name = name or path
         cfg, model, _ = load_checkpoint(path, device=args.device)
+        if not isinstance(cfg, (ModelConfig, MambaConfig)):
+            raise ValueError(
+                f"{path}: a {type(cfg).__name__} checkpoint runs through "
+                "`generate` only; the server serves transformer and Mamba "
+                "checkpoints (the JAX server fails on the others)")
         if args.promote:
             cfg, model = promote(cfg, model, args.promote)
         engine = Engine(
