@@ -137,9 +137,32 @@ Phases (any failure exits non-zero; none is skipped):
      ``bench/recurrent_zoo.py`` (Mamba, Mamba2, RWKV7, arwkv7, RWKV6 and 11
      hybrid cases) on the card against the CPU, layer by layer, and a tiny
      Mamba engine graphed, eager and on the CPU (identical tokens);
- 23. one JSON line of every kernel with its launches on the paths of phases
-     3-22, then the card, then ``{"ok": true, "device": ...}`` last.
+ 23. the encoder half: ``llada_8b`` (LLaDA-8B's published widths: d 4096,
+     32 layers, 32 heads over 32 KV heads, mlp 12288, vocabulary 126464,
+     the mask token 126336, in-place logits) at full width and depth,
+     random packed weights from seed 0, denoised by ``diffusion_generate``
+     over the packed tree (128 prompt tokens of seed 16, 128 new, 128
+     steps, blocks of 32, low_confidence, greedy: each step one
+     bidirectional forward at M 256 through #3) twice, identical tokens
+     and no mask token left, with a profile of one forward; then each
+     family of ``bench/encoder_zoo.py`` on the card against the CPU (bert,
+     modernbert, neobert, nomic-bert, nomic-bert-moe, jina-bert-v2/v3, T5
+     gated and ungated, gemma3n; llada, dream and llada_moe packed and as
+     float twins through the denoise loop, #1 / #4 at T 40); ``cli embed``
+     and an embedding-only server (``/v1/embeddings`` the CPU's, 400 on
+     ``/completion``); ``cli generate`` on a diffusion checkpoint (its
+     float twin) and a T5 checkpoint, the CPU's text; ModernBERT-base's
+     widths timed per ``embed`` batch of 32 x 512;
+ 24. one JSON line of every kernel with its launches on the paths of phases
+     3-23, then the card, then ``{"ok": true, "device": ...}`` last.
 
+Phase 2 draws its inputs from a seed taken from the OS and printed (its
+first JSON line), and runs its untimed checks in an order that seed
+shuffles (printed in the ``kernels_checks`` line): no check may hold only
+for the data an earlier draw left.  #1 and #4's float prologues (norm,
+silu*up, sub-norm) are held bit for bit, codes, scales and output, to
+``ops/ternary_gemm.py:decode_input_kernel_order``, the emulation of the
+kernel's own order of operations.
 Phase 2 times #3 (the tiled GEMM) at the flagship prefill (M 4096) and at
 the microbenchmark's i2 lanes (llama3_8b dxd, dxff, ffxd at M 32 and 256)
 beside two yardsticks on the unpacked trits: ``torch._int_mm`` with the
@@ -175,7 +198,11 @@ through #4 at M 1, 16 and 64 and #3 at their prefills' M (phase 22's
 shapes), deepseek_v2_lite's wo through #1 and its wq_full,
 wkv_a (576 wide, packed to 640), each expert's, the shared experts' and
 the dense lead layer's projections through #4 at M 1, 16, 32 and 64 and
-through #3 at M 512, 1024 and 4096 (phase 21's shapes), #1 and #4 at the
+through #3 at M 512, 1024 and 4096 (phase 21's shapes), llada_8b's fused
+tree (qkv, wo, gate|up, down) through #1 timed at M 32 and checked at M 1,
+32 and 64, and through #3 timed at M 256 (the denoise forward) and checked
+at M 256 and 1024 (phase 23's shapes), its unfused wq, w_gate and w_down
+through #4 timed at M 32 and checked at M 1, 32 and 64, #1 and #4 at the
 flagship's projections at the
 server's small embedding batches (M 16 and 48), #9
 bit-exact at shapes that make its plan take each tile and split count and
@@ -208,7 +235,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import pathlib
+import random
 import subprocess
 import sys
 import time
@@ -333,28 +362,23 @@ def fastest(times: dict, names=None) -> tuple[float | None, str | None]:
     return timed.get(best), best
 
 
-def check_float_prologue(name, got, want, codes_k, codes_p, xs, ws, res):
-    """Float-prologue tolerance: the sums of squares are reduced in another
-    order than in the plain version, so an int8 code may differ by 1 in at
-    most 0.1% of entries; the outputs then agree to within (differing codes
-    in the row + 1) code steps times the scales, plus one bf16 step of the
-    product before and after the residual add."""
+def check_float_prologue(name, got, want, codes_k, codes_r, xs_k, xs_r):
+    """#1/#4's float prologue against its kernel-order emulation
+    (``ops/ternary_gemm.py:decode_input_kernel_order``): codes, scales and
+    the output bit for bit."""
     import torch
 
-    d = (codes_k.int() - codes_p.int()).abs()
-    if int(d.max()) > 1 or float((d > 0).float().mean()) > 1e-3:
-        fail(f"{name}: prologue codes differ (max {int(d.max())}, "
-             f"share {float((d > 0).float().mean()):.2e})")
-    ndiff = (d > 0).sum(dim=1, keepdim=True).float()
-    mag = want.float().abs()
-    if res is not None:
-        mag = mag + torch.nn.functional.pad(
-            res.float().abs(), (0, want.shape[1] - res.shape[1]))
-    tol = (ndiff + 1) * xs.reshape(-1, 1) * ws[None, :] + 2.0 ** -6 * mag
-    err = (got.float() - want.float()).abs()
-    if bool((err > tol).any()):
-        fail(f"{name}: kernel vs plain beyond tolerance (max {float(err.max())})")
-    return float(err.max())
+    if not torch.equal(codes_k, codes_r):
+        d = (codes_k.int() - codes_r.int()).abs()
+        fail(f"{name}: prologue codes differ from the kernel-order "
+             f"reference (max {int(d.max())}, {int((d > 0).sum())} codes)")
+    if not torch.equal(xs_k.reshape(-1), xs_r.reshape(-1)):
+        fail(f"{name}: prologue scales differ from the kernel-order "
+             "reference")
+    err = float((got.float() - want.float()).abs().max())
+    if err != 0.0:
+        fail(f"{name}: kernel vs the kernel-order reference ({err})")
+    return err
 
 
 def decode_parts_ms(x1, rot, ws, kw) -> dict:
@@ -466,7 +490,9 @@ def check_two_kernels(name, launched) -> None:
         fail(f"{name}: one call ran {launched}, not {list(want)}")
 
 
-def phase_kernels(dev) -> dict:
+def phase_kernels(dev, seed: int | None = None) -> dict:
+    """Phase 2; ``seed`` (drawn from the OS when None, and printed) seeds
+    the inputs and the order of the untimed checks."""
     import torch
 
     from vlut_tpu_torch.ops import kv_update, ternary_gemm as tg
@@ -475,8 +501,11 @@ def phase_kernels(dev) -> dict:
         TRITS_PER_BYTE, DEFAULT_BLOCK, padded_k, random_packed_bytes,
         unpack_fields)
 
+    if seed is None:
+        seed = int.from_bytes(os.urandom(4), "little")
+    print(json.dumps({"phase": "kernels", "seed": seed}), flush=True)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(1234)
+    gen.manual_seed(seed)
     results = {}
     sms = tg.sm_count(dev.index or 0)
 
@@ -533,7 +562,9 @@ def phase_kernels(dev) -> dict:
             got = tg._decode_cuda(x1, packed, ws, x2, g, res, fmt,
                                   DEFAULT_BLOCK[fmt], mode, sub, k, 1e-5,
                                   torch.bfloat16, plan=plan)
-        xq_p, xs_p = tg.decode_prologue(x1, x2, g, mode, sub, k, 1e-5)
+        kp = packed.shape[0] * TRITS_PER_BYTE[fmt]
+        xq_p, xs_p = tg.kernel_quantize(tg.decode_input_kernel_order(
+            x1, x2, g, mode, sub, k, 1e-5, kp))
         want = tg._gemm_plain(xq_p, xs_p, packed, ws, fmt, DEFAULT_BLOCK[fmt],
                               k, res, torch.bfloat16)
         torch.cuda.synchronize()
@@ -542,10 +573,10 @@ def phase_kernels(dev) -> dict:
             if err != 0.0:
                 fail(f"decode {label}: integer path differs ({err})")
         else:
-            kp = packed.shape[0] * TRITS_PER_BYTE[fmt]
-            codes_k = tg.prologue_codes(x1, x2, g, mode, sub, k, 1e-5, kp)[0]
+            codes_k, xs_k = tg.prologue_codes(x1, x2, g, mode, sub, k, 1e-5,
+                                              kp)
             err = check_float_prologue(f"decode {label}", got, want, codes_k,
-                                       xq_p, xs_p, ws, res)
+                                       xq_p, xs_k, xs_p)
         return x1, packed, ws, kw, xq_p, err
 
     def tiled_case(label, m, k, n, fmt):
@@ -764,7 +795,36 @@ def phase_kernels(dev) -> dict:
         ("hetero_hkv1", 4, 2048, 1, 2, 128, 0, "spread"),))
     tq_kernels(dev, gen, record)
 
-    # --- the other paths' shapes, checked and not timed ---------------------
+    # --- deepseek_v2_lite (phase 21), mamba_2_8b / codestral_mamba_7b
+    # (phase 22) and llada_8b (phase 23), timed: the engines' decode M 16
+    # (#1 / #4; llada's projections at M 32 through #1, the diffusion
+    # families' short forwards) and their prefills' M (#3: 512, 1024, and
+    # llada's denoise forward, M 256); #5 at V2-Lite's latent rows (one
+    # head of 640; V a strided slice here, where the layer's own rows are
+    # contiguous)
+    for proj in v2_lite_projections():
+        zoo_timed(*proj, 16)
+    for label, k, n, *_ in v2_lite_projections():
+        tiled_timed("ternary_gemm_tiled_zoo", label, 512, k, n, "i2",
+                    iters=5, rotate=False)
+    kv_kernels(dev, gen, record, (("mla_v2_lite", 16, 2048, 1, False, 640),
+                                  ("mla_v2_lite_q8", 16, 2048, 1, True,
+                                   640)))
+    for proj in recurrent_projections():
+        zoo_timed(*proj, 16)
+    for label, k, n, *_ in recurrent_projections():
+        tiled_timed("ternary_gemm_tiled_zoo", label, 1024, k, n, "i2",
+                    iters=5, rotate=False)
+    for proj in llada_projections():
+        zoo_timed(*proj, 32)
+    for label, k, n, *_, fused in llada_projections():
+        if fused:
+            tiled_timed("ternary_gemm_tiled_zoo", label, 256, k, n, "i2",
+                        iters=5, rotate=False)
+
+    # --- the other paths' shapes, checked and not timed, in an order
+    # shuffled by the phase's seed: no check may depend on the data an
+    # earlier draw left the generator at --------------------------------
     def checked(name, shape, err):
         agg = results[name]
         agg["max_abs_err"] = max(agg["max_abs_err"], err)
@@ -772,46 +832,66 @@ def phase_kernels(dev) -> dict:
         print(json.dumps({"phase": "kernels_check", "kernel": name,
                           "shape": shape, "max_abs_err": err}), flush=True)
 
+    def exact(name, shape, err):
+        checked(name, shape, err)
+        if err != 0.0:
+            fail(f"{name} {shape}: differs from its reference ({err})")
+
+    jobs = []
+
+    def job(fn, *args):
+        jobs.append(lambda: fn(*args))
+
     # #1 in the e2e benches' decode (batch 1 and 32) and at M 17, 33 and
     # 64: every flagship projection, i2 and i1
+    def decode_check(label, m, k, n, mode, sub, has_res, fmt, tag=""):
+        err = decode_case(label, m, k, n, mode, sub, has_res, fmt)[-1]
+        exact("ternary_gemm_decode", f"{tag}{label} M={m} {k}->{n} {fmt} "
+              f"{mode}", err)
+
     for fmt in ("i2", "i1"):
         for m in (1, 17, 32, 33, 64):
             for label, k, n, mode, sub, has_res, _, _ in shapes[:4]:
-                err = decode_case(label, m, k, n, mode, sub, has_res, fmt)[-1]
-                checked("ternary_gemm_decode",
-                        f"{label} M={m} {k}->{n} {fmt} {mode}", err)
+                job(decode_check, label, m, k, n, mode, sub, has_res, fmt)
+
     # #1 bit-exact (plain mode, with a residual) at shapes that make
     # decode_plan take every kernel instantiation and split count, and with
     # every (BN, splits) forced at two of them
     forced = {(17, 3840, 512), (64, 3840, 384)}
+
+    def plan_check(m, k, n, fmt):
+        np_, kp = -(-n // 128) * 128, padded_k(k, fmt)
+        plans = [None]
+        if (m, k, n) in forced:
+            plans += [(bn, sp) for bn in (128, 256) if np_ % bn == 0
+                      for sp in range(1, min(kp // DEFAULT_BLOCK[fmt],
+                                             tg.MAX_SPLITS) + 1)]
+        for plan in plans:
+            err = decode_case("plan", m, k, n, "plain", False, True, fmt,
+                              plan)[-1]
+            shown = plan or tg.decode_plan(m, np_, kp, fmt, sms)
+            exact("ternary_gemm_decode", f"plan M={m} {k}->{n} {fmt} "
+                  f"{'forced' if plan else 'plan'}={shown}", err)
+        torch.cuda.empty_cache()
+
     for fmt in ("i2", "i1"):
         for m, k, n in tg.DECODE_PLAN_SHAPES:
-            np_, kp = -(-n // 128) * 128, padded_k(k, fmt)
-            plans = [None]
-            if (m, k, n) in forced:
-                plans += [(bn, sp) for bn in (128, 256) if np_ % bn == 0
-                          for sp in range(1, min(kp // DEFAULT_BLOCK[fmt],
-                                                 tg.MAX_SPLITS) + 1)]
-            for plan in plans:
-                err = decode_case("plan", m, k, n, "plain", False, True, fmt,
-                                  plan)[-1]
-                shown = plan or tg.decode_plan(m, np_, kp, fmt, sms)
-                checked("ternary_gemm_decode", f"plan M={m} {k}->{n} {fmt} "
-                        f"{'forced' if plan else 'plan'}={shown}", err)
-            torch.cuda.empty_cache()
+            job(plan_check, m, k, n, fmt)
+
+    def fused_quant_check(label, m, k, n, tag=""):
+        err = fused_quant_case(label, m, k, n)[-1]
+        exact("ternary_gemm_fused_quant", f"{tag}{label} M={m} {k}->{n} i2",
+              err)
+
     # the server's embeddings of one and of three inputs (bucket 16: M 16
     # and 48) at the flagship's widths: #1 at each projection of the fused
     # tree, #4 at each of the unfused tree, i2
     for m in (16, 48):
         for label, k, n, mode, sub, has_res, _, _ in shapes[:4]:
-            err = decode_case(label, m, k, n, mode, sub, has_res, "i2")[-1]
-            checked("ternary_gemm_decode",
-                    f"embed_{label} M={m} {k}->{n} i2 {mode}", err)
+            job(decode_check, label, m, k, n, mode, sub, has_res, "i2",
+                "embed_")
         for label, k, n in unfused:
-            err = fused_quant_case(label, m, k, n)[-1]
-            checked("ternary_gemm_fused_quant", f"embed_{label} M={m} "
-                    f"{k}->{n} i2", err)
-        torch.cuda.empty_cache()
+            job(fused_quant_check, label, m, k, n, "embed_")
     # #1 at the draft model's widths (bitnet_2b_4t: d 2560, 20/5 heads,
     # d_ff 6912, sub-norms) at M 32, each projection of its layer
     from vlut_tpu_torch.config import PRESETS
@@ -825,26 +905,16 @@ def phase_kernels(dev) -> dict:
             ("draft_wo", dp.wo_in_p, dc.d_model, "norm", False, True),
             ("draft_gateup", dc.d_model, 2 * dp.ff_p, "norm", False, False),
             ("draft_down", dp.ff_p, dc.d_model, "silu_mul", True, True)):
-        err = decode_case(label, 32, k, n, mode, sub, has_res, "i2")[-1]
-        checked("ternary_gemm_decode", f"{label} M=32 {k}->{n} i2 {mode}",
-                err)
+        job(decode_check, label, 32, k, n, mode, sub, has_res, "i2")
     # the zoo presets' projections (phase 19) at decode M 1, 32 and 64: #1
     # where the JAX gates fuse them (qwen3_4b all four, gemma2_2b qkv with
     # its (1 + w) gain), #4 where they do not (gemma2_2b wo, gate|up and
     # down, unfused by its post-norms and gelu)
-    # (the float prologue's codes could differ within check_float_prologue;
-    # at these shapes they must not: max |err| 0)
     for label, k, n, mode, sub, has_res, m in zoo_decode_shapes():
-        err = decode_case(label, m, k, n, mode, sub, has_res, "i2")[-1]
-        if err != 0.0:
-            fail(f"decode {label} M={m}: differs from the plain version "
-                 f"({err})")
-        checked("ternary_gemm_decode", f"{label} M={m} {k}->{n} i2 {mode}",
-                err)
+        job(decode_check, label, m, k, n, mode, sub, has_res, "i2")
     for label, k, n, m in zoo_fused_quant_shapes():
-        err = fused_quant_case(label, m, k, n)[-1]
-        checked("ternary_gemm_fused_quant", f"{label} M={m} {k}->{n} i2", err)
-    torch.cuda.empty_cache()
+        job(fused_quant_check, label, m, k, n)
+
     # #3 in the microbenchmark's i2/i1 lanes (llama3_8b dxd, dxff, ffxd at
     # M 32 and 256) and in the e2e benches' prefills (pp 512 at batch 1 and
     # 32: M 512 and 16384)
@@ -867,97 +937,90 @@ def phase_kernels(dev) -> dict:
         (1, 1280, 384), (20, 4096, 28672), (65, 1280, 384),
         (200, 4096, 28672), (513, 1280, 384), (300, 4096, 28672),
         (65, 1283, 384), (256, 3000, 640))]
+
+    def tiled_check(label, m, k, n, fmt):
+        err = tiled_case(label, m, k, n, fmt)[-1]
+        plan = tg.tiled_plan(m, -(-n // 128) * 128, padded_k(k, fmt), fmt,
+                             sms)
+        exact("ternary_gemm_tiled", f"{label} M={m} {k}->{n} {fmt} "
+              f"plan={plan}", err)
+        torch.cuda.empty_cache()
+
     # the zoo presets' prefills (phase 19: chunks of 1024 rows and a group
     # of 4096; the 512 bucket is timed above) at each projection, in their
     # format (i2)
-    zoo_lanes = zoo_prefill_lanes()
     for fmt in ("i2", "i1"):
-        for label, m, k, n in lanes + (zoo_lanes if fmt == "i2" else []):
-            err = tiled_case(label, m, k, n, fmt)[-1]
-            plan = tg.tiled_plan(m, -(-n // 128) * 128, padded_k(k, fmt), fmt,
-                                 sms)
-            checked("ternary_gemm_tiled", f"{label} M={m} {k}->{n} {fmt} "
-                    f"plan={plan}", err)
-            torch.cuda.empty_cache()
+        for label, m, k, n in lanes + (zoo_prefill_lanes() if fmt == "i2"
+                                       else []):
+            job(tiled_check, label, m, k, n, fmt)
     # #9 bit-exact at shapes that make tq_plan take each of its tiles and
     # split counts (ragged M and N, bk 256 to 2048), and with every tile and
     # split forced at two shapes
-    tq_checks(dev, gen, checked)
+    job(tq_checks, dev, gen, checked)
+
     # #7 in the e2e benches' decode: bench_sweep's tg from an empty cache
     # (S 552) at batch 1 and 32, batched_bench's after a 128-token prefill
-    for b, s, first in ((1, 552, 0), (1, 552, 31), (32, 552, 0),
-                        (32, 168, 128)):
+    def attention_check(b, s, first):
         err = attention_case(dev, gen, b, s, first)
         checked("decode_attention", f"B={b} S={s} start={first}+", err)
+
+    for b, s, first in ((1, 552, 0), (1, 552, 31), (32, 552, 0),
+                        (32, 168, 128)):
+        job(attention_check, b, s, first)
+
     # #7 and #8 at shapes that make attn_plan take each rows-per-block choice
     # (every choice forced at two), at the edge starts (0, S - 1, out of
     # range) with large finite values in the rows a slot does not see, at
     # B 1, and replayed from a CUDA graph: cache bit-exact, output within
     # 2e-5, two calls bit-identical
-    from vlut_tpu_torch.bench import attention_study
+    def attention_study_checks():
+        from vlut_tpu_torch.bench import attention_study
 
-    for r in attention_study.check(gen):
-        name = ("decode_attention_int8" if "q8=True" in r["label"]
-                else "decode_attention")
-        if r["why"]:
-            fail(f"{name} {r['label']} rows={r['rows']}: {r['why']}")
-        checked(name, f"{r['label']} rows={r['rows']}", r["max_abs_err"])
+        for r in attention_study.check(gen):
+            name = ("decode_attention_int8" if "q8=True" in r["label"]
+                    else "decode_attention")
+            if r["why"]:
+                fail(f"{name} {r['label']} rows={r['rows']}: {r['why']}")
+            checked(name, f"{r['label']} rows={r['rows']}", r["max_abs_err"])
 
-    # deepseek_v2_lite (phase 21), drawn after every other shape: wo
-    # through #1 and the rest through #4 at the engine's decode M 16, #3 at
-    # the prefill bucket (M 512), timed; #1 / #4 at M 1, 32 and 64 and #3
-    # at M 1024 and 4096, checked; #5 at its latent rows (one head of 640;
-    # V a strided slice here, where the layer's own rows are contiguous)
-    for proj in v2_lite_projections():
-        zoo_timed(*proj, 16)
-    for label, k, n, *_ in v2_lite_projections():
-        tiled_timed("ternary_gemm_tiled_zoo", label, 512, k, n, "i2",
-                    iters=5, rotate=False)
-    kv_kernels(dev, gen, record, (("mla_v2_lite", 16, 2048, 1, False, 640),
-                                  ("mla_v2_lite_q8", 16, 2048, 1, True,
-                                   640)))
+    job(attention_study_checks)
+
+    # deepseek_v2_lite (phase 21): #1 / #4 at M 1, 32 and 64, #3 at M 1024
+    # and 4096; mamba_2_8b's and codestral_mamba_7b's in_proj / out_proj
+    # (phase 22): #4 at M 1, 16 and 64, #3 at the prefills' M (Mamba-2.8B's
+    # groups of 1024 and 4096 rows, Codestral's 128-token generate prompt
+    # and 1024); llada_8b (phase 23): #1 at M 1, 32 and 64 (the fused
+    # tree's four, float prologues against the kernel-order reference), #3
+    # at M 256 and 1024
     for label, k, n, mode, sub, has_res, fused in v2_lite_projections():
         for m in (1, 32, 64):
             if fused:
-                err = decode_case(label, m, k, n, mode, sub, has_res,
-                                  "i2")[-1]
-                checked("ternary_gemm_decode",
-                        f"{label} M={m} {k}->{n} i2 {mode}", err)
+                job(decode_check, label, m, k, n, mode, sub, has_res, "i2")
             else:
-                err = fused_quant_case(label, m, k, n)[-1]
-                checked("ternary_gemm_fused_quant",
-                        f"{label} M={m} {k}->{n} i2", err)
-            if err != 0.0:
-                fail(f"{label} M={m}: differs from the plain version ({err})")
+                job(fused_quant_check, label, m, k, n)
         for m in (1024, 4096):
-            err = tiled_case(label, m, k, n, "i2")[-1]
-            checked("ternary_gemm_tiled", f"{label} M={m} {k}->{n} i2", err)
-        torch.cuda.empty_cache()
-
-    # mamba_2_8b's and codestral_mamba_7b's in_proj / out_proj (phase 22):
-    # #4 at the engine's decode M 16 and #3 at a 1024-token prefill, timed;
-    # bit-exact at M 1, 16 and 64 (#4) and at the prefills' M (#3:
-    # Mamba-2.8B's groups of 1024 and 4096 rows, Codestral's 128-token
-    # generate prompt and 1024)
-    for proj in recurrent_projections():
-        zoo_timed(*proj, 16)
-    for label, k, n, *_ in recurrent_projections():
-        tiled_timed("ternary_gemm_tiled_zoo", label, 1024, k, n, "i2",
-                    iters=5, rotate=False)
+            job(tiled_check, label, m, k, n, "i2")
     for label, k, n, *_ in recurrent_projections():
         for m in (1, 16, 64):
-            err = fused_quant_case(label, m, k, n)[-1]
-            checked("ternary_gemm_fused_quant", f"{label} M={m} {k}->{n} i2",
-                    err)
-            if err != 0.0:
-                fail(f"{label} M={m}: #4 differs from its plain version "
-                     f"({err})")
+            job(fused_quant_check, label, m, k, n)
         for m in ((1024, 4096) if label.startswith("mamba") else (128, 1024)):
-            err = tiled_case(label, m, k, n, "i2")[-1]
-            checked("ternary_gemm_tiled", f"{label} M={m} {k}->{n} i2", err)
-            if err != 0.0:
-                fail(f"{label} M={m}: #3 differs from its plain version "
-                     f"({err})")
+            job(tiled_check, label, m, k, n, "i2")
+    for label, k, n, mode, sub, has_res, fused in llada_projections():
+        for m in (1, 32, 64):
+            if fused:
+                job(decode_check, label, m, k, n, mode, sub, has_res, "i2")
+            else:
+                job(fused_quant_check, label, m, k, n)
+        if fused:
+            for m in (256, 1024):
+                job(tiled_check, label, m, k, n, "i2")
+
+    order = list(range(len(jobs)))
+    random.Random(seed).shuffle(order)
+    print(json.dumps({"phase": "kernels_checks", "seed": seed,
+                      "jobs": len(jobs), "order": order}), flush=True)
+    for i in order:
+        jobs[i]()
         torch.cuda.empty_cache()
     return results
 
@@ -998,6 +1061,34 @@ def zoo_projections() -> list:
              fused),
         ]
     return out
+
+
+def llada_projections() -> list:
+    """As :func:`zoo_projections`, llada_8b's (phase 23) fused tree: qkv
+    (4096 -> 12288, norm), wo (plain, residual), gate|up (4096 -> 24576,
+    norm) and down (12288 -> 4096, silu_mul, residual) through #1 at M <=
+    64, #3 above; and the unfused tree a checkpoint loads as (the JAX
+    package's denoise loop takes it as it is): wq, w_gate and w_down
+    through #4 at M <= 64."""
+    from vlut_tpu_torch.config import PRESETS
+    from vlut_tpu_torch.models.dims import make_plan
+
+    c = PRESETS["llada_8b"]
+    p = make_plan(c)
+    return [
+        ("llada_8b_qkv", c.d_model, p.q_dim_p + 2 * p.kv_dim_p, "norm",
+         False, False, True),
+        ("llada_8b_wo", p.wo_in_p, c.d_model, "plain", False, True, True),
+        ("llada_8b_gateup", c.d_model, 2 * p.ff_p, "norm", False, False,
+         True),
+        ("llada_8b_down", p.ff_p, c.d_model, "silu_mul", False, True, True),
+        ("llada_8b_unfused_wq", c.d_model, p.q_dim_p, "plain", False, False,
+         False),
+        ("llada_8b_unfused_w_gate", c.d_model, p.ff_p, "plain", False,
+         False, False),
+        ("llada_8b_unfused_w_down", p.ff_p, c.d_model, "plain", False,
+         False, False),
+    ]
 
 
 def v2_lite_projections() -> list:
@@ -1613,7 +1704,13 @@ def main() -> None:
     mark("recurrent")
     recurrent_phase(dev, fixture, card, reset, read)
 
-    # 23. summary
+    # 23. the encoder half: LLaDA-8B's widths denoised at full width and
+    # depth, the encoder / T5 / gemma3n / diffusion families card against
+    # CPU, cli embed and the embedding-only server, ModernBERT-base timed
+    mark("encoder")
+    encoder_phase(dev, fixture, card, reset, read)
+
+    # 24. summary
     mark("summary")
     replaces = {
         "ternary_gemm_decode": ("vlut_tpu_torch/csrc/decode_gemm.cu",
@@ -2889,6 +2986,276 @@ def recurrent_phase(dev, fixture, card, reset, read) -> None:
                                     "eager"] == engines["cpu"]}
     if not out["tiny_mamba_engine"]["identical"]:
         fail("tiny Mamba engine: graphed, eager and CPU tokens differ")
+    out["seconds"] = time.time() - t_phase
+    print(json.dumps(out), flush=True)
+
+
+def generate_entry_points(dev, fixture) -> dict:
+    """``cli generate``'s diffusion and T5 branches through ``cli.main`` on
+    the card and on the CPU: tiny_real made a diffusion checkpoint (the
+    float twin denoised, each card layer from the CPU's input), and
+    ``bench/encoder_zoo.py``'s gated T5 at tiny_real's vocabulary and
+    tokenizer (a free run).  The printed text must be the CPU's."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+
+    from vlut_tpu_torch import cli
+    from vlut_tpu_torch.bench import encoder_zoo as ez
+    from vlut_tpu_torch.bench.zoo import layers_replaced
+    from vlut_tpu_torch.convert.checkpoint import save_checkpoint
+
+    def text_of(argv, device, seen=None, by=None):
+        buf = io.StringIO()
+        ctx = (layers_replaced(seen, by=by) if seen is not None
+               else contextlib.nullcontext())
+        with ctx, contextlib.redirect_stdout(buf):
+            cli.main(argv + ["--device", str(device)])
+        # the text before the summary line
+        return buf.getvalue().rsplit("\n[", 1)[0]
+
+    prompt = ["-p", "The little model", "--temp", "0"]
+    entry = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        diff = pathlib.Path(d) / "diffusion"
+        shutil.copytree(fixture, diff)
+        meta = json.loads((diff / "vlut_config.json").read_text())
+        meta["model_config"].update(causal_attn=False, mask_token_id=255,
+                                    diffusion_shift_logits=False)
+        (diff / "vlut_config.json").write_text(json.dumps(meta))
+        argv = ["generate", "--model", str(diff), "-n", "16",
+                "--diffusion-steps", "8", *prompt]
+        want_l, got_l = [], []
+        want = text_of(argv, "cpu", want_l)
+        got = text_of(argv, dev, got_l, by=want_l)
+        entry["diffusion"] = {"text": want, "equal": got == want,
+                              "layers_compared": len(got_l)}
+        t5_dir = pathlib.Path(d) / "t5"
+        vocab = 256  # tiny_real's tokenizer
+        cfg = dataclasses.replace(ez.config_of("t5_gated"), vocab_size=vocab)
+        tensors = dict(ez.STRUCTURES["t5_gated"]["tensors"],
+                       embed=[vocab, cfg.d_model])
+        save_checkpoint(t5_dir, cfg, ez.random_tree(tensors, 5),
+                        tokenizer_src=fixture)
+        argv = ["generate", "--model", str(t5_dir), "-n", "8", *prompt]
+        want = text_of(argv, "cpu")
+        got = text_of(argv, dev)
+        entry["t5"] = {"text": want, "equal": got == want}
+    return entry
+
+
+def encoder_phase(dev, fixture, card, reset, read) -> None:
+    """Phase 23: the encoder half of the non-transformer families.  (a)
+    LLaDA-8B's published widths (``llada_8b``) at full width and depth,
+    random packed weights from seed 0 (the fused tree, int8 head), denoised
+    by ``diffusion_generate`` over the packed tree: 128 prompt tokens (seed
+    16), 128 new, 128 steps, blocks of 32, low_confidence, greedy, twice
+    (identical tokens, no mask token left); each step one bidirectional
+    forward at M 256 through #3; the launches and a profile of one forward;
+    (b) each family of ``bench/encoder_zoo.py`` on the card against the CPU
+    (the encoders, T5 gated and ungated, gemma3n; llada, dream and
+    llada_moe packed and as float twins through the denoise loop, each
+    layer from the CPU's input); (c) ``cli embed`` through ``cli.main`` and
+    an embedding-only server on a small ModernBERT checkpoint (tiny_real's
+    tokenizer): the CPU's embeddings, 400 "embedding-only" on
+    /completion; ``cli generate`` on a diffusion and a T5 checkpoint
+    (:func:`generate_entry_points`; the diffusion branch denoises the
+    float twin, where (a) times the packed tree); (d) ModernBERT-base's widths (random float32 weights):
+    ms per ``embed`` batch of 32 x 512, the median of 3.  ``read`` fails
+    on a gated kernel launched no time."""
+    import contextlib
+    import http.client
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vlut_tpu_torch import cli
+    from vlut_tpu_torch.bench import encoder_zoo as ez
+    from vlut_tpu_torch.bench import flagship
+    from vlut_tpu_torch.convert.checkpoint import (load_checkpoint,
+                                                   save_checkpoint)
+    from vlut_tpu_torch.models import encoder
+    from vlut_tpu_torch.models import transformer as tt
+    from vlut_tpu_torch.runtime.diffusion import (DiffusionParams,
+                                                  diffusion_generate)
+    from vlut_tpu_torch.serving.server import serve_multi
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    t_phase = time.time()
+    out: dict = {"phase": "encoder", "card": card}
+
+    # (a) llada_8b, denoised at full width and depth
+    name = "llada_8b"
+    t0 = time.time()
+    cfg, model = flagship.build_model(name, dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.time() - t0
+    out["weight_bytes"] = {
+        "packed": sum(t.numel() for n_, t in model.named_buffers()
+                      if n_.endswith("packed")),
+        "all": sum(t.numel() * t.element_size() for t in model.buffers())}
+    rng = np.random.default_rng(16)
+    ids = [int(t) for t in rng.integers(3, cfg.mask_token_id, 128)]
+    n_new = 128
+    dp = DiffusionParams(steps=128, block_len=32, alg="low_confidence")
+    total = len(ids) + n_new
+    toks = torch.tensor([ids + [cfg.mask_token_id] * n_new], device=dev)
+    pos = torch.arange(total, device=dev)[None]
+    full = torch.ones((1, total, total), dtype=torch.bool, device=dev)
+
+    def one_forward():
+        with torch.inference_mode():
+            return tt.forward(model, cfg, toks, pos, None, attn_mask=full)[0]
+
+    one_forward()
+    reset()
+    one_forward()
+    torch.cuda.synchronize()
+    per_fwd = read(f"{name}_one_forward", ("ternary_gemm_tiled",))
+    out["launches_per_forward"] = {k: v for k, v in per_fwd.items() if v}
+    out["profile_one_forward"] = flagship.profile_decode(one_forward, 1)
+    gens = []
+    n_fwd = [0]
+
+    def counted_forward(*a, **kw):
+        n_fwd[0] += 1
+        return tt.forward(*a, **kw)
+
+    for run in range(2):
+        reset()
+        n_fwd[0] = 0
+        t0 = time.time()
+        got_toks = diffusion_generate(model, cfg, ids, n_new, dp,
+                                      forward_fn=counted_forward)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        got = read(f"{name}_generate_{run}", ("ternary_gemm_tiled",))
+        forwards = n_fwd[0]
+        gens.append({"run": run, "seconds": secs, "forwards": forwards,
+                     "ms_per_step": secs * 1e3 / forwards,
+                     "new_tok_per_s": n_new / secs, "tokens": got_toks,
+                     "launches": {k: v for k, v in got.items() if v}})
+        print(json.dumps({"phase": "encoder_llada", "model": name,
+                          **gens[-1], "card": card}), flush=True)
+    if gens[0]["tokens"] != gens[1]["tokens"]:
+        fail(f"{name}: two greedy denoise runs gave different tokens")
+    if (cfg.mask_token_id in gens[0]["tokens"]
+            or len(gens[0]["tokens"]) != n_new):
+        fail(f"{name}: the denoised response kept a mask token")
+    out[name] = {k: v for k, v in gens[0].items() if k != "tokens"}
+    out[name]["second_run_s"] = gens[1]["seconds"]
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) each family card against CPU
+    fams = {}
+    for fam in ez.FAMILIES:
+        r = ez.card_vs_cpu(fam, dev, counters=(reset, read))
+        fams[fam] = r
+        print(json.dumps({"phase": "encoder_family", **r, "card": card}),
+              flush=True)
+        if not (r["within_tol"] and r["equal"]):
+            fail(f"encoder family {fam}: off the CPU's outputs or tokens "
+                 f"({ {k: v for k, v in r.items() if k != 'tokens'} })")
+    out["families"] = {n_: {k: v for k, v in r.items()
+                            if k not in ("family", "tokens")}
+                       for n_, r in fams.items()}
+
+    # (c) cli embed and the embedding-only server on a small ModernBERT
+    small = encoder.EncoderConfig(
+        arch="modernbert", vocab_size=256, d_model=64, n_layers=3,
+        n_heads=4, d_ff=96, local_window=8, ln_eps=1e-5, pooling="mean")
+    texts = ["The little model", "reads the lines of its own repo."]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        save_checkpoint(d, small,
+                        ez.random_tree(ez.modernbert_layout(small), 3),
+                        tokenizer_src=fixture)
+        cfg_c, cpu_model, _ = load_checkpoint(d, device="cpu")
+        tok = Tokenizer(d)
+        want = []
+        for text in texts:
+            t = torch.tensor([tok.encode(text)[:cfg_c.max_seq_len]])
+            want.append(encoder.embed(cpu_model, cfg_c, t,
+                                      torch.ones_like(t))[0])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["embed", "--model", d, "--json", "-p", texts[0], "-p",
+                      texts[1], "--device", str(dev)])
+        got = json.loads(buf.getvalue())["embeddings"]
+        cli_err = max(float((torch.tensor(g) - w).abs().max())
+                      for g, w in zip(got, want))
+        _, card_model, _ = load_checkpoint(d, device=dev)
+        httpd, router = serve_multi(
+            {"emb": ((cfg_c, card_model), tok)}, port=0)
+        try:
+            port = httpd.server_address[1]
+
+            def post(path, body):
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=300)
+                conn.request("POST", path, body=json.dumps(body),
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                data = resp.read().decode()
+                conn.close()
+                return resp.status, data
+
+            st_e, data = post("/v1/embeddings", {"input": texts})
+            vecs = [d_["embedding"] for d_ in json.loads(data)["data"]]
+            want_s = [w / w.norm().clamp(min=1e-12) for w in want]
+            srv_err = max(float((torch.tensor(v) - w).abs().max())
+                          for v, w in zip(vecs, want_s))
+            st_c, data_c = post("/completion", {"prompt": "x"})
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    entry = {"cli_embed_abs_err": cli_err, "server_status": st_e,
+             "server_abs_err": srv_err, "completion_status": st_c,
+             "completion_answer": data_c[:80],
+             "generate": generate_entry_points(dev, fixture)}
+    print(json.dumps({"phase": "encoder_entry_points", **entry}),
+          flush=True)
+    if cli_err > ez.EMBED_TOL or srv_err > ez.EMBED_TOL or st_e != 200:
+        fail(f"encoder entry points off the CPU's embeddings: {entry}")
+    if st_c != 400 or "embedding-only" not in data_c:
+        fail(f"the embedding-only server answered /completion: {entry}")
+    if not all(g["equal"] for g in entry["generate"].values()):
+        fail(f"cli generate's diffusion or T5 branch off the CPU's text: "
+             f"{entry['generate']}")
+    out["entry_points"] = entry
+
+    # (d) ModernBERT-base's widths: ms per embed batch of 32 x 512
+    mb = ez.MODERNBERT_BASE
+    t0 = time.time()
+    mbm = ez.model_on(mb, ez.random_tree(ez.modernbert_layout(mb), 0), dev)
+    torch.cuda.synchronize()
+    build_mb = time.time() - t0
+    gen = torch.Generator(device=dev).manual_seed(23)
+    toks_mb = torch.randint(1, mb.vocab_size, (32, 512), generator=gen,
+                            device=dev)
+    mask_mb = torch.ones_like(toks_mb)
+    e = encoder.embed(mbm, mb, toks_mb, mask_mb)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(e).all()) or e.shape != (32, mb.d_model):
+        fail("ModernBERT-base: embeddings not finite or not (32, 768)")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        encoder.embed(mbm, mb, toks_mb, mask_mb)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["modernbert_base"] = {
+        "batch": [32, 512], "build_s": build_mb,
+        "ms_per_batch": sorted(times)[1], "ms_runs": times,
+        "tok_per_s": 32 * 512 / (sorted(times)[1] / 1e3),
+        "weight_bytes": sum(t.numel() * t.element_size()
+                            for t in mbm.buffers())}
+    del mbm
+    torch.cuda.empty_cache()
     out["seconds"] = time.time() - t_phase
     print(json.dumps(out), flush=True)
 

@@ -154,25 +154,25 @@ def test_presets_run_from_fast_random_weights(name):
 
 
 def test_unported_configs_raise():
-    """What still refuses (non-causal attention, the diffusion fields,
-    cogvlm's visual experts) raises, naming its ROADMAP item; MoE,
-    per-layer heads and FFN widths, MLA and M-RoPE, ported since, do
+    """What still refuses (cogvlm's visual experts) raises, naming its
+    ROADMAP item; MoE, per-layer heads and FFN widths, MLA, M-RoPE,
+    non-causal attention and the diffusion fields, ported since, do
     not."""
     base = PRESETS["tiny"]
-    for change, item in ((dict(causal_attn=False), "7"),
-                         (dict(mask_token_id=5), "7"),
-                         (dict(diffusion_shift_logits=False), "7"),
-                         (dict(dual_expert=True), "8")):
+    for change, item in ((dict(dual_expert=True), "8"),):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tt.check_supported(dataclasses.replace(base, **change))
-    for change in (dict(n_experts=4, n_experts_used=2),
+    for change in (dict(causal_attn=False), dict(mask_token_id=5),
+                   dict(diffusion_shift_logits=False),
+                   dict(n_experts=4, n_experts_used=2),
                    dict(heads_per_layer=((4, 2), (4, 2))),
                    dict(d_ff_per_layer=(256, 128)), dict(q_lora_rank=64),
                    dict(rope_scaling={"rope_type": "mrope",
                                       "mrope_section": [4, 6, 6]})):
         tt.check_supported(dataclasses.replace(base, **change))
     for name in ("qwen3_4b", "gemma2_2b", "tiny_moe", "mixtral_8x7b",
-                 "tiny_mla", "deepseek_v2_lite") + tuple(TINY_PRESETS):
+                 "tiny_mla", "deepseek_v2_lite",
+                 "llada_8b") + tuple(TINY_PRESETS):
         tt.check_supported(PRESETS[name])
 
 

@@ -256,8 +256,8 @@ def test_temperature_sampling_distribution():
 def test_unported_sampler_transforms_raise():
     """The sampler chain is ported (a top-k feature set builds), grammar
     constraints are too (a grammar request is served under its mask), and
-    a config outside the ported subset, a non-causal one, still raises (a
-    MoE and an MLA one, ported since, do not)."""
+    a config outside the ported subset, cogvlm's visual experts, still
+    raises (a MoE, an MLA and a non-causal one, ported since, do not)."""
     import dataclasses
 
     from vlut_tpu_torch.runtime.engine import Engine, Request
@@ -272,9 +272,12 @@ def test_unported_sampler_transforms_raise():
     eng.run([req])
     assert "".join(pieces[t] for t in req.output) == "ab" + pieces[
         req.output[-1]] and pieces[req.output[-1]].isdigit()
+    tt.check_supported(dataclasses.replace(
+        PRESETS["tiny"], causal_attn=False, mask_token_id=7,
+        diffusion_shift_logits=False))
     with pytest.raises(NotImplementedError):
         tt.check_supported(dataclasses.replace(PRESETS["tiny"],
-                                               causal_attn=False))
+                                               dual_expert=True))
     tt.check_supported(dataclasses.replace(PRESETS["tiny"], n_experts=4,
                                            n_experts_used=2))
     tt.check_supported(dataclasses.replace(PRESETS["tiny"],
@@ -284,9 +287,11 @@ def test_unported_sampler_transforms_raise():
 def test_unported_config_raises():
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tt.check_supported(dataclasses.replace(PRESETS["tiny"],
-                                               causal_attn=False))
+    # the diffusion fields are ported (item 7); cogvlm's visual experts
+    # are still refused, naming their item
+    tt.check_supported(dataclasses.replace(
+        PRESETS["tiny"], causal_attn=False, mask_token_id=7,
+        diffusion_shift_logits=False))
     with pytest.raises(NotImplementedError, match="item 8"):
         tt.check_supported(dataclasses.replace(PRESETS["tiny"],
                                                dual_expert=True))

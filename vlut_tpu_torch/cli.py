@@ -26,6 +26,8 @@
       [--device cpu]
   python -m vlut_tpu_torch.cli eval --model DIR --task hellaswag|winogrande|mc
       -f FILE [--limit N] [--device cpu]
+  python -m vlut_tpu_torch.cli embed --model DIR [-p TEXT ...] [--task T]
+      [--json] [--device cpu]
   python -m vlut_tpu_torch.cli quantize SRC DST --fmt i2|i1
   python -m vlut_tpu_torch.cli inspect DIR [--hash]
 
@@ -36,7 +38,11 @@ speculative loops of ``runtime/speculative.py``; a Mamba checkpoint goes
 through the engine too, a Mamba2 or RWKV checkpoint through its own
 state-carrying loop and a hybrid one through a loop that recomputes the
 whole sequence for each token (:func:`family_generate`, greedy or
-``--temp`` sampling from a generator seeded by ``--seed``);
+``--temp`` sampling from a generator seeded by ``--seed``), a T5 one
+through its encoder and a decoder loop, and a ``causal_attn=False`` one
+(llada, dream, llada_moe) through the denoise loop on its float twin
+(``--diffusion-steps``, ``--diffusion-alg``); ``embed`` pools an encoder
+checkpoint's embeddings;
 ``--override`` sets a model config field (retyped from the field; a field
 the port does not implement raises) and ``--promote`` repacks the weights
 at load (i2 <-> i1, exact).  ``serve`` starts the OpenAI-compatible server
@@ -266,6 +272,88 @@ def override_config(cfg, overrides: list[str]):
     return cfg
 
 
+def t5_generate_cli(args, cfg, model) -> None:
+    """``generate`` on a T5 checkpoint (the JAX CLI's encoder-decoder
+    branch): the prompt's ids without BOS, then eos, through the encoder;
+    the decoder recomputed each step (``models/t5.py:generate``)."""
+    from vlut_tpu_torch.models import t5
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    tok = Tokenizer(args.model)
+    ids = tok.encode(args.prompt, add_bos=False)
+    if cfg.eos_id is not None:
+        ids = ids + [cfg.eos_id]
+    t0 = time.time()
+    out = t5.generate(model, cfg, ids, n_new=args.n_predict, temp=args.temp,
+                      seed=args.seed)
+    dt = time.time() - t0
+    print(tok.decode(out))
+    print(f"\n[{len(out)} tokens, {len(out) / max(dt, 1e-9):.1f} tok/s]")
+
+
+def diffusion_generate_cli(args, cfg, model) -> None:
+    """``generate`` on a ``causal_attn=False`` checkpoint (the JAX CLI's
+    diffusion branch): the float twin of the packed tree, denoised by
+    ``runtime/diffusion.py`` in ``--diffusion-steps`` steps (0: one per new
+    token) ranked by ``--diffusion-alg``."""
+    from vlut_tpu_torch.runtime.diffusion import (DiffusionParams,
+                                                  diffusion_generate)
+    from vlut_tpu_torch.train.finetune import float_twin_params
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    tok = Tokenizer(args.model)
+    ids = tok.encode(args.prompt)
+    twin = float_twin_params(model, cfg)
+    dp = DiffusionParams(steps=args.diffusion_steps or args.n_predict,
+                         alg=args.diffusion_alg, temp=args.temp,
+                         seed=args.seed)
+    t0 = time.time()
+    out = diffusion_generate(twin, cfg, ids, args.n_predict, dp)
+    dt = time.time() - t0
+    print(tok.decode(out))
+    print(f"\n[{len(out)} tokens (diffusion, {dp.steps} steps), "
+          f"{len(out) / max(dt, 1e-9):.1f} tok/s]")
+
+
+def cmd_embed(args) -> None:
+    """Pooled embeddings of an encoder checkpoint (the JAX CLI's
+    ``embed``): each prompt (cut to ``max_seq_len``) through the
+    bidirectional forward and the checkpoint's pooling, ``--task`` a
+    jina-v3 adapter; with ``--json`` one JSON object, else the first eight
+    values of each and, for several, their cosine matrix.  Decoder
+    embeddings are the server's ``/embedding``."""
+    from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+    from vlut_tpu_torch.models.encoder import embed
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    cfg, model, meta = load_checkpoint(args.model, device=args.device)
+    if meta.get("model_family") != "encoder":
+        raise SystemExit(
+            "embed: not an encoder-family checkpoint (decoder embeddings "
+            "are served by `vlut-tpu serve` /embedding)")
+    tok = Tokenizer(args.model)
+    texts = args.prompt or ["Hello world"]
+    outs = []
+    for text in texts:
+        ids = tok.encode(text)[:cfg.max_seq_len]
+        toks = torch.tensor([ids], device=model.device)
+        e = embed(model, cfg, toks, torch.ones_like(toks), task=args.task)
+        outs.append(e[0].to(torch.float32).cpu().numpy())
+    if args.json:
+        print(json.dumps({"model": str(args.model),
+                          "embeddings": [e.tolist() for e in outs]}))
+        return
+    for text, e in zip(texts, outs):
+        head = " ".join(f"{v:+.4f}" for v in e[:8])
+        print(f"{head} ...  dim={len(e)}  |  {text[:60]}")
+    if len(outs) > 1:
+        norms = [max(float(np.linalg.norm(e)), 1e-12) for e in outs]
+        print("cosine matrix:")
+        for a, na in zip(outs, norms):
+            print("  " + " ".join(f"{float(a @ b) / (na * nb):.3f}"
+                                  for b, nb in zip(outs, norms)))
+
+
 def cmd_generate(args) -> None:
     """One request through the slot engine (the JAX package's engine branch
     of ``vlut-tpu generate``), or through a standalone prompt-lookup or
@@ -274,12 +362,20 @@ def cmd_generate(args) -> None:
     from vlut_tpu_torch.convert.checkpoint import load_checkpoint
     from vlut_tpu_torch.convert.quantize import promote
     from vlut_tpu_torch.models.ssm import MambaConfig
+    from vlut_tpu_torch.models.t5 import T5Config
     from vlut_tpu_torch.models.transformer import TransformerLM
     from vlut_tpu_torch.runtime.engine import Engine, Request
     from vlut_tpu_torch.runtime import lora
     from vlut_tpu_torch.utils.tokenizer import Tokenizer
 
     cfg, model, _ = load_checkpoint(args.model, device=args.device)
+    if isinstance(cfg, T5Config):
+        return t5_generate_cli(args, cfg, model)
+    if isinstance(cfg, ModelConfig) and args.override:
+        cfg = override_config(cfg, args.override)
+        model = TransformerLM(cfg, model.tree())
+    if isinstance(cfg, ModelConfig) and not cfg.causal_attn:
+        return diffusion_generate_cli(args, cfg, model)
     if not isinstance(cfg, ModelConfig):
         if args.lora or args.control_vector or args.promote or args.override:
             raise SystemExit("--lora, --control-vector, --promote and "
@@ -296,9 +392,6 @@ def cmd_generate(args) -> None:
                   f"tok/s | {type(cfg).__name__} | {model.device}]",
                   file=sys.stderr)
             return
-    if args.override:
-        cfg = override_config(cfg, args.override)
-        model = TransformerLM(cfg, model.tree())
     if args.promote:
         cfg, model = promote(cfg, model, args.promote)
     if args.lora:
@@ -516,6 +609,12 @@ def _generate_parser(p: argparse.ArgumentParser) -> None:
     p.add_argument("--override", action="append", default=[],
                    metavar="KEY=VALUE",
                    help="override a model config field (repeatable)")
+    p.add_argument("--diffusion-steps", type=int, default=0,
+                   help="denoise iterations for diffusion checkpoints "
+                   "(0 = n_predict)")
+    p.add_argument("--diffusion-alg", default="low_confidence",
+                   choices=("low_confidence", "entropy", "margin", "random"),
+                   help="unmask-ranking rule of a diffusion checkpoint")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
 
 
@@ -584,6 +683,15 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("dst")
     p.add_argument("--fmt", choices=("i2", "i1"), required=True)
     p.set_defaults(fn=cmd_quantize)
+    p = sub.add_parser("embed", help="pooled embeddings of an encoder "
+                       "checkpoint")
+    p.add_argument("--model", required=True)
+    p.add_argument("-p", "--prompt", action="append")
+    p.add_argument("--task", default=None,
+                   help="jina-v3 task adapter (retrieval/classification/...)")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_embed)
     p = sub.add_parser("inspect", help="checkpoint tensor directory + hash")
     p.add_argument("ckpt")
     p.add_argument("--hash", action="store_true")

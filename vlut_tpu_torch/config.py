@@ -295,6 +295,19 @@ PRESETS: dict[str, ModelConfig] = {
         n_expert_groups=1, topk_groups=1, n_shared_experts=2,
         first_k_dense=1, d_ff_dense=10944,
     ),
+    # GSAI-ML/LLaDA-8B-Instruct widths (its config.json): a masked-diffusion
+    # LM, bidirectional attention, 32 heads over 32 KV heads of 128,
+    # mlp_hidden_size 12288, vocabulary 126464, [MASK] 126336, in-place
+    # logits (no shift), untied head; what the JAX converter's
+    # config_from_hf makes of it (tests/test_torch_diffusion.py holds the
+    # two equal).  Port-only: the full-width diffusion model of the port's
+    # card runs (chip_smoke.py phase 23)
+    "llada_8b": ModelConfig(
+        arch="llama", vocab_size=126464, d_model=4096, n_layers=32,
+        n_heads=32, n_kv_heads=32, d_ff=12288, rms_eps=1e-5,
+        rope_theta=500000.0, max_seq_len=4096, causal_attn=False,
+        mask_token_id=126336, diffusion_shift_logits=False,
+    ),
     # tiny configs for tests
     "tiny": ModelConfig(
         arch="llama", vocab_size=256, d_model=128, n_layers=2,

@@ -3,8 +3,9 @@
 Families (``model_family`` in the meta): ``transformer`` (packed ternary),
 ``mamba`` and ``mamba2`` (packed ternary projections, float SSM tensors;
 ``models/ssm.py``), ``rwkv7``, ``rwkv6`` and ``hybrid`` (float weights;
-``models/rwkv.py``, ``models/hybrid.py``).  ``encoder``, ``t5`` and
-``gemma3n`` are refused (ROADMAP Queue 1 item 7).
+``models/rwkv.py``, ``models/hybrid.py``), ``encoder`` (float weights in
+their stored dtypes; ``models/encoder.py``), ``t5`` and ``gemma3n`` (float
+weights; ``models/t5.py``, ``models/gemma3n.py``).
 
 A checkpoint directory holds ``vlut_config.json`` (ModelConfig + format
 metadata), ``model.safetensors`` (packed uint8 trits, float32 scales and
@@ -34,7 +35,8 @@ from vlut_tpu_torch.device import resolve_device
 from vlut_tpu_torch.models.transformer import TransformerLM, layers_tuple
 
 FORMAT_VERSION = 1
-FAMILIES = ("transformer", "mamba", "mamba2", "rwkv7", "rwkv6", "hybrid")
+FAMILIES = ("transformer", "mamba", "mamba2", "rwkv7", "rwkv6", "hybrid",
+            "encoder", "t5", "gemma3n")
 
 _DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16,
@@ -213,9 +215,7 @@ def load_checkpoint(
         raise ValueError(f"unsupported checkpoint version: {meta}")
     family = meta.get("model_family", "transformer")
     if family not in FAMILIES:
-        raise NotImplementedError(
-            f"model family {family!r} is not ported yet (ROADMAP Queue 1 "
-            "item 7)")
+        raise NotImplementedError(f"unknown model family {family!r}")
     cfg = config_from_meta(meta)
     tree = unflatten(read_safetensors(path / "model.safetensors", dev))
     if meta.get("layers_tuple"):
@@ -227,11 +227,13 @@ def _family_config(family: str):
     """The config class of a ``model_family``."""
     if family == "transformer":
         return ModelConfig
-    from vlut_tpu_torch.models import hybrid, rwkv, ssm
+    from vlut_tpu_torch.models import encoder, gemma3n, hybrid, rwkv, ssm, t5
 
     return {"mamba": ssm.MambaConfig, "mamba2": ssm.Mamba2Config,
             "rwkv7": rwkv.Rwkv7Config, "rwkv6": rwkv.Rwkv6Config,
-            "hybrid": hybrid.HybridConfig}[family]
+            "hybrid": hybrid.HybridConfig,
+            "encoder": encoder.EncoderConfig, "t5": t5.T5Config,
+            "gemma3n": gemma3n.Gemma3nConfig}[family]
 
 
 def family_of(cfg) -> str:
@@ -244,15 +246,19 @@ def family_of(cfg) -> str:
 
 def model_from_tree(cfg, tree: dict[str, Any]):
     """The port's model of a config over a checkpoint tree: a
-    TransformerLM, a RecurrentLM (Mamba, Mamba2), or a TreeLM (RWKV, the
-    hybrids; float tensors made float32, as the JAX package promotes them
-    in every product)."""
+    TransformerLM, a RecurrentLM (Mamba, Mamba2), an EncoderLM (its floats
+    in their stored dtypes, whose roundings its forward keeps), or a TreeLM
+    (RWKV, the hybrids, T5, gemma3n; float tensors made float32, as the JAX
+    package promotes them in every product)."""
     if isinstance(cfg, ModelConfig):
         return TransformerLM(cfg, tree)
-    from vlut_tpu_torch.models import ssm
+    from vlut_tpu_torch.models import encoder, ssm
 
-    if family_of(cfg) in ("mamba", "mamba2"):
+    family = family_of(cfg)
+    if family in ("mamba", "mamba2"):
         return ssm.RecurrentLM(cfg, tree)
+    if family == "encoder":
+        return encoder.EncoderLM(cfg, tree)
 
     def f32(node):
         if isinstance(node, dict):

@@ -36,8 +36,8 @@ def _convert(node) -> Any:
 def params_from_numpy(params_np: dict[str, Any], cfg,
                       device: str | torch.device = "cpu"):
     """JAX params tree (stacked or unstacked layers, fused or not, bf16 or
-    int8 head) -> TransformerLM on ``device``; a Mamba / Mamba2, RWKV or
-    hybrid config's tree -> its family's model
+    int8 head) -> TransformerLM on ``device``; a Mamba / Mamba2, RWKV,
+    hybrid, encoder, T5 or gemma3n config's tree -> its family's model
     (``convert.checkpoint.model_from_tree``)."""
     tree = _convert(params_np)
 

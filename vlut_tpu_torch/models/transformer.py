@@ -57,9 +57,12 @@ where ``forward`` is given ``mrope_pos``, and is plain rope without.
 
 PyTorch runs eagerly, so there is no scan-versus-unroll trade-off in the
 computation: the serving engine keeps the unrolled tree, or the stacked one
-over a stacked cache (``Engine(unroll=False)``).  Non-causal attention, the
-diffusion fields, cogvlm's visual experts and tensor/sequence parallelism
-raise ``NotImplementedError`` (:func:`check_supported`).
+over a stacked cache (``Engine(unroll=False)``).  ``causal_attn=False``
+(the diffusion LMs and the decoder embedders) attends both ways in the
+composed attention; a float twin's ``{"dense": (K, N)}`` leaves
+(``train/finetune.py``) multiply as plain float products.  cogvlm's visual
+experts and tensor/sequence parallelism raise ``NotImplementedError``
+(:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -143,12 +146,11 @@ _SUPPORTED_FIELDS = {
     "moe_parallel", "moe_chunk_experts", "moe_chunk_scale", "d_ff_chunk",
     # MLA
     "q_lora_rank", "kv_lora_rank", "qk_nope_dim", "qk_rope_dim",
+    # bidirectional attention and the diffusion LMs
+    "causal_attn", "mask_token_id", "diffusion_shift_logits",
 }
 # the fields still refused, by the ROADMAP Queue 1 item that ports them
 _REFUSED = {
-    "causal_attn": "7 (non-causal attention)",
-    "mask_token_id": "7 (diffusion LMs)",
-    "diffusion_shift_logits": "7 (diffusion LMs)",
     "dual_expert": "8 (cogvlm's visual experts)",
 }
 # the values of the string knobs this port computes
@@ -558,6 +560,11 @@ class TernaryLinear(nn.Module):
         return TernaryTensor(self.packed, self.w_scale, self.k, self.n,
                              self.fmt, self.kb)
 
+    @property
+    def fusable(self) -> bool:
+        """The JAX gates' ``can_fuse``: packed, no LoRA delta."""
+        return not self.has_lora
+
     def forward(self, x: torch.Tensor, impl: str = "auto",
                 **fused) -> torch.Tensor:
         """ternary_matmul, or ternary_matmul_fused when keywords are given."""
@@ -611,6 +618,60 @@ class ExpertStack(nn.Module):
                              self.fmt, self.kb)
 
 
+class DenseLinear(nn.Module):
+    """A float-twin projection: a dense (K, N) weight (``{"dense": ...}``
+    leaves, ``train/finetune.py:float_twin_params``), multiplied as the
+    JAX package's ``mm`` multiplies it: x cast to the weight's dtype, the
+    product accumulated in float32, the result in x's dtype.  It never
+    fuses (the JAX gates' ``can_fuse`` refuses a dense leaf)."""
+
+    fusable = False
+
+    def __init__(self, dense: torch.Tensor):
+        super().__init__()
+        self.register_buffer("dense", dense)
+
+    def tensor(self) -> torch.Tensor:
+        return self.dense
+
+    def forward(self, x: torch.Tensor, impl: str = "auto",
+                **fused) -> torch.Tensor:
+        if fused:
+            raise ValueError("a float-twin projection runs unfused")
+        return dense_matmul(x, self.dense)
+
+
+def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``jnp.dot(x.astype(w.dtype), w, preferred_element_type=float32)
+    .astype(x.dtype)``: products of the cast operands in float32."""
+    out = torch.matmul(x.to(w.dtype).to(torch.float32), w.to(torch.float32))
+    return out.to(x.dtype)
+
+
+def matmul_any(x: torch.Tensor, w, impl: str = "auto") -> torch.Tensor:
+    """x @ a projection's weight: a :class:`TernaryTensor` through
+    ``ternary_matmul`` (#4 / #3), a float twin's dense tensor as a plain
+    float product."""
+    if isinstance(w, torch.Tensor):
+        return dense_matmul(x, w)
+    return ternary_matmul(x, w, impl=impl)
+
+
+class DenseExpertStack(nn.Module):
+    """A float twin's bank of E experts for one projection: ``dense`` (E,
+    K, N); :meth:`tensor` gives expert e's (K, N) weight (a view)."""
+
+    def __init__(self, dense: torch.Tensor):
+        super().__init__()
+        self.register_buffer("dense", dense)
+
+    def __len__(self) -> int:
+        return self.dense.shape[0]
+
+    def tensor(self, e: int) -> torch.Tensor:
+        return self.dense[e]
+
+
 class DecoderLayer(nn.Module):
     """One layer's projections (``proj``), its expert stacks (``experts``,
     in a MoE layer) and vectors (buffers: the norm gains in float32, the
@@ -625,26 +686,41 @@ class DecoderLayer(nn.Module):
             raise NotImplementedError(f"layer tensors not ported: {unknown}")
         for name in PROJECTIONS + EXPERT_PROJECTIONS:
             leaves = tree.get(name, {})
-            if "dense" in leaves:
+            if "dense" in leaves and "lora_a" in leaves:
                 raise NotImplementedError(
-                    f"{name}: float-twin ('dense') weights are not ported")
+                    f"{name}: a LoRA on a float-twin weight is not ported")
             if name in MLA_PROJECTIONS and "lora_a" in leaves:
                 # the JAX package runs them through mm, which adds no delta
                 raise ValueError(
                     f"a LoRA on MLA's {name} is not applied (the reference "
                     "adds none to the MLA projections)")
+        def dims(name):
+            leaves = tree[name]
+            return leaves["dense" if "dense" in leaves else "packed"].dim()
+
         stacks = {name for name in EXPERT_PROJECTIONS if name in tree
-                  and tree[name]["packed"].dim() == 3}
+                  and dims(name) == 3}
+
+        def linear(name):
+            leaves = tree[name]
+            if "dense" in leaves:
+                return DenseLinear(leaves["dense"])
+            return TernaryLinear(
+                leaves["packed"], leaves["scale"], specs[name],
+                {k: leaves[k] for k in LORA_LEAVES if k in leaves})
+
+        def stack(name):
+            leaves = tree[name]
+            if "dense" in leaves:
+                return DenseExpertStack(leaves["dense"])
+            return ExpertStack(leaves["packed"], leaves["scale"], specs[name])
+
         self.proj = nn.ModuleDict({
-            name: TernaryLinear(
-                tree[name]["packed"], tree[name]["scale"], specs[name],
-                {k: tree[name][k] for k in LORA_LEAVES if k in tree[name]})
+            name: linear(name)
             for name in PROJECTIONS if name in tree and name not in stacks
         })
         self.experts = nn.ModuleDict({
-            name: ExpertStack(tree[name]["packed"], tree[name]["scale"],
-                              specs[name])
-            for name in EXPERT_PROJECTIONS if name in stacks
+            name: stack(name) for name in EXPERT_PROJECTIONS if name in stacks
         })
         for name in LAYER_VECTORS:
             if name in tree:
@@ -847,10 +923,13 @@ class TransformerLM(nn.Module):
 
 def _layer_tree(lp: DecoderLayer) -> dict[str, Any]:
     out: dict[str, Any] = {
-        name: {"packed": m.packed, "scale": m.scale, **m.lora_tree()}
+        name: ({"dense": m.dense} if isinstance(m, DenseLinear) else
+               {"packed": m.packed, "scale": m.scale, **m.lora_tree()})
         for name, m in lp.proj.items()
     }
-    out.update({name: {"packed": m.packed, "scale": m.scale}
+    out.update({name: ({"dense": m.dense}
+                       if isinstance(m, DenseExpertStack) else
+                       {"packed": m.packed, "scale": m.scale})
                 for name, m in lp.experts.items()})
     for name in LAYER_VECTORS:
         if hasattr(lp, name):
@@ -1200,7 +1279,8 @@ def fuse_projections(model: TransformerLM, cfg: ModelConfig) -> TransformerLM:
     trees only.  As in the JAX package: a no-op when already fused or
     unrolled (the tuple-layers trees of heterogeneous stacks stay apart),
     for a model with q/k/v biases, or when a LoRA sits on
-    wq/wk/wv/w_gate/w_up; gate|up fuse only for a gated FFN without
+    wq/wk/wv/w_gate/w_up or they are a float twin's dense weights;
+    gate|up fuse only for a gated FFN without
     projection biases, and never in a MoE model (its experts keep their
     stacks)."""
     if not isinstance(model.layers, StackedLayers):
@@ -1208,7 +1288,8 @@ def fuse_projections(model: TransformerLM, cfg: ModelConfig) -> TransformerLM:
     tree = model.tree()
     layers = dict(tree["layers"])
     if "wqkv" in layers or cfg.qkv_bias or any(
-            "lora_a" in layers.get(n, {}) for n in _UNFUSED_BY_LORA):
+            leaf in layers.get(n, {}) for leaf in ("lora_a", "dense")
+            for n in _UNFUSED_BY_LORA):
         return model
     plan = make_plan(cfg)
 
@@ -1279,30 +1360,38 @@ def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(true_div(x, cap))
 
 
-def _mask(kp, qp, window: int, chunked: bool, override=None):
-    """The mask of key positions kp against query positions qp: causal, or
-    ``override`` (B, T, S) where given (the caller owns causality), and the
-    sliding window when window > 0: rolling (kp > qp - window) or chunked
-    (kp and qp in the same window-wide chunk).  (The JAX package drops the
-    window under an override, so its lookahead rounds on a sliding-window
-    model attend past the window.)"""
+def _mask(kp, qp, window: int, chunked: bool, override=None,
+          causal: bool = True):
+    """The mask of key positions kp against query positions qp: causal (or
+    every key at a position >= 0 when not ``causal``), or ``override`` (B,
+    T, S) where given (the caller owns causality), and the sliding window
+    when window > 0: chunked (kp and qp in the same window-wide chunk),
+    rolling (kp > qp - window) or, bidirectional, symmetric (|kp - qp| <
+    window).  (The JAX package drops the window under an override, so its
+    lookahead rounds on a sliding-window model attend past the window.)"""
     if override is not None:
         mask = override[:, None, None, :, :]
-    else:
+    elif causal:
         mask = (kp <= qp) & (kp >= 0)
+    else:
+        mask = kp >= 0
     if window > 0:
         if chunked:
             mask = mask & (torch.div(kp, window, rounding_mode="floor")
                            == torch.div(qp, window, rounding_mode="floor"))
-        else:
+        elif causal:
             mask = mask & (kp > qp - window)
+        else:
+            mask = mask & ((kp - qp).abs() < window)
     return mask
 
 
 def _attention(q, k, v, q_pos, k_pos, hd_logical, scale=0.0, k_scale=None,
                v_scale=None, mask_override=None, softcap=0.0, window=0,
-               alibi=None, sinks=None, chunked_window=False):
-    """Causal GQA attention.  q (B, T, H, hd), k/v (B, S, Hkv, hd); returns
+               alibi=None, sinks=None, chunked_window=False, causal=True):
+    """Causal GQA attention, or bidirectional with ``causal=False`` (the
+    diffusion LMs and the decoder embedders; a window then masks both
+    ways).  q (B, T, H, hd), k/v (B, S, Hkv, hd); returns
     float32 (B, T, H, hd).  ``mask_override`` (B, T, S) bool replaces the
     causal mask (the caller owns causality); the window still applies.
 
@@ -1318,7 +1407,7 @@ def _attention(q, k, v, q_pos, k_pos, hd_logical, scale=0.0, k_scale=None,
     ``ATTN_CHUNK`` keys it streams chunks through an online softmax
     (:func:`_attention_chunked`, which takes dequantized values)."""
     kw = dict(softcap=softcap, window=window, alibi=alibi, sinks=sinks,
-              chunked_window=chunked_window)
+              chunked_window=chunked_window, causal=causal)
     if k.shape[1] > ATTN_CHUNK:
         if k_scale is not None:
             k = dequantize_kv(k, k_scale)
@@ -1342,7 +1431,7 @@ def _attention(q, k, v, q_pos, k_pos, hd_logical, scale=0.0, k_scale=None,
     if alibi is not None:
         scores = scores + (alibi.to(torch.float32).reshape(1, hkv, g, 1, 1)
                            * (kp - qp).to(torch.float32))
-    mask = _mask(kp, qp, window, chunked_window, mask_override)
+    mask = _mask(kp, qp, window, chunked_window, mask_override, causal)
     scores = scores.masked_fill(~mask, -1e30)
     if sinks is not None:
         sk = sinks.to(torch.float32).reshape(1, hkv, g, 1)
@@ -1360,7 +1449,8 @@ def _attention(q, k, v, q_pos, k_pos, hd_logical, scale=0.0, k_scale=None,
 
 def _attention_chunked(q, k, v, q_pos, k_pos, hd_logical, scale=0.0,
                        chunk=ATTN_CHUNK, mask_override=None, softcap=0.0,
-                       window=0, alibi=None, sinks=None, chunked_window=False):
+                       window=0, alibi=None, sinks=None, chunked_window=False,
+                       causal=True):
     """Online-softmax attention over KV chunks (same semantics as the dense
     path; O(T * chunk) live scores instead of O(T * S)).  Sinks enter as the
     recurrence's initial state (m0 = sink logit, l0 = 1, acc = 0)."""
@@ -1391,7 +1481,7 @@ def _attention_chunked(q, k, v, q_pos, k_pos, hd_logical, scale=0.0,
             sc = sc + slopes * (kp - qp).to(torch.float32)
         masked = ~_mask(kp, qp, window, chunked_window,
                         None if mask_override is None
-                        else mask_override[:, :, off:off + chunk])
+                        else mask_override[:, :, off:off + chunk], causal)
         sc.masked_fill_(masked, -1e30)
         m_new = torch.maximum(m, sc.amax(dim=-1))
         corr = torch.exp(m - m_new)
@@ -1703,7 +1793,7 @@ def _softmax_attention(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
     std_norm = cfg.norm_type == "rms"
     window, r_on = params.windows[li], params.rope_on[li]
     h_attn = None
-    if lp.fused and std_norm and cfg.pre_norms:
+    if lp.fused and proj["wqkv"].fusable and std_norm and cfg.pre_norms:
         # attn_norm + activation quant + qkv GEMM in one projection
         qkv = proj["wqkv"](x, impl, mode="norm",
                            norm_g=nrm.gain(lp.attn_norm, cfg.norm_plus_one),
@@ -1757,7 +1847,8 @@ def _softmax_attention(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
                          softcap=cfg.attn_logit_softcap, window=window,
                          alibi=getattr(params, "alibi", None),
                          sinks=lp.sinks if cfg.attn_sinks else None,
-                         chunked_window=cfg.swa_type == "chunked")
+                         chunked_window=cfg.swa_type == "chunked",
+                         causal=cfg.causal_attn)
     return h_attn, att
 
 
@@ -1781,7 +1872,7 @@ def _attn_out(x, att, h_attn, lp: DecoderLayer, *, cfg, plan, impl):
     att = att.reshape(b, t, plan.wo_in_p)
     par = cfg.parallel_residual
     attn_out = None
-    if (not proj["wo"].has_lora and not cfg.post_norms and not par
+    if (proj["wo"].fusable and not cfg.post_norms and not par
             and not cfg.proj_bias):
         # [attn_sub_norm] + quant + wo GEMM + residual (both trees)
         x = proj["wo"](
@@ -1818,7 +1909,7 @@ def _ffn_block(x, x_in, h_attn, attn_out, lp: DecoderLayer, *, cfg, plan,
     par = cfg.parallel_residual
     ffl = plan.ff_p
     if (not cfg.n_experts and "w_gateup" in proj
-            and not proj["w_down"].has_lora
+            and proj["w_gateup"].fusable and proj["w_down"].fusable
             and cfg.act_fn == "silu" and not cfg.post_norms and std_norm
             and cfg.pre_norms and not cfg.swiglu_limit and not par
             and not cfg.proj_bias):
@@ -1904,16 +1995,17 @@ def _dense_ffn(hh, gate_t: TernaryTensor, up_t: TernaryTensor,
     """The JAX package's ``dense_ffn`` of an expert: the gate and up
     products [+ the expert's biases], act(gate) * up in float32 rounded to
     the layer's ``dtype`` [+ the sub-norm], the down product [+ its bias];
-    each product #4 at M <= 64, #3 past it (``ternary_matmul``)."""
-    gate = ternary_matmul(hh, gate_t, impl=impl)
-    up = ternary_matmul(hh, up_t, impl=impl)
+    each product #4 at M <= 64, #3 past it (``ternary_matmul``), or a float
+    twin's plain product (:func:`matmul_any`)."""
+    gate = matmul_any(hh, gate_t, impl)
+    up = matmul_any(hh, up_t, impl)
     bg, bu, bd = biases
     if bg is not None:
         gate, up = gate + bg.to(gate.dtype), up + bu.to(up.dtype)
     a = _glu(gate, up, cfg).to(dtype)
     if cfg.use_subnorms:
         a = nrm.rms(a, lp.ffn_sub_norm, cfg.rms_eps, cfg.d_ff)
-    out = ternary_matmul(a, down_t, impl=impl)
+    out = matmul_any(a, down_t, impl)
     return out if bd is None else out + bd.to(out.dtype)
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -169,6 +170,96 @@ def decode_input(x1, x2=None, norm_g=None, mode="plain", sub_norm=False,
 def decode_prologue(*args, **kw) -> tuple[torch.Tensor, torch.Tensor]:
     """The decode kernel's prologue: (int8 codes, per-row scales)."""
     return kernel_quantize(decode_input(*args, **kw))
+
+
+# csrc/decode_gemm.cu: threads of a prologue block, and K per cluster block
+PRO_THREADS = 512
+PRO_K_PER_BLOCK = 4096
+
+
+def _fma_nonneg(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``fmaf(a, a, c)`` for c >= 0, rounded once: the float64
+    square is exact, its sum with c is rounded to odd (TwoSum's error
+    steers the last bit), and rounding that to float32 is the single
+    rounding of the exact sum."""
+    p, cd = a.double() * a.double(), c.double()
+    s = p + cd
+    bb = s - p
+    e = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.full_like(s, math.inf),
+                         torch.full_like(s, -math.inf))
+    s = torch.where((e != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _halve(v: torch.Tensor) -> torch.Tensor:
+    """A warp's xor-shuffle sum over its last dim (32 or 16 lanes): lane 0
+    takes v[:n/2] + v[n/2:], then halves again, as ``block_reduce`` does."""
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+def prologue_sum_squares(xf: torch.Tensor, kp: int) -> torch.Tensor:
+    """(M, 1) float32 sum of squares of xf (M, K) as
+    ``decode_prologue_kernel`` takes it: a cluster of ``cs`` blocks per row
+    (one per 4,096 of K, at most 8), block b over K in [b * chunk, (b + 1) *
+    chunk); thread t of 512 sums ``ss += v * v`` over its columns k0 + t,
+    k0 + t + 512, ... in order (a fused multiply-add, as nvcc contracts
+    it); ``block_reduce``'s shuffle
+    tree over each warp's 32 lanes, then over the 16 warps' sums; the
+    cluster's block sums added in rank order."""
+    m, k = xf.shape
+    cs = min(8, -(-k // PRO_K_PER_BLOCK))
+    chunk = -(-(-(-kp // cs)) // 16) * 16
+    per = -(-chunk // PRO_THREADS) * PRO_THREADS
+    v = torch.zeros((m, cs, per), dtype=torch.float32, device=xf.device)
+    for b in range(cs):
+        k0, k1 = b * chunk, min(k, (b + 1) * chunk)
+        if k1 > k0:
+            v[:, b, :k1 - k0] = xf[:, k0:k1]
+    v = v.reshape(m, cs, per // PRO_THREADS, PRO_THREADS)
+    ss = torch.zeros((m, cs, PRO_THREADS), dtype=torch.float32,
+                     device=xf.device)
+    for j in range(v.shape[2]):
+        ss = _fma_nonneg(v[:, :, j], ss)
+    warps = _halve(ss.reshape(m, cs, PRO_THREADS // 32, 32))
+    blocks = _halve(warps)  # (m, cs)
+    total = blocks[:, 0]
+    for b in range(1, cs):
+        total = total + blocks[:, b]
+    return total[:, None]
+
+
+def decode_input_kernel_order(x1, x2=None, norm_g=None, mode="plain",
+                              sub_norm=False, norm_n=0, eps=1e-5,
+                              kp=None) -> torch.Tensor:
+    """The decode prologue's float32 h in ``decode_prologue_kernel``'s own
+    order and operations (csrc/decode_gemm.cu), the card reference of #1
+    and #4's float prologue: silu as ``v * (1 / (1 + exp(-v))) * x2``, the
+    sum of squares of :func:`prologue_sum_squares` (``kp`` the packed K,
+    which sets the blocks' split), ``inv = 1 / sqrt(ss / norm_n + eps)``
+    and ``(v * inv) * g``, each an IEEE operation in float32.  On the card
+    ``torch.exp`` and ``torch.sqrt`` are the kernel's ``expf`` and
+    ``sqrtf``, so this is the kernel's h bit for bit; :func:`decode_input`
+    stays the emulation held to the JAX package."""
+    xf = x1.to(torch.float32)
+    if mode == "silu_mul":
+        sig = true_div(1.0, 1.0 + torch.exp(-xf))
+        xf = xf * sig * x2.to(torch.float32)
+        if sub_norm:
+            xf = _bf16_round(xf)
+    if mode == "norm" or sub_norm:
+        ss = prologue_sum_squares(xf, kp or xf.shape[-1])
+        n = float(norm_n or xf.shape[-1])
+        inv = true_div(1.0, torch.sqrt(true_div(ss, n) + torch.full_like(
+            ss, eps)))
+        xf = xf * inv * norm_g.to(torch.float32)
+    if mode != "plain":
+        xf = _bf16_round(xf)
+    return xf
 
 
 # the decode prologue keeps a row of float32 inputs in the shared memory of

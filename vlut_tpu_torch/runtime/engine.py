@@ -267,6 +267,15 @@ class Engine:
                 raise ValueError("lookahead needs KV row rewind; "
                                  "recurrent models cannot rewind")
             context_shift = False  # recurrent context never shifts
+        elif not cfg.causal_attn:
+            # the JAX engine serves it and attends every cache row, those
+            # not yet written and another request's among them (ROADMAP
+            # Queue 3)
+            raise ValueError(
+                "a causal_attn=False model attends both ways and decodes "
+                "from no cache: `generate` denoises it (runtime/diffusion.py)"
+                " and the server serves it embedding-only (/embedding, "
+                "/v1/embeddings)")
         if decode_attn not in DECODE_ATTN:
             raise ValueError(f"decode_attn must be one of {DECODE_ATTN}")
         self.cfg = cfg

@@ -35,7 +35,15 @@ repeating ``--model NAME=DIR``; a request picks one by its ``model`` field
 (an unknown name answers 404 when more than one is loaded).  A Mamba
 checkpoint is served by the same engine (completion, chat, infill, slot
 actions); embeddings and rerank refuse it, and the other recurrent and
-hybrid families run through ``generate`` only.
+hybrid families run through ``generate`` only.  An encoder checkpoint
+(``models/encoder.py``) is served embedding-only: no engine, its
+``/embedding`` routes pool its bidirectional forward (inputs padded to a
+bucket of 16, doubled up to ``max_seq_len``), ``/tokenize`` and
+``/detokenize`` answer, and every other POST answers 400
+"embedding-only".  A ``causal_attn=False`` transformer (the decoder
+embedders llama-embed and EmbeddingGemma, or a diffusion LM) is served
+embedding-only too, since it decodes from no cache: its hidden states
+attend both ways, over each input's own tokens and not the bucket's pads.
 
     python -m vlut_tpu_torch.serving.server --model [NAME=]DIR
         [--model NAME=DIR ...] [--port 8080] [--slots 8] [--ctx 4096]
@@ -62,6 +70,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from vlut_tpu_torch.models.encoder import EncoderConfig
 from vlut_tpu_torch.models.transformer import forward, project_head
 from vlut_tpu_torch.runtime.engine import Engine, Request
 from vlut_tpu_torch.runtime.sampling import SamplerParams
@@ -110,9 +119,14 @@ def pool_hidden(hidden: torch.Tensor, lens: torch.Tensor,
 
 
 class ServerState:
-    def __init__(self, engine: Engine, tokenizer, model_name: str = "vlut-tpu",
+    def __init__(self, model, tokenizer, model_name: str = "vlut-tpu",
                  lock: threading.Lock | None = None):
-        self.engine = engine
+        # model: an Engine, or the (cfg, weights) pair of a model served
+        # embedding-only, without an engine (an encoder checkpoint, or a
+        # causal_attn=False transformer)
+        embedding_only = isinstance(model, tuple)
+        self.engine = None if embedding_only else model
+        self.embedder = model if embedding_only else None
         self.tok = tokenizer
         self.model_name = model_name
         # the models of one device share one lock (serve_multi)
@@ -130,7 +144,8 @@ class ServerState:
         self.thread = threading.Thread(target=self._loop, daemon=True)
 
     def start(self):
-        self.thread.start()
+        if self.engine is not None:
+            self.thread.start()
 
     def stop(self):
         self.running = False
@@ -200,7 +215,7 @@ class ServerState:
         """Embeddings and rerank read a transformer's hidden states; the JAX
         server fails on a Mamba engine there (its transformer forward gets
         Mamba weights), the port refuses it."""
-        if self.engine._recurrent:
+        if self.engine is not None and self.engine._recurrent:
             raise ValueError(f"{route} need a transformer checkpoint; this "
                              "server serves a recurrent (Mamba) model")
 
@@ -210,15 +225,46 @@ class ServerState:
         id lists, in one padded forward (pooling: mean | last | cls)."""
         if pooling not in POOLINGS:
             raise ValueError(f"pooling must be one of {POOLINGS}")
+        if self.embedder is not None and isinstance(self.embedder[0],
+                                                    EncoderConfig):
+            return self._embed_encoder(ids_list)
         self._transformer_only("embeddings")
-        eng = self.engine
-        toks, pos, lens = _padded(ids_list, eng.device)
+        cfg, params = self.embedder or (self.engine.cfg, self.engine.params)
+        toks, pos, lens = _padded(ids_list, params.device)
+        mask = None
+        if not cfg.causal_attn:
+            # attending both ways, a row sees its own tokens and not the
+            # bucket's pads (the JAX server's rows attend them: ROADMAP
+            # Queue 3)
+            t = toks.shape[1]
+            mask = (torch.arange(t, device=toks.device)[None, None, :]
+                    < lens[:, None, None]).expand(-1, t, -1)
         with self.lock, torch.inference_mode():
-            hidden, _ = forward(eng.params, eng.cfg, toks, pos, None,
-                                output="hidden")
+            hidden, _ = forward(params, cfg, toks, pos, None,
+                                output="hidden", attn_mask=mask)
             out = pool_hidden(hidden, lens, pooling).cpu().numpy()
         norms = np.linalg.norm(out, axis=-1, keepdims=True)
         return out / np.maximum(norms, 1e-12)
+
+    def _embed_encoder(self, ids_list: list[list[int]]) -> np.ndarray:
+        """An encoder checkpoint's embeddings: its bidirectional forward
+        over the inputs padded to a bucket (16, doubled past the longest,
+        at most ``max_seq_len``; longer inputs cut) and its own pooling."""
+        from vlut_tpu_torch.models.encoder import embed
+
+        cfg, model = self.embedder
+        bucket = min(_bucket(max(1, max(len(x) for x in ids_list))),
+                     cfg.max_seq_len)
+        toks = torch.zeros((len(ids_list), bucket), dtype=torch.long)
+        mask = torch.zeros_like(toks)
+        for i, ids in enumerate(ids_list):
+            ids = ids[:bucket]
+            toks[i, :len(ids)] = torch.tensor(ids, dtype=torch.long)
+            mask[i, :len(ids)] = 1
+        dev = model.device
+        with self.lock:
+            out = embed(model, cfg, toks.to(dev), mask.to(dev))
+        return out.to(torch.float32).cpu().numpy()
 
     def rerank(self, query_ids: list[int],
                doc_ids_list: list[list[int]]) -> list[float]:
@@ -402,12 +448,20 @@ def make_handler(router: Router):
                 self._json(200, {"status": "ok"})
             elif path == "/metrics":
                 self._metrics()
+            elif path == "/props" and eng is None:
+                # embedding-only: a transformer pools as the request asks
+                cfg = self.st.embedder[0]
+                self._json(200, {
+                    "model": self.st.model_name, "arch": cfg.arch,
+                    "embedding_only": True,
+                    "pooling": getattr(cfg, "pooling", "mean"),
+                    "n_embd": cfg.d_model, "vocab_size": cfg.vocab_size})
             elif path == "/slots":
                 self._json(200, [
                     {"id": i, "busy": s.req is not None, "length": s.length,
                      "generated": s.generated,
                      "cached_tokens": len(s.history)}
-                    for i, s in enumerate(eng.slots)])
+                    for i, s in enumerate(eng.slots if eng else ())])
             elif path == "/props":
                 cfg = eng.cfg
                 self._json(200, {
@@ -432,6 +486,8 @@ def make_handler(router: Router):
             for k, v in self.st.metrics.items():
                 lines += [f"# TYPE vlut_{k} counter", f"vlut_{k} {v}"]
             eng = self.st.engine
+            if eng is None:
+                return self._text("\n".join(lines) + "\n")
             busy = sum(1 for s in eng.slots if s.req is not None)
             used = sum(s.length + s.generated for s in eng.slots
                        if s.req is not None)
@@ -459,7 +515,10 @@ def make_handler(router: Router):
             }
             for k, v in gauges.items():
                 lines += [f"# TYPE vlut_{k} gauge", f"vlut_{k} {v}"]
-            data = ("\n".join(lines) + "\n").encode()
+            self._text("\n".join(lines) + "\n")
+
+        def _text(self, text: str):
+            data = text.encode()
             self.send_response(200)
             self.send_header("Content-Type", "text/plain")
             self.send_header("Content-Length", str(len(data)))
@@ -479,6 +538,13 @@ def make_handler(router: Router):
                 return
             parsed = urlparse(self.path)
             path = parsed.path
+            if self.st.engine is None and path not in (
+                    "/embedding", "/embeddings", "/v1/embeddings",
+                    "/tokenize", "/detokenize"):
+                self._json(400, {"error": {
+                    "message": "this model is embedding-only",
+                    "type": "invalid_request_error"}})
+                return
             try:
                 if path in ("/completion", "/completions", "/v1/completions"):
                     self._completion(body)
@@ -859,20 +925,23 @@ def serve(engine: Engine, tokenizer, host: str = "127.0.0.1",
     return httpd, router.states[model_name]
 
 
-def serve_multi(models: dict[str, tuple[Engine, Any]],
+def serve_multi(models: dict[str, tuple],
                 host: str = "127.0.0.1", port: int = 8080,
                 default: str | None = None, start_engine: bool = True,
                 ) -> tuple[ThreadingHTTPServer, Router]:
     """One engine loop per model behind one port, routed by the request's
-    ``model`` field (``default``, or the first, when it has none).  The
-    models of one device share one lock: their steps and forwards run one
-    at a time, so none runs while another captures a CUDA graph."""
+    ``model`` field (``default``, or the first, when it has none); a model
+    is ``(engine, tokenizer)``, or ``((cfg, weights), tokenizer)`` for one
+    served embedding-only.  The models of one device share one lock:
+    their steps and forwards run one at a time, so none runs while another
+    captures a CUDA graph."""
     router = Router()
     locks: dict[torch.device, threading.Lock] = {}
-    for name, (engine, tok) in models.items():
+    for name, (model, tok) in models.items():
         # a weight's device: cuda always with its index
-        lock = locks.setdefault(engine.device, threading.Lock())
-        state = ServerState(engine, tok, model_name=name, lock=lock)
+        dev = model[1].device if isinstance(model, tuple) else model.device
+        lock = locks.setdefault(dev, threading.Lock())
+        state = ServerState(model, tok, model_name=name, lock=lock)
         if start_engine:
             state.start()
         router.add(name, state, default=name == default)
@@ -936,13 +1005,19 @@ def start_from_args(args) -> tuple[ThreadingHTTPServer, Router]:
         name, _, path = spec.rpartition("=")
         name = name or path
         cfg, model, _ = load_checkpoint(path, device=args.device)
-        if not isinstance(cfg, (ModelConfig, MambaConfig)):
+        if not isinstance(cfg, (ModelConfig, MambaConfig, EncoderConfig)):
             raise ValueError(
                 f"{path}: a {type(cfg).__name__} checkpoint runs through "
-                "`generate` only; the server serves transformer and Mamba "
-                "checkpoints (the JAX server fails on the others)")
-        if args.promote:
+                "`generate` only; the server serves transformer, Mamba and "
+                "encoder checkpoints (the JAX server fails on the others)")
+        if args.promote and not isinstance(cfg, EncoderConfig):
             cfg, model = promote(cfg, model, args.promote)
+        if isinstance(cfg, EncoderConfig) or not getattr(cfg, "causal_attn",
+                                                         True):
+            # embedding-only: no engine (an encoder, or a transformer that
+            # attends both ways and so decodes from no cache)
+            models[name] = ((cfg, model), Tokenizer(path))
+            continue
         engine = Engine(
             cfg, model, n_slots=args.slots, max_len=args.ctx,
             kv_quant=args.cache_type == "q8",
