@@ -153,8 +153,21 @@ Phases (any failure exits non-zero; none is skipped):
      ``/completion``); ``cli generate`` on a diffusion checkpoint (its
      float twin) and a T5 checkpoint, the CPU's text; ModernBERT-base's
      widths timed per ``embed`` batch of 32 x 512;
- 24. one JSON line of every kernel with its launches on the paths of phases
-     3-23, then the card, then ``{"ok": true, "device": ...}`` last.
+ 24. the HF converter (vlut_tpu_torch/convert/convert.py): ``llama3_8b_158``
+     at full width and depth, random packed weights from seed 24, written
+     by ``bench/hf_writer.py`` in HF1BitLLM's layout (packed uint8
+     projections, bf16 ``weight_scale`` = 1 / scale, bf16 embedding and
+     head), converted by ``cli convert`` on the card and loaded: every leaf
+     the tree written (each scale ``1 / weight_scale``), bit for bit; then
+     served by ``bench/flagship.py`` (fused graphed and eager, identical
+     tokens, and composed: #1, #3, #7 and #5); the seconds and GB/s of
+     writing, converting and loading; an HF1BitLLM llama, a mixtral and a
+     mamba (tiny widths) converted on the card and on the CPU, equal
+     checkpoints, each served on the card against the CPU, layer by layer;
+     tiny_real written as an HF directory, converted by ``cli convert`` on
+     the card and on the CPU (equal) and ``cli generate``: the CPU's text;
+ 25. one JSON line of every kernel with its launches on the paths of phases
+     3-24, then the card, then ``{"ok": true, "device": ...}`` last.
 
 Phase 2 draws its inputs from a seed taken from the OS and printed (its
 first JSON line), and runs its untimed checks in an order that seed
@@ -1710,7 +1723,13 @@ def main() -> None:
     mark("encoder")
     encoder_phase(dev, fixture, card, reset, read)
 
-    # 24. summary
+    # 24. the HF converter: llama3_8b_158 in HF1BitLLM's layout converted
+    # at full width on the card and served; families card against CPU; the
+    # fixture's round trip through cli convert and generate
+    mark("convert")
+    convert_phase(dev, fixture, card, reset, read)
+
+    # 25. summary
     mark("summary")
     replaces = {
         "ternary_gemm_decode": ("vlut_tpu_torch/csrc/decode_gemm.cu",
@@ -3674,6 +3693,227 @@ def slice_phases(dev, built, fixture, card, reset, read, real) -> None:
     if restored != orig:
         fail("slot restore: the continuation differs from the original's")
     shutil.rmtree(scratch, ignore_errors=True)
+
+
+def same_checkpoints(a: pathlib.Path, b: pathlib.Path) -> bool:
+    """Two converted checkpoints hold the same arrays (name, dtype, shape,
+    bytes) and the same ``vlut_config.json``."""
+    from vlut_tpu_torch.convert.checkpoint import safetensors_arrays
+
+    x = safetensors_arrays(a / "model.safetensors")
+    y = safetensors_arrays(b / "model.safetensors")
+    return (sorted(x) == sorted(y)
+            and all(x[k].dtype == y[k].dtype and x[k].shape == y[k].shape
+                    and x[k].tobytes() == y[k].tobytes() for k in x)
+            and json.loads((a / "vlut_config.json").read_text())
+            == json.loads((b / "vlut_config.json").read_text()))
+
+
+def written_back(cfg, tree: dict, dst: pathlib.Path, device) -> list[str]:
+    """The leaves of the converted checkpoint ``dst`` that differ from the
+    HF1BitLLM-layout tree written: packed bytes, embedding, norms and the
+    head's columns bit for bit (its padding zero), each scale
+    ``np.float32(1) / weight_scale`` of the bf16 ``1 / scale`` written."""
+    import numpy as np
+    import torch
+
+    from vlut_tpu_torch.convert.checkpoint import read_safetensors
+
+    got = read_safetensors(dst / "model.safetensors", device)
+    want: dict = {}
+
+    def flat(node, key=""):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                flat(v, f"{key}{k}.")
+            else:
+                want[key + k] = v
+
+    flat(tree)
+    bad = sorted(set(got) ^ set(want))
+    for k in set(got) & set(want):
+        g, w = got[k], want[k].to(device)
+        if k.endswith(".scale"):
+            ws = (1.0 / w).to(torch.bfloat16).float().cpu().numpy()
+            w = torch.from_numpy(np.float32(1) / ws).to(device)
+        if k == "lm_head":
+            if g[:, cfg.vocab_size:].any():
+                bad.append(k + " (padding)")
+            g, w = g[:, :cfg.vocab_size], w[:, :cfg.vocab_size]
+        if (g.dtype != w.dtype or g.shape != w.shape
+                or not torch.equal(g.contiguous().view(torch.uint8),
+                                   w.contiguous().view(torch.uint8))):
+            bad.append(k)
+    return bad
+
+
+def convert_phase(dev, fixture, card, reset, read) -> None:
+    """Phase 24: the HF converter.  (a) ``llama3_8b_158`` at full width and
+    depth (``init_params_fast``, seed 24) written by ``bench/hf_writer.py``
+    in HF1BitLLM's layout to a temporary directory, converted by ``cli
+    convert`` on the card, loaded onto the card: every leaf the tree
+    written (:func:`written_back`), the config the preset's; served as
+    ``bench/flagship.py:build_model`` serves it (int8 head, fused,
+    unrolled): fused graphed and eager (identical tokens) and composed
+    graphed, each counted (#1, #3, #7; #5); the seconds and GB/s of each
+    stage; both directories deleted.  (b) an HF1BitLLM llama, the zoo's
+    mixtral and the recurrent zoo's mamba (tiny widths) written by
+    ``bench/hf_writer.py``, converted on the card and on the CPU (equal
+    checkpoints), each served on the card against the CPU, each card layer
+    from the CPU's input (``bench/zoo.py:card_vs_cpu``,
+    ``bench/recurrent_zoo.py:card_vs_cpu``).  (c) tiny_real written as an
+    HF directory in the float32 layout, ``cli convert`` on the card and
+    with ``--device cpu`` (equal), ``cli generate --temp 0`` of each on its
+    device: the CPU's text."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vlut_tpu_torch import cli
+    from vlut_tpu_torch.bench import flagship, hf_writer, recurrent_zoo, zoo
+    from vlut_tpu_torch.config import PRESETS, ModelConfig
+    from vlut_tpu_torch.convert.checkpoint import (load_checkpoint,
+                                                   read_safetensors,
+                                                   unflatten)
+    from vlut_tpu_torch.convert.convert import convert_hf
+    from vlut_tpu_torch.models import transformer as tt
+
+    t_phase = time.time()
+    preset = "llama3_8b_158"
+    cfg = PRESETS[preset]
+    out: dict = {"phase": "convert", "model": preset, "card": card}
+
+    def gb(path: pathlib.Path) -> float:
+        return sum(f.stat().st_size for f in path.glob("*.safetensors")) / 1e9
+
+    # (a) the flagship in HF1BitLLM's layout, converted on the card
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        d = pathlib.Path(d)
+        t0 = time.time()
+        tree = tt.init_params_fast(cfg, seed=24, device=dev).tree()
+        torch.cuda.synchronize()
+        out["init_s"] = time.time() - t0
+        t0 = time.time()
+        src = hf_writer.write_hf(d / "hf", cfg, tree, layout="hf1bitllm")
+        out["write_s"] = time.time() - t0
+        out["hf_gb"] = gb(src)
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["convert", str(src), str(d / "out")])
+        out["convert_s"] = time.time() - t0
+        out["checkpoint_gb"] = gb(d / "out")
+        shutil.rmtree(src)
+        t0 = time.time()
+        cfg2, model, meta = load_checkpoint(d / "out", device=dev)
+        torch.cuda.synchronize()
+        out["load_s"] = time.time() - t0
+        for stage, nbytes in (("write", out["hf_gb"]),
+                              ("convert", out["hf_gb"]),
+                              ("load", out["checkpoint_gb"])):
+            out[f"{stage}_gb_per_s"] = nbytes / out[f"{stage}_s"]
+        bad = written_back(cfg, tree, d / "out", dev)
+        out["leaves_differing"] = bad
+        del tree
+    if bad:
+        fail(f"convert {preset}: leaves differ from the tree written: "
+             f"{bad[:8]}")
+    if cfg2 != cfg or meta["ternarized_tensors"] != 0:
+        fail(f"convert {preset}: config {cfg2} or lossy tensors "
+             f"({meta['ternarized_tensors']})")
+    torch.cuda.empty_cache()
+    model = tt.unstack_layers(tt.fuse_projections(tt.quantize_head(model),
+                                                  cfg2), cfg2)
+    toks, steps = {}, {}
+    for mode, graph, attn_kernel in (
+            ("fused", True, "decode_attention"),
+            ("fused", False, "decode_attention"),
+            ("composed", True, "write_rows_pair")):
+        run = f"{mode}_{'graph' if graph else 'eager'}"
+        reset()
+        fl = flagship.run(preset, device=dev, decode_attn=mode,
+                          built=(cfg2, model), cuda_graph=graph, reps=1)
+        out.setdefault("launches", {})[run] = read(
+            f"convert_flagship_{run}", ("ternary_gemm_decode",
+                                        "ternary_gemm_tiled", attn_kernel))
+        toks[run] = fl.pop("tokens").cpu()
+        steps[run] = fl["ms_per_step"]
+    out["ms_per_step"] = steps
+    if not torch.equal(toks["fused_graph"], toks["fused_eager"]):
+        fail("converted flagship: the graphed step's greedy tokens differ "
+             "from the eager step's")
+    del model
+    torch.cuda.empty_cache()
+    out["flagship_s"] = time.time() - t_phase
+
+    # (b) families converted on the card and on the CPU, served card = CPU
+    families = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        d = pathlib.Path(d)
+        small = ModelConfig(vocab_size=512, d_model=256, n_layers=2,
+                            n_heads=2, n_kv_heads=1, d_ff=512, head_dim=128,
+                            max_seq_len=256)
+        moe = zoo.family_config("moe_mixtral")
+        mamba_cfg, mamba_tree = recurrent_zoo.family("mamba")
+        sources = {
+            "hf1bitllm_llama": hf_writer.write_hf(
+                d / "llama", small, tt.init_params_fast(
+                    small, seed=1, device="cpu").tree(), layout="hf1bitllm"),
+            "mixtral": hf_writer.write_hf(d / "mixtral", moe,
+                                          zoo.family_tree(moe, 0)),
+            "mamba": hf_writer.write_hf(d / "mamba", mamba_cfg, mamba_tree),
+        }
+        for name, src in sources.items():
+            on_card, on_cpu = d / f"{name}_card", d / f"{name}_cpu"
+            convert_hf(src, on_card)
+            convert_hf(src, on_cpu, device="cpu")
+            equal = same_checkpoints(on_card, on_cpu)
+            fcfg = load_checkpoint(on_cpu, device="cpu")[0]
+            ftree = unflatten(read_safetensors(on_cpu / "model.safetensors"))
+            run = (recurrent_zoo.card_vs_cpu if name == "mamba"
+                   else zoo.card_vs_cpu)
+            res = run(f"converted_{name}", dev, counters=(reset, read),
+                      source=(fcfg, ftree))
+            families[name] = {"card_equals_cpu_conversion": equal,
+                              **{k: res[k] for k in (
+                                  "max_rel_logit_err", "greedy_equal",
+                                  "within_tol", "launches")}}
+            if not (equal and res["within_tol"] and res["greedy_equal"]
+                    and res.get("graph_equals_eager", True)):
+                fail(f"converted {name}: {families[name]} "
+                     f"{res.get('graph_equals_eager')}")
+    out["families"] = families
+
+    # (c) tiny_real through cli convert and cli generate, card and CPU
+    def text_of(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        return buf.getvalue().rsplit("\n[", 1)[0]
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        d = pathlib.Path(d)
+        fcfg, fmodel, _ = load_checkpoint(fixture, device="cpu")
+        src = hf_writer.write_hf(d / "hf", fcfg, fmodel.tree(),
+                                 tokenizer_src=fixture)
+        text_of(["convert", str(src), str(d / "card")])
+        text_of(["convert", str(src), str(d / "cpu"), "--device", "cpu"])
+        equal = same_checkpoints(d / "card", d / "cpu")
+        gen = ["generate", "-p", "The little model", "-n", "12", "--temp",
+               "0"]
+        reset()
+        got = text_of(gen + ["--model", str(d / "card")])
+        out.setdefault("launches", {})["fixture_generate"] = read(
+            "convert_fixture_generate", ("ternary_gemm_decode",))
+        want = text_of(gen + ["--model", str(d / "cpu"), "--device", "cpu"])
+    out["fixture"] = {"text": want, "card_equals_cpu_conversion": equal,
+                      "text_equal": got == want}
+    out["seconds"] = time.time() - t_phase
+    print(json.dumps(out), flush=True)
+    if not (equal and got == want):
+        fail(f"tiny_real round trip: {out['fixture']} (card text {got!r})")
 
 
 if __name__ == "__main__":

@@ -1021,3 +1021,45 @@ def test_encoder_family_card_equals_cpu(dev, name):
 
     r = ez.card_vs_cpu(name, dev)
     assert r["within_tol"] and r["equal"], r
+
+
+def _converter_source(name, d):
+    """An HF directory of ``bench/hf_writer.py``: HF1BitLLM's layout of a
+    small llama, the zoo's mixtral, or the recurrent zoo's mamba."""
+    from vlut_tpu_torch.bench import hf_writer, recurrent_zoo, zoo
+    from vlut_tpu_torch.config import ModelConfig
+    from vlut_tpu_torch.models import transformer as tt
+
+    if name == "hf1bitllm":
+        cfg = ModelConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=2,
+                          n_kv_heads=1, d_ff=512, head_dim=128,
+                          max_seq_len=256)
+        return hf_writer.write_hf(d, cfg, tt.init_params_fast(
+            cfg, seed=1, device="cpu").tree(), layout="hf1bitllm")
+    if name == "mixtral":
+        cfg = zoo.family_config("moe_mixtral")
+        return hf_writer.write_hf(d, cfg, zoo.family_tree(cfg, 0))
+    return hf_writer.write_hf(d, *recurrent_zoo.family("mamba"))
+
+
+@pytest.mark.parametrize("name", ["hf1bitllm", "mixtral", "mamba"])
+def test_conversion_on_the_card_equals_the_cpus(dev, name, tmp_path):
+    """``convert/convert.py`` packs on the card (the uint8 2-bit unpack, the
+    padding and the trits-to-bytes pack) and decides every trit and scale
+    on the host: the checkpoint equals the CPU's, array for array."""
+    import json
+
+    from vlut_tpu_torch.convert.checkpoint import safetensors_arrays
+    from vlut_tpu_torch.convert.convert import convert_hf
+
+    src = _converter_source(name, tmp_path / "hf")
+    convert_hf(src, tmp_path / "card", device=dev)
+    convert_hf(src, tmp_path / "cpu", device="cpu")
+    a = safetensors_arrays(tmp_path / "card" / "model.safetensors")
+    b = safetensors_arrays(tmp_path / "cpu" / "model.safetensors")
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert (a[k].dtype, a[k].shape) == (b[k].dtype, b[k].shape), k
+        assert a[k].tobytes() == b[k].tobytes(), k
+    assert (json.loads((tmp_path / "card" / "vlut_config.json").read_text())
+            == json.loads((tmp_path / "cpu" / "vlut_config.json").read_text()))

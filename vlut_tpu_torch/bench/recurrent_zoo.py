@@ -204,7 +204,8 @@ def _rel_errs(got: list, want: list) -> list[float]:
 
 
 def card_vs_cpu(name: str, device, counters=None, n_decode: int = 6,
-                prompt: int = 24, batch: int = 2, seed: int = 0) -> dict:
+                prompt: int = 24, batch: int = 2, seed: int = 0,
+                source=None) -> dict:
     """One family on ``device`` and on the CPU from the same tree: a prefill
     of ``batch`` x ``prompt`` tokens and ``n_decode`` steps fed the CPU's
     greedy tokens.  Each layer on ``device`` takes the CPU's input
@@ -215,8 +216,9 @@ def card_vs_cpu(name: str, device, counters=None, n_decode: int = 6,
     to run on their own outputs (not gated).  ``counters`` (reset, read)
     bracket the card's free run, the family's main path: a Mamba or Mamba2
     family must launch the ternary kernels (#4, and #3 at a prefill past
-    64 rows)."""
-    cfg, tree = family(name, seed)
+    64 rows).  ``source`` (cfg, host tree) runs that model under the label
+    ``name`` instead."""
+    cfg, tree = source or family(name, seed)
     cpu, card = model_on(cfg, tree, "cpu"), model_on(cfg, tree, device)
     rng = np.random.default_rng(seed)
     tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size,

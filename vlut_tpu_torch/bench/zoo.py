@@ -386,11 +386,14 @@ def layers_replaced(seen: list, by: list | None = None):
         tt._layer_step = step
 
 
-def _pair(name, device, prompt, batch, seed, overrides):
-    """The family's config, its serving model on the CPU and on ``device``
-    from one tree, and a (batch, prompt) token prompt."""
-    cfg = family_config(name, overrides)
-    tree = family_tree(cfg, seed)
+def _pair(name, device, prompt, batch, seed, overrides, source=None):
+    """The family's config (or ``source``'s), its serving model on the CPU
+    and on ``device`` from one tree, and a (batch, prompt) token prompt."""
+    if source is None:
+        cfg = family_config(name, overrides)
+        tree = family_tree(cfg, seed)
+    else:
+        cfg, tree = source
     rng = np.random.default_rng(seed)
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size,
                                            (batch, prompt)))
@@ -465,7 +468,7 @@ def _rel_errs(got: list, want: list) -> list[float]:
 
 def card_vs_cpu(name: str, device, counters=None, n_decode: int = 8,
                 prompt: int = 40, batch: int = 2, seed: int = 0,
-                overrides: dict | None = None) -> dict:
+                overrides: dict | None = None, source=None) -> dict:
     """One family on ``device`` and on the CPU from the same tree: the
     prefill (``batch`` x ``prompt`` tokens, M 80: #3 on the card) and
     ``n_decode`` decode steps fed the CPU's greedy tokens.  Each layer step
@@ -483,11 +486,12 @@ def card_vs_cpu(name: str, device, counters=None, n_decode: int = 8,
     to about 1e-2 of the largest logit.  ``free_rel_logit_err`` reports
     that amplification: the logits of the same steps with the card's layers
     left to run on their own outputs (not held to a tolerance);
-    ``overrides`` changes fields of the family's config."""
+    ``overrides`` changes fields of the family's config; ``source`` (cfg,
+    host tree) runs that model under the label ``name`` instead."""
     from vlut_tpu_torch.cli import run_batched
 
     cfg, cpu, card, tokens = _pair(name, device, prompt, batch, seed,
-                                   overrides)
+                                   overrides, source)
     t0 = time.perf_counter()
     want_layers, got_layers = [], []
     with layers_replaced(want_layers):

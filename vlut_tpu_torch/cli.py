@@ -28,6 +28,8 @@
       -f FILE [--limit N] [--device cpu]
   python -m vlut_tpu_torch.cli embed --model DIR [-p TEXT ...] [--task T]
       [--json] [--device cpu]
+  python -m vlut_tpu_torch.cli convert HF_DIR OUT_DIR [--fmt i2|i1]
+      [--device cpu]
   python -m vlut_tpu_torch.cli quantize SRC DST --fmt i2|i1
   python -m vlut_tpu_torch.cli inspect DIR [--hash]
 
@@ -54,7 +56,10 @@ llama.cpp's TQ2_0/TQ1_0 through the TQ kernel); ``bench-sweep`` and
 ``batched-bench`` are the llama-bench and batched-bench analogs; ``ppl``
 and ``eval`` the perplexity harness (with the quantized-vs-dequant KL
 check) and the accuracy tasks.  Each of these runs on the GPU unless
-``--device cpu`` is given.  ``quantize`` (exact i2 <-> i1 repack) and
+``--device cpu`` is given.  ``convert`` turns an HF directory into a
+packed checkpoint (``convert/convert.py``: the integer unpack and pack on
+the GPU unless ``--device cpu``, every float decision on the host).
+``quantize`` (exact i2 <-> i1 repack) and
 ``inspect`` (config and tensor directory, ``--hash`` for sha256 digests)
 touch no device.
 """
@@ -504,6 +509,14 @@ def cmd_eval(args) -> None:
     print(json.dumps(out, indent=2))
 
 
+def cmd_convert(args) -> None:
+    from vlut_tpu_torch.convert.convert import convert_hf
+
+    cfg = convert_hf(args.hf_dir, args.out_dir, fmt=args.fmt,
+                     device=args.device)
+    print(f"converted: {cfg}")
+
+
 def cmd_quantize(args) -> None:
     from vlut_tpu_torch.convert.quantize import requantize
 
@@ -677,6 +690,12 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_eval)
 
+    p = sub.add_parser("convert", help="HF directory -> packed checkpoint")
+    p.add_argument("hf_dir")
+    p.add_argument("out_dir")
+    p.add_argument("--fmt", choices=("i2", "i1"), default="i2")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_convert)
     p = sub.add_parser("quantize",
                        help="requantize a packed checkpoint (i2 <-> i1)")
     p.add_argument("src")

@@ -53,25 +53,34 @@ _TOKENIZER_FILES = (
 )
 
 
-def safetensors_arrays(path: str | pathlib.Path) -> dict[str, np.ndarray]:
-    """name -> numpy array in its stored dtype (BF16 entries as uint16),
-    each a copy out of a memory map of the file."""
+def safetensors_open(path: str | pathlib.Path):
+    """(memory map, header without ``__metadata__``, data offset) of a
+    safetensors file; :func:`safetensors_tensor` reads one entry."""
     mm = np.memmap(pathlib.Path(path), dtype=np.uint8, mode="r")
     (n,) = struct.unpack("<Q", bytes(mm[:8]))
     header = json.loads(bytes(mm[8:8 + n]))
-    base = 8 + n
-    out: dict[str, np.ndarray] = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        dt = info["dtype"]
-        np_dt = np.uint16 if dt == "BF16" else _DTYPES.get(dt)
-        if np_dt is None:
-            raise ValueError(f"{name}: unsupported safetensors dtype {dt}")
-        a, b = info["data_offsets"]
-        out[name] = np.array(mm[base + a: base + b]).view(np_dt).reshape(
-            info["shape"])
-    return out
+    header.pop("__metadata__", None)
+    return mm, header, 8 + n
+
+
+def safetensors_tensor(mm: np.memmap, base: int, name: str,
+                       info: dict[str, Any]) -> np.ndarray:
+    """One header entry as a numpy array in its stored dtype (BF16 as
+    uint16), copied out of the memory map."""
+    dt = info["dtype"]
+    np_dt = np.uint16 if dt == "BF16" else _DTYPES.get(dt)
+    if np_dt is None:
+        raise ValueError(f"{name}: unsupported safetensors dtype {dt}")
+    a, b = info["data_offsets"]
+    return np.array(mm[base + a: base + b]).view(np_dt).reshape(info["shape"])
+
+
+def safetensors_arrays(path: str | pathlib.Path) -> dict[str, np.ndarray]:
+    """name -> numpy array in its stored dtype (BF16 entries as uint16),
+    each a copy out of a memory map of the file."""
+    mm, header, base = safetensors_open(path)
+    return {name: safetensors_tensor(mm, base, name, info)
+            for name, info in header.items()}
 
 
 def read_safetensors(path: str | pathlib.Path,
@@ -90,10 +99,12 @@ def read_safetensors(path: str | pathlib.Path,
 
 
 def write_safetensors(path: str | pathlib.Path,
-                      arrays: dict[str, np.ndarray]) -> None:
+                      arrays: dict[str, np.ndarray],
+                      bf16: frozenset[str] = frozenset()) -> None:
     """Write name -> numpy array as a safetensors file: tensors in name
     order, contiguous from offset 0, the header padded with spaces to a
-    multiple of 8 bytes (the layout the ``safetensors`` package writes)."""
+    multiple of 8 bytes (the layout the ``safetensors`` package writes).
+    The uint16 arrays named in ``bf16`` are stored as BF16."""
     header: dict[str, Any] = {}
     off = 0
     names = sorted(arrays)
@@ -101,7 +112,12 @@ def write_safetensors(path: str | pathlib.Path,
         a = arrays[name]
         if a.dtype not in _CODES:
             raise ValueError(f"{name}: no safetensors dtype for {a.dtype}")
-        header[name] = {"dtype": _CODES[a.dtype], "shape": list(a.shape),
+        code = _CODES[a.dtype]
+        if name in bf16:
+            if code != "U16":
+                raise ValueError(f"{name}: BF16 bits must be uint16")
+            code = "BF16"
+        header[name] = {"dtype": code, "shape": list(a.shape),
                         "data_offsets": [off, off + a.nbytes]}
         off += a.nbytes
     raw = json.dumps(header, separators=(",", ":")).encode()
@@ -110,7 +126,7 @@ def write_safetensors(path: str | pathlib.Path,
         f.write(struct.pack("<Q", len(raw)))
         f.write(raw)
         for name in names:
-            f.write(np.ascontiguousarray(arrays[name]).tobytes())
+            f.write(np.ascontiguousarray(arrays[name]).data)
 
 
 def _flatten(tree: dict[str, Any], prefix: str = "") -> dict[str, np.ndarray]:

@@ -30,6 +30,7 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
 
 from vlut_tpu_torch.config import ModelConfig
 from vlut_tpu_torch.ops.packing import DEFAULT_BLOCK, LANES
@@ -87,6 +88,22 @@ def make_plan(cfg: ModelConfig, tp_pack: int | None = None) -> DimPlan:
     )
 
 
+def _zeros(like, shape):
+    """Zeros of ``like``'s kind (a numpy array or a tensor on its device)
+    and dtype: the padding below moves numpy trits on the host and a
+    tensor's on its device."""
+    if isinstance(like, np.ndarray):
+        return np.zeros(shape, like.dtype)
+    return like.new_zeros(shape)
+
+
+def _at(like, idx: np.ndarray):
+    """An index array usable on ``like``."""
+    if isinstance(like, np.ndarray):
+        return idx
+    return torch.as_tensor(idx, device=like.device)
+
+
 # --- head padding (rope-pairing preserving) ---------------------------------
 
 def head_positions(hd: int, hd_p: int) -> np.ndarray:
@@ -107,8 +124,8 @@ def pad_heads_cols(w: np.ndarray, n_heads: int, hd: int, hd_p: int) -> np.ndarra
     if hd == hd_p:
         return w
     k = w.shape[0]
-    out = np.zeros((k, n_heads, hd_p), w.dtype)
-    out[:, :, head_positions(hd, hd_p)] = w.reshape(k, n_heads, hd)
+    out = _zeros(w, (k, n_heads, hd_p))
+    out[:, :, _at(w, head_positions(hd, hd_p))] = w.reshape(k, n_heads, hd)
     return out.reshape(k, n_heads * hd_p)
 
 
@@ -117,8 +134,8 @@ def pad_heads_rows(w: np.ndarray, n_heads: int, hd: int, hd_p: int) -> np.ndarra
     if hd == hd_p:
         return w
     n = w.shape[1]
-    out = np.zeros((n_heads, hd_p, n), w.dtype)
-    out[:, head_positions(hd, hd_p)] = w.reshape(n_heads, hd, n)
+    out = _zeros(w, (n_heads, hd_p, n))
+    out[:, _at(w, head_positions(hd, hd_p))] = w.reshape(n_heads, hd, n)
     return out.reshape(n_heads * hd_p, n)
 
 
@@ -134,8 +151,8 @@ def scatter_rows(w: np.ndarray, chunk: int, chunk_p: int, total_p: int):
     """(K_logical, N) -> (total_p, N), chunk-padded rows."""
     if chunk == chunk_p and total_p == w.shape[0]:
         return w
-    out = np.zeros((total_p, w.shape[1]), w.dtype)
-    out[chunk_positions(w.shape[0], chunk, chunk_p)] = w
+    out = _zeros(w, (total_p, w.shape[1]))
+    out[_at(w, chunk_positions(w.shape[0], chunk, chunk_p))] = w
     return out
 
 
@@ -143,6 +160,23 @@ def scatter_cols(w: np.ndarray, chunk: int, chunk_p: int, total_p: int):
     """(K, N_logical) -> (K, total_p), chunk-padded columns."""
     if chunk == chunk_p and total_p == w.shape[1]:
         return w
-    out = np.zeros((w.shape[0], total_p), w.dtype)
-    out[:, chunk_positions(w.shape[1], chunk, chunk_p)] = w
+    out = _zeros(w, (w.shape[0], total_p))
+    out[:, _at(w, chunk_positions(w.shape[1], chunk, chunk_p))] = w
     return out
+
+
+def scatter_vec(v: np.ndarray, chunk: int, chunk_p: int, total_p: int):
+    if chunk == chunk_p and total_p == v.shape[0]:
+        return v
+    out = np.zeros((total_p,), v.dtype)
+    out[chunk_positions(v.shape[0], chunk, chunk_p)] = v
+    return out
+
+
+def pad_vec_heads(v: np.ndarray, n_heads: int, hd: int, hd_p: int) -> np.ndarray:
+    """(n_heads*hd,) norm weights -> (n_heads*hd_p,), pad zero."""
+    if hd == hd_p:
+        return v
+    out = np.zeros((n_heads, hd_p), v.dtype)
+    out[:, head_positions(hd, hd_p)] = v.reshape(n_heads, hd)
+    return out.reshape(-1)

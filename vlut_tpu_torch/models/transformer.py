@@ -457,11 +457,16 @@ def layer_specs(cfg: ModelConfig, i: int = 0,
     return specs
 
 
-def pack_weight(name: str, trits: np.ndarray, scale, cfg: ModelConfig,
-                plan: DimPlan | None = None) -> TernaryTensor:
-    """Pack one logical (K, N) projection with the plan's head padding and
-    chunk padding (the JAX package's checkpoint layout)."""
+def pack_weight(name: str, trits, scale, cfg: ModelConfig,
+                plan: DimPlan | None = None,
+                device: str | torch.device | None = None) -> TernaryTensor:
+    """Pack one logical (K, N) projection (numpy or a tensor) with the
+    plan's head padding and chunk padding (the JAX package's checkpoint
+    layout).  The padding and the packing run on ``device`` (default: the
+    trits' own; the CPU for numpy)."""
     plan = plan or make_plan(cfg)
+    if device is not None:
+        trits = torch.as_tensor(trits).to(device)
     hd, hd_p = plan.hd, plan.hd_p
     if name in ("wq", "wk", "wv", "w_attn_gate"):
         heads = cfg.n_kv_heads if name in ("wk", "wv") else cfg.n_heads
@@ -494,37 +499,40 @@ _FFN_OUT = ("w_down", "w_shared_down", "w_res_down", "w_ch_down")
 
 
 def unpack_weight(name: str, t: TernaryTensor, cfg: ModelConfig,
-                  plan: DimPlan | None = None) -> np.ndarray:
+                  plan: DimPlan | None = None, host: bool = True):
     """Inverse of :func:`pack_weight`: packed tensor -> logical (K, N) int8
-    trits in HF orientation (the head and chunk padding dropped)."""
+    trits in HF orientation (the head and chunk padding dropped); a numpy
+    array, or with ``host`` False a tensor on the packed tensor's device."""
     plan = plan or make_plan(cfg)
     hd, hd_p = plan.hd, plan.hd_p
-    w = unpack_ternary(t).cpu().numpy()
+    w = unpack_ternary(t)
+
+    def at(idx):
+        return torch.as_tensor(idx, device=w.device)
 
     def gather_head_cols(w2, heads):
         if hd == hd_p:
             return w2
         k = w2.shape[0]
         return w2.reshape(k, heads, hd_p)[
-            :, :, head_positions(hd, hd_p)].reshape(k, heads * hd)
+            :, :, at(head_positions(hd, hd_p))].reshape(k, heads * hd)
 
     if name in ("wq", "wk", "wv", "w_attn_gate"):
-        return gather_head_cols(
+        w = gather_head_cols(
             w, cfg.n_kv_heads if name in ("wk", "wv") else cfg.n_heads)
-    if name == "wo":
-        w = w[chunk_positions(cfg.n_heads * hd_p, plan.wo_chunk,
-                              plan.wo_chunk_p)]
+    elif name == "wo":
+        w = w[at(chunk_positions(cfg.n_heads * hd_p, plan.wo_chunk,
+                                 plan.wo_chunk_p))]
         if hd != hd_p:
             w = w.reshape(cfg.n_heads, hd_p, -1)[
-                :, head_positions(hd, hd_p)].reshape(cfg.n_heads * hd, -1)
-        return w
-    if name in _FFN_IN:
-        return w[:, chunk_positions(cfg.d_ff, plan.ff_chunk, plan.ff_chunk_p)]
-    if name in _FFN_OUT:
-        return w[chunk_positions(cfg.d_ff, plan.ff_chunk, plan.ff_chunk_p)]
-    if name in ("w_lin_attn",) + MLA_PROJECTIONS:
-        return w
-    raise KeyError(name)
+                :, at(head_positions(hd, hd_p))].reshape(cfg.n_heads * hd, -1)
+    elif name in _FFN_IN:
+        w = w[:, at(chunk_positions(cfg.d_ff, plan.ff_chunk, plan.ff_chunk_p))]
+    elif name in _FFN_OUT:
+        w = w[at(chunk_positions(cfg.d_ff, plan.ff_chunk, plan.ff_chunk_p))]
+    elif name not in ("w_lin_attn",) + MLA_PROJECTIONS:
+        raise KeyError(name)
+    return w.cpu().numpy() if host else w
 
 
 # --- modules -------------------------------------------------------------------
