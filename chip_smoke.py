@@ -166,8 +166,21 @@ Phases (any failure exits non-zero; none is skipped):
      checkpoints, each served on the card against the CPU, layer by layer;
      tiny_real written as an HF directory, converted by ``cli convert`` on
      the card and on the CPU (equal) and ``cli generate``: the CPU's text;
- 25. one JSON line of every kernel with its launches on the paths of phases
-     3-24, then the card, then ``{"ok": true, "device": ...}`` last.
+ 25. the trainer (vlut_tpu_torch/train/finetune.py): ``bitnet_2b_4t`` at
+     its published widths (d 2560, 30 layers, 20/5 heads, d_ff 6912,
+     vocabulary 128256, sub-norms), random packed weights from seed 25,
+     its float32 twin on the card, three QAT steps of AdamW on one seeded
+     batch of 4 x 256 tokens and a fourth profiled (the loss finite and
+     falling), ``pack_params`` (two projections equal to the CPU's packing
+     of the same masters), saved, loaded and served through the slot
+     engine (8 slots, ctx 1024, 12 greedy requests), fused graphed and
+     eager (identical tokens) and composed: #1, #3, #7 and #5 counted;
+     then one case of each family converter (T5, gemma3n, bert, RWKV7,
+     jamba) written by ``bench/hf_writer.py``, converted on the card and
+     on the CPU (equal, and the tree written) and served on the card
+     against the CPU;
+ 26. one JSON line of every kernel with its launches on the paths of phases
+     3-25, then the card, then ``{"ok": true, "device": ...}`` last.
 
 Phase 2 draws its inputs from a seed taken from the OS and printed (its
 first JSON line), and runs its untimed checks in an order that seed
@@ -1729,7 +1742,12 @@ def main() -> None:
     mark("convert")
     convert_phase(dev, fixture, card, reset, read)
 
-    # 25. summary
+    # 25. the trainer: bitnet_2b_4t's float twin QAT-trained at full width
+    # on the card, packed and served; the family converters card = CPU
+    mark("train")
+    train_phase(dev, card, reset, read)
+
+    # 26. summary
     mark("summary")
     replaces = {
         "ternary_gemm_decode": ("vlut_tpu_torch/csrc/decode_gemm.cu",
@@ -3914,6 +3932,215 @@ def convert_phase(dev, fixture, card, reset, read) -> None:
     print(json.dumps(out), flush=True)
     if not (equal and got == want):
         fail(f"tiny_real round trip: {out['fixture']} (card text {got!r})")
+
+
+def family_back(cfg, tree: dict, dst: pathlib.Path) -> list[str]:
+    """The leaves of a float family's converted checkpoint ``dst`` that
+    differ from the tree written (bit for bit), and "config" if its config
+    is not ``cfg``."""
+    import torch
+
+    from vlut_tpu_torch.convert.checkpoint import read_tree
+
+    got_cfg, got, _ = read_tree(dst)
+
+    def leaves(node, key=""):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                yield from leaves(v, f"{key}.{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                yield from leaves(v, f"{key}.{i}")
+        else:
+            yield key, node
+
+    want, have = dict(leaves(tree)), dict(leaves(got))
+    bad = sorted(set(want) ^ set(have))
+    bad += [k for k in set(want) & set(have)
+            if want[k].dtype != have[k].dtype
+            or not torch.equal(want[k], have[k])]
+    return bad + (["config"] if got_cfg != cfg else [])
+
+
+def train_phase(dev, card, reset, read) -> None:
+    """Phase 25: the trainer and the family converters.  (a)
+    ``bitnet_2b_4t`` at its published widths (``init_params_fast``, seed
+    25): its float32 twin on the card (``train/finetune.py``), three QAT
+    steps of ``torch.optim.AdamW`` on one seeded batch of 4 x 256 tokens
+    and a fourth under the profiler (the loss finite and falling),
+    ``pack_params`` (two projections' bytes
+    and scales, at the first and the last layer, equal to ``pack_params``
+    on the CPU for the same masters), saved, loaded and served as
+    ``bench/flagship.py:build_model`` serves (int8 head, fused, unrolled)
+    through the slot engine, fused graphed and eager (identical tokens)
+    and composed graphed, each counted (#1, #3, #7; #5).  (b) one case of each family converter (T5,
+    gemma3n, bert, RWKV7, the jamba hybrid; random trees of
+    ``bench/encoder_zoo.py`` / ``bench/recurrent_zoo.py``) written by
+    ``bench/hf_writer.py``, converted on the card and on the CPU (equal
+    checkpoints, each the tree written) and served on the card against
+    the CPU."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vlut_tpu_torch.bench import engine as bench_engine
+    from vlut_tpu_torch.bench import (encoder_zoo, flagship, hf_writer,
+                                      recurrent_zoo)
+    from vlut_tpu_torch.config import PRESETS
+    from vlut_tpu_torch.convert.checkpoint import (load_checkpoint,
+                                                   read_safetensors,
+                                                   read_tree,
+                                                   save_checkpoint)
+    from vlut_tpu_torch.convert.convert import convert_hf
+    from vlut_tpu_torch.models import transformer as tt
+    from vlut_tpu_torch.train import finetune as ft
+
+    t_phase = time.time()
+    preset = "bitnet_2b_4t"
+    cfg = PRESETS[preset]
+    out: dict = {"phase": "train", "model": preset, "card": card}
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("the twin's float32 products need TF32 off")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the float32 twin, four QAT steps, the repack
+    t0 = time.time()
+    params = ft.trainable(ft.float_twin_params(
+        tt.init_params_fast(cfg, seed=25, device=dev), cfg))
+    torch.cuda.synchronize()
+    out["twin_s"] = time.time() - t0
+    masters = ft.leaves(params)
+    out["master_params"] = sum(t.numel() for t in masters)
+    out["master_gb"] = sum(t.numel() * t.element_size()
+                           for t in masters) / 1e9
+    opt = torch.optim.AdamW(masters, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    step = ft.make_train_step(cfg, opt, qat=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    tokens = torch.randint(3, cfg.vocab_size, (4, 256), generator=gen,
+                           device=dev)
+    mask = torch.ones_like(tokens, dtype=torch.bool)
+    losses, step_ms = [], []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = step(params, tokens, mask)
+        b.record()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        step_ms.append(a.elapsed_time(b))
+    out.update(batch=[4, 256], losses=losses, step_ms=step_ms,
+               train_tok_per_s=[4 * 256 / (ms / 1e3) for ms in step_ms],
+               peak_train_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # a fourth step under the profiler: device time by kernel, idle share
+    out["profile_step"] = flagship.profile_decode(
+        lambda: losses.append(float(step(params, tokens, mask))), 1)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"{preset} QAT: the loss is not finite and falling: {losses}")
+    del opt, step, masters, loss
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    packed = ft.pack_params(params, cfg)
+    torch.cuda.synchronize()
+    out["pack_s"] = time.time() - t0
+    which = [0, cfg.n_layers - 1]
+    on_cpu = ft.pack_params({"layers": {
+        nm: {"dense": params["layers"][nm]["dense"][which].detach().cpu()}
+        for nm in ("wq", "w_down")}}, cfg)
+    differ = [f"{nm}.{leaf}" for nm in ("wq", "w_down")
+              for leaf in ("packed", "scale")
+              if not torch.equal(on_cpu["layers"][nm][leaf],
+                                 packed["layers"][nm][leaf][which].cpu())]
+    out["pack_card_equals_cpu"] = not differ
+    if differ:
+        fail(f"{preset}: pack_params on the card differs from the CPU's at "
+             f"{differ}")
+    del params
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        t0 = time.time()
+        save_checkpoint(d, cfg, packed)
+        cfg2, model, _ = load_checkpoint(d, device=dev)
+        torch.cuda.synchronize()
+        out["save_load_s"] = time.time() - t0
+        back = read_safetensors(pathlib.Path(d) / "model.safetensors", dev)
+        if not all(torch.equal(back[f"layers.{nm}.packed"],
+                               packed["layers"][nm]["packed"])
+                   for nm in ("wq", "wk", "wv", "wo", "w_gate", "w_up",
+                              "w_down")):
+            fail(f"{preset}: the saved checkpoint is not the packed tree")
+        del back
+    del packed
+    model = tt.unstack_layers(tt.fuse_projections(tt.quantize_head(model),
+                                                  cfg2), cfg2)
+    toks = {}
+    for mode, graph, attn_kernel in (
+            ("fused", True, "decode_attention"),
+            ("fused", False, "decode_attention"),
+            ("composed", True, "write_rows_pair")):
+        run = f"{mode}_{'graph' if graph else 'eager'}"
+        reset()
+        res = bench_engine.run(
+            device=dev, built=(cfg2, model), n_slots=8, ctx=1024,
+            requests=bench_engine.make_requests(cfg2.vocab_size, n=12,
+                                                hi=512, new_tokens=16,
+                                                seed=25),
+            decode_attn=mode, cuda_graph=graph)
+        out.setdefault("launches", {})[run] = read(
+            f"train_{preset}_engine_{run}",
+            ("ternary_gemm_decode", "ternary_gemm_tiled", attn_kernel))
+        toks[run] = res.pop("outputs")
+        out.setdefault("engine", {})[run] = {
+            k: res[k] for k in ("prompt_tokens", "prompt_tok_per_s",
+                                "decode_tok_per_s", "decode_ms_per_step",
+                                "replay_ms_per_step")}
+    out["graph_equals_eager"] = toks["fused_graph"] == toks["fused_eager"]
+    if not out["graph_equals_eager"]:
+        fail(f"trained {preset}: the graphed step's greedy tokens differ "
+             "from the eager step's")
+    del model
+    torch.cuda.empty_cache()
+    out["bitnet_s"] = time.time() - t_phase
+
+    # (b) one case of each family converter, card against CPU
+    families = {}
+    cases = {"t5": (encoder_zoo, "t5_gated"),
+             "gemma3n": (encoder_zoo, "gemma3n"),
+             "encoder": (encoder_zoo, "bert"),
+             "rwkv7": (recurrent_zoo, "rwkv7"),
+             "hybrid": (recurrent_zoo, "jamba")}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        d = pathlib.Path(d)
+        for label, (zoo_mod, name) in cases.items():
+            fcfg, tree = zoo_mod.family(name, seed=25)
+            src = hf_writer.write_hf(d / label, fcfg, tree)
+            convert_hf(src, d / f"{label}_card")
+            convert_hf(src, d / f"{label}_cpu", device="cpu")
+            equal = same_checkpoints(d / f"{label}_card", d / f"{label}_cpu")
+            bad = family_back(fcfg, tree, d / f"{label}_card")
+            res = zoo_mod.card_vs_cpu(f"converted_{name}", dev,
+                                      source=read_tree(d / f"{label}_card")[
+                                          :2])
+            same = res.get("greedy_equal", res.get("equal"))
+            families[label] = {"family": name,
+                               "card_equals_cpu_conversion": equal,
+                               "leaves_differing": bad,
+                               "within_tol": res["within_tol"],
+                               "equal": same,
+                               **{k: res[k] for k in (
+                                   "max_rel_logit_err", "max_rel_err")
+                                  if k in res}}
+            if not (equal and not bad and res["within_tol"] and same):
+                fail(f"converted {label}: {families[label]}")
+            shutil.rmtree(src)
+    out["families"] = families
+    out["seconds"] = time.time() - t_phase
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

@@ -35,16 +35,25 @@ class _Handed(Exception):
     pass
 
 
+# the JAX package's converter modules, where a test may find a converter
+_CONVERTER_MODULES = ("convert", "t5", "gemma3n", "encoder", "rwkv", "hybrid")
+
+
 def jax_source(test_fn, tmp_path, monkeypatch, nth: int = 0,
                converter: str = "convert_hf"
                ) -> tuple[pathlib.Path, dict[str, Any]]:
-    """Run a JAX test up to its ``nth`` call of ``converter`` (from 0): the
-    source directory that call was handed, and its keyword arguments.
-    The JAX test's earlier calls convert as they would."""
-    import vlut_tpu.convert.convert as conv
+    """Run a JAX test (or a ``functools.partial`` of a parametrized one) up
+    to its ``nth`` call of ``converter`` (from 0): the source directory
+    that call was handed, and its keyword arguments.  The converter is
+    replaced in the test's module and in the JAX package's converter
+    modules (a test may import it in its body).  The JAX test's earlier
+    calls convert as they would."""
+    import importlib
 
-    mod = sys.modules[test_fn.__module__]
-    owners = [m for m in (conv, mod) if hasattr(m, converter)]
+    mod = sys.modules[getattr(test_fn, "func", test_fn).__module__]
+    homes = [importlib.import_module(f"vlut_tpu.convert.{m}")
+             for m in _CONVERTER_MODULES]
+    owners = [m for m in (*homes, mod) if hasattr(m, converter)]
     real = getattr(owners[-1], converter)
     seen: list[tuple[pathlib.Path, dict[str, Any]]] = []
 
@@ -206,3 +215,94 @@ def ssm_forward_case(port_out: pathlib.Path, monkeypatch, t: int = 9,
     got, _ = (ps.forward2 if two else ps.forward)(model, cfg,
                                                   torch.from_numpy(toks))
     close(got, want, type(cfg).__name__)
+
+
+FIXTURE = pathlib.Path(__file__).parent / "fixtures" / "tiny_real"
+
+
+class _Records:
+    """(logger name past its package, message) of every warning logged
+    under ``<package>.convert`` while the scope is open."""
+
+    def __init__(self, package: str):
+        import logging
+
+        self.log = logging.getLogger(f"{package}.convert")
+        self.package = package
+        self.got: list[tuple[str, str]] = []
+        outer = self
+
+        class _H(logging.Handler):
+            def emit(self, record):
+                if record.levelno >= logging.WARNING:
+                    outer.got.append((record.name[len(package):],
+                                      record.getMessage()))
+
+        self.handler = _H()
+
+    def __enter__(self):
+        self.log.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.log.removeHandler(self.handler)
+
+
+def to_bf16(src: pathlib.Path) -> None:
+    """Rewrite every shard of ``src`` with its float tensors stored as BF16
+    (each float32 value rounded to nearest even)."""
+    from vlut_tpu_torch.convert.checkpoint import (safetensors_arrays,
+                                                   write_safetensors)
+
+    for f in sorted(src.glob("*.safetensors")):
+        arrays = safetensors_arrays(f)
+        bf16 = set()
+        for name, a in arrays.items():
+            if a.dtype in (np.float32, np.float16):
+                arrays[name] = torch.from_numpy(a.astype(np.float32)).to(
+                    torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+                bf16.add(name)
+        write_safetensors(f, arrays, frozenset(bf16))
+
+
+def add_tensors(src: pathlib.Path, names: list[str]) -> None:
+    """Add a small float32 tensor under each of ``names`` to the first
+    shard of ``src``."""
+    from vlut_tpu_torch.convert.checkpoint import (safetensors_arrays,
+                                                   write_safetensors)
+
+    f = sorted(src.glob("*.safetensors"))[0]
+    arrays = safetensors_arrays(f)
+    for i, name in enumerate(names):
+        arrays[name] = np.full((2, 3), i, np.float32)
+    write_safetensors(f, arrays)
+
+
+def family_case(test_fn, tmp_path, monkeypatch, nth: int = 0,
+                converter: str = "convert_hf", bf16: bool = False,
+                extra: list[str] = (), prepare=None
+                ) -> tuple[pathlib.Path, list]:
+    """A JAX family test's source (``jax_source``; tiny_real's tokenizer
+    files copied beside it, ``prepare(src)`` applied where given, the
+    tensors named in ``extra`` added, its floats stored as BF16 where
+    ``bf16``) converted by the JAX
+    ``convert_hf`` and the port's (on the CPU): equal configs, arrays,
+    metadata and tokenizer files (:func:`convert_both`), and the same
+    warnings, in the same order, from the same converter module.  Returns
+    the port's output and its warnings."""
+    import shutil
+
+    src, kw = jax_source(test_fn, tmp_path, monkeypatch, nth, converter)
+    for f in _TOKENIZER_FILES:
+        if (FIXTURE / f).exists() and not (src / f).exists():
+            shutil.copy(FIXTURE / f, src / f)
+    if prepare is not None:
+        prepare(src)
+    if extra:
+        add_tensors(src, list(extra))
+    if bf16:
+        to_bf16(src)
+    with _Records("vlut_tpu") as ja, _Records("vlut_tpu_torch") as po:
+        out = convert_both(src, tmp_path, config=False, **kw)
+    assert ja.got == po.got, (ja.got, po.got)
+    return out, po.got

@@ -298,16 +298,8 @@ def test_dims_helpers_are_the_jax_packages():
 # refused checkpoints: name -> (the JAX test that writes one, its
 # converter's name, which call, the ROADMAP item the port names)
 REFUSED = {
-    "rwkv": ("test_rwkv7", "test_arwkv7_forward_and_state_carry",
-             "convert_hf", 0, "item 9"),
-    "hybrid": ("test_archs_wave6", "test_nemotron_h_moe_transcription",
-               "convert_hf", 0, "item 9"),
-    "encoder": ("test_archs_wave5", "test_neobert_transcription",
-                "convert_hf", 0, "item 9"),
-    "t5": ("test_t5", "test_t5_generate_matches_hf", "convert_t5", 0,
-           "item 9"),
-    "gemma3n": ("test_gemma3n", "test_gemma3n_parity", "convert_gemma3n", 0,
-                "item 9"),
+    "vision_lfm2_vl": ("test_vision_wave3", "test_lfm2_vl_parity",
+                       "convert_hf", 0, "item 8"),
     "vision_pixtral": ("test_archs_wave5", "test_mistral3_text_parity",
                        "convert_hf", 0, "item 8"),
     "vision_qwen3vl": ("test_archs_wave4", "test_qwen3vl_moe_text_parity",
@@ -319,9 +311,9 @@ REFUSED = {
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_unported_families_are_refused(name, tmp_path, monkeypatch):
-    """The family converters (ROADMAP Queue 1 item 9) and the vision
-    towers and visual experts (item 8) raise, naming the item, before
-    anything is written."""
+    """The vision towers (lfm2-vl's among them) and visual experts
+    (ROADMAP Queue 1 item 8) raise, naming the item, before anything is
+    written."""
     import importlib
 
     mod, test, converter, nth, item = REFUSED[name]

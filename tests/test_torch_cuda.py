@@ -1063,3 +1063,59 @@ def test_conversion_on_the_card_equals_the_cpus(dev, name, tmp_path):
         assert a[k].tobytes() == b[k].tobytes(), k
     assert (json.loads((tmp_path / "card" / "vlut_config.json").read_text())
             == json.loads((tmp_path / "cpu" / "vlut_config.json").read_text()))
+
+
+@pytest.mark.parametrize("name", ["rwkv7", "jamba", "bert", "t5_gated",
+                                  "gemma3n"])
+def test_family_conversion_on_the_card_equals_the_cpus(dev, name, tmp_path):
+    """A family converter called with the card as its device (``convert_hf``
+    keeps the device rule; the family's floats stay on the host) writes
+    the CPU's checkpoint."""
+    from vlut_tpu_torch.bench import encoder_zoo, hf_writer, recurrent_zoo
+    from vlut_tpu_torch.convert.checkpoint import safetensors_arrays
+    from vlut_tpu_torch.convert.convert import convert_hf
+
+    zoo_mod = recurrent_zoo if name in ("rwkv7", "jamba") else encoder_zoo
+    src = hf_writer.write_hf(tmp_path / "hf", *zoo_mod.family(name, seed=1))
+    convert_hf(src, tmp_path / "card", device=dev)
+    convert_hf(src, tmp_path / "cpu", device="cpu")
+    a = safetensors_arrays(tmp_path / "card" / "model.safetensors")
+    b = safetensors_arrays(tmp_path / "cpu" / "model.safetensors")
+    assert sorted(a) == sorted(b)
+    assert all(a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+@pytest.mark.parametrize("preset", ["tiny", "tiny_moe", "tiny_bitnet"])
+def test_pack_params_on_the_card_equals_the_cpus(dev, preset):
+    """``train/finetune.py``: a QAT step on the card gives the CPU's loss
+    (within 1e-5, TF32 off), and ``pack_params`` of the same masters packs
+    the same bytes and scales on the card as on the CPU (each scale decided
+    on the host in numpy, the trits rounded by a true division)."""
+    from vlut_tpu_torch.config import PRESETS
+    from vlut_tpu_torch.models import transformer as tt
+    from vlut_tpu_torch.train import finetune as ft
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = PRESETS[preset]
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
+    losses, trained = [], []
+    for device in ("cpu", dev):
+        params = ft.trainable(ft.float_twin_params(
+            tt.init_params(cfg, seed=2, device=device), cfg))
+        opt = torch.optim.SGD(ft.leaves(params), lr=0.1)
+        losses.append(float(ft.make_train_step(cfg, opt, qat=True)(
+            params, toks.to(device))))
+        trained.append(params)
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0]), losses
+    masters = {"layers": {name: {"dense": v["dense"].detach()}
+                          for name, v in trained[0]["layers"].items()
+                          if isinstance(v, dict)}}
+    on_cpu = ft.pack_params(masters, cfg)
+    on_card = ft.pack_params({"layers": {
+        name: {"dense": v["dense"].to(dev)}
+        for name, v in masters["layers"].items()}}, cfg)
+    for name, leaves in on_cpu["layers"].items():
+        for leaf in ("packed", "scale"):
+            assert torch.equal(on_card["layers"][name][leaf].cpu(),
+                               leaves[leaf]), (name, leaf)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of vlut_tpu_torch, and not chip_smoke.py,
-imports JAX or the JAX package; entry points refuse to run without a GPU
+imports JAX or the JAX package (nor optax, safetensors or transformers,
+which the card's machine lacks); entry points refuse to run without a GPU
 unless the CPU is asked for; chip_smoke.py fails without a GPU or without
 the repository beside it."""
 
@@ -25,7 +26,8 @@ for name in names:
     importlib.import_module(name)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "vlut_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "vlut_tpu", "optax",
+                                    "safetensors", "transformers"))
 print(len(names), "modules;", "imported:", bad)
 sys.exit(1 if bad or len(names) < 20 else 0)
 """

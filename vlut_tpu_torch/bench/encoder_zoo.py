@@ -164,8 +164,10 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def _float_family(name, cfg, cpu, card, seed):
     """A float family's outputs on the card against the CPU's."""
+    from vlut_tpu_torch.convert.checkpoint import family_of
+
     rng = np.random.default_rng(seed)
-    fam = STRUCTURES[name]["family"]
+    fam = family_of(cfg)
     out: dict = {}
     dev = card.device
     if fam == "encoder":
@@ -286,15 +288,17 @@ def _diffusion_family(name, device, counters, seed, prompt=24, n_new=16):
                               for v in out.values()), **out}
 
 
-def card_vs_cpu(name: str, device, counters=None, seed: int = 0) -> dict:
+def card_vs_cpu(name: str, device, counters=None, seed: int = 0,
+                source=None) -> dict:
     """One family on ``device`` against the CPU from the same weights.
     ``counters`` (reset, read) bracket a packed diffusion family's free run
-    on the card, which must launch its kernels."""
+    on the card, which must launch its kernels.  ``source`` (cfg, host
+    tree) runs that float model under the label ``name`` instead."""
     t0 = time.perf_counter()
-    if name in DIFFUSION:
+    if name in DIFFUSION and source is None:
         out = _diffusion_family(name, device, counters, seed)
     else:
-        cfg, tree = family(name, seed)
+        cfg, tree = source or family(name, seed)
         cpu, card = model_on(cfg, tree, "cpu"), model_on(cfg, tree, device)
         out = _float_family(name, cfg, cpu, card, seed)
     return {"family": name, **out, "seconds": time.perf_counter() - t0}

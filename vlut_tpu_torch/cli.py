@@ -58,7 +58,9 @@ and ``eval`` the perplexity harness (with the quantized-vs-dequant KL
 check) and the accuracy tasks.  Each of these runs on the GPU unless
 ``--device cpu`` is given.  ``convert`` turns an HF directory into a
 packed checkpoint (``convert/convert.py``: the integer unpack and pack on
-the GPU unless ``--device cpu``, every float decision on the host).
+the GPU unless ``--device cpu``, every float decision on the host), or a
+recurrent, hybrid, encoder, gemma3n or T5 one into its float checkpoint
+(the family converters, on the host; the device rule is the same).
 ``quantize`` (exact i2 <-> i1 repack) and
 ``inspect`` (config and tensor directory, ``--hash`` for sha256 digests)
 touch no device.

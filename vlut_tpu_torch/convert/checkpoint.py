@@ -224,7 +224,15 @@ def load_checkpoint(
 ) -> tuple[ModelConfig, TransformerLM, dict[str, Any]]:
     """Returns (cfg, model, meta); the model lies on ``device`` (the GPU
     unless the CPU is asked for)."""
-    dev = resolve_device(device)
+    cfg, tree, meta = read_tree(path, resolve_device(device))
+    return cfg, model_from_tree(cfg, tree), meta
+
+
+def read_tree(path: str | pathlib.Path, device: str | torch.device = "cpu"
+              ) -> tuple[Any, dict[str, Any], dict[str, Any]]:
+    """(cfg, tree, meta) of a checkpoint directory: its tensors on
+    ``device`` as the nested tree they were saved from (a ``layers_tuple``
+    checkpoint's layers as the list of per-layer trees), no model built."""
     path = pathlib.Path(path)
     meta = json.loads((path / "vlut_config.json").read_text())
     if meta.get("format_version") != FORMAT_VERSION:
@@ -232,11 +240,10 @@ def load_checkpoint(
     family = meta.get("model_family", "transformer")
     if family not in FAMILIES:
         raise NotImplementedError(f"unknown model family {family!r}")
-    cfg = config_from_meta(meta)
-    tree = unflatten(read_safetensors(path / "model.safetensors", dev))
+    tree = unflatten(read_safetensors(path / "model.safetensors", device))
     if meta.get("layers_tuple"):
         tree["layers"] = tuple_layers(tree["layers"])
-    return cfg, model_from_tree(cfg, tree), meta
+    return config_from_meta(meta), tree, meta
 
 
 def _family_config(family: str):

@@ -21,8 +21,10 @@ the port's own safetensors reader and upcast exactly (the bits shifted up
 16), and every cast to bf16 rounds a float32 array to nearest even, as
 the JAX converter's ``jnp.asarray(float32).astype(bfloat16)`` does.
 
-The recurrent, hybrid, encoder, gemma3n and T5 families and the vision
-towers are refused (ROADMAP Queue 1 items 9 and 8).
+The family converters (RWKV, the SSM hybrids, the encoders, gemma3n and
+T5; ``convert/{rwkv,hybrid,encoder,gemma3n,t5}.py``) are dispatched from
+:func:`convert_hf` as the JAX converter dispatches them.  The vision towers,
+lfm2-vl among them, are refused (ROADMAP Queue 1 item 8).
 
     python -m vlut_tpu_torch.convert.convert HF OUT [--fmt i1] [--device cpu]
 """
@@ -49,7 +51,6 @@ from vlut_tpu_torch.ops.packing import pack_ternary, ternarize
 
 log = logging.getLogger("vlut_tpu_torch.convert")
 
-FAMILY_CONVERTERS = "ROADMAP Queue 1 item 9 (the family converters)"
 VISION = "ROADMAP Queue 1 item 8 (multimodal)"
 
 # HF name -> our layer-param name (weights transposed to (K, N) at pack time)
@@ -1660,18 +1661,9 @@ def _convert_ssm(hf_dir: pathlib.Path, out_dir, cfg, name_map, what: str,
 
 
 
-# model_type -> where its converter stays (the JAX package's own modules)
-_REFUSED_TYPES = {
-    **dict.fromkeys(("rwkv7", "rwkv070", "rwkv_hybrid", "rwkv6",
-                     "rwkv6qwen2"), "convert/rwkv.py"),
-    **dict.fromkeys(("jamba", "falcon_h1", "granitemoehybrid", "lfm2",
-                     "lfm2_moe", "qwen3_next", "nemotron_h", "plamo2",
-                     "lfm2_vl", "lfm2-vl"), "convert/hybrid.py"),
-    **dict.fromkeys(("bert", "modernbert", "neobert", "nomic_bert",
-                     "xlm-roberta"), "convert/encoder.py"),
-    **dict.fromkeys(("gemma3n", "gemma3n_text"), "convert/gemma3n.py"),
-    **dict.fromkeys(("t5", "mt5"), "convert/t5.py"),
-}
+# model types whose checkpoint the JAX converter writes with a vision tower
+# beside the text model (lfm2-vl's siglip2 tower, its _convert_lfm2_vl)
+_REFUSED_TYPES = ("lfm2_vl", "lfm2-vl")
 # tensors of a vision tower (converted by the JAX package's vision path)
 _TOWER_PREFIXES = (
     "vision_tower.", "multi_modal_projector.", "vision_model.",
@@ -1708,11 +1700,38 @@ def convert_hf(
         return convert_mamba(hf_dir, out_dir, dtype_hp=dtype_hp, device=dev)
     if raw0.get("model_type") == "mamba2":
         return convert_mamba2(hf_dir, out_dir, dtype_hp=dtype_hp, device=dev)
-    refused = _REFUSED_TYPES.get(raw0.get("model_type"))
-    if refused:
+    # the family converters: float weights, every operation on the host
+    if raw0.get("model_type") in ("rwkv7", "rwkv070", "rwkv_hybrid"):
+        from vlut_tpu_torch.convert.rwkv import convert_rwkv7
+
+        return convert_rwkv7(hf_dir, out_dir)
+    if raw0.get("model_type") in ("rwkv6", "rwkv6qwen2"):
+        from vlut_tpu_torch.convert.rwkv import convert_rwkv6
+
+        return convert_rwkv6(hf_dir, out_dir)
+    if raw0.get("model_type") in ("jamba", "falcon_h1", "granitemoehybrid",
+                                  "lfm2", "lfm2_moe", "qwen3_next",
+                                  "nemotron_h", "plamo2"):
+        from vlut_tpu_torch.convert.hybrid import convert_hybrid
+
+        return convert_hybrid(hf_dir, out_dir)
+    if raw0.get("model_type") in _REFUSED_TYPES:
         raise NotImplementedError(
-            f"model_type {raw0.get('model_type')!r}: its converter "
-            f"({refused}) is not ported yet, {FAMILY_CONVERTERS}")
+            f"model_type {raw0.get('model_type')!r}: its siglip2 vision "
+            f"tower is not ported yet, {VISION}")
+    if raw0.get("model_type") in ("bert", "modernbert", "neobert",
+                                  "nomic_bert", "xlm-roberta"):
+        from vlut_tpu_torch.convert.encoder import convert_encoder
+
+        return convert_encoder(hf_dir, out_dir)
+    if raw0.get("model_type") in ("gemma3n", "gemma3n_text"):
+        from vlut_tpu_torch.convert.gemma3n import convert_gemma3n
+
+        return convert_gemma3n(hf_dir, out_dir)
+    if raw0.get("model_type") in ("t5", "mt5"):
+        from vlut_tpu_torch.convert.t5 import convert_t5
+
+        return convert_t5(hf_dir, out_dir)
     cfg0 = config_from_hf(hf_dir)
     cfg = ModelConfig(**{**cfg0.__dict__, "weight_fmt": fmt})
     if cfg.dual_expert:

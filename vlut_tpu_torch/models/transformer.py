@@ -1490,10 +1490,15 @@ def _attention_chunked(q, k, v, q_pos, k_pos, hd_logical, scale=0.0,
         masked = ~_mask(kp, qp, window, chunked_window,
                         None if mask_override is None
                         else mask_override[:, :, off:off + chunk], causal)
-        sc.masked_fill_(masked, -1e30)
+        # a train step differentiates through here (autograd keeps exp's
+        # output), so under grad nothing is written in place
+        grad = sc.requires_grad
+        sc = sc.masked_fill(masked, -1e30) if grad else sc.masked_fill_(
+            masked, -1e30)
         m_new = torch.maximum(m, sc.amax(dim=-1))
         corr = torch.exp(m - m_new)
-        p = sc.sub_(m_new[..., None]).exp_().masked_fill_(masked, 0.0)
+        p = (torch.exp(sc - m_new[..., None]).masked_fill(masked, 0.0) if grad
+             else sc.sub_(m_new[..., None]).exp_().masked_fill_(masked, 0.0))
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhgts,bshd->bhgtd", p, vc)
         m = m_new
