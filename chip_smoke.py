@@ -179,8 +179,24 @@ Phases (any failure exits non-zero; none is skipped):
      jamba) written by ``bench/hf_writer.py``, converted on the card and
      on the CPU (equal, and the tree written) and served on the card
      against the CPU;
- 26. one JSON line of every kernel with its launches on the paths of phases
-     3-25, then the card, then ``{"ok": true, "device": ...}`` last.
+ 26. the vision half: ``llava_1_5_7b`` (llava-hf/llava-1.5-7b-hf's widths:
+     CLIP ViT-L/14-336, d 1024, 24 layers, feature layer -2, 576 patch
+     rows; a 1024 -> 4096 -> 4096 projector; Llama-2-7B's text, d 4096, 32
+     layers, 32/32 heads of 128, d_ff 11008, vocabulary 32064) at full
+     width and depth, random weights from seed 26 (the tower bf16, the
+     text packed i2 with an int8 head), ``cli.describe`` of a seeded 336 x
+     336 image array with a prompt holding <image> (tiny_real's
+     tokenizer): one prefill of the spliced rows through #3, 32 greedy
+     tokens through #1 and #7, the step a CUDA graph (twice, and eager:
+     identical tokens), then composed through #5; the tower's, the
+     projector's, the prefill's and a token's times, and their profiles; then every family of ``bench/vision_zoo.py`` (the JAX
+     vision tests' sources converted on the card and on the CPU: equal
+     files; each tower function on the card from the CPU's inputs; the
+     CPU's embeddings spliced into the language model on both, layer by
+     layer, the CPU's greedy tokens; cogvlm's visual-expert pass; the
+     twins' towers);
+ 27. one JSON line of every kernel with its launches on the paths of phases
+     3-26, then the card, then ``{"ok": true, "device": ...}`` last.
 
 Phase 2 draws its inputs from a seed taken from the OS and printed (its
 first JSON line), and runs its untimed checks in an order that seed
@@ -847,6 +863,17 @@ def phase_kernels(dev, seed: int | None = None) -> dict:
         if fused:
             tiled_timed("ternary_gemm_tiled_zoo", label, 256, k, n, "i2",
                         iters=5, rotate=False)
+    # llava_1_5_7b (phase 26): the fused tree's four through #1 at the
+    # decode's M 1, through #3 at the image-bearing prefill's M; #7 at its
+    # cache (B 1, 32 heads over 32 KV heads of 128, G 1)
+    m_img = llava_prefill_m()
+    for proj in llava_projections():
+        zoo_timed(*proj, 1)
+    for label, k, n, *_ in llava_projections():
+        tiled_timed("ternary_gemm_tiled_zoo", label, m_img, k, n, "i2",
+                    iters=5, rotate=False)
+    decode_attention_kernels(dev, gen, record, (
+        ("llava_1_5_7b", 1, 1024, 32, 1, 128, 0, m_img),))
 
     # --- the other paths' shapes, checked and not timed, in an order
     # shuffled by the phase's seed: no check may depend on the data an
@@ -1041,6 +1068,14 @@ def phase_kernels(dev, seed: int | None = None) -> dict:
             for m in (256, 1024):
                 job(tiled_check, label, m, k, n, "i2")
 
+    # llava_1_5_7b (phase 26): #1 at M 1 and 32, #3 at the prefill's M and
+    # at M 1024
+    for label, k, n, mode, sub, has_res, fused in llava_projections():
+        for m in (1, 32):
+            job(decode_check, label, m, k, n, mode, sub, has_res, "i2")
+        for m in (m_img, 1024):
+            job(tiled_check, label, m, k, n, "i2")
+
     order = list(range(len(jobs)))
     random.Random(seed).shuffle(order)
     print(json.dumps({"phase": "kernels_checks", "seed": seed,
@@ -1114,6 +1149,40 @@ def llada_projections() -> list:
          False, False),
         ("llada_8b_unfused_w_down", p.ff_p, c.d_model, "plain", False,
          False, False),
+    ]
+
+
+# the prompt phase 26 describes its image with (tiny_real's tokenizer)
+LLAVA_PROMPT = "USER: <image>\nDescribe the image. ASSISTANT:"
+
+
+def llava_prefill_m() -> int:
+    """Rows of phase 26's prefill: the prompt's text tokens (tiny_real's
+    tokenizer, BOS first) around the 576 patch rows."""
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    tok = Tokenizer(ROOT / "tests" / "fixtures" / "tiny_real")
+    pre, _, post = LLAVA_PROMPT.partition("<image>")
+    return len(tok.encode(pre)) + 576 + len(tok.encode(post, add_bos=False))
+
+
+def llava_projections() -> list:
+    """As :func:`zoo_projections`, llava_1_5_7b's fused tree (phase 26;
+    Llama-2-7B's widths): qkv (4096 -> 12288, norm), wo (plain, residual),
+    gate|up (4096 -> 2 x 11008 padded) and down (silu_mul, residual)."""
+    from vlut_tpu_torch.config import PRESETS
+    from vlut_tpu_torch.models.dims import make_plan
+
+    c = PRESETS["llava_1_5_7b"]
+    p = make_plan(c)
+    return [
+        ("llava_1_5_7b_qkv", c.d_model, p.q_dim_p + 2 * p.kv_dim_p, "norm",
+         False, False, True),
+        ("llava_1_5_7b_wo", p.wo_in_p, c.d_model, "plain", False, True, True),
+        ("llava_1_5_7b_gateup", c.d_model, 2 * p.ff_p, "norm", False, False,
+         True),
+        ("llava_1_5_7b_down", p.ff_p, c.d_model, "silu_mul", False, True,
+         True),
     ]
 
 
@@ -1747,7 +1816,12 @@ def main() -> None:
     mark("train")
     train_phase(dev, card, reset, read)
 
-    # 26. summary
+    # 26. the vision half: llava_1_5_7b described at full width; every
+    # vision family card against CPU
+    mark("vision")
+    vision_phase(dev, fixture, card, reset, read)
+
+    # 27. summary
     mark("summary")
     replaces = {
         "ternary_gemm_decode": ("vlut_tpu_torch/csrc/decode_gemm.cu",
@@ -4139,6 +4213,138 @@ def train_phase(dev, card, reset, read) -> None:
                 fail(f"converted {label}: {families[label]}")
             shutil.rmtree(src)
     out["families"] = families
+    out["seconds"] = time.time() - t_phase
+    print(json.dumps(out), flush=True)
+
+
+def vision_phase(dev, fixture, card, reset, read) -> None:
+    """Phase 26: the vision half.  (a) ``llava_1_5_7b`` at full width and
+    depth (``bench/vision_zoo.py:llava_1_5_7b``): the tower from
+    ``vision.init_params_fast`` (seed 26, bf16), the text from
+    ``bench/flagship.py:build_model`` (seed 26: packed i2, int8 head,
+    fused, unrolled); a seeded 336 x 336 array through
+    ``preprocess_image``, the tower and the projector, each timed; then
+    ``cli.describe`` of :data:`LLAVA_PROMPT` with tiny_real's tokenizer
+    (no end-of-sequence stop): the prefill alone and 33 tokens (the
+    prefill's and 32 graphed decode steps') timed, fused (counted: #3, #1,
+    #7) twice with identical tokens, 65 tokens (the marginal token's time,
+    set-up and capture cancelled), eager (the graphed run's tokens),
+    then composed (counted: #5) graphed and eager with identical tokens;
+    the tower, the prefill and the 33-token run profiled.  (b) every
+    family of ``bench/vision_zoo.py``, card against CPU, each splice
+    counted (``vision_zoo.splice_kernels``)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from vlut_tpu_torch.bench import flagship
+    from vlut_tpu_torch.bench import vision_zoo as vz
+    from vlut_tpu_torch.cli import describe
+    from vlut_tpu_torch.models import vision as pv
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    t_phase = time.time()
+    vcfg, cfg = vz.llava_1_5_7b()
+    out: dict = {"phase": "vision", "model": "llava_1_5_7b", "card": card}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    _, model = flagship.build_model("llava_1_5_7b", dev, seed=26)
+    vp = pv.init_params_fast(vcfg, seed=26, device=dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.time() - t0
+    out["tower_params"] = (sum(v.numel() for v in vp["layers"].values())
+                           + sum(v.numel() for k, v in vp.items()
+                                 if k != "layers"))
+    img = np.random.default_rng(26).random((336, 336, 3)).astype(np.float32)
+    x = torch.from_numpy(pv.preprocess_image(img, vcfg.image_size)).to(
+        dev)[None]
+    with torch.inference_mode():
+        feats = pv.encode_tower(vp, vcfg, x)
+        embeds = pv.llava_project(vp, feats)[0]
+        out["tower_ms"] = cuda_ms(lambda: pv.encode_tower(vp, vcfg, x),
+                                  iters=3, warmup=1)
+        out["projector_ms"] = cuda_ms(lambda: pv.llava_project(vp, feats),
+                                      iters=5, warmup=1)
+    if embeds.shape != (576, cfg.d_model) or not torch.isfinite(
+            embeds.float()).all():
+        fail(f"llava_1_5_7b: image rows {tuple(embeds.shape)}, finite "
+             f"{bool(torch.isfinite(embeds.float()).all())}")
+    tok = Tokenizer(fixture)
+    shim = types.SimpleNamespace(encode=tok.encode, eos_id=None)
+
+    def timed(n, mode="fused", graph=True):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks = describe(model, cfg, shim, embeds, LLAVA_PROMPT, n,
+                        decode_attn=mode, cuda_graph=graph)
+        torch.cuda.synchronize()
+        return toks, (time.perf_counter() - t) * 1e3
+
+    timed(3)  # warm-up: each kernel shape's first launch, one capture
+    _, out["prefill_ms"] = timed(1)
+    reset()
+    first, ms33 = timed(33)
+    out["launches"] = {"fused": read("vision_llava_1_5_7b_fused", (
+        "ternary_gemm_tiled", "ternary_gemm_decode", "decode_attention"))}
+    out["ms_per_token"] = (ms33 - out["prefill_ms"]) / 32
+    second, _ = timed(33)
+    # the marginal token of a longer run: the prefill, the first (eager)
+    # step and the capture cancel
+    _, ms65 = timed(65)
+    out["marginal_ms_per_token"] = (ms65 - ms33) / 32
+    eager, ms33_eager = timed(33, graph=False)
+    out["eager_ms_per_token"] = (ms33_eager - out["prefill_ms"]) / 32
+    reset()
+    composed, ms33_c = timed(33, "composed")
+    out["composed_ms_per_token"] = (ms33_c - out["prefill_ms"]) / 32
+    out["launches"]["composed"] = read("vision_llava_1_5_7b_composed", (
+        "ternary_gemm_tiled", "ternary_gemm_decode", "write_rows_pair"))
+    composed_eager, _ = timed(33, "composed", graph=False)
+    out.update(prefill_rows=llava_prefill_m(), tokens=first,
+               runs_identical=first == second, graph_equals_eager=(
+                   first == eager), composed_graph_equals_eager=(
+                   composed == composed_eager),
+               composed_equal_share=sum(a == b for a, b in zip(
+                   first, composed)) / len(first),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if len(first) != 33 or first != second:
+        fail(f"llava_1_5_7b: two describe runs differ ({first} / {second})")
+    if first != eager:
+        fail(f"llava_1_5_7b: graphed decode {first} != eager {eager}")
+    if composed != composed_eager:
+        fail(f"llava_1_5_7b: graphed composed decode {composed} != eager "
+             f"{composed_eager}")
+    # where the time goes: the tower, the prefill, and the 33-token run
+    # (its decode = the run less the prefill), each under the profiler
+    with torch.inference_mode():
+        out["tower_profile"] = flagship.profile_decode(
+            lambda: pv.encode_tower(vp, vcfg, x), 1)
+    out["prefill_profile"] = flagship.profile_decode(lambda: timed(1), 1)
+    run33 = flagship.profile_decode(lambda: timed(33), 33)
+    kern_ms = (33 * run33["kernel_ms_per_step"]
+               - out["prefill_profile"]["kernel_ms_per_step"]) / 32
+    wall_ms = (33 * run33["wall_ms_per_step"]
+               - out["prefill_profile"]["wall_ms_per_step"]) / 32
+    out["decode_profile"] = {
+        "kernel_ms_per_token": kern_ms, "wall_ms_per_token": wall_ms,
+        "idle_share": 1.0 - kern_ms / wall_ms, "run33": run33}
+    del model, vp, feats, embeds
+    torch.cuda.empty_cache()
+    out["llava_s"] = time.time() - t_phase
+
+    # (b) every vision family, card against CPU
+    families = {}
+    for name in vz.FAMILIES:
+        r = vz.card_vs_cpu(name, dev, counters=(reset, read), seed=26)
+        families[name] = r
+        if not r["ok"]:
+            fail(f"vision family {name}: {r}")
+    keep = ("tower_rel_err", "splice", "splice_skipped", "launches",
+            "differing", "seconds")
+    out["families"] = {n: {k: r[k] for k in keep if k in r}
+                       for n, r in families.items()}
     out["seconds"] = time.time() - t_phase
     print(json.dumps(out), flush=True)
 

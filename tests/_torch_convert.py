@@ -88,7 +88,7 @@ def port_arrays(ckpt: pathlib.Path) -> dict[str, np.ndarray]:
 
 def assert_same_checkpoint(a: pathlib.Path, b: pathlib.Path) -> bool:
     """``a`` (the JAX converter's) and ``b`` (the port's) hold the same
-    arrays, metadata and tokenizer files; returns whether the two
+    arrays (the vision sidecars' too), metadata and tokenizer files; returns whether the two
     safetensors files are equal byte for byte as well."""
     ja, pb = jax_arrays(a), port_arrays(b)
     assert sorted(ja) == sorted(pb), (sorted(set(ja) ^ set(pb)))
@@ -102,6 +102,20 @@ def assert_same_checkpoint(a: pathlib.Path, b: pathlib.Path) -> bool:
                                  != y.reshape(-1).view(np.uint8))
             raise AssertionError(f"{k}: {bad.size} bytes differ, first at "
                                  f"{bad[:4]}")
+    sidecars = sorted(f.name for f in a.glob("*.safetensors")
+                      if f.name != "model.safetensors")
+    assert sidecars == sorted(f.name for f in b.glob("*.safetensors")
+                              if f.name != "model.safetensors")
+    for f in sidecars:  # the vision towers' files, array for array
+        from safetensors.numpy import load_file
+        from vlut_tpu_torch.convert.checkpoint import safetensors_arrays
+
+        x, y = load_file(str(a / f)), safetensors_arrays(b / f)
+        assert sorted(x) == sorted(y), (f, sorted(set(x) ^ set(y)))
+        for k in x:
+            assert (x[k].dtype, x[k].shape) == (y[k].dtype, y[k].shape), (
+                f, k)
+            assert x[k].tobytes() == y[k].tobytes(), (f, k)
     ma = json.loads((a / "vlut_config.json").read_text())
     mb = json.loads((b / "vlut_config.json").read_text())
     assert ma == mb, {k: (ma.get(k), mb.get(k)) for k in set(ma) | set(mb)

@@ -154,15 +154,15 @@ def test_presets_run_from_fast_random_weights(name):
 
 
 def test_unported_configs_raise():
-    """What still refuses (cogvlm's visual experts) raises, naming its
-    ROADMAP item; MoE, per-layer heads and FFN widths, MLA, M-RoPE,
-    non-causal attention and the diffusion fields, ported since, do
-    not."""
+    """Every config field is ported now: MoE, per-layer heads and FFN
+    widths, MLA, M-RoPE, non-causal attention, the diffusion fields and
+    cogvlm's visual experts pass the check; an unknown activation still
+    raises."""
     base = PRESETS["tiny"]
-    for change, item in ((dict(dual_expert=True), "8"),):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tt.check_supported(dataclasses.replace(base, **change))
-    for change in (dict(causal_attn=False), dict(mask_token_id=5),
+    with pytest.raises(NotImplementedError, match="act_fn"):
+        tt.check_supported(dataclasses.replace(base, act_fn="swish9"))
+    for change in (dict(dual_expert=True),
+                   dict(causal_attn=False), dict(mask_token_id=5),
                    dict(diffusion_shift_logits=False),
                    dict(n_experts=4, n_experts_used=2),
                    dict(heads_per_layer=((4, 2), (4, 2))),

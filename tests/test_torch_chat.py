@@ -122,12 +122,15 @@ def test_generate_override_matches_jax(monkeypatch):
     assert got != _generate(cli.main, GEN + ["--device", "cpu"])
 
 
-def test_generate_override_of_unported_field_raises():
-    # causal_attn (ported since: such a checkpoint denoises) no longer
-    # raises; cogvlm's visual experts still do
-    with pytest.raises(NotImplementedError, match="dual_expert"):
-        cli.main(GEN + ["--override", "dual_expert=True", "--device",
-                        "cpu"])
+def test_generate_override_of_unported_field_raises(monkeypatch):
+    # causal_attn (ported since: such a checkpoint denoises) and cogvlm's
+    # visual experts (ported since: a text request runs the language
+    # weights, as the JAX CLI does) no longer raise; a field the config
+    # lacks does
+    monkeypatch.setenv("VLUT_TPU_MATMUL_IMPL", "pallas_interpret")
+    flags = ["--override", "dual_expert=True"]
+    assert (_generate(cli.main, GEN + flags + ["--device", "cpu"])
+            == _generate(jax_cli.main, GEN + flags))
     with pytest.raises(SystemExit, match="no config field"):
         cli.main(GEN + ["--override", "nope=1", "--device", "cpu"])
 

@@ -295,34 +295,38 @@ def test_dims_helpers_are_the_jax_packages():
             jd.scatter_vec(v, chunk, chunk_p, total))
 
 
-# refused checkpoints: name -> (the JAX test that writes one, its
-# converter's name, which call, the ROADMAP item the port names)
+# the checkpoints once refused under ROADMAP item 8: name -> (the JAX test
+# that writes one, its converter's name, which call)
 REFUSED = {
     "vision_lfm2_vl": ("test_vision_wave3", "test_lfm2_vl_parity",
-                       "convert_hf", 0, "item 8"),
+                       "convert_hf", 0),
     "vision_pixtral": ("test_archs_wave5", "test_mistral3_text_parity",
-                       "convert_hf", 0, "item 8"),
+                       "convert_hf", 0),
     "vision_qwen3vl": ("test_archs_wave4", "test_qwen3vl_moe_text_parity",
-                       "convert_hf", 0, "item 8"),
+                       "convert_hf", 0),
     "cogvlm": ("test_archs_wave5", "test_cogvlm_dual_expert", "convert_hf",
-               0, "item 8"),
+               0),
 }
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_unported_families_are_refused(name, tmp_path, monkeypatch):
-    """The vision towers (lfm2-vl's among them) and visual experts
-    (ROADMAP Queue 1 item 8) raise, naming the item, before anything is
-    written."""
+    """The vision towers (lfm2-vl's among them) and cogvlm's visual
+    experts, refused until this slice, now convert: the text model, the
+    tower's sidecar and the meta equal the JAX converter's array for
+    array."""
     import importlib
 
-    mod, test, converter, nth, item = REFUSED[name]
+    mod, test, converter, nth = REFUSED[name]
     test_fn = getattr(importlib.import_module(mod), test)
-    src, _ = jax_source(test_fn, tmp_path, monkeypatch, nth, converter)
-    out = tmp_path / "port_out"
-    with pytest.raises(NotImplementedError, match=item):
-        pc.convert_hf(src, out, device="cpu")
-    assert not out.exists()
+    src, kw = jax_source(test_fn, tmp_path, monkeypatch, nth, converter)
+    out = convert_both(src, tmp_path, config=name != "vision_lfm2_vl", **kw)
+    meta = json.loads((out / "vlut_config.json").read_text())
+    if name == "cogvlm":
+        assert "vis_wq.packed" in " ".join(port_arrays(out))
+    else:
+        assert {"lfm2vl_config", "pixtral_config",
+                "qwen3vl_vision_config"} & set(meta)
 
 
 def test_cli_convert_needs_the_card_or_cpu(tmp_path, monkeypatch):

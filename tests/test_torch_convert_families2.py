@@ -141,19 +141,24 @@ def test_unrecognized_tensors_warn_like_jax(name, module, tmp_path,
     assert [n for n, _ in said] == [".convert." + module] * 2
 
 
-def test_lfm2_vl_is_refused_before_writing(tmp_path):
-    """lfm2-vl's text side is the lfm2 hybrid, but the JAX converter writes
-    its siglip2 tower beside it: the port refuses it under item 8 before
-    anything is written."""
-    src = tmp_path / "hf"
-    src.mkdir()
+def test_lfm2_vl_is_refused_before_writing(tmp_path, monkeypatch):
+    """lfm2-vl (either spelling of its model type): its text side is the
+    lfm2 hybrid and its siglip2 tower is written beside it, both equal to
+    the JAX converter's, arrays, sidecar and meta."""
+    import test_vision_wave3
+
+    from _torch_convert import convert_both
+
+    src, _ = jax_source(test_vision_wave3.test_lfm2_vl_parity, tmp_path,
+                        monkeypatch)
     for mt in ("lfm2_vl", "lfm2-vl"):
-        (src / "config.json").write_text(json.dumps({
-            "model_type": mt, "text_config": {"model_type": "lfm2"}}))
-        out = tmp_path / f"out_{mt}"
-        with pytest.raises(NotImplementedError, match="item 8"):
-            pc.convert_hf(src, out, device="cpu")
-        assert not out.exists()
+        raw = json.loads((src / "config.json").read_text())
+        raw["model_type"] = mt
+        (src / "config.json").write_text(json.dumps(raw))
+        out = convert_both(src, tmp_path / mt, config=False)
+        meta = json.loads((out / "vlut_config.json").read_text())
+        assert meta["model_family"] == "hybrid" and "lfm2vl_config" in meta
+        assert (out / "lfm2vl.safetensors").exists()
 
 
 @pytest.mark.parametrize("name", ["t5_generate", "neobert"])

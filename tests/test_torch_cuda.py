@@ -1119,3 +1119,57 @@ def test_pack_params_on_the_card_equals_the_cpus(dev, preset):
         for leaf in ("packed", "scale"):
             assert torch.equal(on_card["layers"][name][leaf].cpu(),
                                leaves[leaf]), (name, leaf)
+
+
+@pytest.mark.parametrize("name", ["gemma3", "qwen3vl", "cogvlm", "kimivl"])
+def test_vision_family_card_equals_cpu(dev, name):
+    """``bench/vision_zoo.py``: a tower family converted on the card and on
+    the CPU (equal files), each tower function on the card from the CPU's
+    inputs (within 1e-4, TF32 off), and the CPU's image rows spliced into
+    the language model on both (DeepStack's planes for qwen3vl, cogvlm's
+    visual experts): each layer within ``bench/zoo.py:TOL``, the CPU's
+    greedy tokens; a twin's tower alone."""
+    from vlut_tpu_torch.bench import vision_zoo as vz
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r = vz.card_vs_cpu(name, dev, seed=3)
+    assert r["ok"], r
+
+
+def test_describe_splice_on_the_card(dev):
+    """``cli.describe`` at tiny widths on the card: a llava-shaped tower's
+    rows spliced into tiny_real, the prefill over more than 64 rows (#3),
+    the decode through #1 and #7 (each launched), its steps a CUDA graph;
+    two graphed runs and an eager one give the same tokens."""
+    import pathlib
+    import types
+
+    from vlut_tpu_torch.cli import describe
+    from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+    from vlut_tpu_torch.models import transformer as tt
+    from vlut_tpu_torch.models import vision as pv
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    fixture = pathlib.Path(__file__).parent / "fixtures" / "tiny_real"
+    cfg, model, _ = load_checkpoint(fixture, device=dev)
+    model = tt.unstack_layers(tt.fuse_projections(model, cfg), cfg)
+    vcfg = pv.VisionConfig(image_size=112, patch_size=14, d_model=64,
+                           n_layers=2, n_heads=4, d_ff=128,
+                           d_llm=cfg.d_model)
+    vp = pv.init_params(vcfg, seed=2, device=dev)
+    img = np.random.default_rng(4).random((112, 112, 3)).astype(np.float32)
+    x = torch.from_numpy(pv.preprocess_image(img, 112)).to(dev)[None]
+    embeds = pv.encode_image(vp, vcfg, x)[0]
+    tok = types.SimpleNamespace(encode=Tokenizer(fixture).encode,
+                                eos_id=None)
+    before = {f: f.launches for f in (tg.ternary_gemm_tiled,
+                                      tg.ternary_gemm_decode,
+                                      da.decode_attention)}
+    a = describe(model, cfg, tok, embeds, "The <image> little model", 8)
+    assert all(f.launches > n for f, n in before.items())
+    assert a == describe(model, cfg, tok, embeds, "The <image> little model",
+                         8)
+    assert a == describe(model, cfg, tok, embeds, "The <image> little model",
+                         8, cuda_graph=False)
+    assert len(a) == 8

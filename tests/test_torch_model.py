@@ -256,8 +256,9 @@ def test_temperature_sampling_distribution():
 def test_unported_sampler_transforms_raise():
     """The sampler chain is ported (a top-k feature set builds), grammar
     constraints are too (a grammar request is served under its mask), and
-    a config outside the ported subset, cogvlm's visual experts, still
-    raises (a MoE, an MLA and a non-causal one, ported since, do not)."""
+    a config outside the ported subset, an activation the port does not
+    compute, still raises (a MoE, an MLA, a non-causal one and cogvlm's
+    visual experts, ported since, do not)."""
     import dataclasses
 
     from vlut_tpu_torch.runtime.engine import Engine, Request
@@ -277,7 +278,9 @@ def test_unported_sampler_transforms_raise():
         diffusion_shift_logits=False))
     with pytest.raises(NotImplementedError):
         tt.check_supported(dataclasses.replace(PRESETS["tiny"],
-                                               dual_expert=True))
+                                               act_fn="swish9"))
+    tt.check_supported(dataclasses.replace(PRESETS["tiny"],
+                                           dual_expert=True))
     tt.check_supported(dataclasses.replace(PRESETS["tiny"], n_experts=4,
                                            n_experts_used=2))
     tt.check_supported(dataclasses.replace(PRESETS["tiny"],
@@ -287,15 +290,17 @@ def test_unported_sampler_transforms_raise():
 def test_unported_config_raises():
     import dataclasses
 
-    # the diffusion fields are ported (item 7); cogvlm's visual experts
-    # are still refused, naming their item
+    # the diffusion fields (item 7) and cogvlm's visual experts (item 8)
+    # are ported; describe's audio branch is refused, naming item 8b
     tt.check_supported(dataclasses.replace(
         PRESETS["tiny"], causal_attn=False, mask_token_id=7,
         diffusion_shift_logits=False))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tt.check_supported(dataclasses.replace(PRESETS["tiny"],
-                                               dual_expert=True))
+    tt.check_supported(dataclasses.replace(PRESETS["tiny"],
+                                           dual_expert=True))
     tt.check_supported(PRESETS["tiny_mla"])
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        cli.main(["describe", "--model", str(TINY_REAL), "--audio", "a.wav",
+                  "--device", "cpu"])
 
 
 def test_char_tokenizer_matches_hf():

@@ -62,14 +62,15 @@ PORTED = dict(
     moe_chunk_experts=2, moe_chunk_scale=0.5, d_ff_chunk=64)
 # the fields refused before this slice, with the ROADMAP item their error
 # names, or None for those taken since (MLA's fields and M-RoPE, item 4c;
-# bidirectional attention and the diffusion fields, item 7)
+# bidirectional attention and the diffusion fields, item 7; cogvlm's
+# visual experts, item 8)
 REFUSED = [
     (dict(q_lora_rank=64), None), (dict(kv_lora_rank=64), None),
     (dict(qk_nope_dim=64), None), (dict(qk_rope_dim=32), None),
     (dict(rope_scaling={"rope_type": "mrope", "mrope_section": [4, 6, 6]}),
      None),
     (dict(causal_attn=False), None), (dict(mask_token_id=5), None),
-    (dict(diffusion_shift_logits=False), None), (dict(dual_expert=True), "8"),
+    (dict(diffusion_shift_logits=False), None), (dict(dual_expert=True), None),
 ]
 
 
@@ -84,7 +85,7 @@ def test_check_supported_takes_the_field(field):
 def test_check_supported_refuses(change, item):
     cfg = dataclasses.replace(PRESETS["tiny"], **change)
     if item is None:
-        tt.check_supported(cfg)  # ported by item 4c or 7
+        tt.check_supported(cfg)  # ported by item 4c, 7 or 8
         return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tt.check_supported(cfg)

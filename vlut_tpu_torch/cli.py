@@ -28,6 +28,8 @@
       -f FILE [--limit N] [--device cpu]
   python -m vlut_tpu_torch.cli embed --model DIR [-p TEXT ...] [--task T]
       [--json] [--device cpu]
+  python -m vlut_tpu_torch.cli describe --model DIR --image FILE
+      [-p "PROMPT WITH <image>"] [-n N] [--device cpu]
   python -m vlut_tpu_torch.cli convert HF_DIR OUT_DIR [--fmt i2|i1]
       [--device cpu]
   python -m vlut_tpu_torch.cli quantize SRC DST --fmt i2|i1
@@ -44,7 +46,8 @@ whole sequence for each token (:func:`family_generate`, greedy or
 through its encoder and a decoder loop, and a ``causal_attn=False`` one
 (llada, dream, llada_moe) through the denoise loop on its float twin
 (``--diffusion-steps``, ``--diffusion-alg``); ``embed`` pools an encoder
-checkpoint's embeddings;
+checkpoint's embeddings; ``describe`` encodes an image with the
+checkpoint's vision tower and completes the prompt around it greedily;
 ``--override`` sets a model config field (retyped from the field; a field
 the port does not implement raises) and ``--promote`` repacks the weights
 at load (i2 <-> i1, exact).  ``serve`` starts the OpenAI-compatible server
@@ -511,6 +514,104 @@ def cmd_eval(args) -> None:
     print(json.dumps(out, indent=2))
 
 
+def describe(model, cfg, tok, image_embeds: torch.Tensor, prompt: str,
+             n_predict: int, deepstack=None, decode_attn: str = "fused",
+             cuda_graph: bool = True) -> list[int]:
+    """Greedy tokens of an image + prompt (the JAX package's ``vlut-tpu
+    describe``): the prompt split on ``<image>``, the image's projected rows
+    spliced between the halves' text embeddings, one prefill through
+    ``forward(token_embeds=, logits_at=)`` (qwen3vl's DeepStack features
+    scattered over the image span as ``deepstack_embeds``), then greedy
+    decode steps to ``n_predict`` tokens, cut after the first end of
+    sequence.  The steps are ``runtime/generate.py``'s step program: one
+    CUDA graph replayed on the card (``cuda_graph=False``: eager), eager
+    on the CPU."""
+    from vlut_tpu_torch.models.transformer import forward, init_kv_cache
+    from vlut_tpu_torch.models.vision import build_multimodal_embeds
+    from vlut_tpu_torch.runtime.generate import make_generate_fn
+    from vlut_tpu_torch.runtime.sampling import (SamplerParams, features_of,
+                                                 stack_params)
+
+    pre_txt, _, post_txt = prompt.partition("<image>")
+    prefix = tok.encode(pre_txt) if pre_txt else tok.encode("")
+    suffix = tok.encode(post_txt, add_bos=False) if post_txt else []
+    embeds = build_multimodal_embeds(model, image_embeds, prefix, suffix)
+    t = embeds.shape[0]
+    dev = model.device
+    cache = init_kv_cache(cfg, 1, max_len=t + n_predict + 8, device=dev)
+    planes = None
+    if deepstack is not None:
+        off, n_img = len(prefix), image_embeds.shape[0]
+        planes = []
+        for d in deepstack:
+            plane = torch.zeros((1, t, embeds.shape[-1]), dtype=torch.float32,
+                                device=dev)
+            plane[0, off:off + n_img] = d.to(dev, torch.float32)
+            planes.append(plane)
+        planes = tuple(planes)
+    v = cfg.vocab_size
+    with torch.inference_mode():
+        logits, cache = forward(
+            model, cfg, torch.zeros((1, t), dtype=torch.long, device=dev),
+            torch.arange(t, device=dev)[None], cache,
+            token_embeds=embeds[None],
+            logits_at=torch.tensor([t - 1], device=dev),
+            deepstack_embeds=planes, decode_attn=decode_attn)
+    first = logits[0, 0, :v].argmax()[None]
+    out = [int(first)]
+    if n_predict > 1:
+        greedy = [SamplerParams(temperature=0.0)]
+        gen = make_generate_fn(cfg, n_steps=n_predict - 1,
+                               features=features_of(greedy),
+                               decode_attn=decode_attn,
+                               cuda_graph=cuda_graph)
+        steps, _ = gen(model, cache, first,
+                       torch.tensor([t], device=dev),
+                       stack_params(greedy, device=dev))
+        out += steps[0].tolist()
+    if tok.eos_id is not None and tok.eos_id in out[1:]:
+        out = out[:out.index(tok.eos_id, 1) + 1]
+    return out
+
+
+def cmd_describe(args) -> None:
+    """Image + prompt completion (the JAX package's ``describe``): the
+    checkpoint's vision tower (whichever family it carries) encodes the
+    image, :func:`describe` splices and decodes greedily, on the fused
+    tree."""
+    from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+    from vlut_tpu_torch.models.transformer import fuse_projections
+    from vlut_tpu_torch.models.vision import encode_image_auto
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    if args.audio:
+        raise NotImplementedError(
+            "describe --audio (the audio encoders) is not ported to "
+            "vlut_tpu_torch yet (ROADMAP Queue 1 item 8b)")
+    if not args.image:
+        raise SystemExit("describe needs --image")
+    cfg, model, _ = load_checkpoint(args.model, device=args.device)
+    tok = Tokenizer(args.model)
+    embeds, family = encode_image_auto(args.model, args.image,
+                                       device=args.device)
+    if embeds is None:
+        raise SystemExit("checkpoint has no vision tower (convert a "
+                         "multimodal model)")
+    deepstack = None
+    if isinstance(family, tuple):  # qwen3vl: (name, deepstack features)
+        family, deepstack = family
+    print(f"[vision tower: {family}]", file=sys.stderr)
+    model = fuse_projections(model, cfg)
+    t0 = time.time()
+    out = describe(model, cfg, tok, embeds, args.prompt, args.n_predict,
+                   deepstack=deepstack)
+    dt = time.time() - t0
+    print(tok.decode(out))
+    print(f"\n[{len(out)} tokens, {len(out) / max(dt, 1e-9):.1f} tok/s | "
+          f"{embeds.shape[0]} media tokens | {model.device}]",
+          file=sys.stderr)
+
+
 def cmd_convert(args) -> None:
     from vlut_tpu_torch.convert.convert import convert_hf
 
@@ -713,6 +814,14 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--json", action="store_true")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_embed)
+    p = sub.add_parser("describe", help="image + prompt (mtmd-cli analog)")
+    p.add_argument("--model", required=True)
+    p.add_argument("--image")
+    p.add_argument("--audio", help="WAV file (not ported: ROADMAP item 8b)")
+    p.add_argument("-p", "--prompt", default="<image>Describe this image.")
+    p.add_argument("-n", "--n-predict", type=int, default=64)
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_describe)
     p = sub.add_parser("inspect", help="checkpoint tensor directory + hash")
     p.add_argument("ckpt")
     p.add_argument("--hash", action="store_true")

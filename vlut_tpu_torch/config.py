@@ -308,6 +308,19 @@ PRESETS: dict[str, ModelConfig] = {
         rope_theta=500000.0, max_seq_len=4096, causal_attn=False,
         mask_token_id=126336, diffusion_shift_logits=False,
     ),
+    # llava-hf/llava-1.5-7b-hf's text side (its config.json's text_config:
+    # Llama-2-7B's widths, d 4096, 32 layers, 32 heads over 32 KV heads of
+    # 128, d_ff 11008, vocabulary 32064, rms eps 1e-5, 4096 positions);
+    # what the JAX converter's config_from_hf makes of it
+    # (tests/test_torch_vision_zoo.py holds the two equal).  Port-only: the
+    # full-width multimodal model of the port's card runs (chip_smoke.py
+    # phase 26; its tower is models/vision.py's VisionConfig defaults,
+    # CLIP ViT-L/14-336)
+    "llava_1_5_7b": ModelConfig(
+        arch="llama", vocab_size=32064, d_model=4096, n_layers=32,
+        n_heads=32, n_kv_heads=32, d_ff=11008, rms_eps=1e-5,
+        rope_theta=10000.0, max_seq_len=4096,
+    ),
     # tiny configs for tests
     "tiny": ModelConfig(
         arch="llama", vocab_size=256, d_model=128, n_layers=2,

@@ -296,3 +296,168 @@ def tuple_layers(layers: dict[str, Any]) -> list[dict[str, Any]]:
     """A ``layers_tuple`` checkpoint's ``t0000`` ... trees -> the list of
     per-layer trees, in key order (the JAX ``load_checkpoint``)."""
     return [layers[k] for k in sorted(layers)]
+
+
+# ---------------------------------------------------------------------------
+# vision sidecars: a tower file beside model.safetensors and its config in
+# the meta (the JAX converter's vision path writes them)
+# ---------------------------------------------------------------------------
+
+def _sidecar(path, key: str, fname: str):
+    """(dir, config dict) of a sidecar the checkpoint carries, else None."""
+    path = pathlib.Path(path)
+    meta = json.loads((path / "vlut_config.json").read_text())
+    c = meta.get(key)
+    if not c or not (path / fname).exists():
+        return None
+    return path, dict(c), meta
+
+
+def _load_tower(path: pathlib.Path, fname: str, device) -> dict[str, Any]:
+    """A tower's flat file -> {"layers": {name: (L, ...)}, name: ...} on
+    ``device``, as stored (float32 from either converter)."""
+    params: dict[str, Any] = {"layers": {}}
+    for k, v in read_safetensors(path / fname, resolve_device(device)).items():
+        if k.startswith("layers."):
+            params["layers"][k[len("layers."):]] = v
+        else:
+            params[k] = v
+    return params
+
+
+def load_vision(path, device=None):
+    """The CLIP tower + llava projector of a llava checkpoint: (VisionConfig,
+    params) with every weight bf16 and the norms float32, or (None, None)
+    for a text-only checkpoint."""
+    from vlut_tpu_torch.models.vision import VisionConfig
+
+    hit = _sidecar(path, "vision_config", "vision.safetensors")
+    if hit is None:
+        return None, None
+    params = _load_tower(hit[0], "vision.safetensors", device)
+    layers = params["layers"]
+    for k, v in list(layers.items()):
+        layers[k] = v.to(torch.float32 if k in (
+            "ln1_w", "ln1_b", "ln2_w", "ln2_b") else torch.bfloat16)
+    for k, v in list(params.items()):
+        if k != "layers":
+            params[k] = v.to(torch.float32 if k in ("pre_ln_w", "pre_ln_b")
+                             else torch.bfloat16)
+    return VisionConfig(**hit[1]), params
+
+
+def load_qwen_vision(path, device=None):
+    """The Qwen2-VL / 2.5-VL tower: (QwenVisionConfig, params, {image and
+    vision-start token ids}) or (None, None, None)."""
+    from vlut_tpu_torch.models.qwen_vision import QwenVisionConfig
+
+    hit = _sidecar(path, "qwen_vision_config", "qwen_vision.safetensors")
+    if hit is None:
+        return None, None, None
+    path, qv, meta = hit
+    if "fullatt_blocks" in qv:
+        qv["fullatt_blocks"] = tuple(qv["fullatt_blocks"])
+    extras = {"image_token_id": meta.get("image_token_id"),
+              "vision_start_token_id": meta.get("vision_start_token_id")}
+    return (QwenVisionConfig(**qv),
+            _load_tower(path, "qwen_vision.safetensors", device), extras)
+
+
+def _tower(path, key: str, fname: str, config_cls, device, **fixed):
+    """(config, params, image_token_id) of a plain sidecar, or Nones."""
+    hit = _sidecar(path, key, fname)
+    if hit is None:
+        return None, None, None
+    path, c, meta = hit
+    return (config_cls(**c, **fixed), _load_tower(path, fname, device),
+            meta.get("image_token_id"))
+
+
+def load_siglip(path, device=None):
+    """Gemma3's SigLIP tower + avg-pool projector."""
+    from vlut_tpu_torch.models.vision_ext import SiglipConfig
+
+    return _tower(path, "siglip_config", "siglip.safetensors", SiglipConfig,
+                  device)
+
+
+def load_pixtral(path, device=None):
+    """The Pixtral tower + llava projector (mistral3's merger)."""
+    from vlut_tpu_torch.models.vision_ext import PixtralConfig
+
+    return _tower(path, "pixtral_config", "pixtral.safetensors",
+                  PixtralConfig, device)
+
+
+def load_internvl_vision(path, device=None):
+    """The InternVL ViT + LN / GELU projector."""
+    from vlut_tpu_torch.models.vision_wave3 import InternVLConfig
+
+    return _tower(path, "internvl_config", "internvl.safetensors",
+                  InternVLConfig, device)
+
+
+def load_llama4_vision(path, device=None):
+    """The Llama4 tower + pixel-shuffle adapter + projector."""
+    from vlut_tpu_torch.models.vision_wave3 import Llama4VisionConfig
+
+    return _tower(path, "llama4_vision_config", "llama4_vision.safetensors",
+                  Llama4VisionConfig, device)
+
+
+def load_janus_vision(path, device=None):
+    """Janus-Pro's understanding tower (siglip_forward(act="exact")) +
+    aligner."""
+    from vlut_tpu_torch.models.vision_ext import SiglipConfig
+
+    return _tower(path, "janus_config", "janus.safetensors", SiglipConfig,
+                  device)
+
+
+def load_qwen3vl_vision(path, device=None):
+    """The Qwen3-VL DeepStack tower."""
+    from vlut_tpu_torch.models.vision_wave3 import Qwen3VLVisionConfig
+
+    hit = _sidecar(path, "qwen3vl_vision_config",
+                   "qwen3vl_vision.safetensors")
+    if hit is None:
+        return None, None, None
+    path, qc, meta = hit
+    qc["deepstack_indexes"] = tuple(qc["deepstack_indexes"])
+    return (Qwen3VLVisionConfig(**qc),
+            _load_tower(path, "qwen3vl_vision.safetensors", device),
+            meta.get("image_token_id"))
+
+
+def load_glm4v_vision(path, device=None):
+    """The GLM4-V tower + downsample + merger."""
+    from vlut_tpu_torch.models.vision_wave3 import Glm4vVisionConfig
+
+    return _tower(path, "glm4v_vision_config", "glm4v_vision.safetensors",
+                  Glm4vVisionConfig, device)
+
+
+def _shuffled(path, key: str, fname: str, factor_key: str, device):
+    """(SiglipConfig, shuffle factor, params, image_token_id) of a siglip
+    tower with a pixel-shuffle projector (idefics3, lfm2-vl), or Nones."""
+    from vlut_tpu_torch.models.vision_ext import SiglipConfig
+
+    hit = _sidecar(path, key, fname)
+    if hit is None:
+        return None, None, None, None
+    path, c, meta = hit
+    factor = c.pop(factor_key, 2)
+    return (SiglipConfig(**c, mm_tokens_per_image=0), factor,
+            _load_tower(path, fname, device), meta.get("image_token_id"))
+
+
+def load_idefics3(path, device=None):
+    """Idefics3's SigLIP tower + pixel-shuffle connector."""
+    return _shuffled(path, "idefics3_config", "idefics3.safetensors",
+                     "scale_factor", device)
+
+
+def load_lfm2vl_vision(path, device=None):
+    """LFM2-VL's siglip2 tower + pixel-unshuffle projector."""
+    return _shuffled(path, "lfm2vl_config", "lfm2vl.safetensors",
+                     "downsample", device)

@@ -23,8 +23,11 @@ the JAX converter's ``jnp.asarray(float32).astype(bfloat16)`` does.
 
 The family converters (RWKV, the SSM hybrids, the encoders, gemma3n and
 T5; ``convert/{rwkv,hybrid,encoder,gemma3n,t5}.py``) are dispatched from
-:func:`convert_hf` as the JAX converter dispatches them.  The vision towers,
-lfm2-vl among them, are refused (ROADMAP Queue 1 item 8).
+:func:`convert_hf` as the JAX converter dispatches them.  A checkpoint's
+vision tower (CLIP/llava, SigLIP, pixtral, qwen2/2.5-vl, internvl, llama4,
+idefics3, glm4v, qwen3-vl, janus, lfm2-vl's siglip2) is written beside it
+as the JAX converter's sidecar (``convert/vision.py``), and cogvlm's visual
+experts are packed as the ``vis_*`` projections.
 
     python -m vlut_tpu_torch.convert.convert HF OUT [--fmt i1] [--device cpu]
 """
@@ -50,8 +53,6 @@ from vlut_tpu_torch.models.transformer import pack_weight
 from vlut_tpu_torch.ops.packing import pack_ternary, ternarize
 
 log = logging.getLogger("vlut_tpu_torch.convert")
-
-VISION = "ROADMAP Queue 1 item 8 (multimodal)"
 
 # HF name -> our layer-param name (weights transposed to (K, N) at pack time)
 _PROJ_MAP = {
@@ -1356,12 +1357,6 @@ def _iter_hf_tensors(hf_dir: pathlib.Path) -> Iterator[tuple[str, np.ndarray]]:
                                   info["dtype"])
 
 
-def _hf_names(hf_dir: pathlib.Path) -> list[str]:
-    """Every tensor name, from the headers alone."""
-    return [n for f in _hf_files(hf_dir)
-            for n in sorted(safetensors_open(f)[1])]
-
-
 def _side_scales(hf_dir: pathlib.Path) -> dict[str, np.ndarray]:
     """The ``*weight_scale`` tensors (HF1BitLLM), found from the headers:
     the JAX converter's first pass reads every tensor for them."""
@@ -1661,26 +1656,42 @@ def _convert_ssm(hf_dir: pathlib.Path, out_dir, cfg, name_map, what: str,
 
 
 
-# model types whose checkpoint the JAX converter writes with a vision tower
-# beside the text model (lfm2-vl's siglip2 tower, its _convert_lfm2_vl)
-_REFUSED_TYPES = ("lfm2_vl", "lfm2-vl")
-# tensors of a vision tower (converted by the JAX package's vision path)
+# tensors of a vision tower, converted into a sidecar (convert/vision.py)
 _TOWER_PREFIXES = (
     "vision_tower.", "multi_modal_projector.", "vision_model.",
     "connector.", "aligner.", "model.vision_tower.",
     "model.multi_modal_projector.", "model.vision_model.",
     "model.connector.", "model.aligner.",
 )
-_VISUAL_TOWER_TYPES = ("qwen2_vl", "qwen2_5_vl", "glm4v", "qwen3_vl",
-                       "qwen3_vl_moe")
+# cogvlm's visual-expert projections -> the vis_* leaves
+_VIS_MAP = {
+    "self_attn.vis_o_proj": "vis_wo",
+    "mlp.vis_gate_proj": "vis_w_gate",
+    "mlp.vis_up_proj": "vis_w_up",
+    "mlp.vis_down_proj": "vis_w_down",
+}
 
 
-def _tower_tensor(name: str, mt: str) -> bool:
-    """Whether a canonical tensor name belongs to a vision tower that the
-    JAX converter converts (``visual.`` tensors of other types it drops)."""
-    return name.startswith(_TOWER_PREFIXES) or (
-        name.startswith(("model.visual.", "visual."))
-        and mt in _VISUAL_TOWER_TYPES)
+def _convert_lfm2_vl_model(hf_dir: pathlib.Path, out_dir, raw0) -> Any:
+    """lfm2-vl: the text side is the lfm2 hybrid (``convert_hybrid``
+    descends ``text_config``); the siglip2 tower and its pixel-unshuffle
+    projector are written beside it, and the meta rewritten with them."""
+    from vlut_tpu_torch.convert.hybrid import convert_hybrid
+    from vlut_tpu_torch.convert.vision import _convert_lfm2_vl
+
+    cfg = convert_hybrid(hf_dir, out_dir)
+    vis = {name.removeprefix("model."): w
+           for name, w in _iter_hf_tensors(hf_dir)
+           if name.removeprefix("model.").startswith(
+               ("vision_tower.", "multi_modal_projector."))}
+    lcfg = _convert_lfm2_vl(vis, raw0, pathlib.Path(out_dir))
+    meta_p = pathlib.Path(out_dir) / "vlut_config.json"
+    meta = json.loads(meta_p.read_text())
+    meta["lfm2vl_config"] = lcfg
+    meta["image_token_id"] = raw0.get("image_token_index",
+                                      raw0.get("image_token_id"))
+    meta_p.write_text(json.dumps(meta, indent=1))
+    return cfg
 
 
 def convert_hf(
@@ -1715,10 +1726,8 @@ def convert_hf(
         from vlut_tpu_torch.convert.hybrid import convert_hybrid
 
         return convert_hybrid(hf_dir, out_dir)
-    if raw0.get("model_type") in _REFUSED_TYPES:
-        raise NotImplementedError(
-            f"model_type {raw0.get('model_type')!r}: its siglip2 vision "
-            f"tower is not ported yet, {VISION}")
+    if raw0.get("model_type") in ("lfm2_vl", "lfm2-vl"):
+        return _convert_lfm2_vl_model(hf_dir, out_dir, raw0)
     if raw0.get("model_type") in ("bert", "modernbert", "neobert",
                                   "nomic_bert", "xlm-roberta"):
         from vlut_tpu_torch.convert.encoder import convert_encoder
@@ -1734,10 +1743,6 @@ def convert_hf(
         return convert_t5(hf_dir, out_dir)
     cfg0 = config_from_hf(hf_dir)
     cfg = ModelConfig(**{**cfg0.__dict__, "weight_fmt": fmt})
-    if cfg.dual_expert:
-        raise NotImplementedError(
-            "cogvlm's visual experts (dual_expert) are not ported yet, "
-            f"{VISION}")
     L = cfg.n_layers
     hp = dtype_hp
 
@@ -1808,6 +1813,8 @@ def convert_hf(
         )
 
     layer_re = re.compile(r"model\.layers\.(\d+)\.(.+)\.(weight|bias)$")
+    vision_raw: dict[str, np.ndarray] = {}
+    qwen_vis_raw: dict[str, np.ndarray] = {}
     mt0 = raw0.get("model_type", "")
     is_embgemma = "Gemma3TextModel" in raw0.get("architectures", [])
 
@@ -2274,12 +2281,9 @@ def convert_hf(
             name = "model." + name
         return name
 
-    for name in _hf_names(hf_dir):
-        if _tower_tensor(canon(name), mt0):
-            raise NotImplementedError(
-                f"{name}: vision towers are not ported yet, {VISION}")
-
     for name, w in _iter_hf_tensors(hf_dir):
+        if mt0 == "cogvlm" and name.startswith("model.vision."):
+            continue  # cogvlm's EVA2-CLIP tower is not the LM graph's
         name = canon(name)
         if mt0 in ("plamo3", "plamo-3") and name.endswith(".weight"):
             # PLaMo RMSNorm offset parameterization: effective gain =
@@ -2328,8 +2332,16 @@ def convert_hf(
             continue  # chameleon/janus image VQ-VAE (generation-side)
         if name.startswith(("model.generation_", "generation_")):
             continue  # janus image-generation head/aligner/embeddings
+        if name.startswith(_TOWER_PREFIXES):
+            vision_raw[name.removeprefix("model.")] = np.asarray(w)
+            continue
         if name.startswith(("model.visual.", "visual.")):
-            continue  # a tower of another type, dropped (towers refused)
+            if mt0 in ("qwen2_vl", "qwen2_5_vl"):
+                qwen_vis_raw[name.split("visual.", 1)[1]] = np.asarray(w)
+            elif mt0 in ("glm4v", "qwen3_vl", "qwen3_vl_moe"):
+                vision_raw["visual." + name.split("visual.", 1)[1]] = (
+                    np.asarray(w))
+            continue
         if name.startswith("language_model."):
             name = name[len("language_model."):]
         if name == "model.embed_tokens.weight":
@@ -2768,6 +2780,17 @@ def convert_hf(
                 w = wf.reshape(-1, cfg.n_heads * hd_)
             pack_proj(_PROJ_MAP[sub], w, li)
             continue
+        if sub == "self_attn.vis_qkv_proj":
+            # cogvlm's visual-expert fused qkv
+            wf = np.asarray(w, np.float32)
+            qd, kvd = cfg.q_dim, cfg.kv_dim
+            pack_proj("vis_wq", wf[:qd], li)
+            pack_proj("vis_wk", wf[qd : qd + kvd], li)
+            pack_proj("vis_wv", wf[qd + kvd :], li)
+            continue
+        if sub in _VIS_MAP:
+            pack_proj(_VIS_MAP[sub], w, li)
+            continue
         # phi3-style fused projections (openelm/plamo3: per-layer head
         # counts — split at this layer's own widths)
         if sub == "self_attn.qkv_proj":
@@ -2886,8 +2909,12 @@ def convert_hf(
 
     params: dict[str, Any] = {**top, "layers": layers}
 
-    _save(out_dir, cfg, params, hf_dir,
-          {"source": str(hf_dir), "ternarized_tensors": n_approx})
+    from vlut_tpu_torch.convert.vision import convert_towers
+
+    extra_meta = {"source": str(hf_dir), "ternarized_tensors": n_approx}
+    extra_meta.update(convert_towers(vision_raw, qwen_vis_raw, raw0,
+                                     out_dir))
+    _save(out_dir, cfg, params, hf_dir, extra_meta)
     return cfg
 
 

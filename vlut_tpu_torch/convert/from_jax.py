@@ -53,3 +53,16 @@ def params_from_numpy(params_np: dict[str, Any], cfg,
     from vlut_tpu_torch.convert.checkpoint import model_from_tree
 
     return model_from_tree(cfg, move(tree))
+
+
+def tower_from_numpy(params_np: dict[str, Any],
+                     device: str | torch.device = "cpu") -> dict[str, Any]:
+    """A JAX vision tower's parameter tree (``{"layers": {...}, ...}`` of
+    numpy arrays, bf16 carried bit for bit) -> the same tree of tensors on
+    ``device``, the input of ``models/vision*.py``."""
+    def move(node):
+        if isinstance(node, dict):
+            return {k: move(v) for k, v in node.items()}
+        return to_tensor(node).to(device)
+
+    return move(params_np)

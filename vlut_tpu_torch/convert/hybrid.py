@@ -349,8 +349,8 @@ def convert_hybrid(
     raw = json.loads((hf_dir / "config.json").read_text())
     if raw.get("model_type") in ("lfm2_vl", "lfm2-vl"):
         # LFM2-VL wraps the lfm2 hybrid as text_config /
-        # model.language_model.*; its siglip2 tower is not ported
-        # (ROADMAP Queue 1 item 8), so convert_hf refuses lfm2-vl
+        # model.language_model.*; convert_hf writes its siglip2 tower
+        # beside the text model (convert/vision.py)
         raw = {**raw["text_config"],
                "model_type": raw["text_config"].get("model_type", "lfm2")}
     cfg, aux = _config(raw)
@@ -401,7 +401,7 @@ def convert_hybrid(
         if name.startswith(("model.vision_tower.",
                             "model.multi_modal_projector.",
                             "vision_tower.", "multi_modal_projector.")):
-            continue  # lfm2-vl's tower: not ported (ROADMAP item 8)
+            continue  # lfm2-vl's tower: convert_hf writes its sidecar
         name = name.replace("model.language_model.", "model.")
         name = canon(name)
         if name == "model.embed_tokens.weight":

@@ -67,6 +67,7 @@ experts and tensor/sequence parallelism raise ``NotImplementedError``
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any
@@ -148,10 +149,8 @@ _SUPPORTED_FIELDS = {
     "q_lora_rank", "kv_lora_rank", "qk_nope_dim", "qk_rope_dim",
     # bidirectional attention and the diffusion LMs
     "causal_attn", "mask_token_id", "diffusion_shift_logits",
-}
-# the fields still refused, by the ROADMAP Queue 1 item that ports them
-_REFUSED = {
-    "dual_expert": "8 (cogvlm's visual experts)",
+    # cogvlm's visual experts (the vis_* projections, forward(visual_expert=))
+    "dual_expert",
 }
 # the values of the string knobs this port computes
 _CHOICES = {
@@ -170,10 +169,15 @@ _CHOICES = {
 # head permutation), each through ternary_matmul (the JAX package's ``mm``:
 # no fused prologue, no LoRA)
 MLA_PROJECTIONS = ("wkv_a", "wq_a", "wq_b", "wq_full")
+# cogvlm's visual-expert twins of the attention and FFN projections, which
+# image rows use in their place (forward(visual_expert=True))
+_VISUAL_TWINS = ("wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up",
+                 "w_gateup", "w_down")
+VISUAL_PROJECTIONS = tuple("vis_" + n for n in _VISUAL_TWINS)
 PROJECTIONS = ("wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up", "w_gateup",
                "w_down", "w_attn_gate", "w_lin_attn", "w_shared_gate",
                "w_shared_up", "w_shared_down", "w_res_gate", "w_res_up",
-               "w_res_down") + MLA_PROJECTIONS
+               "w_res_down") + MLA_PROJECTIONS + VISUAL_PROJECTIONS
 # MLA's absorbed float factors, stored as {"dense": ...} leaves: w_uk (H, dn,
 # r_kv) and w_uv (H, r_kv, v)
 MLA_DENSE = ("w_uk", "w_uv")
@@ -217,11 +221,9 @@ def check_supported(cfg: ModelConfig) -> None:
         if f.name in _SUPPORTED_FIELDS:
             continue
         if getattr(cfg, f.name) != getattr(base, f.name):
-            item = _REFUSED.get(f.name)
             raise NotImplementedError(
                 f"config field {f.name}={getattr(cfg, f.name)!r} is not "
-                "ported to vlut_tpu_torch yet" + (
-                    f" (ROADMAP Queue 1 item {item})" if item else ""))
+                "ported to vlut_tpu_torch yet")
     for name, allowed in _CHOICES.items():
         if getattr(cfg, name) not in allowed:
             raise NotImplementedError(
@@ -387,6 +389,10 @@ def weight_specs(cfg: ModelConfig,
                                    for nh, nkv in cfg.heads_per_layer):
         # deci's linear "attention": a plain (D, D) projection
         specs["w_lin_attn"] = TernarySpec(d, d, fmt, kb)
+    if cfg.dual_expert:
+        # cogvlm's visual-expert twins share the language specs
+        for nm in _VISUAL_TWINS:
+            specs["vis_" + nm] = specs[nm]
     if cfg.kv_lora_rank:
         # MLA: the latent and k_pe (wkv_a), q with or without its LoRA
         dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
@@ -468,6 +474,7 @@ def pack_weight(name: str, trits, scale, cfg: ModelConfig,
     if device is not None:
         trits = torch.as_tensor(trits).to(device)
     hd, hd_p = plan.hd, plan.hd_p
+    name = name.removeprefix("vis_")  # cogvlm's twins pack identically
     if name in ("wq", "wk", "wv", "w_attn_gate"):
         heads = cfg.n_kv_heads if name in ("wk", "wv") else cfg.n_heads
         trits = pad_heads_cols(trits, heads, hd, hd_p)
@@ -505,6 +512,7 @@ def unpack_weight(name: str, t: TernaryTensor, cfg: ModelConfig,
     array, or with ``host`` False a tensor on the packed tensor's device."""
     plan = plan or make_plan(cfg)
     hd, hd_p = plan.hd, plan.hd_p
+    name = name.removeprefix("vis_")
     w = unpack_ternary(t)
 
     def at(idx):
@@ -761,6 +769,20 @@ class DecoderLayer(nn.Module):
 
     def vec(self, name: str) -> torch.Tensor | None:
         return getattr(self, name, None)
+
+    def visual(self) -> "DecoderLayer":
+        """cogvlm's image rows: this layer with its ``vis_*`` projections in
+        place of the language ones (norms and the rest shared); itself when
+        it has none."""
+        vis = {n[4:]: m for n, m in self.proj.items() if n.startswith("vis_")}
+        if not vis:
+            return self
+        twin = copy.copy(self)
+        twin._modules = dict(self._modules)
+        twin._modules["proj"] = nn.ModuleDict({
+            **{n: m for n, m in self.proj.items()
+               if not n.startswith("vis_")}, **vis})
+        return twin
 
 
 class StackedLayers(nn.Module):
@@ -1311,11 +1333,16 @@ def fuse_projections(model: TransformerLM, cfg: ModelConfig) -> TransformerLM:
         for n in names:
             del layers[n]
 
-    if all(n in layers for n in ("wq", "wk", "wv")):
-        fuse(["wq", "wk", "wv"], [plan.q_dim_p, plan.kv_dim_p, plan.kv_dim_p],
-             "wqkv")
-    if not cfg.n_experts and cfg.ffn_gated and not cfg.proj_bias:
-        fuse(["w_gate", "w_up"], [plan.ff_p, plan.ff_p], "w_gateup")
+    # cogvlm's visual twins fuse into their own leaves, so an image row's
+    # swap (DecoderLayer.visual) finds the visual qkv and gate|up
+    for pre in ("", "vis_"):
+        if all(pre + n in layers for n in ("wq", "wk", "wv")):
+            fuse([pre + "wq", pre + "wk", pre + "wv"],
+                 [plan.q_dim_p, plan.kv_dim_p, plan.kv_dim_p], pre + "wqkv")
+        if (not cfg.n_experts and cfg.ffn_gated and not cfg.proj_bias
+                and pre + "w_gate" in layers):
+            fuse([pre + "w_gate", pre + "w_up"], [plan.ff_p, plan.ff_p],
+                 pre + "w_gateup")
     tree["layers"] = layers
     return TransformerLM(cfg, tree)
 
@@ -2127,9 +2154,13 @@ def run_layers(params: TransformerLM, x, positions, kv: dict | None, *,
                cfg: ModelConfig, slots: torch.Tensor | None = None,
                decode_attn: str = "fused", impl: str = "auto",
                attn_mask: torch.Tensor | None = None,
-               mrope_pos: torch.Tensor | None = None):
+               mrope_pos: torch.Tensor | None = None,
+               visual_expert: bool = False,
+               deepstack_embeds: tuple | None = None):
     """Run the layer stack (either tree) over x (B, T, D).  With ``slots``
-    the B rows are those slots of the cache ``kv``."""
+    the B rows are those slots of the cache ``kv``.  ``visual_expert``
+    runs cogvlm's visual twins; ``deepstack_embeds[i]`` (B, T, D) is added
+    to layer i's output (qwen3vl's DeepStack)."""
     layers = params.layers
     b = positions.shape[0]
     safe_pos = torch.clamp(positions, min=0)
@@ -2145,13 +2176,16 @@ def run_layers(params: TransformerLM, x, positions, kv: dict | None, *,
     else:
         k_pos, write_start = positions, None
     for i in range(len(layers)):
+        lp = layers[i].visual() if visual_expert else layers[i]
         x = _layer_step(
-            x, layers[i], _SlotKV(kv, i, slots) if kv is not None else None,
+            x, lp, _SlotKV(kv, i, slots) if kv is not None else None,
             cfg=cfg, plan=params.plans[i], params=params, li=i,
             safe_pos=safe_pos, rope_pos=rope_pos, k_pos=k_pos,
             write_start=write_start, decode_attn=decode_attn, impl=impl,
             attn_mask=attn_mask, mrope_pos=mrope_pos,
         )
+        if deepstack_embeds is not None and i < len(deepstack_embeds):
+            x = x + deepstack_embeds[i].to(x.dtype)
     return x, kv
 
 
@@ -2196,6 +2230,9 @@ def forward(
     attn_mask: torch.Tensor | None = None,  # (B, T, S) bool override
     output: str = "logits",
     mrope_pos: torch.Tensor | None = None,  # (B, 3, T) M-RoPE rows
+    token_embeds: torch.Tensor | None = None,  # (B, T, D) for the lookup
+    visual_expert: bool = False,  # cogvlm: the vis_* projections
+    deepstack_embeds: tuple | None = None,  # qwen3vl: adds after layer i
 ) -> tuple[torch.Tensor, dict | None]:
     """Returns (float32 logits (B, T', V_padded), kv_cache updated in place),
     or with ``output="hidden"`` the final-norm hidden states (B, T, D) in
@@ -2215,7 +2252,13 @@ def forward(
     takes the composed attention.  ``mrope_pos`` (B, 3, T) int gives an
     M-RoPE config's temporal, height and width position rows (clamped
     into the tables); without it an M-RoPE config ropes as plain rope, as
-    text serving does.
+    text serving does.  ``token_embeds`` (B, T, D) take the embedding
+    lookup's place (an image's rows spliced among the text's; ``tokens``
+    then only gives the shapes), and the embedding scale, norm and learned
+    positions apply to them as to looked-up rows.  ``visual_expert`` runs
+    cogvlm's visual-expert projections in place of the language ones;
+    ``deepstack_embeds`` (a tuple of (B, T, D)) adds its i-th plane to the
+    output of layer i (qwen3vl's DeepStack).
     """
     if decode_attn not in DECODE_ATTN:
         raise ValueError(f"decode_attn must be one of {DECODE_ATTN}")
@@ -2224,7 +2267,8 @@ def forward(
     if output not in ("logits", "hidden"):
         raise ValueError("output must be 'logits' or 'hidden'")
     b = tokens.shape[0]
-    x = params.embed[tokens]
+    x = (params.embed[tokens] if token_embeds is None
+         else token_embeds.to(params.embed.dtype))
     if cfg.embed_scale:
         x = (x.to(torch.float32) * cfg.embed_scale).to(x.dtype)
     if cfg.embed_norm:
@@ -2239,7 +2283,9 @@ def forward(
         mrope_pos = torch.clamp(mrope_pos, 0, params.rope_cos.shape[0] - 1)
     x, kv_cache = run_layers(params, x, positions, kv_cache, cfg=cfg,
                              slots=slots, decode_attn=decode_attn, impl=impl,
-                             attn_mask=attn_mask, mrope_pos=mrope_pos)
+                             attn_mask=attn_mask, mrope_pos=mrope_pos,
+                             visual_expert=visual_expert,
+                             deepstack_embeds=deepstack_embeds)
     if cfg.norm_type == "ln":
         x = nrm.layer_norm(x, params.final_norm,
                            getattr(params, "final_norm_b", None), cfg.rms_eps,
