@@ -195,8 +195,29 @@ Phases (any failure exits non-zero; none is skipped):
      CPU's embeddings spliced into the language model on both, layer by
      layer, the CPU's greedy tokens; cogvlm's visual-expert pass; the
      twins' towers);
- 27. one JSON line of every kernel with its launches on the paths of phases
-     3-26, then the card, then ``{"ok": true, "device": ...}`` last.
+ 27. the audio half: ``describe --audio`` at full width (the whisper-large-v3
+     encoder, d 1280, 32 layers, 20 heads, d_ff 5120, 128 mels, 1500
+     positions, and the ultravox projector, stack 8, 4096 hidden, into the
+     flagship of phase 3; float32 from seed 27): a seeded WAV of whisper's
+     3000 frames through ``save_wav``, ``load_wav``, ``log_mel`` and
+     ``encode`` (188 rows), ``cli.describe`` of a prompt holding <audio>
+     (tiny_real's tokenizer): 32 greedy tokens through #3, #1 and #7 graphed
+     (twice, and eager: identical tokens), then composed through #5; the
+     log-mel's, tower's, projector's, prefill's and a token's times and a
+     profile; ``tts`` at full width (``outetts_0_2_500m``: d 896, 24 layers,
+     14/2 heads of 64, d_ff 4864, q/k/v biases, vocabulary 157,696; the
+     WavTokenizer vocoder at ``VocoderConfig``'s defaults; seed 27): a
+     seeded 20-word speaker profile (each code, duration and markup one
+     token, as OuteTTS-0.2 tokenizes them), guide tokens, top-k 4, 256 tokens, the
+     prefill through #3 and each step (#4, #1, #5; a CUDA graph) twice (one
+     stream; an eager run its first 32 tokens), the step's device and the host's sampling times
+     apart, and ``codes_to_audio`` of 750 seeded codes (10 s); then every
+     family of ``bench/audio_zoo.py`` (five projectors, lfm2-a's conformer,
+     the vocoder + ISTFT) card against CPU, and ``convert-audio`` ->
+     ``describe --audio`` and ``convert-vocoder`` -> ``tts`` on tiny_real:
+     the CPU's text and WAV;
+ 28. one JSON line of every kernel with its launches on the paths of phases
+     3-27, then the card, then ``{"ok": true, "device": ...}`` last.
 
 Phase 2 draws its inputs from a seed taken from the OS and printed (its
 first JSON line), and runs its untimed checks in an order that seed
@@ -246,7 +267,13 @@ tree (qkv, wo, gate|up, down) through #1 timed at M 32 and checked at M 1,
 at M 256 and 1024 (phase 23's shapes), its unfused wq, w_gate and w_down
 through #4 timed at M 32 and checked at M 1, 32 and 64, #1 and #4 at the
 flagship's projections at the
-server's small embedding batches (M 16 and 48), #9
+server's small embedding batches (M 16 and 48), the audio half's
+(phase 27: the flagship's four through #1 at M 1 and through #3 timed at
+``describe --audio``'s prefill M, #7 timed at its cache, B 1;
+outetts_0_2_500m's seven timed at M 1 as its gates send them, wo through
+#1 and the rest through #4, checked at M 1, 32 and 64, and through #3
+timed at its tts prefill's M and checked there and at M 1024; #5 timed at
+its cache, one slot of 8,192 rows, 2 KV heads of 128), #9
 bit-exact at shapes that make its plan take each tile and split count and
 with every tile and split forced at two shapes, #7 at the e2e benches'
 caches, and #7 and #8 at shapes that make attn_plan take each rows-per-block
@@ -874,6 +901,27 @@ def phase_kernels(dev, seed: int | None = None) -> dict:
                     iters=5, rotate=False)
     decode_attention_kernels(dev, gen, record, (
         ("llava_1_5_7b", 1, 1024, 32, 1, 128, 0, m_img),))
+    # the audio half (phase 27): the flagship's four through #3 at the
+    # audio-bearing prefill's M (#1 / #7 at its decode are the flagship's
+    # B 1 shapes, and #7 is timed at that cache here); outetts_0_2_500m's
+    # seven at M 1 as its gates send them (#4; wo #1) and through #3 at its
+    # prefill's M (a seeded speaker profile); #5 at its cache (one slot of
+    # 8,192 rows, 2 KV heads of 64 padded to 128)
+    from vlut_tpu_torch.bench import audio_zoo
+
+    m_audio = audio_zoo.prefill_rows(ROOT / "tests" / "fixtures"
+                                     / "tiny_real")
+    for label, k, n, *_ in shapes[:4]:
+        tiled_timed("ternary_gemm_tiled_zoo", f"audio_{label}",
+                    m_audio["describe"], k, n, "i2", iters=5, rotate=False)
+    decode_attention_kernels(dev, gen, record, (
+        ("llama3_8b_audio", 1, 1024, 8, 4, 128, 0, m_audio["describe"]),))
+    for proj in audio_zoo.outetts_projections():
+        zoo_timed(*proj, 1)
+    for label, k, n, *_ in audio_zoo.outetts_projections():
+        tiled_timed("ternary_gemm_tiled_zoo", label, m_audio["tts"], k, n,
+                    "i2", iters=5, rotate=False)
+    kv_kernels(dev, gen, record, (("outetts", 1, 8192, 2, False, 128),))
 
     # --- the other paths' shapes, checked and not timed, in an order
     # shuffled by the phase's seed: no check may depend on the data an
@@ -1074,6 +1122,22 @@ def phase_kernels(dev, seed: int | None = None) -> dict:
         for m in (1, 32):
             job(decode_check, label, m, k, n, mode, sub, has_res, "i2")
         for m in (m_img, 1024):
+            job(tiled_check, label, m, k, n, "i2")
+    # the audio half (phase 27): the flagship's four through #1 at M 1 and
+    # #3 at the describe prefill's M; outetts_0_2_500m's seven at M 1, 32
+    # and 64 (#1 / #4) and through #3 at its prefill's M and at M 1024
+    for label, k, n, mode, sub, has_res, _, _ in shapes[:4]:
+        job(decode_check, label, 1, k, n, mode, sub, has_res, "i2",
+            "audio_")
+        job(tiled_check, f"audio_{label}", m_audio["describe"], k, n, "i2")
+    for label, k, n, mode, sub, has_res, fused in (
+            audio_zoo.outetts_projections()):
+        for m in (1, 32, 64):
+            if fused:
+                job(decode_check, label, m, k, n, mode, sub, has_res, "i2")
+            else:
+                job(fused_quant_check, label, m, k, n)
+        for m in (m_audio["tts"], 1024):
             job(tiled_check, label, m, k, n, "i2")
 
     order = list(range(len(jobs)))
@@ -1291,7 +1355,7 @@ def kv_kernels(dev, gen, record, shapes=None) -> None:
                 fail(f"KV row writer ({label}, {st.dtype}) differs from the "
                      "indexed assignment")
         skip = start.clone()
-        skip[1] = -1
+        skip[-1] = -1
         want = [c.clone() for c in caches]
         call(skip)
         one, w1 = caches[0].clone(), caches[0].clone()
@@ -1821,7 +1885,13 @@ def main() -> None:
     mark("vision")
     vision_phase(dev, fixture, card, reset, read)
 
-    # 27. summary
+    # 27. the audio half: describe --audio (whisper-large-v3 + ultravox into
+    # the flagship) and tts (outetts_0_2_500m + WavTokenizer) at full width;
+    # the audio families and the CLI card against CPU
+    mark("audio")
+    audio_phase(dev, built, fixture, card, reset, read)
+
+    # 28. summary
     mark("summary")
     replaces = {
         "ternary_gemm_decode": ("vlut_tpu_torch/csrc/decode_gemm.cu",
@@ -4292,8 +4362,10 @@ def vision_phase(dev, fixture, card, reset, read) -> None:
     second, _ = timed(33)
     # the marginal token of a longer run: the prefill, the first (eager)
     # step and the capture cancel
-    _, ms65 = timed(65)
-    out["marginal_ms_per_token"] = (ms65 - ms33) / 32
+    # the marginal token of a longer run (96 more graph replays; the
+    # prefill, the eager first step and the capture cancel)
+    _, ms129 = timed(129)
+    out["marginal_ms_per_token"] = (ms129 - ms33) / 96
     eager, ms33_eager = timed(33, graph=False)
     out["eager_ms_per_token"] = (ms33_eager - out["prefill_ms"]) / 32
     reset()
@@ -4345,6 +4417,333 @@ def vision_phase(dev, fixture, card, reset, read) -> None:
             "differing", "seconds")
     out["families"] = {n: {k: r[k] for k in keep if k in r}
                        for n, r in families.items()}
+    out["seconds"] = time.time() - t_phase
+    print(json.dumps(out), flush=True)
+
+
+def audio_cli_case(dev, fixture, reset, read) -> dict:
+    """``cli convert-audio`` -> ``cli describe --audio`` and ``cli
+    convert-vocoder`` -> ``cli tts`` on tiny_real, on the card and on the
+    CPU: an ultravox source and a WavTokenizer source written from seeded
+    arrays (``bench/audio_zoo.py``), converted on both (equal arrays); the
+    card's printed text is the CPU's and its WAV within one 16-bit step of
+    the CPU's.  The CLI runs under PyTorch's default TF32 settings (cuDNN's
+    on), as a user runs it, not under the script's."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from vlut_tpu_torch import cli
+    from vlut_tpu_torch.bench import audio_zoo as az
+    from vlut_tpu_torch.device import tf32
+    from vlut_tpu_torch.runtime.tts import save_wav
+
+    def run(argv, device) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv + ["--device", str(device)])
+        return buf.getvalue()
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        d = pathlib.Path(d)
+        az.write_ultravox_source(d / "hf_audio", dataclasses.replace(
+            az.TINY, d_llm=128), seed=27, proj_hidden=24)
+        az.write_wavtokenizer_source(d / "hf_voc", dataclasses.replace(
+            az.TINY_VOCODER, vocab_size=256), seed=27)
+        rng = np.random.default_rng(27)
+        save_wav(str(d / "a.wav"), (0.3 * np.sin(np.arange(16000) * 0.07)
+                                    + 0.05 * rng.standard_normal(16000)
+                                    ).astype(np.float32), 16000)
+        text, wav = {}, {}
+        with tf32(conv=True):
+            for device in ("cpu", dev):
+                tag = "card" if device == dev else "cpu"
+                run(["convert-audio", str(d / "hf_audio"),
+                     str(d / f"enc_{tag}"), "--d-llm", "128"], device)
+                run(["convert-vocoder", str(d / "hf_voc"),
+                     str(d / f"voc_{tag}")], device)
+                if device == dev:
+                    reset()
+                text[tag] = run(["describe", "--model", str(fixture),
+                                 "--audio", str(d / "a.wav"),
+                                 "--audio-encoder", str(d / f"enc_{tag}"),
+                                 "-p", "The <audio> little", "-n", "12"],
+                                device)
+                run(["tts", "--model", str(fixture), "--vocoder",
+                     str(d / f"voc_{tag}"), "-p",
+                     "The little model, 2 times.", "--guide-tokens", "-n",
+                     "48", "--seed", "27", "--code-offset", "0", "-o",
+                     str(d / f"{tag}.wav")], device)
+                if device == dev:
+                    out["launches"] = read("audio_cli_tiny_real", (
+                        "ternary_gemm_decode", "decode_attention"))
+                wav[tag] = np.frombuffer(
+                    (d / f"{tag}.wav").read_bytes()[44:], "<i2"
+                ).astype(np.int32)
+        for kind in ("enc", "voc"):
+            name = "audio.npz" if kind == "enc" else "vocoder.npz"
+            a, b = (np.load(d / f"{kind}_{t}" / name) for t in ("card", "cpu"))
+            out[f"{kind}_files_equal"] = a.files == b.files and all(
+                np.array_equal(a[k], b[k]) for k in a.files)
+    out.update(describe_text=text["cpu"].strip(),
+               describe_equal=text["card"] == text["cpu"],
+               wav_samples=int(wav["cpu"].size),
+               wav_max_step=int(np.abs(wav["card"] - wav["cpu"]).max())
+               if wav["card"].shape == wav["cpu"].shape else None)
+    out["ok"] = (out["enc_files_equal"] and out["voc_files_equal"]
+                 and out["describe_equal"] and wav["cpu"].size > 0
+                 and out["wav_max_step"] is not None
+                 and out["wav_max_step"] <= 1)
+    return out
+
+
+def audio_phase(dev, built, fixture, card, reset, read) -> None:
+    """Phase 27: the audio half.  (a) ``describe --audio`` at full width:
+    the whisper-large-v3 encoder and ultravox projector at ``AudioConfig``'s
+    defaults (float32, ``audio.init_params_fast`` seed 27) into phase 3's
+    ``llama3_8b_158`` (seed 0); a seeded 16 kHz WAV of whisper's 3000
+    frames (29.99 s: a whole 30 s chunk's 3001st frame overflows the 1500
+    learned positions, as in the JAX package) through ``save_wav`` ->
+    ``load_wav`` -> ``log_mel`` -> ``encode`` (188 rows) and
+    ``cli.describe`` of ``audio_zoo.AUDIO_PROMPT`` (tiny_real's tokenizer,
+    no end-of-sequence stop): 33 greedy tokens fused (counted: #3, #1, #7)
+    twice, 129 (the marginal token), eager, then composed (counted: #5)
+    graphed and eager; the log-mel (host clock), tower, projector, prefill
+    and token times and a profile of the decode.  (b) ``tts`` at full
+    width: ``outetts_0_2_500m`` (seed 27, packed i2; its q/k/v biases keep
+    it unfused: #4 and #1 per step, heads of 64 at G 7 composed: #5) and
+    the WavTokenizer vocoder at ``VocoderConfig``'s defaults (seed 27); a
+    seeded speaker profile of 20 words, ``audio_zoo.TTS_TEXT``
+    (``audio_zoo.outetts_tokenizer``: each code, duration and markup one
+    token, as OuteTTS-0.2's vocabulary has them), guide tokens, top-k 4,
+    256 tokens, seed 27: two graphed runs give one stream
+    (the first counted) and an eager run of 32 its first 32 tokens; the
+    prefill's ms, each graphed step's ms and each host sampling's ms apart,
+    a replay's device ms and a profile of 8 replays, then ``codes_to_audio`` of 750 seeded codes (10 s) with the
+    vocoder's and the ISTFT's times.  (c) ``bench/audio_zoo.py``: each
+    family card against CPU, and the CLI end to end on tiny_real
+    (:func:`audio_cli_case`)."""
+    import statistics
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    from vlut_tpu_torch.bench import audio_zoo as az
+    from vlut_tpu_torch.bench import flagship
+    from vlut_tpu_torch.cli import describe
+    from vlut_tpu_torch.device import tf32
+    from vlut_tpu_torch.models import audio as pa
+    from vlut_tpu_torch.models import vocoder as pv
+    from vlut_tpu_torch.runtime import tts
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    t_phase = time.time()
+    cfg, model = built
+    out: dict = {"phase": "audio", "model": "whisper_large_v3+ultravox -> "
+                 "llama3_8b_158", "card": card}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    acfg = pa.AudioConfig()
+    t0 = time.time()
+    ap = pa.init_params_fast(acfg, seed=27, device=dev)
+    torch.cuda.synchronize()
+    out["encoder_build_s"] = time.time() - t0
+    out["encoder_params"] = az.n_params(ap)
+    tok = Tokenizer(fixture)
+    rng = np.random.default_rng(27)
+    n = acfg.chunk_len_s * acfg.sample_rate - acfg.hop
+    t = np.arange(n) / acfg.sample_rate
+    samples = (0.3 * np.sin(2 * np.pi * 440.0 * t)
+               + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    wav = ROOT / "build" / "phase27.wav"
+    wav.parent.mkdir(exist_ok=True)
+    tts.save_wav(str(wav), samples, acfg.sample_rate)
+    t0 = time.perf_counter()
+    mel_np = pa.log_mel(pa.load_wav(str(wav), acfg), acfg)
+    out["log_mel_host_ms"] = (time.perf_counter() - t0) * 1e3
+    wav.unlink()
+    mel = torch.from_numpy(mel_np).to(dev)
+    with torch.inference_mode():
+        frames = pa.encode_tower(ap, acfg, mel)
+        embeds = pa.project(ap, acfg, frames)
+        out["tower_ms"] = cuda_ms(lambda: pa.encode_tower(ap, acfg, mel),
+                                  iters=3, warmup=1)
+        out["projector_ms"] = cuda_ms(lambda: pa.project(ap, acfg, frames),
+                                      iters=5, warmup=1)
+    out.update(mel_frames=int(mel.shape[0]), encoder_positions=int(
+        frames.shape[0]), audio_rows=int(embeds.shape[0]))
+    if (mel.shape[0] != 3000 or embeds.shape != (az.AUDIO_ROWS, cfg.d_model)
+            or not torch.isfinite(embeds).all()):
+        fail(f"audio encoder: mel {tuple(mel.shape)}, rows "
+             f"{tuple(embeds.shape)}, finite "
+             f"{bool(torch.isfinite(embeds).all())}")
+    shim = types.SimpleNamespace(encode=tok.encode, eos_id=None)
+
+    def timed(n_tok, mode="fused", graph=True):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks = describe(model, cfg, shim, embeds, az.AUDIO_PROMPT, n_tok,
+                        decode_attn=mode, cuda_graph=graph, marker="<audio>")
+        torch.cuda.synchronize()
+        return toks, (time.perf_counter() - t1) * 1e3
+
+    timed(3)  # warm-up: each kernel shape's first launch, one capture
+    _, out["prefill_ms"] = timed(1)
+    reset()
+    first, ms33 = timed(33)
+    out["launches"] = {"fused": read("audio_describe_fused", (
+        "ternary_gemm_tiled", "ternary_gemm_decode", "decode_attention"))}
+    out["ms_per_token"] = (ms33 - out["prefill_ms"]) / 32
+    second, _ = timed(33)
+    # the marginal token of a longer run (96 more graph replays; the
+    # prefill, the eager first step and the capture cancel)
+    _, ms129 = timed(129)
+    out["marginal_ms_per_token"] = (ms129 - ms33) / 96
+    eager, ms33_eager = timed(33, graph=False)
+    out["eager_ms_per_token"] = (ms33_eager - out["prefill_ms"]) / 32
+    reset()
+    composed, ms33_c = timed(33, "composed")
+    out["composed_ms_per_token"] = (ms33_c - out["prefill_ms"]) / 32
+    out["launches"]["composed"] = read("audio_describe_composed", (
+        "ternary_gemm_tiled", "ternary_gemm_decode", "write_rows_pair"))
+    composed_eager, _ = timed(33, "composed", graph=False)
+    out.update(prefill_rows=az.prefill_rows(fixture)["describe"],
+               tokens=first, runs_identical=first == second,
+               graph_equals_eager=first == eager,
+               composed_graph_equals_eager=composed == composed_eager)
+    if len(first) != 33 or first != second:
+        fail(f"describe --audio: two runs differ ({first} / {second})")
+    if first != eager:
+        fail(f"describe --audio: graphed decode {first} != eager {eager}")
+    if composed != composed_eager:
+        fail(f"describe --audio: graphed composed decode {composed} != "
+             f"eager {composed_eager}")
+    with torch.inference_mode():
+        out["tower_profile"] = flagship.profile_decode(
+            lambda: pa.encode_tower(ap, acfg, mel), 1, top=6)
+    prefill_p = flagship.profile_decode(lambda: timed(1), 1, top=6)
+    run17 = flagship.profile_decode(lambda: timed(17), 17, top=8)
+    kern_ms = (17 * run17["kernel_ms_per_step"]
+               - prefill_p["kernel_ms_per_step"]) / 16
+    wall_ms = (17 * run17["wall_ms_per_step"]
+               - prefill_p["wall_ms_per_step"]) / 16
+    out["prefill_profile"] = prefill_p
+    out["decode_profile"] = {
+        "kernel_ms_per_token": kern_ms, "wall_ms_per_token": wall_ms,
+        "idle_share": 1.0 - kern_ms / wall_ms, "run17": run17}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del ap, frames, embeds, mel
+    torch.cuda.empty_cache()
+    out["describe_s"] = time.time() - t_phase
+
+    # (b) tts at full width
+    t_tts = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    tcfg, tmodel = flagship.build_model("outetts_0_2_500m", dev, seed=27)
+    vcfg = pv.VocoderConfig()
+    vp = pv.init_params_fast(vcfg, seed=27, device=dev)
+    torch.cuda.synchronize()
+    out["tts_build_s"] = time.time() - t0
+    speaker = az.speaker_profile(27)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        tts_tok = Tokenizer(az.outetts_tokenizer(fixture, d))
+    ids, processed = tts.prompt_ids(tts_tok, az.TTS_TEXT, speaker)
+    guide = tts.prepare_guide_tokens(tts_tok, processed)
+
+    def codes(n_tok, graph=True, stats=None):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks = tts.generate_codes(tcfg, tmodel, tts_tok, ids,
+                                  guide_tokens=guide,
+                                  n_predict=n_tok, top_k=4, seed=27,
+                                  cuda_graph=graph, stats=stats)
+        torch.cuda.synchronize()
+        return toks, (time.perf_counter() - t1) * 1e3
+
+    codes(3)  # warm-up
+    stats: dict = {}
+    reset()
+    stream, ms256 = codes(256, stats=stats)
+    tts_launches = read("audio_tts", (
+        "ternary_gemm_tiled", "ternary_gemm_fused_quant",
+        "ternary_gemm_decode", "write_rows_pair"))
+    again, _ = codes(256)
+    # the eager steps (about 0.13 s each at this cache) for the stream's
+    # first 32 tokens: a stream depends only on the tokens before it
+    eager_stream, ms32_eager = codes(32, graph=False)
+    # steps 3 onward are replays (1: eager, 2: the capture); the counted
+    # run's step program replayed after its loop: its device time (CUDA
+    # events over 20 replays) and one profile of 8 replays
+    replays = stats["step_s"][2:]
+    step = stats.pop("run")
+    with torch.inference_mode():
+        step_device_ms = cuda_ms(step, iters=20, warmup=2)
+        step_prof = flagship.profile_decode(
+            lambda: [step() for _ in range(8)], 8, top=10)
+    lo, hi = tts.detect_code_range(tts_tok)
+    in_range = [c - lo for c in stream if lo <= c <= hi]
+    out["tts"] = {
+        "model": "outetts_0_2_500m", "vocoder": "VocoderConfig()",
+        "vocoder_params": az.n_params(vp),
+        "prompt_tokens": stats["prompt_tokens"], "n_predict": 256,
+        "prefill_ms": stats["prefill_s"] * 1e3,
+        "step_ms_median": statistics.median(replays) * 1e3,
+        "sample_host_ms_median": statistics.median(stats["sample_s"]) * 1e3,
+        "sample_host_ms_total": sum(stats["sample_s"]) * 1e3,
+        "run_ms": ms256, "eager_run32_ms": ms32_eager,
+        "step_device_ms": step_device_ms, "step_profile": step_prof,
+        "graph": stats["graph"],
+        "launches": tts_launches, "tokens_head": stream[:24],
+        "codes_in_range": len(in_range), "runs_identical": stream == again,
+        "graph_equals_eager": stream[:32] == eager_stream,
+    }
+    if len(stream) != 256 or stream != again:
+        fail("tts: two graphed runs give different streams")
+    if stream[:32] != eager_stream:
+        fail("tts: the graphed steps' stream differs from the eager one")
+    seeded = np.random.default_rng(27).integers(0, vcfg.vocab_size, 750)
+    with torch.inference_mode():
+        embd = pv.decode_codes(vp, vcfg, seeded)
+        out["tts"]["vocoder_ms"] = cuda_ms(
+            lambda: pv.decode_codes(vp, vcfg, seeded), iters=3, warmup=1)
+        out["tts"]["istft_ms"] = cuda_ms(
+            lambda: pv.spectrogram_to_audio(embd, vcfg), iters=5, warmup=1)
+    t0 = time.perf_counter()
+    wave = tts.codes_to_audio(list(seeded), vcfg, vp)
+    out["tts"]["codes_to_audio_ms"] = (time.perf_counter() - t0) * 1e3
+    want_n = (750 - 1) * vcfg.hop + vcfg.n_fft - (vcfg.n_fft - vcfg.hop)
+    out["tts"].update(audio_samples=int(wave.shape[0]),
+                      audio_s=wave.shape[0] / vcfg.sample_rate,
+                      audio_peak=float(np.abs(wave).max()))
+    if wave.shape != (want_n,) or not np.isfinite(wave).all() or not (
+            np.abs(wave[vcfg.sample_rate // 4:]).max() > 0):
+        fail(f"codes_to_audio: {wave.shape} (want {want_n}), finite "
+             f"{bool(np.isfinite(wave).all())}")
+    out["tts"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del tmodel, vp, embd
+    torch.cuda.empty_cache()
+    out["tts_s"] = time.time() - t_tts
+
+    # (c) the families card against CPU, and the CLI end to end
+    t_fam = time.time()
+    # TF32 allowed around the calls: the audio functions turn it off
+    with tf32(matmul=True, conv=True):
+        fams = az.card_vs_cpu(dev, seed=27)
+    out["families"] = fams
+    bad = [n for n, r in fams.items() if not r["ok"]]
+    if bad:
+        fail(f"audio families differ on the card: {bad} {fams}")
+    out["cli"] = audio_cli_case(dev, fixture, reset, read)
+    if not out["cli"]["ok"]:
+        fail(f"audio CLI on the card differs from the CPU: {out['cli']}")
+    out["families_s"] = time.time() - t_fam
     out["seconds"] = time.time() - t_phase
     print(json.dumps(out), flush=True)
 

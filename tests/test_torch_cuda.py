@@ -1173,3 +1173,164 @@ def test_describe_splice_on_the_card(dev):
     assert a == describe(model, cfg, tok, embeds, "The <image> little model",
                          8, cuda_graph=False)
     assert len(a) == 8
+
+
+AUDIO_FAMILIES = ["encode_ultravox", "encode_voxtral", "encode_music_flamingo",
+                  "encode_glma", "encode_qwen2a", "conformer", "vocoder_tiny",
+                  "vocoder_tiny_istft1280"]
+
+
+@pytest.mark.parametrize("name", AUDIO_FAMILIES)
+def test_audio_family_card_equals_cpu(dev, name):
+    """``bench/audio_zoo.py``: each audio encoder's projector, lfm2-a's
+    conformer and the vocoder + ISTFT (tiny and n_fft 1280 / hop 320) on
+    the card against the CPU on the same seeded weights and inputs, within
+    1e-4 of the largest output, with TF32 allowed for matmuls and
+    convolutions around the call: the functions compute in full float32
+    whatever the caller allows."""
+    from vlut_tpu_torch.bench import audio_zoo
+    from vlut_tpu_torch.device import tf32
+
+    with tf32(matmul=True, conv=True):
+        r = audio_zoo.card_vs_cpu(dev)[name]
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("m", [1, 64])
+def test_outetts_projection_shapes_match_plain(dev, m):
+    """OuteTTS-0.2-500M's projections at a decode step's M (and M 64): wo
+    through #1 (plain, with its residual), the rest through #4, bit for bit
+    against the plain versions."""
+    from vlut_tpu_torch.bench import audio_zoo
+
+    for label, k, n, mode, _, has_res, fused in (
+            audio_zoo.outetts_projections()):
+        t = _weights(k, n, "i2", seed=m + k + n)
+        packed, ws = t.packed.to(dev), t.scale_vector().to(dev)
+        rng = np.random.default_rng(m + n)
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+        if fused:
+            res = torch.from_numpy(rng.standard_normal((m, n)).astype(
+                np.float32)).to(torch.bfloat16)
+            kw = dict(fmt="i2", kb=t.kb, k=k, mode=mode,
+                      out_dtype=torch.bfloat16)
+            want = tg.ternary_gemm_decode(x, t.packed, t.scale_vector(),
+                                          residual=res, **kw)
+            got = tg.ternary_gemm_decode(x.to(dev), packed, ws,
+                                         residual=res.to(dev), **kw)
+        else:
+            want = tg.ternary_gemm_fused_quant(x, t.packed, t.scale_vector(),
+                                               fmt="i2", kb=t.kb, k=k)
+            got = tg.ternary_gemm_fused_quant(x.to(dev), packed, ws,
+                                              fmt="i2", kb=t.kb, k=k)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), label
+
+
+def test_audio_prefill_shapes_match_plain(dev):
+    """#3 at the full-width audio prefills' M: the flagship's four fused
+    projections at ``describe --audio``'s rows, OuteTTS's seven at the
+    tts prompt's (a seeded speaker profile, each code one token), bit for
+    bit."""
+    import pathlib
+
+    from vlut_tpu_torch.bench import audio_zoo
+
+    rows = audio_zoo.prefill_rows(pathlib.Path(__file__).parent / "fixtures"
+                                  / "tiny_real")
+    for k, n in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
+        _tiled_matches_plain(dev, "i2", rows["describe"], k, n, seed=k + n)
+    for _, k, n, *_ in audio_zoo.outetts_projections():
+        _tiled_matches_plain(dev, "i2", rows["tts"], k, n, seed=k + n)
+
+
+def test_kv_writer_takes_outetts_rows(dev):
+    """#5 at OuteTTS's cache (one slot of 8,192 rows, 2 KV heads of 64
+    padded to 128) as the composed step gives it, bit for bit."""
+    from vlut_tpu_torch.bench import kv_study
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    caches, rows, start = kv_study.layer_update(gen, 1, 8192, 2, False,
+                                                hd=128)
+    want = [c.clone() for c in caches]
+    for c, u in zip(want, rows):
+        kv_update._write_plain(c, u, start)
+    before = kv_update.write_rows_pair.launches
+    kv_update.write_rows_pair(caches[0], caches[1], rows[0], rows[1], start)
+    torch.cuda.synchronize()
+    assert kv_update.write_rows_pair.launches == before + 1
+    for got, w_ in zip(caches, want):
+        assert torch.equal(got, w_)
+
+
+def test_tts_and_describe_audio_on_the_card(dev, tmp_path):
+    """tiny_real on the card: ``generate_codes`` graphed, eager and on the
+    CPU give one token stream (#1 and #7 launched); ``cli describe
+    --audio`` and ``cli tts`` print the CPU's text and write the CPU's WAV
+    from one converted ultravox encoder and one converted vocoder, run
+    under PyTorch's default TF32 settings (cuDNN's on), as a user runs
+    them."""
+    import contextlib
+    import dataclasses
+    import io
+    import pathlib
+
+    from vlut_tpu_torch import cli
+    from vlut_tpu_torch.bench import audio_zoo
+    from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+    from vlut_tpu_torch.device import tf32
+    from vlut_tpu_torch.runtime import tts
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    fixture = pathlib.Path(__file__).parent / "fixtures" / "tiny_real"
+    tok = Tokenizer(fixture)
+    ids, proc = tts.prompt_ids(tok, "The little model",
+                               audio_zoo.speaker_profile(3, n_words=1))
+    assert len(ids) + 24 < 256  # tiny_real's context
+    guide = tts.prepare_guide_tokens(tok, proc)
+    streams = []
+    for device, graph in ((dev, True), (dev, False), ("cpu", True)):
+        cfg, model, _ = load_checkpoint(fixture, device=device)
+        before = {f: f.launches for f in (tg.ternary_gemm_decode,
+                                          da.decode_attention)}
+        streams.append(tts.generate_codes(
+            cfg, model, tok, ids, guide_tokens=guide, n_predict=24, seed=2,
+            cuda_graph=graph))
+        if device == dev and graph:
+            assert all(f.launches > n for f, n in before.items())
+    assert streams[0] == streams[1] == streams[2]
+
+    acfg = dataclasses.replace(audio_zoo.TINY, d_llm=128)
+    audio_zoo.write_ultravox_source(tmp_path / "hf_a", acfg, seed=5,
+                                    proj_hidden=24)
+    audio_zoo.write_wavtokenizer_source(tmp_path / "hf_v", dataclasses.replace(
+        audio_zoo.TINY_VOCODER, vocab_size=256), seed=5)
+    tts.save_wav(str(tmp_path / "a.wav"), np.sin(np.arange(16000) * 0.05
+                                                 ).astype(np.float32), 16000)
+    texts = {}
+    # PyTorch's default TF32 settings (cuDNN's on), whatever an earlier
+    # test left
+    with tf32(conv=True):
+        for device in ("cuda", "cpu"):
+            flag = ["--device", device]
+            cli.main(["convert-audio", str(tmp_path / "hf_a"),
+                      str(tmp_path / f"enc_{device}"), "--d-llm", "128"]
+                     + flag)
+            cli.main(["convert-vocoder", str(tmp_path / "hf_v"),
+                      str(tmp_path / f"voc_{device}")] + flag)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                cli.main(["describe", "--model", str(fixture), "--audio",
+                          str(tmp_path / "a.wav"), "--audio-encoder",
+                          str(tmp_path / f"enc_{device}"), "-p",
+                          "The <audio> little", "-n", "8"] + flag)
+            texts[device] = out.getvalue()
+            cli.main(["tts", "--model", str(fixture), "--vocoder",
+                      str(tmp_path / f"voc_{device}"), "-p", "The model",
+                      "--guide-tokens", "-n", "24", "--code-offset", "0", "-o",
+                      str(tmp_path / f"{device}.wav")] + flag)
+    assert texts["cuda"] == texts["cpu"]
+    card = np.frombuffer((tmp_path / "cuda.wav").read_bytes()[44:], "<i2")
+    host = np.frombuffer((tmp_path / "cpu.wav").read_bytes()[44:], "<i2")
+    assert card.shape == host.shape and card.size > 0
+    assert np.abs(card.astype(np.int32) - host).max() <= 1

@@ -291,14 +291,15 @@ def test_unported_config_raises():
     import dataclasses
 
     # the diffusion fields (item 7) and cogvlm's visual experts (item 8)
-    # are ported; describe's audio branch is refused, naming item 8b
+    # are ported, and so is describe's audio branch, which needs its
+    # encoder directory
     tt.check_supported(dataclasses.replace(
         PRESETS["tiny"], causal_attn=False, mask_token_id=7,
         diffusion_shift_logits=False))
     tt.check_supported(dataclasses.replace(PRESETS["tiny"],
                                            dual_expert=True))
     tt.check_supported(PRESETS["tiny_mla"])
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(SystemExit, match="--audio-encoder"):
         cli.main(["describe", "--model", str(TINY_REAL), "--audio", "a.wav",
                   "--device", "cpu"])
 

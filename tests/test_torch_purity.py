@@ -28,8 +28,11 @@ runpy.run_path("chip_smoke.py", run_name="chip_smoke")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vlut_tpu", "optax",
                                     "safetensors", "transformers"))
-print(len(names), "modules;", "imported:", bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+missing = {"vlut_tpu_torch.models.audio", "vlut_tpu_torch.models.vocoder",
+           "vlut_tpu_torch.runtime.tts",
+           "vlut_tpu_torch.bench.audio_zoo"} - set(names)
+print(len(names), "modules;", "imported:", bad, "not walked:", missing)
+sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """
 
 
@@ -62,18 +65,50 @@ def test_load_checkpoint_needs_gpu_or_cpu_asked(no_cuda):
     ["batched-bench", "-m", "{m}", "-npp", "4", "-ntg", "1", "-npl", "1"],
     ["ppl", "--model", "{m}", "-f", "{txt}", "--window", "64"],
     ["eval", "--model", "{m}", "--task", "mc", "-f", "{mc}"],
+    ["describe", "--model", "{m}", "--audio", "{wav}", "--audio-encoder",
+     "{enc}", "-p", "<audio>", "-n", "2"],
+    ["tts", "--model", "{m}", "--vocoder", "{voc}", "-p", "hi", "-n", "2",
+     "--code-offset", "0", "-o", "{out}"],
+    ["convert-audio", "{hf_audio}", "{out_dir}", "--d-llm", "128"],
+    ["convert-vocoder", "{hf_voc}", "{out_dir}"],
 ], ids=["batched", "generate", "serve", "bench", "bench-sweep",
-        "batched-bench", "ppl", "eval"])
+        "batched-bench", "ppl", "eval", "describe-audio", "tts",
+        "convert-audio", "convert-vocoder"])
 def test_cli_needs_gpu_or_cpu_asked(no_cuda, argv, tmp_path, capsys):
     from vlut_tpu_torch import cli
+
+    import dataclasses
+
+    import numpy as np
+
+    from vlut_tpu_torch.bench import audio_zoo
+    from vlut_tpu_torch.models import vocoder
+    from vlut_tpu_torch.runtime.tts import save_wav
 
     mc, txt = tmp_path / "mc.jsonl", tmp_path / "text.txt"
     mc.write_text('{"question": "a", "choices": ["b", "c"], "answer": 0}')
     txt.write_bytes((ROOT / "SURVEY.md").read_bytes()[:200])
-    argv = [a.format(m=TINY_REAL, mc=mc, txt=txt) for a in argv]
+    paths = dict(m=TINY_REAL, mc=mc, txt=txt, wav=tmp_path / "a.wav",
+                 enc=tmp_path / "enc", voc=tmp_path / "voc",
+                 out=tmp_path / "o.wav", hf_audio=tmp_path / "hf_audio",
+                 hf_voc=tmp_path / "hf_voc", out_dir=tmp_path / "out")
+    if argv[0] in ("describe", "tts", "convert-audio", "convert-vocoder"):
+        acfg = dataclasses.replace(audio_zoo.TINY, d_llm=128)
+        audio_zoo.write_ultravox_source(paths["hf_audio"], acfg, seed=1,
+                                        proj_hidden=16)
+        audio_zoo.write_wavtokenizer_source(paths["hf_voc"],
+                                            audio_zoo.TINY_VOCODER, seed=1)
+        cli.main(["convert-audio", str(paths["hf_audio"]), str(paths["enc"]),
+                  "--d-llm", "128", "--device", "cpu"])
+        voc = dataclasses.replace(audio_zoo.TINY_VOCODER, vocab_size=256)
+        vocoder.save_vocoder(str(paths["voc"]), voc,
+                             vocoder.init_params(voc, seed=1))
+        save_wav(str(paths["wav"]), np.zeros(3200, np.float32), 1600)
+    argv = [a.format(**paths) for a in argv]
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(argv)
-    if argv[0] in ("bench", "bench-sweep", "batched-bench", "ppl", "eval"):
+    if argv[0] in ("bench", "bench-sweep", "batched-bench", "ppl", "eval",
+                   "describe", "tts", "convert-audio", "convert-vocoder"):
         cli.main(argv + ["--device", "cpu"])
         assert capsys.readouterr().out
 

@@ -30,6 +30,14 @@
       [--json] [--device cpu]
   python -m vlut_tpu_torch.cli describe --model DIR --image FILE
       [-p "PROMPT WITH <image>"] [-n N] [--device cpu]
+  python -m vlut_tpu_torch.cli describe --model DIR --audio FILE.wav
+      --audio-encoder DIR [-p "PROMPT WITH <audio>"] [-n N] [--device cpu]
+  python -m vlut_tpu_torch.cli tts --model DIR --vocoder DIR -p TEXT
+      [-o out.wav] [--speaker F.json] [--guide-tokens] [-n N] [--top-k 4]
+      [--seed S] [--code-offset ID] [--override KEY=VALUE] [--device cpu]
+  python -m vlut_tpu_torch.cli convert-audio HF_DIR OUT_DIR [--d-llm 4096]
+      [--device cpu]
+  python -m vlut_tpu_torch.cli convert-vocoder SRC OUT_DIR [--device cpu]
   python -m vlut_tpu_torch.cli convert HF_DIR OUT_DIR [--fmt i2|i1]
       [--device cpu]
   python -m vlut_tpu_torch.cli quantize SRC DST --fmt i2|i1
@@ -47,7 +55,10 @@ through its encoder and a decoder loop, and a ``causal_attn=False`` one
 (llada, dream, llada_moe) through the denoise loop on its float twin
 (``--diffusion-steps``, ``--diffusion-alg``); ``embed`` pools an encoder
 checkpoint's embeddings; ``describe`` encodes an image with the
-checkpoint's vision tower and completes the prompt around it greedily;
+checkpoint's vision tower (or, with ``--audio``, a WAV file with an
+audio-encoder directory's whisper encoder and projector) and completes the
+prompt around it greedily; ``tts`` is the OuteTTS pipeline (text -> audio
+codes -> the WavTokenizer vocoder -> WAV, ``runtime/tts.py``);
 ``--override`` sets a model config field (retyped from the field; a field
 the port does not implement raises) and ``--promote`` repacks the weights
 at load (i2 <-> i1, exact).  ``serve`` starts the OpenAI-compatible server
@@ -63,7 +74,9 @@ check) and the accuracy tasks.  Each of these runs on the GPU unless
 packed checkpoint (``convert/convert.py``: the integer unpack and pack on
 the GPU unless ``--device cpu``, every float decision on the host), or a
 recurrent, hybrid, encoder, gemma3n or T5 one into its float checkpoint
-(the family converters, on the host; the device rule is the same).
+(the family converters, on the host; the device rule is the same);
+``convert-audio`` and ``convert-vocoder`` write the audio-encoder and
+vocoder directories from HF checkpoints (host numpy, the same rule).
 ``quantize`` (exact i2 <-> i1 repack) and
 ``inspect`` (config and tensor directory, ``--hash`` for sha256 digests)
 touch no device.
@@ -516,10 +529,11 @@ def cmd_eval(args) -> None:
 
 def describe(model, cfg, tok, image_embeds: torch.Tensor, prompt: str,
              n_predict: int, deepstack=None, decode_attn: str = "fused",
-             cuda_graph: bool = True) -> list[int]:
-    """Greedy tokens of an image + prompt (the JAX package's ``vlut-tpu
-    describe``): the prompt split on ``<image>``, the image's projected rows
-    spliced between the halves' text embeddings, one prefill through
+             cuda_graph: bool = True, marker: str = "<image>") -> list[int]:
+    """Greedy tokens of an image (or audio) + prompt (the JAX package's
+    ``vlut-tpu describe``): the prompt split on ``marker`` (``<image>``, or
+    ``<audio>`` for audio rows), the media's projected rows spliced between
+    the halves' text embeddings, one prefill through
     ``forward(token_embeds=, logits_at=)`` (qwen3vl's DeepStack features
     scattered over the image span as ``deepstack_embeds``), then greedy
     decode steps to ``n_predict`` tokens, cut after the first end of
@@ -532,7 +546,7 @@ def describe(model, cfg, tok, image_embeds: torch.Tensor, prompt: str,
     from vlut_tpu_torch.runtime.sampling import (SamplerParams, features_of,
                                                  stack_params)
 
-    pre_txt, _, post_txt = prompt.partition("<image>")
+    pre_txt, _, post_txt = prompt.partition(marker)
     prefix = tok.encode(pre_txt) if pre_txt else tok.encode("")
     suffix = tok.encode(post_txt, add_bos=False) if post_txt else []
     embeds = build_multimodal_embeds(model, image_embeds, prefix, suffix)
@@ -574,42 +588,108 @@ def describe(model, cfg, tok, image_embeds: torch.Tensor, prompt: str,
     return out
 
 
+def encode_audio_file(encoder_dir, wav, device=None) -> torch.Tensor:
+    """A WAV file's decoder embeddings (the JAX ``describe``'s audio
+    branch): the encoder directory's config and weights on ``device``, the
+    WAV read and resampled, the host log-mel, the encoder and projector."""
+    from vlut_tpu_torch.models import audio
+
+    acfg, aparams = audio.load_audio_encoder(encoder_dir, device=device)
+    mel = audio.log_mel(audio.load_wav(wav, acfg), acfg)
+    with torch.inference_mode():
+        return audio.encode(aparams, acfg, torch.from_numpy(mel).to(
+            aparams["conv1_w"].device))
+
+
 def cmd_describe(args) -> None:
-    """Image + prompt completion (the JAX package's ``describe``): the
-    checkpoint's vision tower (whichever family it carries) encodes the
-    image, :func:`describe` splices and decodes greedily, on the fused
-    tree."""
+    """Image or audio + prompt completion (the JAX package's ``describe``):
+    the checkpoint's vision tower (whichever family it carries) encodes
+    the image, or ``--audio-encoder``'s encoder the ``--audio`` WAV
+    (:func:`encode_audio_file`; the prompt's marker is then ``<audio>``);
+    :func:`describe` splices and decodes greedily, on the fused tree."""
     from vlut_tpu_torch.convert.checkpoint import load_checkpoint
     from vlut_tpu_torch.models.transformer import fuse_projections
     from vlut_tpu_torch.models.vision import encode_image_auto
     from vlut_tpu_torch.utils.tokenizer import Tokenizer
 
-    if args.audio:
-        raise NotImplementedError(
-            "describe --audio (the audio encoders) is not ported to "
-            "vlut_tpu_torch yet (ROADMAP Queue 1 item 8b)")
-    if not args.image:
-        raise SystemExit("describe needs --image")
+    if not (args.image or args.audio):
+        raise SystemExit("describe needs --image or --audio")
+    if args.audio and not args.audio_encoder:
+        raise SystemExit("describe --audio needs --audio-encoder (a "
+                         "convert-audio output)")
     cfg, model, _ = load_checkpoint(args.model, device=args.device)
     tok = Tokenizer(args.model)
-    embeds, family = encode_image_auto(args.model, args.image,
-                                       device=args.device)
-    if embeds is None:
-        raise SystemExit("checkpoint has no vision tower (convert a "
-                         "multimodal model)")
     deepstack = None
-    if isinstance(family, tuple):  # qwen3vl: (name, deepstack features)
-        family, deepstack = family
-    print(f"[vision tower: {family}]", file=sys.stderr)
+    if args.audio:
+        embeds = encode_audio_file(args.audio_encoder, args.audio,
+                                   device=args.device)
+        marker = "<audio>"
+    else:
+        embeds, family = encode_image_auto(args.model, args.image,
+                                           device=args.device)
+        if embeds is None:
+            raise SystemExit("checkpoint has no vision tower (convert a "
+                             "multimodal model)")
+        if isinstance(family, tuple):  # qwen3vl: (name, deepstack features)
+            family, deepstack = family
+        print(f"[vision tower: {family}]", file=sys.stderr)
+        marker = "<image>"
     model = fuse_projections(model, cfg)
     t0 = time.time()
     out = describe(model, cfg, tok, embeds, args.prompt, args.n_predict,
-                   deepstack=deepstack)
+                   deepstack=deepstack, marker=marker)
     dt = time.time() - t0
     print(tok.decode(out))
     print(f"\n[{len(out)} tokens, {len(out) / max(dt, 1e-9):.1f} tok/s | "
           f"{embeds.shape[0]} media tokens | {model.device}]",
           file=sys.stderr)
+
+
+def cmd_tts(args) -> None:
+    """The OuteTTS pipeline (the JAX package's ``tts``): the text-to-codes
+    checkpoint and the vocoder on the device, :func:`runtime.tts.synthesize`,
+    a 16-bit WAV."""
+    from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+    from vlut_tpu_torch.models.transformer import TransformerLM
+    from vlut_tpu_torch.models.vocoder import load_vocoder
+    from vlut_tpu_torch.runtime.tts import save_wav, synthesize
+    from vlut_tpu_torch.utils.tokenizer import Tokenizer
+
+    cfg, model, _ = load_checkpoint(args.model, device=args.device)
+    if args.override:
+        cfg = override_config(cfg, args.override)
+        model = TransformerLM(cfg, model.tree())
+    tok = Tokenizer(args.model)
+    voc_cfg, voc_params = load_vocoder(args.vocoder, device=args.device)
+    speaker = None
+    if args.speaker:
+        with open(args.speaker) as f:
+            speaker = json.load(f)
+    t0 = time.time()
+    audio = synthesize(
+        cfg, model, tok, args.prompt, voc_cfg, voc_params,
+        speaker=speaker, use_guide_tokens=args.guide_tokens,
+        n_predict=args.n_predict, top_k=args.top_k, seed=args.seed,
+        code_offset=args.code_offset)
+    save_wav(args.output, audio, voc_cfg.sample_rate)
+    dur = audio.shape[0] / voc_cfg.sample_rate
+    print(f"wrote {args.output}: {dur:.2f}s audio in {time.time() - t0:.1f}s "
+          f"on {model.device}")
+
+
+def cmd_convert_audio(args) -> None:
+    from vlut_tpu_torch.models.audio import convert_hf_audio
+
+    cfg = convert_hf_audio(args.src, args.dst, d_llm=args.d_llm,
+                           device=args.device)
+    print(f"audio encoder -> {args.dst}: {cfg}")
+
+
+def cmd_convert_vocoder(args) -> None:
+    from vlut_tpu_torch.models.vocoder import convert_hf_vocoder
+
+    cfg = convert_hf_vocoder(args.src, args.dst, device=args.device)
+    print(f"vocoder -> {args.dst}: {cfg}")
 
 
 def cmd_convert(args) -> None:
@@ -814,14 +894,48 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--json", action="store_true")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_embed)
-    p = sub.add_parser("describe", help="image + prompt (mtmd-cli analog)")
+    p = sub.add_parser("describe",
+                       help="image|audio + prompt (mtmd-cli analog)")
     p.add_argument("--model", required=True)
     p.add_argument("--image")
-    p.add_argument("--audio", help="WAV file (not ported: ROADMAP item 8b)")
+    p.add_argument("--audio", help="WAV file (whisper-encoder path)")
+    p.add_argument("--audio-encoder",
+                   help="audio-encoder dir (convert-audio output)")
     p.add_argument("-p", "--prompt", default="<image>Describe this image.")
     p.add_argument("-n", "--n-predict", type=int, default=64)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_describe)
+    p = sub.add_parser("convert-audio",
+                       help="HF whisper/ultravox audio tower -> encoder dir")
+    p.add_argument("src")
+    p.add_argument("dst")
+    p.add_argument("--d-llm", type=int, default=4096)
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_convert_audio)
+    p = sub.add_parser("tts", help="text-to-speech (tools/tts analog)")
+    p.add_argument("--model", required=True, help="text-to-codes checkpoint")
+    p.add_argument("--vocoder", required=True,
+                   help="vocoder dir (convert-vocoder output)")
+    p.add_argument("-p", "--prompt", required=True)
+    p.add_argument("-o", "--output", default="output.wav")
+    p.add_argument("--speaker", help="speaker profile JSON (OuteTTS format)")
+    p.add_argument("--guide-tokens", action="store_true",
+                   help="force word-initial tokens after newlines")
+    p.add_argument("-n", "--n-predict", type=int, default=4096)
+    p.add_argument("--top-k", type=int, default=4)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--code-offset", type=int, default=None,
+                   help="first audio-code token id (default: detect <|0|>)")
+    p.add_argument("--override", action="append", default=[],
+                   metavar="KEY=VALUE")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_tts)
+    p = sub.add_parser("convert-vocoder",
+                       help="HF WavTokenizer decoder -> vocoder dir")
+    p.add_argument("src")
+    p.add_argument("dst")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_convert_vocoder)
     p = sub.add_parser("inspect", help="checkpoint tensor directory + hash")
     p.add_argument("ckpt")
     p.add_argument("--hash", action="store_true")

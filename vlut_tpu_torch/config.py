@@ -321,6 +321,22 @@ PRESETS: dict[str, ModelConfig] = {
         n_heads=32, n_kv_heads=32, d_ff=11008, rms_eps=1e-5,
         rope_theta=10000.0, max_seq_len=4096,
     ),
+    # OuteTTS-0.2-500M's text-to-codes model on Qwen2.5-0.5B's architecture
+    # (d 896, 24 layers, 14 query heads over 2 KV heads of 64, d_ff 4864,
+    # q/k/v biases, rms eps 1e-6, rope theta 1,000,000, 32,768 positions,
+    # the embedding tied as the head) with OuteTTS-0.2's vocabulary of
+    # 157,696, which holds the <|N|> audio-code tokens; what the JAX
+    # converter's config_from_hf makes of such a Qwen2 config.json
+    # (tests/test_torch_tts.py holds the two equal).  Port-only: the
+    # full-width text-to-speech model of the port's card runs
+    # (chip_smoke.py phase 27; its vocoder is models/vocoder.py's
+    # VocoderConfig defaults, WavTokenizer)
+    "outetts_0_2_500m": ModelConfig(
+        arch="llama", vocab_size=157696, d_model=896, n_layers=24,
+        n_heads=14, n_kv_heads=2, d_ff=4864, rms_eps=1e-6,
+        rope_theta=1000000.0, max_seq_len=32768, qkv_bias=True,
+        tie_embeddings=True,
+    ),
     # tiny configs for tests
     "tiny": ModelConfig(
         arch="llama", vocab_size=256, d_model=128, n_layers=2,

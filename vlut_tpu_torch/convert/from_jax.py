@@ -57,12 +57,16 @@ def params_from_numpy(params_np: dict[str, Any], cfg,
 
 def tower_from_numpy(params_np: dict[str, Any],
                      device: str | torch.device = "cpu") -> dict[str, Any]:
-    """A JAX vision tower's parameter tree (``{"layers": {...}, ...}`` of
-    numpy arrays, bf16 carried bit for bit) -> the same tree of tensors on
-    ``device``, the input of ``models/vision*.py``."""
+    """A JAX tower's parameter tree (dicts and lists of numpy arrays, bf16
+    carried bit for bit) -> the same tree of tensors on ``device``: a
+    vision tower (``models/vision*.py``), an audio encoder
+    (``models/audio.py``) or a vocoder, whose ``posnet`` and ``convnext``
+    are lists of blocks (``models/vocoder.py``)."""
     def move(node):
         if isinstance(node, dict):
             return {k: move(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [move(v) for v in node]
         return to_tensor(node).to(device)
 
     return move(params_np)

@@ -19,6 +19,19 @@ from collections.abc import Mapping
 from typing import Any
 
 
+_SPECIAL_ATTRS = ("bos_token", "eos_token", "unk_token", "sep_token",
+                  "pad_token", "cls_token", "mask_token",
+                  "additional_special_tokens")
+
+
+def special_id_of(vocab: Mapping[str, int], tok) -> int | None:
+    """The id of a tokenizer config's special token (a string, or a dict
+    with its ``content``), None when absent."""
+    if tok is None:
+        return None
+    return vocab.get(tok["content"] if isinstance(tok, dict) else tok)
+
+
 class CharWordLevel:
     """A WordLevel vocabulary behind a ``Split("", "isolated")``
     pre-tokenizer: one token per character, special tokens matched whole,
@@ -38,23 +51,43 @@ class CharWordLevel:
             raise RuntimeError(
                 f"{path}: only character-level WordLevel tokenizers are read "
                 "without transformers")
-        self.vocab: dict[str, int] = spec["model"]["vocab"]
+        added = sorted(spec.get("added_tokens", ()), key=lambda t: t["id"])
+        # the added tokens (ids past the WordLevel vocabulary too), each
+        # matched whole, the longest first
+        self.added = {t["content"]: t["id"] for t in added}
+        self.vocab: dict[str, int] = {**spec["model"]["vocab"], **self.added}
         self.unk = self.vocab[spec["model"]["unk_token"]]
         self.inv = {i: s for s, i in self.vocab.items()}
-        special = [t["content"] for t in spec.get("added_tokens", ())
-                   if t.get("special")]
-        self.special = {s: self.vocab[s] for s in special}
-        self._split = (re.compile("(" + "|".join(map(re.escape, special)) + ")")
-                       if special else None)
+        self.special = {t["content"]: t["id"] for t in added
+                        if t.get("special")}
+        self._split = (re.compile("(" + "|".join(map(re.escape, sorted(
+            self.added, key=len, reverse=True))) + ")")
+            if self.added else None)
         def special_id(name):
-            tok = cfg.get(name)
-            return self.vocab.get(tok["content"] if isinstance(tok, dict)
-                                  else tok)
+            return special_id_of(self.vocab, cfg.get(name))
 
         self.eos_token_id = special_id("eos_token")
         self.bos_token_id = special_id("bos_token")
-        self.all_special_ids = sorted(self.special.values())
+        # Hugging Face's order: the special-token attributes as the
+        # tokenizer config and special_tokens_map.json name them, then the
+        # additional ones, each once
+        smap_file = path / "special_tokens_map.json"
+        smap = {**cfg, **(json.loads(smap_file.read_text())
+                          if smap_file.exists() else {})}
+        ids: list[int] = []
+        for name in _SPECIAL_ATTRS:
+            toks = smap.get(name)
+            for t in (toks if isinstance(toks, list) else [toks]):
+                i = special_id_of(self.vocab, t)
+                if i is not None and i not in ids:
+                    ids.append(i)
+        self.all_special_ids = ids
         self.chat_template = cfg.get("chat_template")
+
+    def get_added_vocab(self) -> dict[str, int]:
+        """The added tokens' text -> id, by id (Hugging Face's
+        ``get_added_vocab``)."""
+        return dict(self.added)
 
     def __len__(self) -> int:
         return len(self.vocab)
@@ -63,8 +96,8 @@ class CharWordLevel:
         parts = self._split.split(text) if self._split else [text]
         ids: list[int] = []
         for part in parts:
-            if part in self.special:
-                ids.append(self.special[part])
+            if part in self.added:
+                ids.append(self.added[part])
             else:
                 ids.extend(self.vocab.get(c, self.unk) for c in part)
         return ids
