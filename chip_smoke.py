@@ -130,9 +130,13 @@ Phases (any failure exits non-zero; none is skipped):
      steps profiled) and eager (identical tokens), every in_proj / out_proj
      through #4 at decode and #3 at prefill, the launches of one decode step
      and of one 1000-token prefill; one completion through the server (its
-     tokens a direct engine run's); ``codestral_mamba_7b`` (Mamba2 at
-     Mamba-Codestral-7B's widths: d 4096, 64 layers, 128 heads of 64, 8
-     groups, state 128, vocabulary 32768) through ``generate``'s
+     tokens a direct engine run's); a 2,500-token prompt past the largest
+     prefill bucket (two 1,024-token chunks, each continuing its slot's
+     state, and a left-padded remainder) beside a 300-token one, graphed
+     and eager (identical tokens), its chunk forwards counted;
+     ``codestral_mamba_7b`` (Mamba2 at Mamba-Codestral-7B's widths: d 4096,
+     64 layers, 128 heads of 64, 8 groups, state 128, vocabulary 32768)
+     through ``generate``'s
      state-carrying loop, greedy and seeded; then each family of
      ``bench/recurrent_zoo.py`` (Mamba, Mamba2, RWKV7, arwkv7, RWKV6 and 11
      hybrid cases) on the card against the CPU, layer by layer, and a tiny
@@ -216,9 +220,26 @@ Phases (any failure exits non-zero; none is skipped):
      the vocoder + ISTFT) card against CPU, and ``convert-audio`` ->
      ``describe --audio`` and ``convert-vocoder`` -> ``tts`` on tiny_real:
      the CPU's text and WAV;
- 28. one JSON line of every kernel with its launches on the paths of phases
-     3-27, then the card, then ``{"ok": true, "device": ...}`` last.
+ 28. the bench tooling: ``bench/ablate.py``'s seven configurations (full,
+     unfused, no_kv_write, no_attn, no_head, gemms_only, layer_gemms_only)
+     on phase 3's flagship, the marginal ms a graphed step, under the
+     composed and the fused decode attention (no_kv_write alone is not
+     applicable to the fused one); the autotune table's lookups on the
+     card it was measured on;
+ 29. one JSON line of every kernel with its launches on the paths of phases
+     3-28, then the card, then ``{"ok": true, "device": ...}`` last.
 
+Phase 2 holds its plain versions' float32 products in full float32;
+phases 3-28 run with TF32 allowed for matmuls and cuDNN convolutions, as a
+caller may allow it: every float32 entry of the port holds TF32 off itself
+(``device.full_float32``), so the card = CPU checks hold under it.
+
+Phase 2 also times #3 at each tile entry of the card's autotune table
+(``vlut_tpu_torch/bench/autotune_h100.json``) against ``tiled_plan``'s tiles
+(printed, not gated), holds #3 bit-exact at every entry's tiles at its
+key's shape, and ``ternary_matmul``'s two routes at M <= 64 (#4, and the
+same int8 quantization then #3) array-equal at each route entry (with
+none, at the route sweep's shapes at M 1 and 64).
 Phase 2 draws its inputs from a seed taken from the OS and printed (its
 first JSON line), and runs its untimed checks in an order that seed
 shuffles (printed in the ``kernels_checks`` line): no check may hold only
@@ -302,6 +323,7 @@ exits non-zero and prints no result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -923,6 +945,41 @@ def phase_kernels(dev, seed: int | None = None) -> dict:
                     "i2", iters=5, rotate=False)
     kv_kernels(dev, gen, record, (("outetts", 1, 8192, 2, False, 128),))
 
+    # the card's autotune table (bench/autotune_h100.json; its lookups are
+    # live where this card's name is the table's): #3 at each tile entry's
+    # tiles against tiled_plan's at the entry's shape, device time per call,
+    # printed (the sweep decided the entries; no gate here)
+    from vlut_tpu_torch.bench import autotune
+
+    table = autotune.load_table(dev.index or 0)
+    print(json.dumps({"phase": "kernels_table", "live": bool(table),
+                      "table_card": autotune._read(str(
+                          autotune.TABLE_FILE)).get("card"),
+                      "entries": len(table)}), flush=True)
+    card = card_line()
+    tile_entries = [(k, v) for k, v in sorted(table.items())
+                    if not k.startswith("route:")]
+    route_entries = [k for k in sorted(table) if k.startswith("route:")]
+    for key, tiles in tile_entries:
+        fmt, m, kp, np_ = key.split(":")
+        m, kp, np_ = int(m), int(kp), int(np_)
+        rot = Rotation(rand_packed(kp, np_, fmt))
+        xq, xs = quantize_activations(randn(m, kp))
+        ws = torch.full((np_,), 0.05, device=dev)
+        plan = tg.tiled_plan(m, np_, kp, fmt, sms)
+        us = {name: 1e3 * cuda_ms(lambda t=t: tg._tiled_cuda(
+            xq, rot.next(), xs, ws, fmt, DEFAULT_BLOCK[fmt], kp,
+            torch.float32, plan=tuple(t)), graph=True)
+            for name, t in (("tiles", tiles), ("plan", plan), ("tiles2",
+                                                               tiles))}
+        print(json.dumps({"phase": "kernels_table", "key": key,
+                          "tiles": tiles, "plan": plan,
+                          "us_tiles": min(us["tiles"], us["tiles2"]),
+                          "us_plan": us["plan"], "card": card}),
+              flush=True)
+        del rot
+    torch.cuda.empty_cache()
+
     # --- the other paths' shapes, checked and not timed, in an order
     # shuffled by the phase's seed: no check may depend on the data an
     # earlier draw left the generator at --------------------------------
@@ -1041,11 +1098,54 @@ def phase_kernels(dev, seed: int | None = None) -> dict:
 
     def tiled_check(label, m, k, n, fmt):
         err = tiled_case(label, m, k, n, fmt)[-1]
-        plan = tg.tiled_plan(m, -(-n // 128) * 128, padded_k(k, fmt), fmt,
-                             sms)
+        plan = tg.tiles(m, -(-n // 128) * 128, padded_k(k, fmt), fmt,
+                        dev.index or 0)
         exact("ternary_gemm_tiled", f"{label} M={m} {k}->{n} {fmt} "
               f"plan={plan}", err)
         torch.cuda.empty_cache()
+
+    # the autotune table: #3 bit-exact at every tile entry's tiles at its
+    # key's shape; ternary_matmul's two routes (#4, and the same int8
+    # quantization then #3) array-equal at each route entry, or, where the
+    # table has none, at the route sweep's shapes at M 1 and 64
+    def table_tiles_check(key, tiles):
+        fmt, m, kp, np_ = key.split(":")
+        m, kp, np_ = int(m), int(kp), int(np_)
+        kb = DEFAULT_BLOCK[fmt]
+        packed = rand_packed(kp, np_, fmt)
+        ws = torch.rand(np_, generator=gen, device=dev) * 0.1 + 0.01
+        xq, xs = quantize_activations(randn(m, kp))
+        got = tg._tiled_cuda(xq, packed, xs, ws, fmt, kb, kp, torch.float32,
+                             plan=tuple(tiles))
+        want = tg._gemm_plain(xq, xs, packed, ws, fmt, kb, kp, None,
+                              torch.float32)
+        exact("ternary_gemm_tiled", f"table {key} tiles={tiles}",
+              float((got - want).abs().max()))
+
+    def route_check(fmt, m, kp, np_):
+        kb = DEFAULT_BLOCK[fmt]
+        packed = rand_packed(kp, np_, fmt)
+        ws = torch.rand(np_, generator=gen, device=dev) * 0.1 + 0.01
+        x = randn(m, kp)
+        small = tg.ternary_gemm_fused_quant(x, packed, ws, fmt=fmt, kb=kb,
+                                            k=kp)
+        xq, xs = tg.kernel_quantize(x)
+        tiled = tg.ternary_gemm_tiled(xq, packed, xs, ws, fmt=fmt, kb=kb,
+                                      k=kp)
+        same = torch.equal(small, tiled)
+        exact("ternary_gemm_tiled", f"route M={m} {kp}->{np_} {fmt}: small "
+              "= tiled", 0.0 if same else float((small - tiled).abs().max())
+              or math.inf)
+
+    for key, tiles in tile_entries:
+        job(table_tiles_check, key, tiles)
+    routes = [tuple(int(v) if v.isdigit() else v for v in key.split(":")[1:])
+              for key in route_entries] or [
+        (fmt, m, padded_k(k, fmt), -(-n // 128) * 128)
+        for fmt in ("i2", "i1") for _, k, n in autotune.ROUTE_SHAPES
+        for m in (1, 64)]
+    for fmt, m, kp, np_ in routes:
+        job(route_check, fmt, m, kp, np_)
 
     # the zoo presets' prefills (phase 19: chunks of 1024 rows and a group
     # of 4096; the 512 bucket is timed above) at each projection, in their
@@ -1596,14 +1696,12 @@ def main() -> None:
         fail(f"the port is not beside this script: {e}")
     if pathlib.Path(vlut_tpu_torch.__file__).resolve().parent.parent != ROOT:
         fail("vlut_tpu_torch was imported from outside this checkout")
-    # float32 products in full float32, in matmuls and convolutions alike
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card} | {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    from vlut_tpu_torch.device import tf32
     from vlut_tpu_torch.ops import _build, kv_update, ternary_gemm as tg
     from vlut_tpu_torch.ops import decode_attention as da
     from vlut_tpu_torch.ops import tq
@@ -1627,10 +1725,17 @@ def main() -> None:
     print(json.dumps({"phase": "build", "seconds": build_s,
                       "sources": list(logs)}), flush=True)
 
-    # 2. kernels against their plain versions
+    # 2. kernels against their plain versions (the plain versions' float32
+    # products in full float32: they are the references)
     mark("kernels")
-    kern = phase_kernels(dev)
+    with tf32():
+        kern = phase_kernels(dev)
     torch.cuda.empty_cache()
+    # phases 3-28 run with TF32 allowed for matmuls and convolutions, as a
+    # caller may allow it: every float32 entry of the port holds it off
+    # itself (device.full_float32)
+    allowed = contextlib.ExitStack()
+    allowed.enter_context(tf32(matmul=True, conv=True))
 
     counters = {
         "ternary_gemm_decode": tg.ternary_gemm_decode,
@@ -1891,7 +1996,13 @@ def main() -> None:
     mark("audio")
     audio_phase(dev, built, fixture, card, reset, read)
 
-    # 28. summary
+    # 28. the bench tooling: bench/ablate.py's matrix on phase 3's flagship,
+    # composed and fused; the autotune table's lookups on this card
+    mark("bench_tooling")
+    bench_tooling_phase(dev, built, card, reset, read)
+    allowed.close()
+
+    # 29. summary
     mark("summary")
     replaces = {
         "ternary_gemm_decode": ("vlut_tpu_torch/csrc/decode_gemm.cu",
@@ -1930,6 +2041,61 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def bench_tooling_phase(dev, built, card, reset, read) -> None:
+    """Phase 28: ``bench/ablate.py``'s seven configurations on the flagship
+    of phase 3 (``built``: full width and depth, 32 slots of 128-token
+    prompts), the marginal ms a graphed step between n 8 and n 40, under
+    the composed decode attention (#5 and PyTorch) and the fused one (#7;
+    ``no_kv_write`` alone not applicable there); then the autotune table:
+    on the card it was measured on, every entry answers its lookup."""
+    import torch
+
+    from vlut_tpu_torch.bench import ablate, autotune
+
+    t_phase = time.time()
+    out: dict = {"phase": "bench_tooling", "card": card}
+    for attn, attn_kernel in (("composed", "write_rows_pair"),
+                              ("fused", "decode_attention")):
+        reset()
+        res = ablate.run(built, dev, attn)
+        out[f"launches_{attn}"] = read(f"ablate_{attn}", (
+            "ternary_gemm_decode", "ternary_gemm_tiled", attn_kernel))
+        out[f"ms_per_step_{attn}"] = res
+        bad = [k for k, v in res.items()
+               if (v is None) == ablate.applicable(dict(ablate.CONFIGS)[k],
+                                                   attn)
+               or v is not None and not math.isfinite(v)]
+        if bad:
+            fail(f"ablate ({attn}): no time for {bad}: {res}")
+        torch.cuda.empty_cache()
+
+    table = autotune._read(str(autotune.TABLE_FILE))
+    entries = table.get("entries", {})
+    name = torch.cuda.get_device_name(dev)
+    same_card = table.get("card", {}).get("name") == name
+    wrong = []
+    for key, v in entries.items() if same_card else ():
+        if key.startswith("route:"):
+            fmt, m, kp, np_ = key.split(":")[1:]
+            got = autotune.lookup_route(fmt, int(m), int(kp), int(np_),
+                                        dev.index or 0)
+        else:
+            fmt, m, kp, np_ = key.split(":")
+            got = autotune.lookup(fmt, int(m), int(kp), int(np_),
+                                  dev.index or 0)
+            v = tuple(v)
+        if got != v:
+            wrong.append((key, v, got))
+    out["table"] = {"table_card": table.get("card"), "this_card": name,
+                    "live": same_card, "entries": len(entries),
+                    "lookups_wrong": wrong}
+    if wrong:
+        fail(f"autotune table: lookups answer otherwise than the table on "
+             f"its card: {wrong[:5]}")
+    out["seconds"] = time.time() - t_phase
+    print(json.dumps(out), flush=True)
 
 
 def bench_bytes(fmt: str, m: int, k: int, n: int) -> int:
@@ -2986,7 +3152,9 @@ def recurrent_phase(dev, fixture, card, reset, read) -> None:
     through ``generate``'s loop, 128 prompt tokens then 16 greedy tokens,
     and 8 seeded ones twice (identical); (d) each family of
     ``bench/recurrent_zoo.py`` on the card against the CPU, layer by layer;
-    a tiny Mamba engine graphed, eager and on the CPU: identical tokens.
+    a tiny Mamba engine graphed, eager and on the CPU: identical tokens;
+    (a2) a 2,500-token prompt past the largest bucket, in chunks that
+    continue its slot's state, graphed and eager: identical tokens.
     ``read`` fails on a gated kernel launched no time."""
     import http.client
 
@@ -3098,6 +3266,55 @@ def recurrent_phase(dev, fixture, card, reset, read) -> None:
         fail(f"{name}: the server's completion differs from a direct engine "
              "run")
     out["server"] = server
+
+    # (a2) a prompt past the largest prefill bucket: 2,500 tokens (two full
+    # 1,024-token chunks through #3, each continuing its slot's state, then
+    # a 452-token remainder left-padded into the 512 bucket) beside a
+    # 300-token prompt, graphed and eager: identical tokens
+    long_ids = [int(t) for t in rng.integers(3, cfg.vocab_size, 2500)]
+    short_ids = [int(t) for t in rng.integers(3, cfg.vocab_size, 300)]
+    long_runs, long_toks = {}, {}
+    for graph in (True, False):
+        run = "graph" if graph else "eager"
+        eng = Engine(cfg, model, n_slots=16, max_len=4096, cuda_graph=graph)
+        forwards = []
+
+        def spy(tb, rows, _real=eng._prefill_recurrent, _seen=forwards):
+            _seen.append({"bucket": tb, "offsets": [r[1] for r in rows],
+                          "tokens": [len(r[2]) for r in rows]})
+            return _real(tb, rows)
+
+        eng._prefill_recurrent = spy
+        reqs = [Request(prompt=ids_, max_new_tokens=16, sampler=greedy)
+                for ids_ in (long_ids, short_ids)]
+        reset()
+        t0 = time.time()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        got = read(f"recurrent_{name}_long_prompt_{run}", expect)
+        long_toks[run] = [r.output for r in reqs]
+        big = eng.prefill_buckets[-1]
+        long_runs[run] = {
+            "wall_s": time.time() - t0, "prompt_s": eng.perf.t_prompt_s,
+            "prompt_tokens": eng.perf.n_prompt_tokens,
+            "chunk_forwards": sum(f["bucket"] == big and all(
+                t == big for t in f["tokens"]) for f in forwards),
+            "prefill_forwards": forwards, "launches": got}
+        print(json.dumps({"phase": "recurrent_long_prompt", "model": name,
+                          "run": run, **long_runs[run],
+                          "tokens": long_toks[run][0], "card": card}),
+              flush=True)
+        if (eng.perf.n_prompt_tokens != 2800
+                or long_runs[run]["chunk_forwards"] != 2
+                or any(len(r.output) != 16 or r.error for r in reqs)):
+            fail(f"{name}: the 2,500-token prompt ran {forwards}, "
+                 f"{eng.perf.n_prompt_tokens} prompt tokens")
+        del eng
+        torch.cuda.empty_cache()
+    if long_toks["graph"] != long_toks["eager"]:
+        fail(f"{name}: a prompt past the largest bucket gives other tokens "
+             "graphed than eager")
+    out["long_prompt"] = long_runs
     del built, model, engine
     torch.cuda.empty_cache()
 
@@ -4145,8 +4362,6 @@ def train_phase(dev, card, reset, read) -> None:
     preset = "bitnet_2b_4t"
     cfg = PRESETS[preset]
     out: dict = {"phase": "train", "model": preset, "card": card}
-    if torch.backends.cuda.matmul.allow_tf32:
-        fail("the twin's float32 products need TF32 off")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 

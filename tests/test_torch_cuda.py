@@ -978,12 +978,14 @@ def test_stacked_engine_equals_unrolled_on_the_card(dev, name):
 def test_recurrent_families_card_equals_cpu(dev, name):
     """A recurrent family of ``bench/recurrent_zoo.py`` on the card against
     the CPU, each layer from the CPU's input: layers within 2e-2 of the
-    largest value, logits within 1e-5, the CPU's greedy tokens (float32
-    products in full float32)."""
+    largest value, logits within 1e-5, the CPU's greedy tokens, with TF32
+    allowed for matmuls and convolutions around the call: the forwards
+    compute in full float32 whatever the caller allows."""
     from vlut_tpu_torch.bench import recurrent_zoo as rz
+    from vlut_tpu_torch.device import tf32
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    r = rz.card_vs_cpu(name, dev, n_decode=3, prompt=40)
+    with tf32(matmul=True, conv=True):
+        r = rz.card_vs_cpu(name, dev, n_decode=3, prompt=40)
     assert r["within_tol"] and r["greedy_equal"], r
 
 
@@ -1088,14 +1090,15 @@ def test_family_conversion_on_the_card_equals_the_cpus(dev, name, tmp_path):
 @pytest.mark.parametrize("preset", ["tiny", "tiny_moe", "tiny_bitnet"])
 def test_pack_params_on_the_card_equals_the_cpus(dev, preset):
     """``train/finetune.py``: a QAT step on the card gives the CPU's loss
-    (within 1e-5, TF32 off), and ``pack_params`` of the same masters packs
-    the same bytes and scales on the card as on the CPU (each scale decided
-    on the host in numpy, the trits rounded by a true division)."""
+    (within 1e-5, with TF32 allowed around it: the step holds it off), and
+    ``pack_params`` of the same masters packs the same bytes and scales on
+    the card as on the CPU (each scale decided on the host in numpy, the
+    trits rounded by a true division)."""
     from vlut_tpu_torch.config import PRESETS
+    from vlut_tpu_torch.device import tf32
     from vlut_tpu_torch.models import transformer as tt
     from vlut_tpu_torch.train import finetune as ft
 
-    assert not torch.backends.cuda.matmul.allow_tf32
     cfg = PRESETS[preset]
     rng = np.random.default_rng(3)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
@@ -1104,8 +1107,9 @@ def test_pack_params_on_the_card_equals_the_cpus(dev, preset):
         params = ft.trainable(ft.float_twin_params(
             tt.init_params(cfg, seed=2, device=device), cfg))
         opt = torch.optim.SGD(ft.leaves(params), lr=0.1)
-        losses.append(float(ft.make_train_step(cfg, opt, qat=True)(
-            params, toks.to(device))))
+        with tf32(matmul=True, conv=True):
+            losses.append(float(ft.make_train_step(cfg, opt, qat=True)(
+                params, toks.to(device))))
         trained.append(params)
     assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0]), losses
     masters = {"layers": {name: {"dense": v["dense"].detach()}
@@ -1125,15 +1129,17 @@ def test_pack_params_on_the_card_equals_the_cpus(dev, preset):
 def test_vision_family_card_equals_cpu(dev, name):
     """``bench/vision_zoo.py``: a tower family converted on the card and on
     the CPU (equal files), each tower function on the card from the CPU's
-    inputs (within 1e-4, TF32 off), and the CPU's image rows spliced into
-    the language model on both (DeepStack's planes for qwen3vl, cogvlm's
+    inputs (within 1e-4), and the CPU's image rows spliced into the
+    language model on both (DeepStack's planes for qwen3vl, cogvlm's
     visual experts): each layer within ``bench/zoo.py:TOL``, the CPU's
-    greedy tokens; a twin's tower alone."""
+    greedy tokens; a twin's tower alone; with TF32 allowed for matmuls
+    and convolutions around the call: the towers compute in full float32
+    whatever the caller allows."""
     from vlut_tpu_torch.bench import vision_zoo as vz
+    from vlut_tpu_torch.device import tf32
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    r = vz.card_vs_cpu(name, dev, seed=3)
+    with tf32(matmul=True, conv=True):
+        r = vz.card_vs_cpu(name, dev, seed=3)
     assert r["ok"], r
 
 

@@ -224,8 +224,9 @@ def test_cancel_keeps_history_and_unported_features_raise():
     eng.restore_slot(0, data)
     assert eng.slots[0].history[:3] == [4, 5, 6]
     # what still refuses: multi-device meshes; a recurrent (Mamba) engine
-    # refuses a draft, lookahead and a prompt past the largest bucket with
-    # the JAX engine's messages
+    # refuses a draft and lookahead with the JAX engine's messages, and
+    # takes a prompt past the largest bucket in chunks, as the JAX engine
+    # does (its tokens held against JAX's in test_torch_ssm_engine.py)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(cfg, model, mesh=object())
     from vlut_tpu_torch.models import ssm
@@ -241,10 +242,10 @@ def test_cancel_keeps_history_and_unported_features_raise():
         Engine(m_cfg, mamba, lookahead=(3, 3))
     eng = Engine(m_cfg, mamba, n_slots=1, max_len=64,
                  prefill_buckets=(16,))
-    with pytest.raises(ValueError, match=r"prompt length 17 exceeds max "
-                       r"bucket 16 \(recurrent models cannot chunk "
-                       r"prefill\)"):
-        eng.submit(Request(prompt=list(range(17)), max_new_tokens=1))
+    long = Request(prompt=list(range(17)), max_new_tokens=1)
+    eng.run([long])
+    assert long.done and long.error is None and len(long.output) == 1
+    assert eng.perf.n_prompt_tokens == 17
 
 
 def test_seeded_sampling_is_reproducible_and_in_range():

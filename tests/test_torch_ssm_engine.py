@@ -59,6 +59,51 @@ def test_engine_greedy_equals_jax_engine(pair, n_slots):
     assert pe.perf.n_reused_tokens == 0
 
 
+def test_prompts_past_the_largest_bucket_equal_jax(pair):
+    """Prompts of 17, 40 and 16 tokens in one batch with one bucket of 16:
+    the long ones run in full 16-token chunks, each continuing its slot's
+    state, and their left-padded remainders (1 and 8 tokens) join the
+    16-token prompt's group, as the JAX engine's chunk rounds run them.
+    Fresh slots: the greedy tokens are the JAX engine's and plain
+    greedy's, and every prompt token is prefilled once."""
+    prompts = [list(range(3, 20)), list(range(40, 80)), list(range(7, 23))]
+    want, got, _, pe = _run_both(pair, prompts, prefill_buckets=(16,))
+    assert got == want
+    _, _, cfg, model = pair
+    assert got == [greedy_ref(cfg, model, p, 6) for p in prompts]
+    assert pe.perf.n_prompt_tokens == sum(map(len, prompts))
+
+
+def test_chunks_continue_the_slot_state(pair):
+    """A 40-token prompt in chunks of 16: the slot's final state is the
+    state of one unchunked prefill of the prompt (a larger bucket), though
+    its 8-token remainder runs left-padded from the carried state: a pad
+    step is the identity.  The JAX engine's remainder decays the carried
+    state through its pads and convolves them in place of the carried
+    window (ROADMAP, faults of the reference)."""
+    cfg_j, pj, cfg, model = pair
+    prompt = list(range(40, 80))
+    states, jax_states = [], []
+    for buckets in ((16,), (64,)):
+        eng = Engine(cfg, model, n_slots=2, max_len=64,
+                     prefill_buckets=buckets)
+        eng.run([Request(prompt=prompt, max_new_tokens=1, sampler=GREEDY)])
+        states.append(eng.cache)
+        je = JaxEngine(cfg_j, pj, n_slots=2, max_len=64,
+                       impl="pallas_interpret", prefill_buckets=buckets)
+        je.run([JaxRequest(prompt=prompt, max_new_tokens=1,
+                           sampler=JaxSampler(temperature=0.0))])
+        jax_states.append(np.asarray(je.cache["ssm"]))
+    for k in ("conv", "ssm"):
+        torch.testing.assert_close(states[0][k], states[1][k], rtol=1e-5,
+                                   atol=1e-6)
+    torch.testing.assert_close(states[1]["ssm"],
+                               torch.from_numpy(jax_states[1]), rtol=1e-4,
+                               atol=1e-6)
+    assert not np.allclose(jax_states[0], jax_states[1], rtol=1e-2,
+                           atol=1e-4)
+
+
 def test_slot_reuse_starts_from_a_zero_state(pair):
     """A third request in a slot that served another: its prefill starts
     from zeros (the port), so its tokens and final state are a fresh

@@ -25,19 +25,13 @@ it fits in it):
   one by one from Python with the tensors ``_layer_step`` hands it (bf16 q
   and rows, v a strided slice of the qkv output, int64 starts), in turns
   too, and the device kernels one such call runs (torch.profiler).  A
-  variant is a directory holding another ``decode_attention.cu``, for
-  instance the parent commit's ``vlut_tpu_torch/csrc`` unpacked by ``git
-  archive``; a source with the first design's interface
-  (``vlut_decode_attention_scratch``: q in float32, new rows cast, a
-  scratch of the splits) is called the way that design's wrapper called
-  it, casts included.
+  variant is a directory holding another ``decode_attention.cu`` of the
+  same interface, for instance the parent commit's ``vlut_tpu_torch/csrc``
+  unpacked by ``git archive``.
 * ``--ablate``: text edits of the checked-out source (they fail loudly when
-  the kernel's lines change).  On the first design: its partial pass
-  alone, its merge pass alone, and the partial pass without its score
-  dots, without its value dots and without both (loads only).  On the
-  current one: no cache copies, no score mma, no value mma, no merge of
-  the splits, copies only (a landed stage released at once) and (int8)
-  no scale copies.  Their outputs are wrong by design and are not
+  the kernel's lines change): no cache copies, no score mma, no value mma,
+  no merge of the splits, copies only (a landed stage released at once)
+  and (int8) no scale copies.  Their outputs are wrong by design and are not
   checked; each is timed in a graph and eagerly.
 * ``--timeline``: the global timer of thread 0 of every block at its entry,
   its first stage landed, its row loop done, its state merged (or, alone,
@@ -81,25 +75,6 @@ SHAPES = [
     ("tiny_real", 4, 256, 2, 2, 128, 0, "tiny"),
 ]
 
-# the first design (a split pass, then a merge pass): the partial pass
-# alone, the merge pass alone, and the partial pass without its score dots,
-# its value dots, or both
-_NO_FINISH = [("  decode_attn_finish<HD, G, Q8><<<a.b * a.hkv, 32, 0, "
-               "stream>>>(",
-               "  if (false) decode_attn_finish<HD, G, Q8><<<a.b * a.hkv, 32, "
-               "0, stream>>>(")]
-_NO_PARTIAL = [("  decode_attn_partial<HD, G, Q8>\n      <<<",
-                "  if (false) decode_attn_partial<HD, G, Q8>\n      <<<")]
-_NO_SCORE = [("    for (int i = tid; i < G * n; i += kThreads) {",
-              "    for (int i = tid; i < 0; i += kThreads) {")]
-_NO_VALUE = [("      for (int r = grp; r < n; r += PAR) {",
-              "      for (int r = grp; r < 0; r += PAR) {")]
-FIRST_DESIGN_PARTS = {
-    "partial": _NO_FINISH, "finish": _NO_PARTIAL,
-    "partial_noscore": _NO_FINISH + _NO_SCORE,
-    "partial_novalue": _NO_FINISH + _NO_VALUE,
-    "partial_loads": _NO_FINISH + _NO_SCORE + _NO_VALUE,
-}
 # the current design: no cache copies (the stages' barriers complete
 # empty), no score mma, no value mma (an XOR in place of each), no merge of
 # the splits (a block of a split slot stops after its state), copies only
@@ -173,22 +148,10 @@ TIMELINE = [
 _I, _P = ctypes.c_int, ctypes.c_void_p
 
 
-def _first_design(lib) -> bool:
-    return hasattr(lib, "vlut_decode_attention_scratch")
-
-
 def _build_variants(dirs: dict[str, pathlib.Path]) -> dict[str, ctypes.CDLL]:
     libs = compile_variants(dirs, SOURCE)
     for lib in libs.values():
-        if _first_design(lib):
-            lib.vlut_decode_attention.argtypes = [
-                _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                ctypes.c_float, _I, _P, _P, _P]
-            lib.vlut_decode_attention.restype = _I
-            lib.vlut_decode_attention_scratch.argtypes = [_I, _I, _I, _I]
-            lib.vlut_decode_attention_scratch.restype = ctypes.c_long
-        else:
-            da.type_lib(lib)
+        da.type_lib(lib)
     return libs
 
 
@@ -249,8 +212,6 @@ class Case:
     def call(self, lib=None, rows=None):
         """A function of no arguments running one call on the next cache
         copy: the wrapper, or ``lib`` (a variant) with ``rows`` forced."""
-        if lib is not None and _first_design(lib):
-            return lambda: self._first(lib, self._next())
         if lib is None and rows is None:
             f = da.decode_attention_int8 if self.q8 else da.decode_attention
             return lambda: f(self.q, self.kn, self.vn, *self._next(),
@@ -263,28 +224,6 @@ class Case:
                               c[3] if self.q8 else None, self.start,
                               self.window, self.scale, rows=rows, lib=lib)
         return run
-
-    def _first(self, lib, c):
-        """The first design's call, as its wrapper made it: q to float32,
-        the new rows to the kernel's type, starts to int32, each made
-        contiguous, a scratch of the splits."""
-        b, s, h, hd = self.b, self.s, self.h, self.hd
-        dev = self.q.device
-        qf = self.q.to(torch.float32).contiguous()
-        nd = torch.float32 if self.q8 else torch.bfloat16
-        kn, vn = self.kn.to(nd).contiguous(), self.vn.to(nd).contiguous()
-        st = self.start.to(torch.int32).contiguous()
-        out = torch.empty((b, 1, h, hd), dtype=torch.float32, device=dev)
-        scratch = torch.empty(lib.vlut_decode_attention_scratch(b, s, h, hd),
-                              dtype=torch.float32, device=dev)
-        _build.check(lib.vlut_decode_attention(
-            qf.data_ptr(), kn.data_ptr(), vn.data_ptr(), c[0].data_ptr(),
-            c[1].data_ptr(), c[2].data_ptr() if self.q8 else None,
-            c[3].data_ptr() if self.q8 else None, st.data_ptr(), b, s, h,
-            self.hkv, hd, self.window, self.scale, int(self.q8),
-            scratch.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream), "vlut_decode_attention")
-        return out
 
     def want(self, c):
         """The plain version on copies of cache ``c``: (output, cache)."""
@@ -467,11 +406,8 @@ def main(argv: list[str] | None = None) -> int:
     for spec in args.variant:
         name, _, d = spec.partition("=")
         dirs[name] = pathlib.Path(d)
-    first = "vlut_decode_attention_scratch" in (_build.CSRC / SOURCE
-                                                ).read_text()
-    edits = dict(FIRST_DESIGN_PARTS if first else ABLATIONS) \
-        if args.ablate else {}
-    if args.timeline and not first:
+    edits = dict(ABLATIONS) if args.ablate else {}
+    if args.timeline:
         edits["timeline"] = TIMELINE
     for name, e in edits.items():
         dirs[name] = variant_source(name, e, SOURCE)
@@ -483,17 +419,16 @@ def main(argv: list[str] | None = None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     sms = sm_count(0)
-    emit(card=card, sms=sms, variants=sorted(dirs), first_design=first)
+    emit(card=card, sms=sms, variants=sorted(dirs))
 
-    if not first:
-        results = check(gen)
-        bad = [r for r in results if r["why"]]
-        for r in bad:
-            emit(mismatch=r)
-        emit(checked=len(results), mismatches=len(bad),
-             max_abs_err=max(r["max_abs_err"] for r in results))
-        if bad or args.check_only:
-            return 1 if bad else 0
+    results = check(gen)
+    bad = [r for r in results if r["why"]]
+    for r in bad:
+        emit(mismatch=r)
+    emit(checked=len(results), mismatches=len(bad),
+         max_abs_err=max(r["max_abs_err"] for r in results))
+    if bad or args.check_only:
+        return 1 if bad else 0
 
     others = {v: lib for v, lib in libs.items() if v not in edits}
     for label, b, s, hkv, g, hd, window, starts in SHAPES:
@@ -513,9 +448,8 @@ def main(argv: list[str] | None = None) -> int:
                     emit(mismatch=[v or "kernel", label, q8], why=why)
                     return 1
             row = {"shape": label, "b": b, "s": s, "hkv": hkv, "g": g,
-                   "hd": hd, "window": window, "q8": q8, "rows": case.rows()}
-            if not first:
-                row["plan"] = da.attn_plan(b, hkv, da.span(s, window), sms)
+                   "hd": hd, "window": window, "q8": q8, "rows": case.rows(),
+                   "plan": da.attn_plan(b, hkv, da.span(s, window), sms)}
             for v, lib in others.items():  # in turns: variants, kernel x2
                 row[f"{v}_us"] = [graph_us(case.call(lib), 20)]
             row["kernel_us"] = [graph_us(case.call(), 20),
@@ -543,9 +477,9 @@ def main(argv: list[str] | None = None) -> int:
             del case
             torch.cuda.empty_cache()
 
-    if args.timeline and not first:
+    if args.timeline:
         timeline(libs["timeline"], gen, card)
-    if args.sweep and not first:
+    if args.sweep:
         for label, b, s, hkv, g, hd, window, starts in SHAPES:
             for q8 in (False, True):
                 case = Case(gen, b, s, hkv, g, hd, window, starts, q8,

@@ -23,11 +23,9 @@ L2):
   turns (variant, kernel, kernel, variant), the host's dispatch of a call
   launched one by one from Python (``*_eager``, in turns too), and the
   column-major
-  ``torch._int_mm`` of the codes and the unpacked trits.  A variant is a directory holding another
-  ``decode_gemm.cu`` (and the headers it includes), or the parent's
-  ``ternary_gemm.cu`` with its ``vlut_quant_prologue`` and
-  ``vlut_decode_gemm`` (the first design: an A-fragment prologue and a GEMM
-  of 32 columns per block).
+  ``torch._int_mm`` of the codes and the unpacked trits.  A variant is a
+  directory holding another ``decode_gemm.cu`` of the same interface (and
+  the headers it includes), held bit-exact at the plain-mode shapes first.
 * ``--ablate``: the GEMM without its mma (an XOR in its place) and without
   its epilogue loop, and the call without programmatic dependent launch
   (the GEMM's launch attribute dropped), built from the checked-out source
@@ -121,34 +119,18 @@ TIMELINE = [
      "  return static_cast<int>(cudaMemcpyFromSymbol(host, g_span, "
      "sizeof(g_span)));\n}\n"),
 ]
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 
 
 def _build_variants(dirs: dict[str, pathlib.Path]) -> dict[str, ctypes.CDLL]:
-    """Each variant's library: a ``decode_gemm.cu`` (typed as the checked-out
-    one) or the parent's ``ternary_gemm.cu`` (``lib.parent``)."""
-    parents = {v: d for v, d in dirs.items()
-               if not (d / "decode_gemm.cu").exists()}
-    libs = compile_variants(parents, "ternary_gemm.cu")
-    libs.update(compile_variants({v: d for v, d in dirs.items()
-                                  if v not in parents}, "decode_gemm.cu"))
+    """Each variant's ``decode_gemm.cu``, typed as the checked-out one."""
+    libs = compile_variants(dirs, "decode_gemm.cu")
+    mine = tg._dlib()
     for v, lib in libs.items():
-        lib.parent = v in parents
-        if lib.parent:
-            lib.vlut_quant_prologue.argtypes = [
-                _P, _P, _L, _I, _I, _I, _P, _I, _I, _F, _F, _I, _I, _I, _P,
-                _P, _P]
-            lib.vlut_decode_gemm.argtypes = [
-                _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P]
-            lib.vlut_quant_prologue.restype = lib.vlut_decode_gemm.restype = _I
-        else:
-            mine = tg._dlib()
-            for f in ("vlut_decode_prologue", "vlut_decode_gemm",
-                      "vlut_decode"):
-                getattr(lib, f).argtypes = getattr(mine, f).argtypes
-                getattr(lib, f).restype = _I
-            lib.vlut_decode_init.restype = _I
-            _build.check(lib.vlut_decode_init(), f"{v} vlut_decode_init")
+        for f in ("vlut_decode_prologue", "vlut_decode_gemm", "vlut_decode"):
+            getattr(lib, f).argtypes = getattr(mine, f).argtypes
+            getattr(lib, f).restype = ctypes.c_int
+        lib.vlut_decode_init.restype = ctypes.c_int
+        _build.check(lib.vlut_decode_init(), f"{v} vlut_decode_init")
     return libs
 
 
@@ -177,9 +159,8 @@ class Case:
         self.res = (torch.randn((m, n), generator=gen, device=dev).to(self.od)
                     if has_res else None)
         self.i = 0
-        # the prologue's output once, for the parent's GEMM alone and _int_mm
+        # the prologue's output once, for _int_mm
         self.pro = self.prologue()()
-        self.afrag = None
 
     def _next(self):
         self.i = (self.i + 1) % len(self.copies)
@@ -193,48 +174,11 @@ class Case:
         args = (self.x1, self.x2, self.g, self.mode, False, self.k, 1e-5)
         if lib is None:
             return lambda: tg._launch_prologue(*args, self.kp)
-        if lib.parent:
-            mtl = -(-self.m // 16)
-            self.afrag = torch.empty((mtl * 16 * self.kp,), dtype=torch.uint8,
-                                     device=self.x1.device)
-            xs = torch.empty((self.m,), device=self.x1.device)
-
-            def run():
-                _build.check(lib.vlut_quant_prologue(
-                    self.x1.data_ptr(), self.x2.data_ptr() if self.x2 is not None
-                    else None, self.x1.stride(0),
-                    int(self.x1.dtype == torch.bfloat16), self.k, self.kp,
-                    self.g.data_ptr() if self.g is not None else None,
-                    tg._MODES[self.mode], 0, float(self.k), 1e-5, self.kb,
-                    self.m, mtl, self.afrag.data_ptr(), xs.data_ptr(),
-                    tg._stream()), "vlut_quant_prologue")
-                return self.afrag, xs
-            return run
         return lambda: _with_lib(lib, tg._launch_prologue, *args, self.kp)
 
     def gemm(self, lib=None, plan=None):
         """The GEMM alone on the prologue's output (with a split, after a
         fill of its workspace, timed apart by :meth:`memset`)."""
-        if lib is not None and lib.parent:
-            if self.afrag is None:
-                self.prologue(lib)()
-            afrag, pxs = self.afrag, self.pro[1]
-
-            def run():
-                packed = self._next()
-                out = torch.empty((self.m, self.np), dtype=self.od,
-                                  device=packed.device)
-                _build.check(lib.vlut_decode_gemm(
-                    afrag.data_ptr(), pxs.data_ptr(), packed.data_ptr(),
-                    self.ws.data_ptr(), self.m, self.kp // self.kb, self.np,
-                    int(self.fmt == "i1"),
-                    self.res.data_ptr() if self.res is not None else None,
-                    self.res.shape[1] if self.res is not None else 0,
-                    self.res.shape[1] if self.res is not None else 0,
-                    out.data_ptr(), int(self.od == torch.bfloat16),
-                    tg._stream()), "vlut_decode_gemm")
-                return out
-            return run
         bn, splits = plan or self.plan()
         codes, xs, rowsum, work = tg._launch_prologue(
             self.x1, self.x2, self.g, self.mode, False, self.k, 1e-5,
@@ -258,9 +202,6 @@ class Case:
 
     def call(self, lib=None, plan=None):
         """The whole call: prologue, then GEMM (the wrapper's one C call)."""
-        if lib is not None and lib.parent:
-            pro, gemm = self.prologue(lib), self.gemm(lib)
-            return lambda: (pro(), gemm())[1]
         return lambda: _with_lib(
             lib, tg._decode_cuda, self.x1, self._next(), self.ws, self.x2,
             self.g, self.res, self.fmt, self.kb, self.mode, False, self.k,
@@ -369,8 +310,7 @@ def main(argv: list[str] | None = None) -> int:
                                  "decode_study",
                                  description=__doc__.split("\n")[0])
     ap.add_argument("--variant", action="append", default=[],
-                    help="NAME=DIR of another decode_gemm.cu, or of the "
-                    "parent's ternary_gemm.cu")
+                    help="NAME=DIR of another decode_gemm.cu")
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--timeline", action="store_true")
     ap.add_argument("--sweep", action="store_true")
@@ -417,7 +357,7 @@ def main(argv: list[str] | None = None) -> int:
                      x_dtype=torch.bfloat16 if kernel == "fused_quant" else None)
             others = {v: lib for v, lib in libs.items() if v not in extra}
             for v, lib in others.items():
-                if lib.parent and mode == "plain":
+                if mode == "plain":
                     c.i = len(c.copies) - 1
                     if not torch.equal(c.call(lib)(), c.want()):
                         emit(mismatch=[v, label, m])
@@ -453,7 +393,7 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.timeline:
         lib = libs["timeline"]
-        lib.vlut_span_read.restype = _I
+        lib.vlut_span_read.restype = ctypes.c_int
         for label, k, n, mode, res in FLAGSHIP:
             for m in MS:
                 c = Case(gen, m, k, n, mode, res, "i2", rotate=True)

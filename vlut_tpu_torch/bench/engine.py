@@ -143,11 +143,8 @@ def run(preset: str = "llama3_8b_158", device=None, n_layers: int | None = None,
                                       max_seq_len=_rope_len(preset, ctx))
     eng = Engine(cfg, model, n_slots=n_slots, max_len=ctx, kv_quant=kv_quant,
                  decode_attn=decode_attn, cuda_graph=cuda_graph)
-    # a recurrent model's prompts stay within the largest prefill bucket (it
-    # prefills no chunks)
     reqs = requests if requests is not None else make_requests(
-        cfg.vocab_size, hi=eng.prefill_buckets[-1] if eng._recurrent
-        else PROMPT_HI)
+        cfg.vocab_size)
     for r in reqs:
         eng.submit(r)
     prof = paths = None

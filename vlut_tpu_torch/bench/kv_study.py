@@ -12,13 +12,11 @@ timed as CUDA graphs of 20 calls (best of three replays), in turns: this
 source (``pdl``), the same source launched without programmatic dependent
 launch (``no_pdl``, a text edit built through ``compile_variants``), each
 variant, and one ``index_put_`` per array (the library call), ``reps``
-rounds in the order A B ... B A.  A variant directory holds another ``kv_update.cu``;
-one with the first design's interface (two arrays, int32 starts,
-contiguous rows: the parent commit's ``vlut_tpu_torch/csrc`` unpacked with
-``git archive`` under ``build/``) is called as its wrapper called it: the
-starts cast to int32, the rows made contiguous, one call per pair of
-arrays.  One JSON line per shape and build, in us per call, with the
-card's name and power limit.
+rounds in the order A B ... B A.  A variant directory holds another
+``kv_update.cu`` of the same interface (for instance the parent commit's
+``vlut_tpu_torch/csrc`` unpacked with ``git archive`` under ``build/``).
+One JSON line per shape and build, in us per call, with the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -71,36 +69,16 @@ def layer_update(gen, b: int, s: int, hkv: int, q8: bool, hd: int = 128,
     return [kc, vc, ksc, vsc], [kq, vq, ks, vs], start
 
 
-def _first_design_call(lib, caches, rows, start):
-    """The first design's wrapper: int32 starts, contiguous rows, one call
-    per pair of arrays."""
-    st = start.to(torch.int32)
-    b, s = caches[0].shape[:2]
-    for a in range(0, len(caches), 2):
-        c, u = caches[a:a + 2], [r.contiguous() for r in rows[a:a + 2]]
-        kv_update._build.check(lib.vlut_write_rows(
-            c[0].data_ptr(), c[1].data_ptr(), u[0].data_ptr(),
-            u[1].data_ptr(), st.data_ptr(), b, s,
-            c[0][0, 0].numel() * c[0].element_size(),
-            kv_update._stream()), "vlut_write_rows")
-
-
 def _variants(dirs: dict[str, pathlib.Path]) -> dict:
     """name -> call(caches, rows, start) for each variant directory."""
     libs = compile_variants(dirs, "kv_update.cu")
     calls = {}
     for name, lib in libs.items():
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        if "void* const* caches" in (dirs[name] / "kv_update.cu").read_text():
-            lib.vlut_write_rows.argtypes = kv_update._lib().vlut_write_rows \
-                .argtypes
-            calls[name] = (lambda c, r, st, _lib=lib:
-                           kv_update._launch(c, r, st, lib=_lib))
-        else:
-            lib.vlut_write_rows.argtypes = [P, P, P, P, P, I, I, L, P]
-            calls[name] = (lambda c, r, st, _lib=lib:
-                           _first_design_call(_lib, c, r, st))
-        lib.vlut_write_rows.restype = I
+        lib.vlut_write_rows.argtypes = kv_update._lib().vlut_write_rows \
+            .argtypes
+        lib.vlut_write_rows.restype = ctypes.c_int
+        calls[name] = (lambda c, r, st, _lib=lib:
+                       kv_update._launch(c, r, st, lib=_lib))
     return calls
 
 

@@ -17,10 +17,9 @@ the L2, bk 2048 as ``bench`` takes):
   tq1) for the current kernel and each ``--variant`` in turns (variant,
   kernel, kernel, variant), beside one float16 ``torch.matmul`` of the
   codes and the weight dequantized beforehand.  A variant is a directory
-  holding another ``tq_gemm.cu`` (and the headers it includes), for
-  instance the parent commit's ``vlut_tpu_torch/csrc`` unpacked by ``git
-  archive``; a source with ``vlut_tq_afrag_bytes`` is called through the
-  first design's interface (an A-fragment prologue, N padded to 32).
+  holding another ``tq_gemm.cu`` of the same interface (and the headers
+  it includes), for instance the parent commit's ``vlut_tpu_torch/csrc``
+  unpacked by ``git archive``.
 * ``--ablate``: the current kernel without the x copies, without the
   weight copies, without the decode, without the mma, at the tq2 lanes;
   built from the checked-out source by text edits (they fail loudly when
@@ -126,36 +125,10 @@ TIMELINE = [
 def _build_variants(dirs: dict[str, pathlib.Path]) -> dict[str, ctypes.CDLL]:
     libs = compile_variants(dirs, "tq_gemm.cu")
     for v, lib in libs.items():
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        lib.vlut_tq_gemm.restype = lib.vlut_tq_init.restype = I
-        lib.first_design = hasattr(lib, "vlut_tq_afrag_bytes")
-        if lib.first_design:
-            lib.vlut_tq_gemm.argtypes = [P, L, P, P, P, I, I, I, I, I, P, P, P]
-            lib.vlut_tq_afrag_bytes.argtypes = [I, I, I]
-            lib.vlut_tq_afrag_bytes.restype = L
-        else:
-            lib.vlut_tq_gemm.argtypes = tq._lib().vlut_tq_gemm.argtypes
+        lib.vlut_tq_gemm.restype = lib.vlut_tq_init.restype = ctypes.c_int
+        lib.vlut_tq_gemm.argtypes = tq._lib().vlut_tq_gemm.argtypes
         _build.check(lib.vlut_tq_init(), f"{v} vlut_tq_init")
     return libs
-
-
-def _first_design(lib, xq, packed, scales, xs, fmt, bk):
-    m, kp = xq.shape
-    n = packed.shape[1]
-    np_ = -(-n // 32) * 32
-    if np_ != n:
-        packed = torch.nn.functional.pad(packed, (0, np_ - n))
-        scales = torch.nn.functional.pad(scales, (0, np_ - n))
-    tq1 = int(fmt == "tq1")
-    afrag = torch.empty((lib.vlut_tq_afrag_bytes(m, kp, tq1),),
-                        dtype=torch.uint8, device=xq.device)
-    out = torch.empty((m, np_), device=xq.device)
-    _build.check(lib.vlut_tq_gemm(
-        xq.data_ptr(), xq.stride(0), xs.data_ptr(), packed.data_ptr(),
-        scales.data_ptr(), m, kp, np_, tq1, bk, afrag.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream().cuda_stream),
-        "vlut_tq_gemm")
-    return out[:, :n]
 
 
 class Case:
@@ -179,9 +152,6 @@ class Case:
         self.i = 0
 
     def run(self, packed, lib=None, plan=None):
-        if lib is not None and lib.first_design:
-            return _first_design(lib, self.xq, packed, self.scales, self.xs,
-                                 self.fmt, self.bk)
         return tq._tq_cuda(self.xq, packed, self.scales, self.xs, self.fmt,
                            self.bk, torch.float32, plan=plan, lib=lib)
 

@@ -34,6 +34,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from vlut_tpu_torch.device import full_float32
 from vlut_tpu_torch.models.transformer import alibi_slopes
 
 VARIANTS = ("nomic-bert", "nomic-bert-moe", "jina-bert-v2", "jina-bert-v3")
@@ -360,6 +361,7 @@ def _neobert(model: EncoderLM, cfg, tokens, pad_bias):
 
 
 @torch.inference_mode()
+@full_float32()
 def forward_encoder(model: EncoderLM, cfg: EncoderConfig,
                     tokens: torch.Tensor, mask: torch.Tensor,
                     task: str | None = None) -> torch.Tensor:
@@ -379,6 +381,7 @@ def forward_encoder(model: EncoderLM, cfg: EncoderConfig,
 
 
 @torch.inference_mode()
+@full_float32()
 def embed(model: EncoderLM, cfg: EncoderConfig, tokens: torch.Tensor,
           mask: torch.Tensor, task: str | None = None) -> torch.Tensor:
     """Pooled (B, D) float32 embeddings: cls, or the mean over the real

@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from vlut_tpu_torch.device import full_float32
 from vlut_tpu_torch.models.ssm import TreeLM
 
 
@@ -92,6 +93,7 @@ def _gelu(x):
 
 
 @torch.inference_mode()
+@full_float32()
 def forward(model: TreeLM, cfg: Gemma3nConfig,
             tokens: torch.Tensor) -> torch.Tensor:
     """Full-sequence causal logits (B, T, V), float32."""

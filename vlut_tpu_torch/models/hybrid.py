@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from vlut_tpu_torch.device import full_float32
 from vlut_tpu_torch.models import ssm
 from vlut_tpu_torch.models.ssm import (
     Mamba2Dims,
@@ -380,6 +381,7 @@ def _ffn_block(cfg: HybridConfig, lp, h):
     return out + lp["b_down"] if "b_down" in lp else out
 
 
+@full_float32()
 def forward(model: TreeLM, cfg: HybridConfig, tokens: torch.Tensor
             ) -> torch.Tensor:
     """Full-sequence logits (B, T, V), float32."""

@@ -20,6 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from vlut_tpu_torch.device import full_float32
 from vlut_tpu_torch.models.vision_ext import _ln, _rms, _rot_half, gelu, layer
 
 
@@ -107,6 +108,7 @@ def _self_attend(q, k, v, hd, mask=None):
     return torch.einsum("hts,shd->thd", p, v).reshape(q.shape[0], -1)
 
 
+@full_float32()
 def vision_forward(params: dict[str, Any], vc: QwenVisionConfig,
                    patches: torch.Tensor,
                    grid_hw: tuple[int, int]) -> torch.Tensor:

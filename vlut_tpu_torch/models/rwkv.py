@@ -7,9 +7,10 @@ rwkv6qwen2: a SwiGLU FFN) -> + residual.  The WKV recurrences
 (:func:`_wkv7_scan`, :func:`_wkv6_scan`, :func:`_gla_scan`) run step by
 step over T, as the JAX package's ``lax.scan``; the state is (B, H, hs,
 hs) float32 per layer.  Weights are float32 matrices (RWKV checkpoints are
-never ternary), so no ternary kernel runs here; on the card keep TF32 off
-(``torch.backends.cuda.matmul.allow_tf32 = False``), or the products part
-from the CPU's by about 1e-3.
+never ternary), so no ternary kernel runs here.  :func:`forward` and
+:func:`forward6` run their products with TF32 off whatever the caller
+allows (``device.full_float32``): TF32 would move them from the CPU's by
+about 1e-3.
 
 The model is a :class:`~vlut_tpu_torch.models.ssm.TreeLM` over the JAX
 checkpoint's tree (stacked (L, ...) layer tensors).
@@ -21,7 +22,7 @@ import dataclasses
 
 import torch
 
-from vlut_tpu_torch.device import resolve_device
+from vlut_tpu_torch.device import full_float32, resolve_device
 from vlut_tpu_torch.models import ssm
 from vlut_tpu_torch.models.ssm import TreeLM, rms32 as _rms, silu
 
@@ -167,6 +168,7 @@ def _shifted(prev: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return torch.cat([prev[:, None], h[:, :-1]], 1)
 
 
+@full_float32()
 def forward(model: TreeLM, cfg: Rwkv7Config, tokens: torch.Tensor,
             state: dict[str, torch.Tensor] | None = None):
     """(logits (B, T, V) float32, new state or None)."""
@@ -272,6 +274,7 @@ def _time_mix6(cfg: Rwkv6Config, lp, x, x_prev, wkv0):
     return (out * g) @ lp["wo"], S
 
 
+@full_float32()
 def forward6(model: TreeLM, cfg: Rwkv6Config, tokens: torch.Tensor,
              state: dict[str, torch.Tensor] | None = None):
     params = model.params

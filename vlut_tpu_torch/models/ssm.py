@@ -46,7 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vlut_tpu_torch.device import resolve_device
+from vlut_tpu_torch.device import full_float32, resolve_device
 from vlut_tpu_torch.ops.matmul import ternary_matmul
 from vlut_tpu_torch.ops.packing import (
     DEFAULT_BLOCK,
@@ -505,11 +505,21 @@ def _chunks(width: int, per_channel_bytes: int):
 
 
 def _causal_conv(conv_state: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor | None):
+                 b: torch.Tensor | None, valid=None):
     """Depthwise causal conv over T with the carried window: returns
-    (sum of the taps [+ bias], new window).  Taps add in order."""
+    (sum of the taps [+ bias], new window).  Taps add in order.  With a
+    ``valid`` mask of a left-padded batch (pads zero in ``x``) the carried
+    window moves past each row's pads, next to its first real token: a
+    padded row continues its state as an unpadded one (with a zero window,
+    as a fresh row has, nothing moves)."""
     t, dc = x.shape[1], w.shape[0]
     win = torch.cat([conv_state.to(torch.float32), x], 1)
+    if valid is not None:
+        pads = (~valid).sum(1, keepdim=True)  # (B, 1)
+        j = torch.arange(win.shape[1], device=x.device)[None]
+        src = torch.where(j < pads, j + dc - 1,
+                          torch.where(j < pads + dc - 1, j - pads, j))
+        win = win.gather(1, src[..., None].expand(-1, -1, win.shape[2]))
     acc = win[:, 0:t] * w[0]
     for i in range(1, dc):
         acc = acc + win[:, i:i + t] * w[i]
@@ -530,7 +540,8 @@ def _mamba_mix(layers: RecurrentLayers, i: int, cfg: MambaConfig,
     xi, z = xz[..., :di].to(torch.float32), xz[..., di:].to(torch.float32)
     if valid is not None:
         xi = torch.where(valid[..., None], xi, 0.0)
-    conv, new_conv = _causal_conv(conv_state, xi, lp["conv_w"], lp["conv_b"])
+    conv, new_conv = _causal_conv(conv_state, xi, lp["conv_w"], lp["conv_b"],
+                                  valid)
     xc = silu(conv)
     if valid is not None:
         # the conv bias makes xc nonzero on zeroed inputs: the SSM input at
@@ -538,6 +549,11 @@ def _mamba_mix(layers: RecurrentLayers, i: int, cfg: MambaConfig,
         xc = torch.where(valid[..., None], xc, 0.0)
     proj = xc @ lp["x_proj"]
     dt = softplus(proj[..., :dr] @ lp["dt_proj_w"] + lp["dt_proj_b"])
+    if valid is not None:
+        # a pad's step is the identity (dA 1, dBx 0), so a carried state
+        # passes the pads unchanged (the JAX package's decays there; from a
+        # zero state the two agree bit for bit)
+        dt = torch.where(valid[..., None], dt, 0.0)
     B = proj[..., dr:dr + ds]
     C = proj[..., dr + ds:]
     A = -torch.exp(lp["A_log"])  # (di, ds)
@@ -672,6 +688,7 @@ def _run(model: RecurrentLM, cfg, tokens, state, logits_last_only, inplace,
     return logits, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
 
 
+@full_float32()
 def forward(model: RecurrentLM, cfg: MambaConfig, tokens: torch.Tensor,
             state: dict[str, torch.Tensor] | None = None,
             logits_last_only: bool = False, valid: torch.Tensor | None = None,
@@ -690,6 +707,7 @@ def forward(model: RecurrentLM, cfg: MambaConfig, tokens: torch.Tensor,
                 mixer)
 
 
+@full_float32()
 def forward2(model: RecurrentLM, cfg: Mamba2Config, tokens: torch.Tensor,
              state: dict[str, torch.Tensor] | None = None,
              logits_last_only: bool = False, valid: torch.Tensor | None = None,

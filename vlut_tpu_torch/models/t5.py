@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from vlut_tpu_torch.device import full_float32
 from vlut_tpu_torch.models.ssm import TreeLM
 
 
@@ -114,6 +115,7 @@ def _blocks(stack: dict[str, torch.Tensor], n: int) -> list[dict]:
 
 
 @torch.inference_mode()
+@full_float32()
 def encode(model: TreeLM, cfg: T5Config, tokens: torch.Tensor,
            mask: torch.Tensor) -> torch.Tensor:
     """Bidirectional encoder: (B, T) -> (B, T, D) float32."""
@@ -134,6 +136,7 @@ def encode(model: TreeLM, cfg: T5Config, tokens: torch.Tensor,
 
 
 @torch.inference_mode()
+@full_float32()
 def decode_logits(model: TreeLM, cfg: T5Config, dec_tokens: torch.Tensor,
                   enc_out: torch.Tensor,
                   enc_mask: torch.Tensor) -> torch.Tensor:
@@ -172,6 +175,7 @@ def decode_logits(model: TreeLM, cfg: T5Config, dec_tokens: torch.Tensor,
 
 
 @torch.inference_mode()
+@full_float32()
 def generate(model: TreeLM, cfg: T5Config, enc_tokens, n_new: int = 32,
              temp: float = 0.0, seed: int = 0) -> list[int]:
     """Greedy (or, with ``temp``, sampled from a generator seeded by

@@ -77,7 +77,7 @@ import torch
 from torch import nn
 
 from vlut_tpu_torch.config import ModelConfig
-from vlut_tpu_torch.device import resolve_device
+from vlut_tpu_torch.device import full_float32, resolve_device
 from vlut_tpu_torch.models.dims import (
     DimPlan,
     chunk_positions,
@@ -120,6 +120,9 @@ from vlut_tpu_torch.runtime.kv_cache import (
 ATTN_CHUNK = 1024  # switch to online-softmax chunking past this KV length
 DECODE_ATTN = ("fused", "composed")
 IMPLS = ("auto", "dequant")
+# forward's ablation switches (bench/ablate.py only): the unfused
+# projections at every M, no cache write, no attention, no head
+ABLATIONS = frozenset({"unfused", "no_kv_write", "no_attn", "no_head"})
 
 # config fields this port implements; any other field must keep its default
 _SUPPORTED_FIELDS = {
@@ -1577,6 +1580,12 @@ class _SlotKV:
                               max=s - 1)
             for arr, u in zip(arrs, rows):
                 arr[idx, pos] = u
+        return self.peek()
+
+    def peek(self):
+        """The cache's rows as :meth:`update` returns them, nothing
+        written (the ``no_kv_write`` ablation)."""
+        arrs = [self._layer(n) for n in self._names()]
         if self.slots is not None:
             arrs = [a[self.slots] for a in arrs]
         return tuple(arrs) + ((None, None) if not self.quant else ())
@@ -1674,7 +1683,7 @@ def _qk_norm(q, k, lp: DecoderLayer, cfg: ModelConfig, plan: DimPlan,
 
 def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
                 safe_pos, rope_pos, k_pos, write_start, decode_attn, impl,
-                attn_mask=None, mrope_pos=None):
+                attn_mask=None, mrope_pos=None, ablate=frozenset()):
     """One layer, the JAX package's ``layer_step`` for the dense knobs, in
     its order and with its fused gates: qkv fuses (#1 at M <= 64, norm +
     quant + GEMM) under an RMS pre-norm; wo fuses with its residual without
@@ -1697,7 +1706,7 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
             x, lp, kvio, cfg=cfg, plan=plan, params=params, li=li,
             safe_pos=safe_pos, rope_pos=rope_pos, k_pos=k_pos,
             write_start=write_start, decode_attn=decode_attn, impl=impl,
-            attn_mask=attn_mask, mrope_pos=mrope_pos)
+            attn_mask=attn_mask, mrope_pos=mrope_pos, ablate=ablate)
     elif "w_lin_attn" in lp.proj:
         o = lp.proj["w_lin_attn"](_norm_d(x, lp, "attn_norm", cfg), impl)
         x = x + o.to(x.dtype)[..., :cfg.d_model]
@@ -1707,7 +1716,7 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
 
 def _attn_block(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
                 safe_pos, rope_pos, k_pos, write_start, decode_attn, impl,
-                attn_mask=None, mrope_pos=None):
+                attn_mask=None, mrope_pos=None, ablate=frozenset()):
     """The attention half of a layer: (x after the attention residual, the
     attn-normed input where it was materialised, the parallel residual's
     attention branch or None)."""
@@ -1723,7 +1732,7 @@ def _attn_block(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
             x, lp, kvio, cfg=cfg, plan=plan, params=params, li=li,
             safe_pos=safe_pos, rope_pos=rope_pos, k_pos=k_pos,
             write_start=write_start, decode_attn=decode_attn, impl=impl,
-            attn_mask=attn_mask, mrope_pos=mrope_pos)
+            attn_mask=attn_mask, mrope_pos=mrope_pos, ablate=ablate)
     return _attn_out(x, att, h_attn, lp, cfg=cfg, plan=plan, impl=impl)
 
 
@@ -1823,10 +1832,15 @@ def _mla_attention(x, lp: DecoderLayer, kvio, *, cfg, plan, params, safe_pos,
 
 def _softmax_attention(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
                        safe_pos, rope_pos, k_pos, write_start, decode_attn,
-                       impl, attn_mask=None, mrope_pos=None):
+                       impl, attn_mask=None, mrope_pos=None,
+                       ablate=frozenset()):
     """The q/k/v projections and the attention of a softmax-attention
     layer: (the attn-normed input where it was materialised, the float32
-    attention output (B, T, H, hd_p))."""
+    attention output (B, T, H, hd_p)).  ``ablate`` as the JAX package's
+    ``VLUT_ABLATE``: ``no_attn`` puts q in the attention output's place
+    (on the fused path it skips #7/#8 and the row write it holds),
+    ``no_kv_write`` reads the cache without writing the new rows (the
+    composed path; the fused one ignores it, as JAX's does)."""
     b, t = x.shape[:2]
     hd_p, eps, d = plan.hd_p, cfg.rms_eps, cfg.d_model
     proj = lp.proj
@@ -1872,15 +1886,21 @@ def _softmax_attention(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
             safe_pos.to(torch.float32) + cfg.attn_temp_offset,
             float(cfg.attn_temp_floor))) + 1.0) * cfg.attn_temp_scale + 1.0
         q = q * tf[..., None, None].to(q.dtype)
-    if _fused_attn_ok(cfg, (q.shape[2], k.shape[2]), hd_p, t, kvio,
-                      decode_attn, attn_mask):
+    fused = _fused_attn_ok(cfg, (q.shape[2], k.shape[2]), hd_p, t, kvio,
+                           decode_attn, attn_mask)
+    if fused and "no_attn" in ablate:
+        att = q.to(torch.float32)
+    elif fused:
         att = kvio.fused_attend(
             q, k, v, write_start, window,
             cfg.attn_scale or 1.0 / math.sqrt(plan.hd))
     else:
         k_sc = v_sc = None
         if kvio is not None:
-            k, v, k_sc, v_sc = kvio.update(k, v, write_start)
+            k, v, k_sc, v_sc = (kvio.peek() if "no_kv_write" in ablate
+                                else kvio.update(k, v, write_start))
+        if "no_attn" in ablate:
+            return h_attn, q.to(torch.float32)
         att = _attention(q, k, v, safe_pos, k_pos, plan.hd,
                          scale=cfg.attn_scale, k_scale=k_sc, v_scale=v_sc,
                          mask_override=attn_mask,
@@ -2156,7 +2176,8 @@ def run_layers(params: TransformerLM, x, positions, kv: dict | None, *,
                attn_mask: torch.Tensor | None = None,
                mrope_pos: torch.Tensor | None = None,
                visual_expert: bool = False,
-               deepstack_embeds: tuple | None = None):
+               deepstack_embeds: tuple | None = None,
+               ablate: frozenset[str] = frozenset()):
     """Run the layer stack (either tree) over x (B, T, D).  With ``slots``
     the B rows are those slots of the cache ``kv``.  ``visual_expert``
     runs cogvlm's visual twins; ``deepstack_embeds[i]`` (B, T, D) is added
@@ -2182,7 +2203,7 @@ def run_layers(params: TransformerLM, x, positions, kv: dict | None, *,
             cfg=cfg, plan=params.plans[i], params=params, li=i,
             safe_pos=safe_pos, rope_pos=rope_pos, k_pos=k_pos,
             write_start=write_start, decode_attn=decode_attn, impl=impl,
-            attn_mask=attn_mask, mrope_pos=mrope_pos,
+            attn_mask=attn_mask, mrope_pos=mrope_pos, ablate=ablate,
         )
         if deepstack_embeds is not None and i < len(deepstack_embeds):
             x = x + deepstack_embeds[i].to(x.dtype)
@@ -2215,6 +2236,7 @@ def project_head(params: TransformerLM, x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32) @ head.to(torch.float32)
 
 
+@full_float32()
 def forward(
     params: TransformerLM,
     cfg: ModelConfig,
@@ -2233,6 +2255,7 @@ def forward(
     token_embeds: torch.Tensor | None = None,  # (B, T, D) for the lookup
     visual_expert: bool = False,  # cogvlm: the vis_* projections
     deepstack_embeds: tuple | None = None,  # qwen3vl: adds after layer i
+    ablate: frozenset[str] = frozenset(),  # bench/ablate.py's switches
 ) -> tuple[torch.Tensor, dict | None]:
     """Returns (float32 logits (B, T', V_padded), kv_cache updated in place),
     or with ``output="hidden"`` the final-norm hidden states (B, T, D) in
@@ -2258,7 +2281,12 @@ def forward(
     positions apply to them as to looked-up rows.  ``visual_expert`` runs
     cogvlm's visual-expert projections in place of the language ones;
     ``deepstack_embeds`` (a tuple of (B, T, D)) adds its i-th plane to the
-    output of layer i (qwen3vl's DeepStack).
+    output of layer i (qwen3vl's DeepStack).  ``ablate`` (a subset of
+    :data:`ABLATIONS`; ``bench/ablate.py`` alone passes one) removes work
+    to time its share: ``unfused`` takes the tiled route and the composed
+    projections at every M, ``no_kv_write`` and ``no_attn`` act on the
+    attention (:func:`_softmax_attention`), ``no_head`` returns logits of
+    the head's shape that only sum x (a data dependency kept, as JAX's).
     """
     if decode_attn not in DECODE_ATTN:
         raise ValueError(f"decode_attn must be one of {DECODE_ATTN}")
@@ -2266,6 +2294,10 @@ def forward(
         raise ValueError(f"impl must be one of {IMPLS}")
     if output not in ("logits", "hidden"):
         raise ValueError("output must be 'logits' or 'hidden'")
+    if not ablate <= ABLATIONS:
+        raise ValueError(f"unknown ablation {sorted(ablate - ABLATIONS)}")
+    if "unfused" in ablate and impl == "auto":
+        impl = "tiled"
     b = tokens.shape[0]
     x = (params.embed[tokens] if token_embeds is None
          else token_embeds.to(params.embed.dtype))
@@ -2285,7 +2317,7 @@ def forward(
                              slots=slots, decode_attn=decode_attn, impl=impl,
                              attn_mask=attn_mask, mrope_pos=mrope_pos,
                              visual_expert=visual_expert,
-                             deepstack_embeds=deepstack_embeds)
+                             deepstack_embeds=deepstack_embeds, ablate=ablate)
     if cfg.norm_type == "ln":
         x = nrm.layer_norm(x, params.final_norm,
                            getattr(params, "final_norm_b", None), cfg.rms_eps,
@@ -2299,6 +2331,10 @@ def forward(
         x = x[torch.arange(b, device=x.device), logits_at][:, None]
     elif logits_last_only:
         x = x[:, -1:]
+    if "no_head" in ablate:
+        logits = torch.zeros((*x.shape[:2], params.n_logits),
+                             dtype=torch.float32, device=x.device)
+        return logits + x.sum(dim=-1, keepdim=True).to(torch.float32), kv_cache
     return head_logits(params, cfg, x), kv_cache
 
 

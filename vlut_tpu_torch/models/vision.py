@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vlut_tpu_torch.device import full_float32
 from vlut_tpu_torch.models.vision_ext import layer
 
 
@@ -140,6 +141,7 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, patch * patch * c)
 
 
+@full_float32()
 def encode_tower(params: dict[str, Any], cfg: VisionConfig,
                  images: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) -> the features of the llava feature layer, CLS dropped
@@ -179,6 +181,7 @@ def encode_tower(params: dict[str, Any], cfg: VisionConfig,
     return x
 
 
+@full_float32()
 def encode_image(params: dict[str, Any], cfg: VisionConfig,
                  images: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) float in ~[-2, 2] -> (B, n_tokens, d_llm) projected
@@ -186,6 +189,7 @@ def encode_image(params: dict[str, Any], cfg: VisionConfig,
     return llava_project(params, encode_tower(params, cfg, images))
 
 
+@full_float32()
 def llava_project(params: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     """llava projector: linear -> tanh gelu -> linear in float32, rounded to
     the weights' dtype; yi-vl's MLP_NORM variant puts a LayerNorm after
@@ -260,6 +264,7 @@ def _image(path_or_array, size, mean, std, device) -> torch.Tensor:
     return torch.from_numpy(img).to(device)[None]
 
 
+@full_float32()
 def encode_image_auto(model_dir, image, device=None):
     """Dispatch an image (a file, or an (H, W, 3) array in [0, 1]) through
     whichever tower family the checkpoint carries, in the JAX package's

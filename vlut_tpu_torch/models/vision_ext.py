@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vlut_tpu_torch.device import full_float32
+
 
 @dataclasses.dataclass(frozen=True)
 class SiglipConfig:
@@ -105,6 +107,7 @@ def _attend(q, k, v, hd, bias=None):
     return torch.einsum("bhts,bshd->bthd", p, v.to(torch.float32))
 
 
+@full_float32()
 def siglip_forward(params: dict[str, Any], cfg: SiglipConfig,
                    images: torch.Tensor, act: str = "tanh") -> torch.Tensor:
     """SigLIP ViT: (B, H, W, 3) -> (B, P, D) patch features: patchify +
@@ -132,6 +135,7 @@ def siglip_forward(params: dict[str, Any], cfg: SiglipConfig,
     return _ln(x, params["post_ln_w"], params["post_ln_b"], cfg.ln_eps)
 
 
+@full_float32()
 def gemma3_project(params: dict[str, Any], cfg: SiglipConfig,
                    feats: torch.Tensor) -> torch.Tensor:
     """Gemma3 multimodal projector: average-pool the patch grid down to
@@ -170,6 +174,7 @@ def _rot_half(x):
     return torch.cat([-x[..., h:], x[..., :h]], -1)
 
 
+@full_float32()
 def pixtral_forward(params: dict[str, Any], cfg: PixtralConfig,
                     images: torch.Tensor) -> torch.Tensor:
     """Pixtral ViT, one image: (1, H, W, 3) -> (N, D) patch features
@@ -200,6 +205,7 @@ def pixtral_forward(params: dict[str, Any], cfg: PixtralConfig,
     return x[0]
 
 
+@full_float32()
 def pixtral_project(params: dict[str, Any], feats: torch.Tensor,
                     cfg: PixtralConfig | None = None,
                     grid_hw: tuple[int, int] | None = None) -> torch.Tensor:
@@ -242,6 +248,7 @@ def minicpmv_pos_embed(grid_hw: tuple[int, int], d: int,
     return torch.tensor(pos, dtype=torch.float32, device=device)
 
 
+@full_float32()
 def minicpmv_resampler(params: dict[str, Any], feats: torch.Tensor,
                        grid_hw: tuple[int, int],
                        d_head: int = 128) -> torch.Tensor:

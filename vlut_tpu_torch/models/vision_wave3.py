@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vlut_tpu_torch.device import full_float32
 from vlut_tpu_torch.models.qwen_vision import (
     QwenVisionConfig, _self_attend, _vision_rot_table, window_layout)
 from vlut_tpu_torch.models.vision_ext import (
@@ -91,6 +92,7 @@ def _norm(x, w, b, eps, kind):
     return _ln(x, w, b, eps)
 
 
+@full_float32()
 def internvl_forward(params: dict[str, Any], cfg: InternVLConfig,
                      images: torch.Tensor) -> torch.Tensor:
     """InternVL ViT: (B, H, W, 3) -> (B, P+1, D), CLS first: conv patchify
@@ -140,6 +142,7 @@ def internvl_pixel_shuffle(x: torch.Tensor, scale: float = 0.5):
     return x.permute(0, 2, 1, 3)
 
 
+@full_float32()
 def internvl_project(params: dict[str, Any], cfg: InternVLConfig,
                      feats: torch.Tensor) -> torch.Tensor:
     """Drop CLS -> pixel shuffle -> LayerNorm -> linear / GELU / linear."""
@@ -206,6 +209,7 @@ def _rope_pairs(z, cos, sin):
     return out.reshape(z.shape)
 
 
+@full_float32()
 def llama4_vision_forward(params: dict[str, Any], cfg: Llama4VisionConfig,
                           images: torch.Tensor) -> torch.Tensor:
     """Llama4 ViT: (B, H, W, 3) -> (B, P+1, D) post-LN features, CLS last:
@@ -250,6 +254,7 @@ def llama4_pixel_shuffle(x: torch.Tensor, ratio: float) -> torch.Tensor:
     return x.reshape(b, -1, int(c / ratio ** 2))
 
 
+@full_float32()
 def llama4_project(params: dict[str, Any], cfg: Llama4VisionConfig,
                    feats: torch.Tensor) -> torch.Tensor:
     """Drop the trailing CLS -> pixel shuffle -> no-bias fc1 / GELU / fc2 /
@@ -265,6 +270,7 @@ def llama4_project(params: dict[str, Any], cfg: Llama4VisionConfig,
 # vision_ext.siglip_forward)
 # ---------------------------------------------------------------------------
 
+@full_float32()
 def janus_aligner(params: dict[str, Any], feats: torch.Tensor):
     """Janus-Pro's understanding aligner: fc1, then (GELU, linear) per
     hidden layer, into the decoder width."""
@@ -275,6 +281,7 @@ def janus_aligner(params: dict[str, Any], feats: torch.Tensor):
     return x
 
 
+@full_float32()
 def lfm2vl_project(params: dict[str, Any], feats: torch.Tensor,
                    factor: int) -> torch.Tensor:
     """Pixel unshuffle (square grid) + LayerNorm + biased GELU MLP into the
@@ -328,6 +335,7 @@ def _ldp_block(x, p, prefix, stride, eps=1e-5, residual=True):
     return x + y if residual else y
 
 
+@full_float32()
 def ldp_project(params: dict[str, Any], feats: torch.Tensor) -> torch.Tensor:
     """MobileVLM LDP: biased GELU MLP -> block 1 (stride 1, residual) ->
     block 2 (stride 2) -> (B, P/4, C)."""
@@ -341,6 +349,7 @@ def ldp_project(params: dict[str, Any], feats: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, (side // 2) ** 2, x.shape[-1])
 
 
+@full_float32()
 def ldpv2_project(params: dict[str, Any], feats: torch.Tensor):
     """MobileVLM-v2 LDP: biased GELU MLP -> 2x2 stride-2 average pool ->
     3x3 depthwise PEG conv (+ bias) with residual -> (B, P/4, C)."""
@@ -359,6 +368,7 @@ def ldpv2_project(params: dict[str, Any], feats: torch.Tensor):
 # GLM-Edge adapter (the tower is models/vision.py's CLIP)
 # ---------------------------------------------------------------------------
 
+@full_float32()
 def glm_edge_project(params: dict[str, Any], feats: torch.Tensor):
     """GLM-Edge adapter: 2x2 stride-2 conv over the patch grid -> linear
     -> LayerNorm -> GELU -> silu(mlp2 x) * mlp1 x -> down linear, between
@@ -403,6 +413,7 @@ class YoutuVLConfig:
         return self.d_model // self.n_heads
 
 
+@full_float32()
 def youtuvl_vision_forward(params: dict[str, Any], vc: YoutuVLConfig,
                            patches: torch.Tensor,
                            grid_hw: tuple[int, int]) -> torch.Tensor:
@@ -477,6 +488,7 @@ class CogVLMVisionConfig:
     d_llm: int = 4096
 
 
+@full_float32()
 def cogvlm_vision_forward(params: dict[str, Any], cfg: CogVLMVisionConfig,
                           images: torch.Tensor) -> torch.Tensor:
     """CogVLM's EVA2-CLIP tower: (B, H, W, 3) -> (B, P+1, D), CLS last;
@@ -506,6 +518,7 @@ def cogvlm_vision_forward(params: dict[str, Any], cfg: CogVLMVisionConfig,
     return x
 
 
+@full_float32()
 def cogvlm_project(params: dict[str, Any], feats: torch.Tensor):
     """Drop the trailing CLS -> no-bias linear -> LayerNorm(1e-5) -> GELU
     -> silu(gate) * h_to_4h -> down linear, between BOI / EOI rows."""
@@ -559,6 +572,7 @@ def _qwen3vl_merger(params, prefix: str, x, d: int, m2: int,
     return y @ params[f"{prefix}_fc2_w"] + params[f"{prefix}_fc2_b"]
 
 
+@full_float32()
 def qwen3vl_vision_forward(params: dict[str, Any], vc: Qwen3VLVisionConfig,
                            patches: torch.Tensor, grid_hw: tuple[int, int]):
     """Qwen3-VL ViT: (N, C*tp*p*p) merge-block-major rows -> (main
@@ -651,6 +665,7 @@ class Glm4vVisionConfig:
         return self.d_model // self.n_heads
 
 
+@full_float32()
 def glm4v_vision_forward(params: dict[str, Any], vc: Glm4vVisionConfig,
                          patches: torch.Tensor,
                          grid_hw: tuple[int, int]) -> torch.Tensor:
@@ -737,6 +752,7 @@ def _rope2d_split_tables(grid_hw, hd: int, theta: float, device):
             torch.tensor(np.sin(ang), dtype=torch.float32, device=device))
 
 
+@full_float32()
 def kimivl_forward(params: dict[str, Any], cfg: KimiVLConfig,
                    images: torch.Tensor) -> torch.Tensor:
     """Kimi-VL MoonViT: (B, H, W, 3) -> (B, P, D): learned positions
@@ -774,6 +790,7 @@ def kimivl_forward(params: dict[str, Any], cfg: KimiVLConfig,
     return x
 
 
+@full_float32()
 def kimivl_project(params: dict[str, Any], cfg: KimiVLConfig,
                    feats: torch.Tensor) -> torch.Tensor:
     """Patch-merge permute -> LayerNorm at the original n_embd width ->
@@ -804,6 +821,7 @@ def idefics3_pixel_shuffle(x: torch.Tensor, scale: int) -> torch.Tensor:
     return x.reshape(b, p // scale ** 2, c * scale ** 2)
 
 
+@full_float32()
 def idefics3_project(params: dict[str, Any], feats: torch.Tensor,
                      scale: int) -> torch.Tensor:
     """Pixel shuffle + one no-bias linear into the decoder width."""

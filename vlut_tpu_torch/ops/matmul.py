@@ -1,22 +1,33 @@
 """Ternary matmul front end (port of vlut_tpu/ops/matmul.py).
 
-Routing depends on the rows M = prod(x.shape[:-1]) only:
+Routing depends on the rows M = prod(x.shape[:-1]) and the weight's
+shape:
 
 * M <= 64: the small-M kernels (fused-quant GEMM, or the fused decode
-  projection for :func:`ternary_matmul_fused`), as on the TPU.
+  projection for :func:`ternary_matmul_fused`), as on the TPU, except
+  where the card's autotune table (``bench/autotune.py:lookup_route``)
+  measured ``"tiled"`` for :func:`ternary_matmul`'s shape: then the same
+  int8 codes and scales (:func:`ternary_gemm.kernel_quantize`) go through
+  the tiled GEMM, which gives the same int32 accumulator and epilogue, so
+  the same result.
 * M > 64: :func:`quantize_activations` then the tiled GEMM.
 
-The TPU's XLA-vs-Pallas crossover (``VLUT_TPU_XLA_MIN_M``) and its autotune
-table were measured on a TPU and are not carried over; block shapes are the
-kernels' own constants.  On the CPU every wrapper runs its plain PyTorch
-version, so the same routing runs the same integer math on both devices.
+The TPU's XLA-vs-Pallas crossover (``VLUT_TPU_XLA_MIN_M``) and its table
+were measured on a TPU and are not carried over: the H100's table is the
+port's own (``bench/autotune_h100.json``).  :func:`ternary_matmul_fused`
+keeps M <= 64 on the fused decode kernel whatever the table says: its
+composed path adds the residual after a cast, so it rounds apart.  On the
+CPU every wrapper runs its plain PyTorch version, so the same routing
+runs the same integer math on both devices.
 
 ``impl`` (also an argument of the model's ``forward``) is ``"auto"``, the
 routing above, or ``"dequant"``, the float-dequant accuracy reference:
 float32 products with the dequantized weights and no activation
 quantization, composed around :func:`ternary_matmul_fused`'s prologue as
 the JAX package composes it.  The quantized-vs-dequant KL of
-``eval/perplexity.py`` compares the two.
+``eval/perplexity.py`` compares the two.  ``"tiled"`` takes the tiled
+route at every M and the composed projections (``forward``'s ``unfused``
+ablation, ``bench/ablate.py``).
 """
 
 from __future__ import annotations
@@ -25,8 +36,13 @@ import math
 
 import torch
 
+from vlut_tpu_torch.bench import autotune
 from vlut_tpu_torch.ops import ternary_gemm
-from vlut_tpu_torch.ops.packing import TernaryTensor, unpack_ternary
+from vlut_tpu_torch.ops.packing import (
+    TRITS_PER_BYTE,
+    TernaryTensor,
+    unpack_ternary,
+)
 from vlut_tpu_torch.ops.quant import quantize_activations
 
 SMALL_M = ternary_gemm.MAX_DECODE_M
@@ -58,8 +74,15 @@ def ternary_matmul(
     if impl == "dequant":
         w = unpack_ternary(t, dtype=torch.float32) * t.scale_vector()[: t.n]
         return (x2d.to(torch.float32) @ w).to(out_dtype).reshape(*batch, t.n)
-    if impl != "auto":
+    if impl not in ("auto", "tiled"):
         raise ValueError(f"unknown impl {impl!r}")
+    if m <= SMALL_M and (impl == "tiled" or autotune.lookup_route(
+            t.fmt, m, t.packed.shape[0] * TRITS_PER_BYTE[t.fmt],
+            t.packed.shape[1], x.device.index or 0) == "tiled"):
+        # the small-M kernels' quantization, so the result is theirs
+        x_q, x_scale = ternary_gemm.kernel_quantize(x2d)
+        out = ternary_matmul_quantized(x_q, x_scale, t, out_dtype=out_dtype)
+        return out.reshape(*batch, t.n)
     if m <= SMALL_M:
         out = ternary_gemm.ternary_gemm_fused_quant(
             x2d, t.packed, t.scale_vector(), fmt=t.fmt, kb=t.kb, k=t.k,
@@ -112,7 +135,7 @@ def ternary_matmul_fused(
     """
     out_dtype = out_dtype or (x.dtype if x.dtype != torch.float64
                               else torch.float32)
-    if impl not in ("auto", "dequant"):
+    if impl not in ("auto", "dequant", "tiled"):
         raise ValueError(f"unknown impl {impl!r}")
     batch, m = _rows(x, t)
     x2d = x.reshape(m, t.k)
@@ -125,7 +148,7 @@ def ternary_matmul_fused(
         if res2d is not None:
             out = res2d.to(out_dtype) + out
         return out.reshape(*batch, t.n)
-    if m <= SMALL_M:
+    if m <= SMALL_M and impl == "auto":
         out = ternary_gemm.ternary_gemm_decode(
             x2d, t.packed, t.scale_vector(), x2=x2_2d, norm_g=norm_g,
             residual=res2d, fmt=t.fmt, kb=t.kb, k=t.k, mode=mode,

@@ -575,6 +575,17 @@ def tiled_plan(m: int, np_: int, kp: int, fmt: str,
     return bm, bn, splits
 
 
+def tiles(m: int, np_: int, kp: int, fmt: str,
+          index: int) -> tuple[int, int, int]:
+    """The tiled kernel's (BM, BN, splits) on CUDA device ``index``: the
+    card's tuned entry where ``bench/autotune_h100.json`` has one for the
+    shape (``bench/autotune.py:lookup``), else :func:`tiled_plan`."""
+    from vlut_tpu_torch.bench import autotune
+
+    return (autotune.lookup(fmt, m, kp, np_, index)
+            or tiled_plan(m, np_, kp, fmt, sm_count(index)))
+
+
 def ternary_gemm_tiled(
     x_q: torch.Tensor,  # (M, K) int8
     packed: torch.Tensor,
@@ -603,7 +614,10 @@ def ternary_gemm_tiled(
     return out
 
 
-def _tiled_cuda(x_q, packed, x_scale, w_scale, fmt, kb, k, out_dtype):
+def _tiled_cuda(x_q, packed, x_scale, w_scale, fmt, kb, k, out_dtype,
+                plan=None):
+    """One launch of the tiled kernel; ``plan`` forces (BM, BN, splits)
+    in place of :func:`tiles`'."""
     x_scale = x_scale.to(torch.float32).contiguous()
     _check_packed_cuda(packed, w_scale)
     _check_cuda(x_scale)
@@ -620,13 +634,12 @@ def _tiled_cuda(x_q, packed, x_scale, w_scale, fmt, kb, k, out_dtype):
                          device=x_q.device)
         xp[:, :k] = x_q
         x_q = xp
-    bm, bn, splits = tiled_plan(m, np_, kp, fmt,
-                                sm_count(x_q.device.index or 0))
+    bm, bn, splits = plan or tiles(m, np_, kp, fmt, x_q.device.index or 0)
     out = torch.empty((m, np_), dtype=out_dtype, device=x_q.device)
     work = None
     if splits > 1:  # int32 sums, then one arrival counter per output tile
-        tiles = np_ // bn * -(-m // bm)
-        work = torch.zeros((m * np_ + tiles,), dtype=torch.int32,
+        n_tiles = np_ // bn * -(-m // bm)
+        work = torch.zeros((m * np_ + n_tiles,), dtype=torch.int32,
                            device=x_q.device)
     err = _lib().vlut_tiled_gemm(
         x_q.data_ptr(), x_q.stride(0), k, x_scale.data_ptr(),

@@ -56,13 +56,15 @@ A Mamba model (``MambaConfig``) is served through the same slots, each
 holding its conv and ssm state (``models/ssm.py``) in place of KV rows,
 as the JAX engine serves it: a group's prompts prefill left-padded with a
 ``valid`` mask, from a zero state, and their final states are written
-into the slots; the decode step runs the one-token recurrence over every
+into the slots; a prompt past the largest prefill bucket first feeds full
+largest-bucket chunks (no pads), each continuing its slot's state, and
+its remainder joins the groups, continuing too (a pad step leaves the
+state as it is); the decode step runs the one-token recurrence over every
 slot and writes each active slot's state in place (an idle slot's state
 stays as it is); the step is one CUDA graph as for a transformer.  A
 recurrent slot has no prefix reuse, no context shift and no capacity
 limit but the request's own; a draft model or lookahead (both need to
-rewind the state) and a prompt past the largest prefill bucket (no
-chunked recurrent prefill) are refused with the JAX package's messages.
+rewind the state) are refused with the JAX package's messages.
 ``save_slot`` / ``restore_slot`` / ``fork_slot`` move a slot's whole
 state.
 
@@ -366,8 +368,6 @@ class Engine:
     # --- host API ------------------------------------------------------------
 
     def submit(self, req: Request) -> int:
-        if self._recurrent:
-            self._bucket(len(req.prompt))  # refused before it is queued
         req.rid = self._next_rid
         self._next_rid += 1
         self.queue.append(req)
@@ -378,7 +378,9 @@ class Engine:
             if t <= b:
                 return b
         if self._recurrent:
-            # the left-padded recurrent prefill cannot split
+            # the JAX engine's message; the chunk rounds of stage 1b leave
+            # only remainders of at most the largest bucket, so a prompt
+            # never reaches it
             raise ValueError(
                 f"prompt length {t} exceeds max bucket "
                 f"{self.prefill_buckets[-1]} (recurrent models cannot "
@@ -456,7 +458,7 @@ class Engine:
 
         # stage 1b: prompts longer than the largest bucket feed full-bucket
         # chunks; round k carries chunk k of every long prompt as one
-        # batched forward
+        # batched forward (a recurrent chunk continues its slot's state)
         big = self.prefill_buckets[-1]
         while True:
             rounds = [it for it in staged if len(it[3]) > big]
@@ -539,9 +541,11 @@ class Engine:
 
     def _prefill_recurrent(self, tb: int, rows) -> torch.Tensor:
         """The group's prompts left-padded to ``tb`` (pads first, so each row
-        ends in its unpadded state), run from a zero state with the
-        ``valid`` mask; the final states are written into the rows' slots.
-        Returns the (m, V) last-token logits."""
+        ends in its unpadded state), run with the ``valid`` mask from a zero
+        state, or, for a row at a kv offset above 0 (a long prompt's later
+        chunk, stage 1b of :meth:`_admit`), from its slot's state; the
+        final states are written into the rows' slots.  A full chunk has no
+        pads.  Returns the (m, V) last-token logits."""
         m, dev = len(rows), self.device
         toks = torch.zeros((m, tb), dtype=torch.long)
         valid = torch.zeros((m, tb), dtype=torch.bool)
@@ -549,10 +553,15 @@ class Engine:
             toks[r, tb - len(new):] = torch.tensor(new, dtype=torch.long)
             valid[r, tb - len(new):] = True
         slots = torch.tensor([i for i, _, _ in rows], device=dev)
+        state = ssm.init_state(self.cfg, m, dev)
+        carry = [r for r, (_, off, _) in enumerate(rows) if off > 0]
+        if carry:
+            at = torch.tensor(carry, device=dev)
+            for k, a in state.items():
+                a[:, at] = self.cache[k][:, slots[at]]
         logits, new = ssm.forward(
-            self.params, self.cfg, toks.to(dev),
-            ssm.init_state(self.cfg, m, dev), logits_last_only=True,
-            valid=valid.to(dev))
+            self.params, self.cfg, toks.to(dev), state,
+            logits_last_only=True, valid=valid.to(dev))
         for k, a in self.cache.items():
             a[:, slots] = new[k]
         if dev.type == "cuda":

@@ -32,24 +32,27 @@ from vlut_tpu_torch.runtime.sampling import (
 from vlut_tpu_torch.runtime.step_graph import step_runner
 
 
-def _graph_key(params, cache, sp, b: int) -> tuple:
+def _graph_key(params, cache, sp, b: int, ablate: frozenset) -> tuple:
     """What a captured step depends on besides the values of its static
-    inputs: the model's and the cache's tensors (by address), the batch
-    and the sampler settings' fields."""
+    inputs: the model's and the cache's tensors (by address), the batch,
+    the sampler settings' fields and the ablation switches."""
     return (id(params), params.embed.data_ptr(), b, tuple(sp),
-            tuple(t.data_ptr() for arrs in cache.values() for t in arrs))
+            tuple(t.data_ptr() for arrs in cache.values() for t in arrs),
+            ablate)
 
 
 def make_generate_fn(cfg: ModelConfig, n_steps: int,
                      features: tuple[str, ...] | None = None,
                      decode_attn: str = "fused",
-                     impl: str = "auto", cuda_graph: bool = True) -> Callable:
+                     impl: str = "auto", cuda_graph: bool = True,
+                     ablate: frozenset[str] = frozenset()) -> Callable:
     """f(params, cache, last_tokens, lengths, sp, seed) -> ((B, n_steps)
     tokens, cache), generating exactly n_steps tokens per row.
 
     Prompts must already be prefilled into ``cache`` at rows [0, lengths);
-    the cache is updated in place.  ``decode_attn`` and ``impl`` go to
-    ``forward``; ``cuda_graph=False`` runs the steps eagerly on the card.
+    the cache is updated in place.  ``decode_attn``, ``impl`` and
+    ``ablate`` (``bench/ablate.py``'s switches) go to ``forward``;
+    ``cuda_graph=False`` runs the steps eagerly on the card.
     The first call on a new cache runs its first step eagerly and captures
     the step before the second; later calls on it only replay.
     """
@@ -58,7 +61,7 @@ def make_generate_fn(cfg: ModelConfig, n_steps: int,
     held: dict = {}  # the one kept program: key, static tensors, runner
 
     def program(params, cache, sp, b: int, dev) -> dict:
-        key = _graph_key(params, cache, sp, b)
+        key = _graph_key(params, cache, sp, b, ablate)
         if held.get("key") == key:
             return held
         held.clear()
@@ -76,7 +79,7 @@ def make_generate_fn(cfg: ModelConfig, n_steps: int,
             logits, _ = forward(params, cfg, st["tokens"][:, None],
                                 st["lens"][:, None], cache,
                                 logits_at=st["at"], decode_attn=decode_attn,
-                                impl=impl)
+                                impl=impl, ablate=ablate)
             logits = logits[:, 0].to(torch.float32)
             v = logits.shape[-1]
             if v != cfg.vocab_size:

@@ -70,6 +70,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from vlut_tpu_torch.device import full_float32
 from vlut_tpu_torch.models.encoder import EncoderConfig
 from vlut_tpu_torch.models.transformer import forward, project_head
 from vlut_tpu_torch.runtime.engine import Engine, Request
@@ -266,6 +267,7 @@ class ServerState:
             out = embed(model, cfg, toks.to(dev), mask.to(dev))
         return out.to(torch.float32).cpu().numpy()
 
+    @full_float32()
     def rerank(self, query_ids: list[int],
                doc_ids_list: list[list[int]]) -> list[float]:
         """Relevance of each document to the query: the model's

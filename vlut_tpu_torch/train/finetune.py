@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from vlut_tpu_torch.config import ModelConfig
+from vlut_tpu_torch.device import full_float32
 from vlut_tpu_torch.models.dims import make_plan
 from vlut_tpu_torch.models.transformer import (
     TernarySpec, TransformerLM, forward, layer_specs, weight_specs)
@@ -273,8 +274,12 @@ def make_train_step(
     :func:`leaves`): the loss, its backward, and the optimizer's step,
     which updates the leaves in place.  A leaf the loss does not reach gets
     a zero gradient, as JAX's ``value_and_grad`` gives it, so weight decay
-    still applies to it.  Returns the loss (0-d, detached)."""
+    still applies to it.  Returns the loss (0-d, detached).  The step's
+    products, forward and backward, run in full float32 whatever the
+    caller allows (``device.full_float32``): TF32 would part from the JAX
+    package's numbers."""
 
+    @full_float32()
     def step(params, tokens: torch.Tensor,
              mask: torch.Tensor | None = None) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
