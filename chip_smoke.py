@@ -226,8 +226,17 @@ Phases (any failure exits non-zero; none is skipped):
      composed and the fused decode attention (no_kv_write alone is not
      applicable to the fused one); the autotune table's lookups on the
      card it was measured on;
- 29. one JSON line of every kernel with its launches on the paths of phases
-     3-28, then the card, then ``{"ok": true, "device": ...}`` last.
+ 29. the serving half of the mesh (``mesh_phase``): ``llama3_8b_158`` at
+     full width and depth through ``Engine(mesh=)`` at tp 2, two gloo
+     ranks sharing this card (32 slots, 128-token prompts, 8 greedy
+     tokens; prefill and first-step logits against the single-device
+     forward, the census of a decode step, ms per step beside a
+     single-device engine's); tiny_real at tp 2 (bf16, q8, composed) and
+     dp 2 (tokens equal to the CPU's ranks') and on one NCCL rank, graphed;
+     ``mixtral_8x7b``'s widths (4 layers) at ep 2; sp 2 and pp 2 at the
+     flagship's widths over 2 layers;
+ 30. one JSON line of every kernel with its launches on the paths of phases
+     3-29, then the card, then ``{"ok": true, "device": ...}`` last.
 
 Phase 2 holds its plain versions' float32 products in full float32;
 phases 3-28 run with TF32 allowed for matmuls and cuDNN convolutions, as a
@@ -822,6 +831,65 @@ def phase_kernels(dev, seed: int | None = None) -> dict:
             tiled_timed("ternary_gemm_tiled_lanes", label, m, k, n, "i2",
                         iters=20, rotate=True)
 
+    # --- the flagship's tp-2 shards (phase 29): #4 at the column shards
+    # (wq, wk, wv, w_gate, w_up: N halved) at the decode's M 32, and #3 with
+    # unit scales at the row shards (wo, w_down: K halved) at M 32 and 4096,
+    # whose float32 output is then the int32 accumulator the ranks sum
+    for label, k, n in (("wq", 4096, 2048), ("wk", 4096, 512),
+                        ("wv", 4096, 512), ("w_gate", 4096, 7168),
+                        ("w_up", 4096, 7168)):
+        packed, ws, x, xq, err = fused_quant_case(f"{label}_tp2", 32, k, n)
+        rot = Rotation(packed)
+        ms = cuda_ms(lambda: tg.ternary_gemm_fused_quant(
+            x, rot.next(), ws, fmt="i2", kb=128, k=k), graph=True)
+        plain_ms = cuda_ms(lambda: tg._gemm_plain(
+            *tg.kernel_quantize(x), packed, ws, "i2", 128, k, None,
+            torch.float32), iters=3, warmup=1)
+        lib_ms, lib_name, yard = gemm_yardsticks(xq, trits_i8(packed, "i2", k))
+        nbytes = 2 * 32 * k + packed.numel() + 4 * n + 4 * 32 * n
+        b_ms, by = bound_ms(nbytes, 2 * 32 * k * n)
+        record("ternary_gemm_fused_quant_tp2",
+               shape=f"{label} tp2 M=32 {k}->{n} i2", ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+               library_ms=lib_ms, max_abs_err=err, library=lib_name,
+               yardsticks_ms=yard)
+        del rot
+    for label, k, n in (("wo", 2048, 4096), ("w_down", 7168, 4096)):
+        for m_rows in (32, 4096):
+            packed = rand_packed(k, n, "i2")
+            xq, _ = quantize_activations(randn(m_rows, k))
+            ones_x = torch.ones((m_rows, 1), device=dev)
+            ones_w = torch.ones((n,), device=dev)
+            got = tg.ternary_gemm_tiled(xq, packed, ones_x, ones_w, fmt="i2",
+                                        kb=128, k=k)
+            want = tg._gemm_plain(xq, ones_x, packed, ones_w, "i2", 128, k,
+                                  None, torch.float32)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if err != 0.0 or not torch.equal(got, got.round()):
+                fail(f"tiled {label} tp2 M={m_rows}: the unit-scale output "
+                     f"is not the integer accumulator ({err})")
+            rot = Rotation(packed)
+            ms = cuda_ms(lambda: tg.ternary_gemm_tiled(
+                xq, rot.next(), ones_x, ones_w, fmt="i2", kb=128, k=k),
+                iters=5 if m_rows > 64 else 20, graph=True)
+            plain_ms = cuda_ms(lambda: tg._gemm_plain(
+                xq, ones_x, packed, ones_w, "i2", 128, k, None,
+                torch.float32), iters=2, warmup=1)
+            yard = gemm_yardsticks(xq, trits_i8(packed, "i2", k))[2]
+            lib_ms, lib_name = fastest(yard, (INT_MM_ROW, INT_MM_COL))
+            nbytes = m_rows * k + 4 * m_rows + packed.numel() + 4 * n + (
+                4 * m_rows * n)
+            b_ms, by = bound_ms(nbytes, 2 * m_rows * k * n)
+            record("ternary_gemm_tiled_tp2",
+                   shape=f"{label} tp2 M={m_rows} {k}->{n} i2 unit scales",
+                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                   library_ms=lib_ms, max_abs_err=err, library=lib_name,
+                   yardsticks_ms=yard,
+                   plan=tg.tiled_plan(m_rows, n, k, "i2", sms))
+            del rot
+    torch.cuda.empty_cache()
+
     # --- the zoo presets' projections (phase 19) at their engines' decode
     # M (qwen3_4b 16 slots, gemma2_2b 8) through #1 or #4 as the JAX gates
     # send them, and at their prefill bucket (M 512) through #3
@@ -884,6 +952,12 @@ def phase_kernels(dev, seed: int | None = None) -> dict:
     # 128 at B 16 S 2048 are qwen3_4b's shape above)
     decode_attention_kernels(dev, gen, record, (
         ("hetero_hkv1", 4, 2048, 1, 2, 128, 0, "spread"),))
+    # #5, #7 and #8 at a tp-2 rank's share of the flagship engine (phase
+    # 29): 4 of the 8 KV heads, 16 of the 32 query heads
+    kv_kernels(dev, gen, record, (("tp2", 32, 2048, 4, False, 128),
+                                  ("tp2_q8", 32, 2048, 4, True, 128)))
+    decode_attention_kernels(dev, gen, record, (
+        ("tp2", 32, 2048, 4, 4, 128, 0, "spread"),))
     tq_kernels(dev, gen, record)
 
     # --- deepseek_v2_lite (phase 21), mamba_2_8b / codestral_mamba_7b
@@ -2002,7 +2076,13 @@ def main() -> None:
     bench_tooling_phase(dev, built, card, reset, read)
     allowed.close()
 
-    # 29. summary
+    # 29. the serving half of the mesh: the flagship at tp 2 and full width,
+    # tiny_real at tp 2 and dp 2 (and one NCCL rank, graphed), Mixtral's
+    # widths at ep 2, sp 2 and pp 2, in ranks sharing this card
+    mark("mesh")
+    mesh_phase(card, launches)
+
+    # 30. summary
     mark("summary")
     replaces = {
         "ternary_gemm_decode": ("vlut_tpu_torch/csrc/decode_gemm.cu",
@@ -2025,7 +2105,7 @@ def main() -> None:
         k = kern[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": rep,
-            "launches": sum(path[name] for path in launches.values()),
+            "launches": sum(path.get(name, 0) for path in launches.values()),
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
@@ -2041,6 +2121,172 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def mesh_phase(card, launches) -> None:
+    """Phase 29: the serving half of the mesh in ranks started beside this
+    process (``parallel/distributed.py:launch``; ``bench/mesh.py`` runs in
+    each).  One card, so two ranks share it over gloo on CUDA tensors
+    (NCCL refuses a second rank on a device); gloo's point-to-point ops go
+    through the host (``parallel/_comm.py:GLOO_HOST_STAGED``).
+
+    * ``llama3_8b_158`` at full width and depth (random weights, seed 0)
+      through ``Engine(mesh=make_mesh(dp=1, tp=2, devices=[cuda:0,
+      cuda:0]))`` (``bench/mesh.py:FLAGSHIP_TP2``): 32 slots, 128-token
+      prompts, 10 greedy tokens each, against the same steps on one device
+      over the same unfused tree and a bf16 cache
+      (``bench/mesh.py:_step_reference``): the prefill logits within
+      ``PREFILL_TOL`` (the K-sharded products are exact and llama has no
+      sharded norm); the first decode step layer by layer, each layer from
+      the mesh's input to it, within ``LAYER_TOL``, and its logits from
+      the mesh's last layer within ``PREFILL_TOL`` (free-running, a random
+      model turns one flipped int8 code into large logit moves: reported);
+      the census of one decode step; ms per decode step past the first two
+      beside a single-device graphed engine's;
+    * tiny_real at tp 2 (bf16 fused, q8 fused, bf16 composed) and dp 2:
+      greedy tokens equal to the CPU's at the same mesh shape (gloo CPU
+      ranks), which equal the JAX mesh engine's (tests); the share equal
+      to the single-device engine's printed;
+    * one NCCL rank (a one-device mesh, graphed): its tokens equal the
+      two-rank meshes';
+    * ``mixtral_8x7b``'s widths, 4 of its 32 layers, at ep 2 (experts
+      split, attention replicated and fused), held as the flagship;
+    * sp 2 (ring attention, T 512) at the flagship's widths over 2 layers
+      against the single-device forward, layer by layer: the ring's
+      attention output within ``ATTN_TOL``, each layer within
+      ``LAYER_TOL``, the logits from the last layer within
+      ``PREFILL_TOL`` (free-running: reported); pp 2 (GPipe, 2
+      microbatches) over 2 layers, its logits within ``PREFILL_TOL``.
+
+    The limits are ``bench/mesh.py``'s, each of the largest value; a
+    fault of the wiring reads far past them there
+    (``python -m vlut_tpu_torch.bench.mesh``, PERF.md).
+
+    Every rank's launches while its mesh path ran go into ``launches``;
+    a kernel of a path that no rank launched fails the phase."""
+    from vlut_tpu_torch.bench import mesh
+    from vlut_tpu_torch.parallel.distributed import launch
+
+    t0 = time.time()
+    tiny = [("tp2", dict(dp=1, tp=2, single=True)), ("dp2", dict(dp=2, tp=1)),
+            ("tp2_q8", dict(dp=1, tp=2, kv_quant=True)),
+            ("tp2_composed", dict(dp=1, tp=2, decode_attn="composed"))]
+    cases = ([("serve_rank", mesh.FLAGSHIP_TP2)]
+             + [("tiny_real_rank", {**kw, "device": "cuda:0"})
+                for _, kw in tiny]
+             + [("serve_rank", dict(preset="mixtral_8x7b", n_layers=4, dp=1,
+                                    tp=2, n_slots=16, ctx=256, prompt_len=128,
+                                    new_tokens=8, device="cuda:0",
+                                    single=False)),
+                ("sp_rank", mesh.FLAGSHIP_SP2),
+                ("pp_rank", dict(preset="llama3_8b_158", n_layers=2, b=4,
+                                 t=128, device="cuda:0"))])
+    target = "vlut_tpu_torch.bench.mesh:run_cases"
+    try:
+        ranks = launch(target, (cases,), nprocs=2, backend="gloo",
+                       timeout=900)
+        nccl = launch(target, ([("tiny_real_rank", dict(
+            dp=1, tp=1, device="cuda:0"))],), nprocs=1, backend="nccl",
+            timeout=300)[0][0]
+        cpu = launch(target, ([("tiny_real_rank", {**kw, "device": "cpu"})
+                               for _, kw in tiny[:3]],), nprocs=2,
+                     backend="gloo", timeout=300)[0]
+    except RuntimeError as e:
+        fail(f"mesh: a rank failed\n{str(e)[-6000:]}")
+    r0, r1 = ranks
+    names = (["flagship_tp2"] + [f"tiny_real_{n}" for n, _ in tiny]
+             + ["mixtral_ep2", "flagship_sp2", "flagship_pp2"])
+    expect = {
+        "flagship_tp2": ("ternary_gemm_fused_quant", "ternary_gemm_tiled",
+                         "decode_attention"),
+        "tiny_real_tp2": ("ternary_gemm_fused_quant", "ternary_gemm_tiled",
+                          "decode_attention"),
+        "tiny_real_dp2": ("ternary_gemm_decode", "decode_attention"),
+        "tiny_real_tp2_q8": ("decode_attention_int8",),
+        "tiny_real_tp2_composed": ("write_rows_pair",),
+        "mixtral_ep2": ("ternary_gemm_decode", "ternary_gemm_fused_quant",
+                        "ternary_gemm_tiled", "decode_attention"),
+        "flagship_sp2": ("ternary_gemm_tiled",),
+        "flagship_pp2": ("ternary_gemm_tiled",),
+    }
+    for i, name in enumerate(names):
+        for rank, res in enumerate((r0[i], r1[i])):
+            launches[f"mesh_{name}_rank{rank}"] = res["launches"]
+        for k in expect[name]:
+            if not all(res["launches"][k] for res in (r0[i], r1[i])):
+                fail(f"mesh {name}: a rank never launched {k}")
+    launches["mesh_tiny_real_nccl_rank0"] = nccl["launches"]
+
+    def held(name, res, logits=(), rel=()):
+        """Fail unless each logits reading is within PREFILL_TOL of the
+        largest logit and each (key, limit) of ``rel`` within its limit."""
+        for key in logits:
+            e = res[key] if key else res
+            if not e["max_abs_err"] <= mesh.PREFILL_TOL * e["max_abs_logit"]:
+                fail(f"mesh {name} {key or 'logits'}: {e['max_abs_err']} "
+                     f"past {mesh.PREFILL_TOL} of {e['max_abs_logit']}")
+        for key, tol in rel:
+            if not res[key] <= tol:
+                fail(f"mesh {name} {key}: {res[key]} past {tol}")
+
+    step_keys = ("prefill_logits", "step_layer_rel_err", "step_logits",
+                 "free_step_logits")
+    fl = r0[0]
+    print(json.dumps({"phase": "mesh", "case": "flagship_tp2", **{
+        k: fl[k] for k in ("mesh", "backend", "census", "wall_s",
+                           "decode_steps", "timed_steps", "ms_per_step",
+                           "single_ms_per_step", "single_tokens_equal",
+                           "graphed") + step_keys},
+        "launches_rank0": fl["launches"], "launches_rank1": r1[0]["launches"],
+        "card": card}), flush=True)
+    held("flagship tp2", fl, ("prefill_logits", "step_logits"),
+         (("step_layer_rel_err", mesh.LAYER_TOL),))
+    toks = {n: r0[1 + i]["tokens"] for i, (n, _) in enumerate(tiny)}
+    same_cpu = {n: toks[n] == cpu[i]["tokens"]
+                for i, (n, _) in enumerate(tiny[:3])}
+    single = r0[1]["single_tokens"]
+    print(json.dumps({
+        "phase": "mesh", "case": "tiny_real", "tokens_tp2": toks["tp2"][1],
+        "equal_to_cpu_mesh": same_cpu,
+        "bf16_equal_across_meshes": all(
+            toks[n] == toks["tp2"] for n in ("dp2", "tp2_composed")),
+        "nccl_equal": nccl["tokens"] == toks["tp2"],
+        "nccl_graphed": nccl["graphed"], "nccl_programs": nccl[
+            "step_programs"],
+        "share_equal_to_single_device": sum(
+            a == b for a, b in zip(toks["tp2"], single)) / len(single)}),
+        flush=True)
+    if not all(same_cpu.values()):
+        fail(f"mesh tiny_real: the card's mesh tokens differ from the CPU's "
+             f"{same_cpu}")
+    if toks["dp2"] != toks["tp2"] or toks["tp2_composed"] != toks["tp2"]:
+        fail("mesh tiny_real: dp 2 or the composed attention gives other "
+             "tokens than tp 2")
+    if not (nccl["graphed"] and nccl["tokens"] == toks["tp2"]
+            and any(p.get("replays") for p in nccl["step_programs"])):
+        fail("mesh tiny_real: the one-rank NCCL mesh was not replayed from "
+             "a graph or gives other tokens")
+    mx = r0[5]
+    print(json.dumps({"phase": "mesh", "case": "mixtral_ep2", "layers": 4,
+                      **{k: mx[k] for k in ("census", "ms_per_step")
+                         + step_keys}, "card": card}), flush=True)
+    held("mixtral ep2", mx, ("prefill_logits", "step_logits"),
+         (("step_layer_rel_err", mesh.LAYER_TOL),))
+    for i, name in ((6, "sp2"), (7, "pp2")):
+        print(json.dumps({"phase": "mesh", "case": f"flagship_{name}",
+                          "layers": 2, **{f"rank{r}": {
+                              k: v for k, v in res[i].items()
+                              if k != "launches"}
+                              for r, res in enumerate((r0, r1))},
+                          "card": card}), flush=True)
+    for res in (r0[6], r1[6]):
+        held("sp2", res, ("held_logits",), (
+            ("attn_rel_err", mesh.ATTN_TOL), ("layer_rel_err",
+                                              mesh.LAYER_TOL)))
+    for res in (r0[7], r1[7]):
+        held("pp2", res, (None,))
+    print(json.dumps({"phase": "mesh", "seconds": time.time() - t0}),
+          flush=True)
 
 
 def bench_tooling_phase(dev, built, card, reset, read) -> None:

@@ -16,6 +16,7 @@ whose top-two logits lie 0.0018 apart.
 
 import functools
 import pathlib
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -223,17 +224,30 @@ def test_cancel_keeps_history_and_unported_features_raise():
     data = eng.save_slot(0)
     eng.restore_slot(0, data)
     assert eng.slots[0].history[:3] == [4, 5, 6]
-    # what still refuses: multi-device meshes; a recurrent (Mamba) engine
-    # refuses a draft and lookahead with the JAX engine's messages, and
-    # takes a prompt past the largest bucket in chunks, as the JAX engine
-    # does (its tokens held against JAX's in test_torch_ssm_engine.py)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(cfg, model, mesh=object())
+    # a recurrent (Mamba) engine refuses a mesh, a draft and lookahead with
+    # the JAX engine's messages, and takes a prompt past the largest bucket
+    # in chunks, as the JAX engine does (its tokens held against JAX's in
+    # test_torch_ssm_engine.py; a mesh's other refusals are held in
+    # test_torch_parallel_engine.py)
+    from vlut_tpu.models import ssm as jssm
+    from vlut_tpu.parallel.sharding import make_mesh as jax_mesh
     from vlut_tpu_torch.models import ssm
 
     m_cfg = ssm.MambaConfig(vocab_size=96, d_model=64, n_layers=1,
                             d_state=8)
     mamba = ssm.init_params(m_cfg, seed=0)
+    j_cfg = jssm.MambaConfig(vocab_size=96, d_model=64, n_layers=1,
+                             d_state=8)
+    with pytest.raises(ValueError) as want:
+        JaxEngine(j_cfg, jssm.init_params(j_cfg, seed=0), n_slots=2,
+                  mesh=jax_mesh(dp=1, tp=2))
+    # the refusal comes before the mesh is used: its shape is all it reads
+    with pytest.raises(ValueError) as got:
+        Engine(m_cfg, mamba, n_slots=2,
+               mesh=SimpleNamespace(shape={"dp": 1, "tp": 2}))
+    assert str(got.value) == str(want.value) == (
+        "mesh serving: recurrent models not supported (per-slot state, no "
+        "tp dim)")
     with pytest.raises(ValueError, match="recurrent models cannot rewind "
                        r"\(reference has the same limit\)"):
         Engine(m_cfg, mamba, draft=(m_cfg, mamba))

@@ -12,6 +12,7 @@ of speculative and lookahead rounds leave a cached prefix alone.
 """
 
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -132,11 +133,27 @@ def test_draft_with_own_weights_accepts_every_proposal():
 
 
 def test_modes_are_exclusive_and_mesh_still_refused():
-    _, model = _pair(0)
+    """Draft and lookahead exclude each other, and a mesh refuses both
+    with the JAX engine's message (its other mesh refusals are held in
+    test_torch_parallel_engine.py)."""
+    from vlut_tpu.parallel.sharding import make_mesh as jax_mesh
+
+    params, model = _pair(0)
     with pytest.raises(ValueError, match="exclusive"):
         Engine(CFG, model, draft=(CFG, model), lookahead=(3, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(CFG, model, mesh=object())
+    # the refusal comes before the mesh is used: its shape is all it reads
+    mesh = SimpleNamespace(shape={"dp": 1, "tp": 2})
+    for kw, jkw in (({"draft": (CFG, model)},
+                     {"draft": (CFG_J, params)}),
+                    ({"lookahead": (3, 3)}, {"lookahead": (3, 3)})):
+        with pytest.raises(ValueError) as want:
+            JaxEngine(CFG_J, params, n_slots=2,
+                      mesh=jax_mesh(dp=1, tp=2), **jkw)
+        with pytest.raises(ValueError) as got:
+            Engine(CFG, model, n_slots=2, mesh=mesh, **kw)
+        assert str(got.value) == str(want.value) == (
+            "mesh serving: speculative/lookahead decode modes are "
+            "single-device for now")
 
 
 def _prefill(params, cfg, prompts, max_len, jax_side):

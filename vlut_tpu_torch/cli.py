@@ -8,11 +8,12 @@
       [--lookahead-window 8] [--lookahead-ngram 3]]
       [--lora DIR [--lora-scale 1]] [--control-vector F
       [--control-vector-scale 1]] [--promote i2|i1]
-      [--override KEY=VALUE ...] [--device cpu]
+      [--override KEY=VALUE ...] [--tp N] [--dp N] [--device cpu]
   python -m vlut_tpu_torch.cli serve --model [NAME=]DIR [--model NAME=DIR
       ...] [--port 8080] [--slots 8] [--ctx 4096] [--cache-type bf16|q8]
       [--decode-attn fused|composed] [--promote i2|i1]
-      [--draft-model DIR [--draft-k 4] | --lookahead ...] [--device cpu]
+      [--draft-model DIR [--draft-k 4] | --lookahead ...] [--tp N] [--dp N]
+      [--device cpu]
   python -m vlut_tpu_torch.cli batched --model DIR -p PROMPT -np N -n N
       [--temp T] [--repeat-penalty R] [--seed S] [--device cpu]
   python -m vlut_tpu_torch.cli bench [-m llama3_8b] [-ns 32,256]
@@ -43,7 +44,13 @@
   python -m vlut_tpu_torch.cli quantize SRC DST --fmt i2|i1
   python -m vlut_tpu_torch.cli inspect DIR [--hash]
 
-``generate`` serves one request through the slot engine (with a draft
+``--tp N --dp M`` (``generate`` and ``serve``) serve over N x M devices:
+this process becomes rank 0 and starts the other ranks beside it, one
+per GPU (``--device cpu``: one gloo rank per mesh device on the host),
+or, where ``VLUT_COORDINATOR`` / ``VLUT_NPROCS`` / ``VLUT_PROC_ID`` (or
+torchrun) name a group across hosts, joins it as its rank
+(``parallel/distributed.py``); rank 0 drives the engine and prints, the
+others follow it.  ``generate`` serves one request through the slot engine (with a draft
 model, a grammar, a LoRA adapter or a control vector as asked), or with
 ``--prompt-lookup`` / ``--lookahead`` through the standalone greedy
 speculative loops of ``runtime/speculative.py``; a Mamba checkpoint goes
@@ -92,6 +99,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from vlut_tpu_torch.parallel.distributed import (
+    backend_for,
+    rank_device,
+    run_as_ranks,
+)
+from vlut_tpu_torch.parallel.sharding import check_flags, mesh_from_flags
 
 
 def run_batched(model, cfg, ids: list[int], np_parallel: int, n_predict: int,
@@ -391,7 +406,19 @@ def cmd_generate(args) -> None:
     from vlut_tpu_torch.runtime import lora
     from vlut_tpu_torch.utils.tokenizer import Tokenizer
 
-    cfg, model, _ = load_checkpoint(args.model, device=args.device)
+    meshed = args.tp * args.dp > 1
+    if meshed and not dist.is_initialized():
+        check_flags(args.tp, args.dp, args.device)
+        return run_as_ranks("vlut_tpu_torch.cli:cmd_generate", (args,),
+                            args.tp * args.dp, backend_for(args.device))
+    cfg, model, _ = load_checkpoint(args.model,
+                                    device=rank_device(args.device))
+    if meshed and (not isinstance(cfg, (ModelConfig, MambaConfig))
+                   or not getattr(cfg, "causal_attn", True)
+                   or args.prompt_lookup or args.lookahead):
+        raise SystemExit("--tp/--dp serve a causal transformer checkpoint "
+                         "through the slot engine (no --prompt-lookup or "
+                         "--lookahead loop)")
     if isinstance(cfg, T5Config):
         return t5_generate_cli(args, cfg, model)
     if isinstance(cfg, ModelConfig) and args.override:
@@ -445,11 +472,14 @@ def cmd_generate(args) -> None:
         d_cfg, d_model, _ = load_checkpoint(args.draft_model,
                                             device=args.device)
         draft = (d_cfg, d_model)
-    eng = Engine(cfg, model, n_slots=1, max_len=args.ctx,
+    mesh = mesh_from_flags(args.tp, args.dp, args.device)
+    eng = Engine(cfg, model, n_slots=max(1, args.dp), max_len=args.ctx,
                  kv_quant=args.cache_type == "q8",
                  head_quant=args.head_type == "q8",
                  decode_attn=args.decode_attn, draft=draft,
-                 k_draft=args.draft_k)
+                 k_draft=args.draft_k, mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        return eng.follow()
     stop = (tok.eos_id,) if tok.eos_id is not None else ()
     grammar = None
     if args.grammar_file:
@@ -467,6 +497,7 @@ def cmd_generate(args) -> None:
     t0 = time.time()
     eng.run([req])
     dt = time.time() - t0
+    eng.close()
     print(tok.decode(req.output))
     print(f"\n[{len(req.output)} tokens, {len(req.output) / dt:.1f} tok/s | "
           f"{eng.perf.summary()} | {model.device}]", file=sys.stderr)
@@ -811,6 +842,11 @@ def _generate_parser(p: argparse.ArgumentParser) -> None:
     p.add_argument("--diffusion-alg", default="low_confidence",
                    choices=("low_confidence", "entropy", "margin", "random"),
                    help="unmask-ranking rule of a diffusion checkpoint")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ways (Megatron weight shard; "
+                        "reference --split-mode row analog)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ways (one slot per dp rank)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
 
 

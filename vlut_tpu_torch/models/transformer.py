@@ -60,9 +60,11 @@ computation: the serving engine keeps the unrolled tree, or the stacked one
 over a stacked cache (``Engine(unroll=False)``).  ``causal_attn=False``
 (the diffusion LMs and the decoder embedders) attends both ways in the
 composed attention; a float twin's ``{"dense": (K, N)}`` leaves
-(``train/finetune.py``) multiply as plain float products.  cogvlm's visual
-experts and tensor/sequence parallelism raise ``NotImplementedError``
-(:func:`check_supported`).
+(``train/finetune.py``) multiply as plain float products.  Tensor, expert
+and sequence parallelism run with each rank on its shard (``forward``'s
+``tp`` / ``ep`` / ``sp``, ``parallel/spmd.py``); a pipeline stage runs its
+slice of the layers (``run_layers``' ``first_layer``,
+``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -102,6 +104,7 @@ from vlut_tpu_torch.ops.packing import (
 )
 from vlut_tpu_torch.ops.quant import quantize_activations, true_div
 from vlut_tpu_torch.ops.ternary_gemm import RECIP_127
+from vlut_tpu_torch.parallel._comm import all_gather, ppermute, psum
 from vlut_tpu_torch.ops.rope import (
     apply_mrope,
     apply_rope,
@@ -368,22 +371,32 @@ class TernarySpec:
     kb: int
 
 
-def weight_specs(cfg: ModelConfig,
-                 plan: DimPlan | None = None) -> dict[str, TernarySpec]:
-    """Packed weight specs (single device; fused names included)."""
+def weight_specs(cfg: ModelConfig, plan: DimPlan | None = None,
+                 tp: int = 1) -> dict[str, TernarySpec]:
+    """Packed weight specs of one shard of a ``tp``-way split (the whole
+    weights at tp 1; fused names included): q/k/v and gate/up keep N / tp
+    columns, wo and w_down K / tp rows, in whole pack chunks."""
     plan = plan or make_plan(cfg)
     fmt, kb, d = cfg.weight_fmt, plan.kb, cfg.d_model
-    qd, kvd = plan.q_dim_p, plan.kv_dim_p
+    if tp > 1:
+        for dim, what in ((cfg.n_heads, "n_heads"),
+                          (cfg.n_kv_heads, "n_kv_heads")):
+            if dim % tp:
+                raise ValueError(f"{what}={dim} not divisible by tp={tp}")
+        if plan.tp_pack % tp:
+            raise ValueError(f"tp={tp} must divide tp_pack={plan.tp_pack}")
+    qd, kvd = plan.q_dim_p // tp, plan.kv_dim_p // tp
+    ff = plan.ff_p // tp
     specs = {
         "wq": TernarySpec(d, qd, fmt, kb),
         "wk": TernarySpec(d, kvd, fmt, kb),
         "wv": TernarySpec(d, kvd, fmt, kb),
         "wqkv": TernarySpec(d, qd + 2 * kvd, fmt, kb),
-        "wo": TernarySpec(plan.wo_in_p, d, fmt, kb),
-        "w_gate": TernarySpec(d, plan.ff_p, fmt, kb),
-        "w_up": TernarySpec(d, plan.ff_p, fmt, kb),
-        "w_gateup": TernarySpec(d, 2 * plan.ff_p, fmt, kb),
-        "w_down": TernarySpec(plan.ff_p, d, fmt, kb),
+        "wo": TernarySpec(plan.wo_in_p // tp, d, fmt, kb),
+        "w_gate": TernarySpec(d, ff, fmt, kb),
+        "w_up": TernarySpec(d, ff, fmt, kb),
+        "w_gateup": TernarySpec(d, 2 * ff, fmt, kb),
+        "w_down": TernarySpec(ff, d, fmt, kb),
     }
     if cfg.attn_gate:
         # the attention output gate packs exactly like wq
@@ -442,8 +455,8 @@ def _ffn_specs(cfg: ModelConfig, d_ff: int, prefix: str) -> dict:
             f"{prefix}down": s["w_down"]}
 
 
-def layer_specs(cfg: ModelConfig, i: int = 0,
-                moe: bool | None = None) -> dict[str, TernarySpec]:
+def layer_specs(cfg: ModelConfig, i: int = 0, moe: bool | None = None,
+                tp: int = 1) -> dict[str, TernarySpec]:
     """Layer i's spec table: its own heads and FFN width
     (:func:`layer_config`, plus deci's linear projection), and in a MoE
     model the routed experts at ``d_ff`` (one expert's shapes), a dense
@@ -451,8 +464,8 @@ def layer_specs(cfg: ModelConfig, i: int = 0,
     expert at ``d_ff_shared`` (or ``n_shared_experts * d_ff``), arctic's
     residual MLP at ``d_ff_dense`` and grovemoe's chunk experts at
     ``d_ff_chunk`` (the JAX package's ``specs_dense`` / ``specs_shared`` /
-    ``specs_chunk``)."""
-    specs = weight_specs(layer_config(cfg, i))
+    ``specs_chunk``); ``tp``: one shard's (:func:`weight_specs`)."""
+    specs = weight_specs(layer_config(cfg, i), tp=tp)
     lin = weight_specs(cfg).get("w_lin_attn")
     if lin:  # the per-layer config drops heads_per_layer, which gates it
         specs["w_lin_attn"] = lin
@@ -584,16 +597,18 @@ class TernaryLinear(nn.Module):
         """The JAX gates' ``can_fuse``: packed, no LoRA delta."""
         return not self.has_lora
 
-    def forward(self, x: torch.Tensor, impl: str = "auto",
+    def forward(self, x: torch.Tensor, impl: str = "auto", reduce=None,
                 **fused) -> torch.Tensor:
-        """ternary_matmul, or ternary_matmul_fused when keywords are given."""
+        """ternary_matmul, or ternary_matmul_fused when keywords are given.
+        ``reduce``: K is sharded over that tensor-parallel Group, and the
+        product (LoRA delta included) is summed over it."""
         if fused:
             if self.has_lora:
                 raise ValueError("a projection with a LoRA runs unfused")
             return ternary_matmul_fused(x, self.tensor(), impl=impl, **fused)
-        out = ternary_matmul(x, self.tensor(), impl=impl)
+        out = ternary_matmul(x, self.tensor(), impl=impl, tp_group=reduce)
         if self.has_lora:
-            out = out + self.lora_delta(x).to(out.dtype)
+            out = out + psum(self.lora_delta(x), reduce).to(out.dtype)
         return out
 
     def lora_delta(self, x: torch.Tensor) -> torch.Tensor:
@@ -653,18 +668,21 @@ class DenseLinear(nn.Module):
     def tensor(self) -> torch.Tensor:
         return self.dense
 
-    def forward(self, x: torch.Tensor, impl: str = "auto",
+    def forward(self, x: torch.Tensor, impl: str = "auto", reduce=None,
                 **fused) -> torch.Tensor:
         if fused:
             raise ValueError("a float-twin projection runs unfused")
-        return dense_matmul(x, self.dense)
+        return dense_matmul(x, self.dense, reduce)
 
 
-def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def dense_matmul(x: torch.Tensor, w: torch.Tensor,
+                 reduce=None) -> torch.Tensor:
     """``jnp.dot(x.astype(w.dtype), w, preferred_element_type=float32)
-    .astype(x.dtype)``: products of the cast operands in float32."""
+    .astype(x.dtype)``: products of the cast operands in float32 (summed
+    over the ``reduce`` Group before the cast, the float twin's K-sharded
+    form)."""
     out = torch.matmul(x.to(w.dtype).to(torch.float32), w.to(torch.float32))
-    return out.to(x.dtype)
+    return psum(out, reduce).to(x.dtype)
 
 
 def matmul_any(x: torch.Tensor, w, impl: str = "auto") -> torch.Tensor:
@@ -831,17 +849,24 @@ class TransformerLM(nn.Module):
 
     ``lm_head`` is a bf16 (D, Vp) matrix, or after :func:`quantize_head`
     the int8 ``lm_head_q`` with per-column ``lm_head_scale``; tied models
-    use ``embed.T``.  A checkpoint converted from a sequence classifier
+    use ``embed.T``.  ``tp`` > 1: the tree is one shard of a tp-way split
+    (``parallel/sharding.py:shard_params``; local heads and FFN columns);
+    ``head_shards`` > 1: the head holds one of that many slices of the
+    vocabulary columns (the tp axis' size, also for a MoE model whose axis
+    carries experts).  A checkpoint converted from a sequence classifier
     also carries ``rank_head`` {w (D, 1), b (1,)}, which the server's
     rerank scores with.  The per-layer windows and rope flags and the rope
     tables (global, and local for models whose sliding layers rope with
     their own base) follow from the config.
     """
 
-    def __init__(self, cfg: ModelConfig, tree: dict[str, Any]):
+    def __init__(self, cfg: ModelConfig, tree: dict[str, Any], tp: int = 1,
+                 head_shards: int = 1):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.tp = tp
+        self.head_shards = head_shards
         self.plan = make_plan(cfg)
         # each layer's plan (its own heads and FFN width; the model's plan
         # on a uniform stack)
@@ -854,14 +879,15 @@ class TransformerLM(nn.Module):
                 raise ValueError("per-layer head counts or FFN widths take "
                                  "the tuple-layers tree (one per layer)")
             self.layers = StackedLayers(
-                layers, layer_specs(cfg, moe="router" in layers),
+                layers, layer_specs(cfg, moe="router" in layers, tp=tp),
                 cfg.n_layers)
         else:
             if len(layers) != cfg.n_layers:
                 raise ValueError(f"{len(layers)} layer trees for "
                                  f"n_layers={cfg.n_layers}")
             self.layers = nn.ModuleList(
-                DecoderLayer(lp, layer_specs(cfg, i, moe="router" in lp))
+                DecoderLayer(lp, layer_specs(cfg, i, moe="router" in lp,
+                                             tp=tp))
                 for i, lp in enumerate(layers))
         self.register_buffer("embed", tree["embed"])
         self.register_buffer("final_norm", tree["final_norm"].to(torch.float32))
@@ -1302,7 +1328,8 @@ def quantize_head(model: TransformerLM) -> TransformerLM:
     # the JAX package's jitted ``amax / 127.0`` compiles to a multiply by
     # the float32 reciprocal
     tree["lm_head"] = {"q": q, "scale": amax * RECIP_127}
-    return TransformerLM(model.cfg, tree)
+    return TransformerLM(model.cfg, tree, tp=model.tp,
+                         head_shards=model.head_shards)
 
 
 def fuse_projections(model: TransformerLM, cfg: ModelConfig) -> TransformerLM:
@@ -1357,27 +1384,30 @@ def unstack_layers(model: TransformerLM, cfg: ModelConfig) -> TransformerLM:
         return model
     tree = model.tree()
     tree["layers"] = [model.layers.tree(i) for i in range(cfg.n_layers)]
-    return TransformerLM(cfg, tree)
+    return TransformerLM(cfg, tree, tp=model.tp,
+                         head_shards=model.head_shards)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int | None = None,
                   dtype=torch.bfloat16, device="cpu",
-                  quantized: bool = False, layout: str = "layers") -> dict:
+                  quantized: bool = False, layout: str = "layers",
+                  tp: int = 1) -> dict:
     """The slot cache: each layer's rows hold that layer's own KV heads
     (:func:`layer_kv_heads`; cfg.n_kv_heads, the largest, on every layer
-    of a uniform stack) of the padded head width.  An MLA model's holds one
-    latent row per position: one head of ``kv_lora_rank + qk_rope_dim``
-    padded to a multiple of 128 (k = [latent | k_pe | 0], v = [latent |
-    0]).  ``layout`` "stacked" gives (L, ...) tensors (runtime/kv_cache.py)."""
+    of a uniform stack; a tp-way shard's 1/tp of them) of the padded head
+    width.  An MLA model's holds one latent row per position: one head of
+    ``kv_lora_rank + qk_rope_dim`` padded to a multiple of 128 (k =
+    [latent | k_pe | 0], v = [latent | 0]).  ``layout`` "stacked" gives
+    (L, ...) tensors (runtime/kv_cache.py)."""
     s = max_len or cfg.max_seq_len
     if cfg.kv_lora_rank:
         w_row = cfg.kv_lora_rank + cfg.qk_rope_dim
         return new_cache(batch, s, (1,) * cfg.n_layers, w_row + (-w_row) % 128,
                          dtype=dtype, device=device, quantized=quantized,
                          layout=layout)
-    return new_cache(batch, s, layer_kv_heads(cfg), make_plan(cfg).hd_p,
-                     dtype=dtype, device=device, quantized=quantized,
-                     layout=layout)
+    return new_cache(batch, s, tuple(h // tp for h in layer_kv_heads(cfg)),
+                     make_plan(cfg).hd_p, dtype=dtype, device=device,
+                     quantized=quantized, layout=layout)
 
 
 # --- forward ---------------------------------------------------------------------
@@ -1486,14 +1516,44 @@ def _attention(q, k, v, q_pos, k_pos, hd_logical, scale=0.0, k_scale=None,
 
 
 def _attention_chunked(q, k, v, q_pos, k_pos, hd_logical, scale=0.0,
-                       chunk=ATTN_CHUNK, mask_override=None, softcap=0.0,
-                       window=0, alibi=None, sinks=None, chunked_window=False,
-                       causal=True):
+                       chunk=ATTN_CHUNK, mask_override=None, **kw):
     """Online-softmax attention over KV chunks (same semantics as the dense
-    path; O(T * chunk) live scores instead of O(T * S)).  Sinks enter as the
-    recurrence's initial state (m0 = sink logit, l0 = 1, acc = 0)."""
+    path; O(T * chunk) live scores instead of O(T * S))."""
+    blocks = ((k[:, o:o + chunk], v[:, o:o + chunk], k_pos[:, o:o + chunk],
+               None if mask_override is None
+               else mask_override[:, :, o:o + chunk])
+              for o in range(0, k.shape[1], chunk))
+    return _online_attention(q, blocks, q_pos, hd_logical, k.shape[2],
+                             v.shape[-1], scale, **kw)
+
+
+def _ring_attention(q, k, v, q_pos, k_pos, hd_logical, sp, scale=0.0, **kw):
+    """Ring (blockwise) context-parallel attention, the JAX package's
+    ``_ring_attention``: each rank of the sequence-parallel Group ``sp``
+    holds its T/sp slice of K/V; the blocks, with their global positions,
+    go round the ring (``ppermute``, sp steps, the last bringing each block
+    home) through the online softmax, so a rank never holds more than one
+    block of the context."""
+    perm = [(i, (i + 1) % sp.size) for i in range(sp.size)]
+
+    def blocks():
+        kb, vb, kpb = k, v, k_pos
+        for _ in range(sp.size):
+            yield kb, vb, kpb, None
+            kb, vb, kpb = ppermute((kb, vb, kpb), sp, perm)
+
+    return _online_attention(q, blocks(), q_pos, hd_logical, k.shape[2],
+                             v.shape[-1], scale, **kw)
+
+
+def _online_attention(q, blocks, q_pos, hd_logical, hkv, hd_v, scale=0.0,
+                      softcap=0.0, window=0, alibi=None, sinks=None,
+                      chunked_window=False, causal=True):
+    """The float32 online softmax over KV ``blocks`` of (k, v, k_pos, mask
+    override or None), in order, with :func:`_attention`'s scores and
+    masks; sinks enter as the recurrence's initial state (m0 = sink logit,
+    l0 = 1, acc = 0).  Returns float32 (B, T, H, hd_v)."""
     b, t, h, hd = q.shape
-    hkv, s = k.shape[2], k.shape[1]
     g = h // hkv
     qf = q.to(torch.float32) * (scale or 1.0 / math.sqrt(hd_logical))
     qf = qf.reshape(b, t, hkv, g, hd)
@@ -1505,21 +1565,17 @@ def _attention_chunked(q, k, v, q_pos, k_pos, hd_logical, scale=0.0,
     else:
         m = torch.full((b, hkv, g, t), -math.inf, device=q.device)
         l = torch.zeros((b, hkv, g, t), device=q.device)
-    acc = torch.zeros((b, hkv, g, t, v.shape[-1]), device=q.device)
+    acc = torch.zeros((b, hkv, g, t, hd_v), device=q.device)
     slopes = (alibi.to(torch.float32).reshape(1, hkv, g, 1, 1)
               if alibi is not None else None)
-    for off in range(0, s, chunk):
-        kc = k[:, off:off + chunk].to(torch.float32)
-        vc = v[:, off:off + chunk].to(torch.float32)
-        kp = k_pos[:, off:off + chunk][:, None, None, None, :]
-        sc = torch.einsum("bthgd,bshd->bhgts", qf, kc)
+    for kc, vc, kp, override in blocks:
+        kp = kp[:, None, None, None, :]
+        sc = torch.einsum("bthgd,bshd->bhgts", qf, kc.to(torch.float32))
         if softcap:
             sc = _softcap(sc, softcap)
         if slopes is not None:
             sc = sc + slopes * (kp - qp).to(torch.float32)
-        masked = ~_mask(kp, qp, window, chunked_window,
-                        None if mask_override is None
-                        else mask_override[:, :, off:off + chunk], causal)
+        masked = ~_mask(kp, qp, window, chunked_window, override, causal)
         # a train step differentiates through here (autograd keeps exp's
         # output), so under grad nothing is written in place
         grad = sc.requires_grad
@@ -1530,11 +1586,37 @@ def _attention_chunked(q, k, v, q_pos, k_pos, hd_logical, scale=0.0,
         p = (torch.exp(sc - m_new[..., None]).masked_fill(masked, 0.0) if grad
              else sc.sub_(m_new[..., None]).exp_().masked_fill_(masked, 0.0))
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bhgts,bshd->bhgtd", p, vc)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgts,bshd->bhgtd", p, vc.to(torch.float32))
         m = m_new
         del sc, p
     out = acc / torch.clamp(l, min=1e-30)[..., None]  # (b, hkv, g, t, hd)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, v.shape[-1])
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd_v)
+
+
+@dataclasses.dataclass(frozen=True)
+class Par:
+    """The mesh axes a forward runs over, each a ``parallel/_comm.py``
+    Group or None: tensor parallel (``tp``: local heads and FFN columns,
+    wo / w_down summed, the sub-norm statistics summed, the vocabulary
+    gathered), expert parallel (``ep``: local experts, the routed output
+    summed) and sequence parallel (``sp``: local tokens, ring attention)."""
+
+    tp: Any = None
+    ep: Any = None
+    sp: Any = None
+
+    @property
+    def tp_size(self) -> int:
+        return self.tp.size if self.tp is not None else 1
+
+    @property
+    def reduce(self):
+        """The tp Group where it has more than one rank, else None."""
+        return self.tp if self.tp_size > 1 else None
+
+
+SERIAL = Par()
 
 
 class _SlotKV:
@@ -1683,7 +1765,8 @@ def _qk_norm(q, k, lp: DecoderLayer, cfg: ModelConfig, plan: DimPlan,
 
 def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
                 safe_pos, rope_pos, k_pos, write_start, decode_attn, impl,
-                attn_mask=None, mrope_pos=None, ablate=frozenset()):
+                attn_mask=None, mrope_pos=None, ablate=frozenset(),
+                par: Par = SERIAL):
     """One layer, the JAX package's ``layer_step`` for the dense knobs, in
     its order and with its fused gates: qkv fuses (#1 at M <= 64, norm +
     quant + GEMM) under an RMS pre-norm; wo fuses with its residual without
@@ -1706,17 +1789,18 @@ def _layer_step(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
             x, lp, kvio, cfg=cfg, plan=plan, params=params, li=li,
             safe_pos=safe_pos, rope_pos=rope_pos, k_pos=k_pos,
             write_start=write_start, decode_attn=decode_attn, impl=impl,
-            attn_mask=attn_mask, mrope_pos=mrope_pos, ablate=ablate)
+            attn_mask=attn_mask, mrope_pos=mrope_pos, ablate=ablate, par=par)
     elif "w_lin_attn" in lp.proj:
         o = lp.proj["w_lin_attn"](_norm_d(x, lp, "attn_norm", cfg), impl)
         x = x + o.to(x.dtype)[..., :cfg.d_model]
     return _ffn_block(x, x_in, h_attn, attn_out, lp, cfg=cfg, plan=plan,
-                      impl=impl)
+                      impl=impl, par=par)
 
 
 def _attn_block(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
                 safe_pos, rope_pos, k_pos, write_start, decode_attn, impl,
-                attn_mask=None, mrope_pos=None, ablate=frozenset()):
+                attn_mask=None, mrope_pos=None, ablate=frozenset(),
+                par: Par = SERIAL):
     """The attention half of a layer: (x after the attention residual, the
     attn-normed input where it was materialised, the parallel residual's
     attention branch or None)."""
@@ -1732,8 +1816,9 @@ def _attn_block(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
             x, lp, kvio, cfg=cfg, plan=plan, params=params, li=li,
             safe_pos=safe_pos, rope_pos=rope_pos, k_pos=k_pos,
             write_start=write_start, decode_attn=decode_attn, impl=impl,
-            attn_mask=attn_mask, mrope_pos=mrope_pos, ablate=ablate)
-    return _attn_out(x, att, h_attn, lp, cfg=cfg, plan=plan, impl=impl)
+            attn_mask=attn_mask, mrope_pos=mrope_pos, ablate=ablate, par=par)
+    return _attn_out(x, att, h_attn, lp, cfg=cfg, plan=plan, impl=impl,
+                     par=par)
 
 
 def _rope(z, cfg: ModelConfig, params, li: int, plan: DimPlan, rope_pos,
@@ -1833,7 +1918,7 @@ def _mla_attention(x, lp: DecoderLayer, kvio, *, cfg, plan, params, safe_pos,
 def _softmax_attention(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
                        safe_pos, rope_pos, k_pos, write_start, decode_attn,
                        impl, attn_mask=None, mrope_pos=None,
-                       ablate=frozenset()):
+                       ablate=frozenset(), par: Par = SERIAL):
     """The q/k/v projections and the attention of a softmax-attention
     layer: (the attn-normed input where it was materialised, the float32
     attention output (B, T, H, hd_p)).  ``ablate`` as the JAX package's
@@ -1901,20 +1986,33 @@ def _softmax_attention(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
                                 else kvio.update(k, v, write_start))
         if "no_attn" in ablate:
             return h_attn, q.to(torch.float32)
+        kw = dict(softcap=cfg.attn_logit_softcap, window=window,
+                  alibi=getattr(params, "alibi", None),
+                  sinks=lp.sinks if cfg.attn_sinks else None,
+                  chunked_window=cfg.swa_type == "chunked",
+                  causal=cfg.causal_attn)
+        if kvio is None and par.sp is not None and attn_mask is None:
+            # context parallel: the KV blocks (with their global
+            # positions, k_pos: this rank's slice) go round the ring
+            return h_attn, _ring_attention(q, k, v, safe_pos, k_pos, plan.hd,
+                                           par.sp, scale=cfg.attn_scale, **kw)
+        if kvio is None and par.sp is not None:
+            # a (B, T, S-global) mask override needs the whole context
+            k, v = all_gather(k, par.sp, 1), all_gather(v, par.sp, 1)
+            k_pos = all_gather(k_pos, par.sp, 1)
         att = _attention(q, k, v, safe_pos, k_pos, plan.hd,
                          scale=cfg.attn_scale, k_scale=k_sc, v_scale=v_sc,
-                         mask_override=attn_mask,
-                         softcap=cfg.attn_logit_softcap, window=window,
-                         alibi=getattr(params, "alibi", None),
-                         sinks=lp.sinks if cfg.attn_sinks else None,
-                         chunked_window=cfg.swa_type == "chunked",
-                         causal=cfg.causal_attn)
+                         mask_override=attn_mask, **kw)
     return h_attn, att
 
 
-def _attn_out(x, att, h_attn, lp: DecoderLayer, *, cfg, plan, impl):
+def _attn_out(x, att, h_attn, lp: DecoderLayer, *, cfg, plan, impl,
+              par: Par = SERIAL):
     """The attention output's gate, wo and residual: (x, h_attn, the
-    parallel residual's attention branch or None)."""
+    parallel residual's attention branch or None).  Under tp the output
+    holds this shard's tp_pack / tp chunks of wo's input and wo's products
+    are summed over the axis; on a tp axis (of any size) wo never fuses,
+    as the JAX gates have it."""
     b, t = x.shape[:2]
     eps, d = cfg.rms_eps, cfg.d_model
     proj = lp.proj
@@ -1926,14 +2024,15 @@ def _attn_out(x, att, h_attn, lp: DecoderLayer, *, cfg, plan, impl):
         att = att.reshape(b, t, -1).to(torch.float32) * torch.sigmoid(
             gate.to(torch.float32))
     # chunk-pad into wo's packed-K layout (a no-op when chunk == chunk_p)
-    att = att.reshape(b, t, plan.tp_pack, plan.wo_chunk)
+    chunks = plan.tp_pack // par.tp_size
+    att = att.reshape(b, t, chunks, plan.wo_chunk)
     if plan.wo_chunk_p != plan.wo_chunk:
         att = torch.nn.functional.pad(att, (0, plan.wo_chunk_p - plan.wo_chunk))
-    att = att.reshape(b, t, plan.wo_in_p)
-    par = cfg.parallel_residual
+    att = att.reshape(b, t, chunks * plan.wo_chunk_p)
+    red = par.reduce
     attn_out = None
-    if (proj["wo"].fusable and not cfg.post_norms and not par
-            and not cfg.proj_bias):
+    if (proj["wo"].fusable and par.tp is None and not cfg.post_norms
+            and not cfg.parallel_residual and not cfg.proj_bias):
         # [attn_sub_norm] + quant + wo GEMM + residual (both trees)
         x = proj["wo"](
             att, impl, mode="norm" if cfg.use_subnorms else "plain",
@@ -1942,13 +2041,14 @@ def _attn_out(x, att, h_attn, lp: DecoderLayer, *, cfg, plan, impl):
             out_dtype=x.dtype)
     else:
         if cfg.use_subnorms:
-            att = nrm.rms(att, lp.attn_sub_norm, eps, cfg.n_heads * plan.hd)
-        o = proj["wo"](att, impl)
+            att = nrm.rms(att, lp.attn_sub_norm, eps, cfg.n_heads * plan.hd,
+                          group=red)
+        o = proj["wo"](att, impl, reduce=red)
         if cfg.proj_bias:
             o = _add(o, lp.vec("bo"))
         if cfg.post_norms:
             o = nrm.rms(o, lp.post_attn_norm, eps, d, cfg.norm_plus_one)
-        if par:
+        if cfg.parallel_residual:
             # the FFN branches off the same layer input; both branch
             # outputs join the residual at the end
             attn_out = o
@@ -1958,21 +2058,23 @@ def _attn_out(x, att, h_attn, lp: DecoderLayer, *, cfg, plan, impl):
 
 
 def _ffn_block(x, x_in, h_attn, attn_out, lp: DecoderLayer, *, cfg, plan,
-               impl):
+               impl, par: Par = SERIAL):
     """The FFN half of a layer: dense (fused where the gates let), a MoE
     block (:func:`_moe_block`) where the layer has a router, or a MoE
     model's dense lead FFN; then the residual adds and the control
-    vector."""
+    vector.  Under tp the FFN keeps this shard's columns and w_down's
+    products are summed over the axis; on a tp axis (of any size) nothing
+    fuses, as the JAX gates have it."""
     eps, d = cfg.rms_eps, cfg.d_model
     proj = lp.proj
     std_norm = cfg.norm_type == "rms"
-    par = cfg.parallel_residual
-    ffl = plan.ff_p
-    if (not cfg.n_experts and "w_gateup" in proj
+    red = par.reduce
+    ffl = plan.ff_p // par.tp_size
+    if (not cfg.n_experts and par.tp is None and "w_gateup" in proj
             and proj["w_gateup"].fusable and proj["w_down"].fusable
             and cfg.act_fn == "silu" and not cfg.post_norms and std_norm
-            and cfg.pre_norms and not cfg.swiglu_limit and not par
-            and not cfg.proj_bias):
+            and cfg.pre_norms and not cfg.swiglu_limit
+            and not cfg.parallel_residual and not cfg.proj_bias):
         # ffn_norm + quant + gate|up GEMM; silu*up [+ sub-norm] + quant +
         # down GEMM + residual
         gu = proj["w_gateup"](x, impl, mode="norm",
@@ -1984,7 +2086,7 @@ def _ffn_block(x, x_in, h_attn, attn_out, lp: DecoderLayer, *, cfg, plan,
             norm_g=getattr(lp, "ffn_sub_norm", None), norm_n=cfg.d_ff,
             eps=eps, residual=x, out_dtype=x.dtype)
         return _add(x, lp.vec("cvector"))
-    if par and not hasattr(lp, "ffn_norm"):
+    if cfg.parallel_residual and not hasattr(lp, "ffn_norm"):
         # single-norm parallel residual: the FFN reads the attention
         # branch's normed input
         h = h_attn if h_attn is not None else _norm_d(x, lp, "attn_norm", cfg)
@@ -1994,11 +2096,11 @@ def _ffn_block(x, x_in, h_attn, attn_out, lp: DecoderLayer, *, cfg, plan,
     else:
         h = _norm_d(x, lp, "ffn_norm", cfg)
     if cfg.n_experts and hasattr(lp, "router"):
-        x, dn = _moe_block(x, x_in, h, lp, cfg, impl)
+        x, dn = _moe_block(x, x_in, h, lp, cfg, impl, par.ep)
     elif cfg.n_experts:
         # a dense lead layer (first_k_dense / dense_layers) at d_ff_dense
         a = _glu(proj["w_gate"](h, impl), proj["w_up"](h, impl), cfg)
-        dn = proj["w_down"](a.to(x.dtype), impl)
+        dn = proj["w_down"](a.to(x.dtype), impl, reduce=red)
     elif not cfg.ffn_gated:
         up = proj["w_up"](h, impl)
         if cfg.proj_bias:
@@ -2017,13 +2119,13 @@ def _ffn_block(x, x_in, h_attn, attn_out, lp: DecoderLayer, *, cfg, plan,
     if not cfg.n_experts:
         a = a.to(x.dtype)
         if cfg.use_subnorms:
-            a = nrm.rms(a, lp.ffn_sub_norm, eps, cfg.d_ff)
-        dn = proj["w_down"](a, impl)
+            a = nrm.rms(a, lp.ffn_sub_norm, eps, cfg.d_ff, group=red)
+        dn = proj["w_down"](a, impl, reduce=red)
     if cfg.proj_bias:
         dn = _add(dn, lp.vec("b_down"))
     if cfg.post_norms:
         dn = nrm.rms(dn, lp.post_ffn_norm, eps, d, cfg.norm_plus_one)
-    if par:
+    if cfg.parallel_residual:
         x = x + attn_out.to(x.dtype) + dn.to(x.dtype)
     else:
         x = x + dn.to(x.dtype)
@@ -2071,17 +2173,18 @@ def _dense_ffn(hh, gate_t: TernaryTensor, up_t: TernaryTensor,
 
 def _expert_scan(h, lp: DecoderLayer, prefix: str, comb: torch.Tensor,
                  cfg: ModelConfig, impl: str, dtype,
-                 biases=None) -> torch.Tensor:
+                 biases=None, first: int = 0) -> torch.Tensor:
     """float32 sum over the experts ``prefix``gate/up/down of the layer, in
     index order, every expert over every row (static shapes: the JAX
     package's expert scan): ``acc + w_e * out_e`` (a product then a sum,
     two roundings), or with ``moe_weight_before`` (llama4) the expert's
-    weight scaling its input instead."""
+    weight scaling its input instead.  The stacks may hold a shard of the
+    experts: the one at index e is expert ``first + e``."""
     stacks = [lp.experts[prefix + n] for n in ("gate", "up", "down")]
     acc = torch.zeros(h.shape[:-1] + (cfg.d_model,), dtype=torch.float32,
                       device=h.device)
     for e in range(len(stacks[0])):
-        w_e = comb[..., e, None]
+        w_e = comb[..., first + e, None]
         ts = [st.tensor(e) for st in stacks]
         bias = ((biases[0][e], biases[1][e], biases[2][e]) if biases
                 else (None, None, None))
@@ -2095,7 +2198,8 @@ def _expert_scan(h, lp: DecoderLayer, prefix: str, comb: torch.Tensor,
     return acc
 
 
-def _moe_block(x, x_in, h, lp: DecoderLayer, cfg: ModelConfig, impl: str):
+def _moe_block(x, x_in, h, lp: DecoderLayer, cfg: ModelConfig, impl: str,
+               ep=None):
     """The JAX package's MoE block (``build_moe_ffn``): returns (x, the
     block's output in x's dtype).
 
@@ -2111,7 +2215,10 @@ def _moe_block(x, x_in, h, lp: DecoderLayer, cfg: ModelConfig, impl: str):
     experts take a second pass over the routed output, arctic's routed
     branch reads ``moe_norm`` of the layer input while its residual MLP
     adds to x first, and the shared expert (times the sigmoid of
-    ``shared_gate`` where the layer has one) joins the routed output."""
+    ``shared_gate`` where the layer has one) joins the routed output.
+    ``ep`` (expert parallel, a Group): the layer holds this rank's
+    E / ep experts, and their weighted outputs are summed over the axis
+    before anything joins them."""
     h_res = h
     if cfg.moe_parallel == "arctic":
         h = _norm_d(x_in, lp, "moe_norm", cfg)
@@ -2142,7 +2249,11 @@ def _moe_block(x, x_in, h, lp: DecoderLayer, cfg: ModelConfig, impl: str):
     comb = _scatter_weights(idx, w, cfg.n_experts)
     eb = ((lp.eb_gate, lp.eb_up, lp.eb_down)
           if cfg.moe_expert_bias and lp.vec("eb_gate") is not None else None)
-    dn = _expert_scan(h, lp, "w_", comb, cfg, impl, x.dtype, eb)
+    first = 0
+    if ep is not None and ep.size > 1:
+        first = ep.index * (cfg.n_experts // ep.size)
+    dn = psum(_expert_scan(h, lp, "w_", comb, cfg, impl, x.dtype, eb, first),
+              ep)
     if cfg.moe_chunk_experts and "w_ch_gate" in lp.experts:
         ch = cfg.moe_chunk_experts
         idx_ch = torch.div(_top_k(logits, min(cfg.n_experts_used, ch)),
@@ -2177,11 +2288,14 @@ def run_layers(params: TransformerLM, x, positions, kv: dict | None, *,
                mrope_pos: torch.Tensor | None = None,
                visual_expert: bool = False,
                deepstack_embeds: tuple | None = None,
-               ablate: frozenset[str] = frozenset()):
+               ablate: frozenset[str] = frozenset(),
+               par: Par = SERIAL, first_layer: int = 0):
     """Run the layer stack (either tree) over x (B, T, D).  With ``slots``
     the B rows are those slots of the cache ``kv``.  ``visual_expert``
     runs cogvlm's visual twins; ``deepstack_embeds[i]`` (B, T, D) is added
-    to layer i's output (qwen3vl's DeepStack)."""
+    to layer i's output (qwen3vl's DeepStack).  ``par``: the mesh axes
+    (:class:`Par`); ``params.layers`` may be a pipeline stage's slice,
+    whose first layer is model layer ``first_layer``."""
     layers = params.layers
     b = positions.shape[0]
     safe_pos = torch.clamp(positions, min=0)
@@ -2196,14 +2310,15 @@ def run_layers(params: TransformerLM, x, positions, kv: dict | None, *,
         write_start = torch.clamp(safe_pos[:, 0], max=s - 1)
     else:
         k_pos, write_start = positions, None
-    for i in range(len(layers)):
-        lp = layers[i].visual() if visual_expert else layers[i]
+    for j in range(len(layers)):
+        i = first_layer + j
+        lp = layers[j].visual() if visual_expert else layers[j]
         x = _layer_step(
-            x, lp, _SlotKV(kv, i, slots) if kv is not None else None,
+            x, lp, _SlotKV(kv, j, slots) if kv is not None else None,
             cfg=cfg, plan=params.plans[i], params=params, li=i,
             safe_pos=safe_pos, rope_pos=rope_pos, k_pos=k_pos,
             write_start=write_start, decode_attn=decode_attn, impl=impl,
-            attn_mask=attn_mask, mrope_pos=mrope_pos, ablate=ablate,
+            attn_mask=attn_mask, mrope_pos=mrope_pos, ablate=ablate, par=par,
         )
         if deepstack_embeds is not None and i < len(deepstack_embeds):
             x = x + deepstack_embeds[i].to(x.dtype)
@@ -2256,6 +2371,9 @@ def forward(
     visual_expert: bool = False,  # cogvlm: the vis_* projections
     deepstack_embeds: tuple | None = None,  # qwen3vl: adds after layer i
     ablate: frozenset[str] = frozenset(),  # bench/ablate.py's switches
+    tp=None,  # parallel/_comm.py Groups of the mesh axes (see below)
+    ep=None,
+    sp=None,
 ) -> tuple[torch.Tensor, dict | None]:
     """Returns (float32 logits (B, T', V_padded), kv_cache updated in place),
     or with ``output="hidden"`` the final-norm hidden states (B, T, D) in
@@ -2287,6 +2405,15 @@ def forward(
     projections at every M, ``no_kv_write`` and ``no_attn`` act on the
     attention (:func:`_softmax_attention`), ``no_head`` returns logits of
     the head's shape that only sum x (a data dependency kept, as JAX's).
+
+    Under a mesh every rank calls ``forward`` on its shard
+    (``parallel/spmd.py``) with the Groups of its axes: ``tp`` (``params``
+    cut for that tp degree: local heads and FFN columns, the cache's local
+    KV heads, wo and w_down summed exactly, bitnet's sub-norm statistics
+    summed, a vocab-sharded head's logits gathered, so every rank returns
+    the whole vocabulary), ``ep`` (a MoE model's local experts, their
+    output summed) and ``sp`` (cache-less: ``tokens`` and ``positions``
+    are this rank's T slice, with global positions; ring attention).
     """
     if decode_attn not in DECODE_ATTN:
         raise ValueError(f"decode_attn must be one of {DECODE_ATTN}")
@@ -2298,6 +2425,22 @@ def forward(
         raise ValueError(f"unknown ablation {sorted(ablate - ABLATIONS)}")
     if "unfused" in ablate and impl == "auto":
         impl = "tiled"
+    par = Par(tp, ep, sp)
+    if par.tp_size != params.tp:
+        raise ValueError(f"a model cut for tp={params.tp} runs over a tp "
+                         f"axis of {par.tp_size}")
+    # the axis a sharded head's vocabulary columns lie over: tp, or the
+    # axis a MoE model's experts ride
+    head_group = par.reduce or ep
+    if params.head_shards > 1 and (head_group is None
+                                   or head_group.size != params.head_shards):
+        raise ValueError(f"a head cut in {params.head_shards} runs over no "
+                         "axis of that size")
+    if par.tp_size > 1 and cfg.pos_embed == "alibi":
+        raise ValueError("alibi attention is not tp-sharded yet")
+    if cfg.kv_lora_rank and (par.tp_size > 1 or sp is not None):
+        raise ValueError("MLA attention does not support tp/sp sharding yet "
+                         "(absorbed per-head einsums; dp/ep/pp compose fine)")
     b = tokens.shape[0]
     x = (params.embed[tokens] if token_embeds is None
          else token_embeds.to(params.embed.dtype))
@@ -2317,7 +2460,8 @@ def forward(
                              slots=slots, decode_attn=decode_attn, impl=impl,
                              attn_mask=attn_mask, mrope_pos=mrope_pos,
                              visual_expert=visual_expert,
-                             deepstack_embeds=deepstack_embeds, ablate=ablate)
+                             deepstack_embeds=deepstack_embeds, ablate=ablate,
+                             par=par)
     if cfg.norm_type == "ln":
         x = nrm.layer_norm(x, params.final_norm,
                            getattr(params, "final_norm_b", None), cfg.rms_eps,
@@ -2335,14 +2479,20 @@ def forward(
         logits = torch.zeros((*x.shape[:2], params.n_logits),
                              dtype=torch.float32, device=x.device)
         return logits + x.sum(dim=-1, keepdim=True).to(torch.float32), kv_cache
-    return head_logits(params, cfg, x), kv_cache
+    return head_logits(params, cfg, x,
+                       head_group if params.head_shards > 1 else None
+                       ), kv_cache
 
 
 def head_logits(params: TransformerLM, cfg: ModelConfig,
-                x: torch.Tensor) -> torch.Tensor:
+                x: torch.Tensor, tp=None) -> torch.Tensor:
     """The head on final-norm hidden states, then its bias, the logit scale
-    and the final softcap."""
+    and the final softcap.  ``tp``: the head is this rank's vocabulary
+    columns of a tp-way split, and the logits are gathered over the axis
+    (a tied head, ``embed.T``, is whole on every rank)."""
     logits = project_head(params, x)
+    if hasattr(params, "lm_head") or hasattr(params, "lm_head_q"):
+        logits = all_gather(logits, tp, -1)
     if hasattr(params, "lm_head_b"):
         logits = logits + params.lm_head_b.to(logits.dtype)
     if cfg.logit_scale != 1.0:

@@ -11,6 +11,15 @@ shape:
   the tiled GEMM, which gives the same int32 accumulator and epilogue, so
   the same result.
 * M > 64: :func:`quantize_activations` then the tiled GEMM.
+* K sharded over a tensor-parallel axis (``tp_group``, wo and w_down
+  under tp), at every M: :func:`quantize_activations` with the row's max
+  over the whole axis, the tiled GEMM with unit scales (its float32
+  output is then the int32 accumulator, exact below 2^24: at most
+  14,336 x 127 = 1,820,672 at the flagship's w_down), the accumulators
+  summed over the axis, and ``(acc * x_scale) * w_scale`` on every rank:
+  bit-equal to the unsharded product through the same route
+  (``vlut_tpu/ops/matmul.py:89-97,327-340``).  The small-M kernels would
+  quantize with the shard's own max, so they are not taken.
 
 The TPU's XLA-vs-Pallas crossover (``VLUT_TPU_XLA_MIN_M``) and its table
 were measured on a TPU and are not carried over: the H100's table is the
@@ -44,6 +53,7 @@ from vlut_tpu_torch.ops.packing import (
     unpack_ternary,
 )
 from vlut_tpu_torch.ops.quant import quantize_activations
+from vlut_tpu_torch.parallel._comm import psum
 
 SMALL_M = ternary_gemm.MAX_DECODE_M
 
@@ -61,21 +71,33 @@ def ternary_matmul(
     *,
     impl: str = "auto",
     out_dtype=None,
+    tp_group=None,
 ) -> torch.Tensor:
     """x (..., K) float @ ternary W (K, N) -> (..., N).
 
     ``round(x*127/max|x|) @ trits * (max|x|/127) * w_scale`` with an int32
-    accumulator.
+    accumulator.  ``tp_group``: this K shard's mesh axis (the exact
+    K-sharded form above).
     """
     out_dtype = out_dtype or (x.dtype if x.dtype != torch.float64
                               else torch.float32)
     batch, m = _rows(x, t)
     x2d = x.reshape(m, t.k)
+    reduce = tp_group is not None and tp_group.size > 1
     if impl == "dequant":
         w = unpack_ternary(t, dtype=torch.float32) * t.scale_vector()[: t.n]
-        return (x2d.to(torch.float32) @ w).to(out_dtype).reshape(*batch, t.n)
+        out = psum(x2d.to(torch.float32) @ w, tp_group if reduce else None)
+        return out.to(out_dtype).reshape(*batch, t.n)
     if impl not in ("auto", "tiled"):
         raise ValueError(f"unknown impl {impl!r}")
+    if reduce:
+        x_q, x_scale = quantize_activations(x2d, tp_group)
+        ws = t.scale_vector()
+        acc = ternary_gemm.ternary_gemm_tiled(
+            x_q, t.packed, torch.ones_like(x_scale), torch.ones_like(ws),
+            fmt=t.fmt, kb=t.kb, k=t.k, out_dtype=torch.float32)
+        out = psum(acc, tp_group) * x_scale * ws[None, :]
+        return out[:, : t.n].to(out_dtype).reshape(*batch, t.n)
     if m <= SMALL_M and (impl == "tiled" or autotune.lookup_route(
             t.fmt, m, t.packed.shape[0] * TRITS_PER_BYTE[t.fmt],
             t.packed.shape[1], x.device.index or 0) == "tiled"):

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from vlut_tpu_torch.ops.quant import true_div
+from vlut_tpu_torch.parallel._comm import psum
 
 # chameleon's per-head LayerNorm fixes its epsilon (ChameleonLayerNorm)
 HEAD_LN_EPS = 1e-5
@@ -31,11 +32,13 @@ def gain(weight: torch.Tensor, plus_one: bool = False) -> torch.Tensor:
 
 
 def rms(x: torch.Tensor, weight: torch.Tensor, eps: float, n_logical: int,
-        plus_one: bool = False) -> torch.Tensor:
+        plus_one: bool = False, group=None) -> torch.Tensor:
     """RMSNorm over the last dim whose zero-padded tail does not skew the
-    mean; ``plus_one``: the gain is ``1 + w``."""
+    mean; ``plus_one``: the gain is ``1 + w``.  ``group``: the dim is
+    sharded over that mesh axis (bitnet's sub-norms under tp), and the sum
+    of squares is summed over it."""
     xf = x.to(torch.float32)
-    ss = (xf * xf).sum(dim=-1, keepdim=True)
+    ss = psum((xf * xf).sum(dim=-1, keepdim=True), group)
     out = (xf * torch.rsqrt(true_div(ss, float(n_logical)) + eps)
            * gain(weight, plus_one))
     return out.to(x.dtype)
@@ -53,14 +56,15 @@ def rms_whole(z: torch.Tensor, weight: torch.Tensor, eps: float,
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor,
                bias: torch.Tensor | None, eps: float, n_logical: int,
-               plus_one: bool = False) -> torch.Tensor:
+               plus_one: bool = False, group=None) -> torch.Tensor:
     """Mean-centred LayerNorm from the sums of x and x*x (the JAX package's
     one-pass form); ``bias`` None for bias-free variants, ``plus_one`` for
-    nemotron's (1 + w)."""
+    nemotron's (1 + w); ``group`` as for :func:`rms`."""
     xf = x.to(torch.float32)
     n = float(n_logical)
-    mean = true_div(xf.sum(dim=-1, keepdim=True), n)
-    var = true_div((xf * xf).sum(dim=-1, keepdim=True), n) - mean * mean
+    mean = true_div(psum(xf.sum(dim=-1, keepdim=True), group), n)
+    var = (true_div(psum((xf * xf).sum(dim=-1, keepdim=True), group), n)
+           - mean * mean)
     out = (xf - mean) * torch.rsqrt(var + eps) * gain(weight, plus_one)
     if bias is not None:
         out = out + bias.to(torch.float32)

@@ -68,8 +68,26 @@ rewind the state) are refused with the JAX package's messages.
 ``save_slot`` / ``restore_slot`` / ``fork_slot`` move a slot's whole
 state.
 
-Not ported (raises ``NotImplementedError``): multi-device meshes (ROADMAP
-Queue 1 item 6).
+``mesh=`` (``parallel/sharding.py:Mesh``, ("dp", "tp")) serves over
+several devices with the JAX engine's checks and messages
+(``vlut_tpu/runtime/engine.py:152-196``).  Every rank builds the engine
+over its shard: a dense model's weights and KV heads split over tp (the
+unfused tree, as the JAX engine serves under attention tp), a MoE model's
+experts split over the same axis (attention replicated and fused), the
+slots split over dp (each dp group holds n_slots / dp of them).  Rank 0
+is the engine the caller drives: it owns the requests, the sampler and
+all host state, and before each device operation (a prefill group, a
+decode step, a context shift, a fork) it sends the operation's host
+inputs to the other ranks over a gloo group; they run the same forward
+on their shards (:meth:`Engine.follow`) and hold no request state, so the
+ranks cannot part.  Each dp group runs its own slots' rows and the rows'
+logits are gathered over dp (a prefill group's rows sum over dp, zero
+where a group holds no row).  Under NCCL the decode step is one CUDA
+graph per program on every rank, its collectives captured with it (on
+the card so far only as one rank, which issues no collective); under
+gloo (the CPU, or two ranks sharing one card) it runs eagerly, since
+gloo's collectives cannot be captured.  Slot save and restore stay
+single-device.
 """
 
 from __future__ import annotations
@@ -83,6 +101,7 @@ import torch
 
 from vlut_tpu_torch.config import ModelConfig
 from vlut_tpu_torch.models import ssm
+from vlut_tpu_torch.models.dims import make_plan
 from vlut_tpu_torch.models.transformer import (
     DECODE_ATTN,
     StackedLayers,
@@ -94,6 +113,8 @@ from vlut_tpu_torch.models.transformer import (
     shift_tables,
     unstack_layers,
 )
+from vlut_tpu_torch.parallel._comm import all_gather, psum
+from vlut_tpu_torch.parallel.spmd import make_engine_forward
 from vlut_tpu_torch.runtime import kv_cache as kvc
 from vlut_tpu_torch.runtime import speculative as spec_mod
 from vlut_tpu_torch.runtime import state as state_mod
@@ -114,12 +135,6 @@ PENALTY_WINDOW = 64
 N_KEEP = 4  # prompt tokens a context shift keeps
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to vlut_tpu_torch yet (ROADMAP Queue 1 "
-        f"item {item})")
-
-
 def _window_mask(cnt: torch.Tensor, last_n: torch.Tensor | None = None):
     """(B, PENALTY_WINDOW) bool: the ring entries a row's penalties see (the
     first ``cnt`` written, and only the last ``last_n`` of them)."""
@@ -137,6 +152,22 @@ def _mask_pad_vocab(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
         return logits
     return logits.masked_fill(
         torch.arange(v, device=logits.device) >= vocab_size, NEG_INF)
+
+
+@torch.inference_mode()
+def follow(mesh) -> None:
+    """A rank other than 0 of ``mesh``: run the device operations rank 0's
+    engines send (each on this rank's engine of the same index) until rank
+    0 closes one of them."""
+    import torch.distributed as dist
+
+    while True:
+        msg = [None]
+        dist.broadcast_object_list(msg, src=0, group=mesh.control)
+        tag, op, args = msg[0]
+        if op == "stop":
+            return
+        mesh.engines[tag]._apply(op, args)
 
 
 @dataclasses.dataclass
@@ -252,8 +283,10 @@ class Engine:
         cuda_graph: bool = True,
         unroll: bool = True,
     ):
+        self.mesh = mesh
+        fuse = True
         if mesh is not None:
-            raise _not_ported("multi-device serving (mesh=)", "6")
+            fuse = self._check_mesh(cfg, mesh, n_slots, draft, lookahead)
         if lookahead is not None and draft is not None:
             raise ValueError("lookahead and draft are mutually exclusive "
                              "decode modes")
@@ -286,7 +319,11 @@ class Engine:
         else:
             if head_quant:
                 params = quantize_head(params)
-            self.params = fuse_projections(params, cfg)
+            self.params = fuse_projections(params, cfg) if fuse else params
+            if mesh is not None:
+                from vlut_tpu_torch.parallel.sharding import shard_params
+
+                self.params = shard_params(self.params, mesh, cfg)
             if unroll:
                 self.params = unstack_layers(self.params, cfg)
             elif not isinstance(self.params.layers, StackedLayers):
@@ -298,11 +335,13 @@ class Engine:
         self.decode_attn = decode_attn
         self.prefill_buckets = tuple(
             b for b in prefill_buckets if b <= self.max_len) or (self.max_len,)
-        self.cache = (ssm.init_state(cfg, n_slots, self.device)
-                      if self._recurrent else
-                      init_kv_cache(cfg, n_slots, self.max_len,
-                                    device=self.device, quantized=kv_quant,
-                                    layout="layers" if unroll else "stacked"))
+        # the logits' width (the whole padded vocabulary under a mesh)
+        self.n_logits = self.params.n_logits * getattr(self.params,
+                                                       "head_shards", 1)
+        if self._recurrent:
+            self.cache = ssm.init_state(cfg, n_slots, self.device)
+        else:
+            self._init_rows(kv_quant, unroll, cuda_graph)
         self.slots = [_Slot() for _ in range(n_slots)]
         self.queue: list[Request] = []
         self._next_rid = 0
@@ -323,7 +362,8 @@ class Engine:
                                     device=dev)
         self._host_in = torch.zeros((2, n_slots), dtype=torch.long,
                                     pin_memory=dev.type == "cuda")
-        self.cuda_graph = cuda_graph and dev.type == "cuda"
+        self.cuda_graph = cuda_graph and dev.type == "cuda" and (
+            mesh is None or mesh.backend == "nccl")
         self._steps: dict[tuple[str, ...], _StepProgram] = {}
         # one pool for every program's graph: replays run one at a time on
         # one stream and each step's outputs are read before the next
@@ -364,6 +404,177 @@ class Engine:
         self._rope_tables = None
         self._replayed = False
         self.perf = PerfCounters()
+
+    # --- the mesh ------------------------------------------------------------
+
+    @staticmethod
+    def _check_mesh(cfg, mesh, n_slots, draft, lookahead) -> bool:
+        """The JAX engine's refusals under a mesh; returns whether the tree
+        may fuse (not under attention tp: a [q|k|v] concat does not
+        column-shard)."""
+        tp_m, dp_m = mesh.shape["tp"], mesh.shape["dp"]
+        if isinstance(cfg, ssm.MambaConfig):
+            raise ValueError("mesh serving: recurrent models not "
+                             "supported (per-slot state, no tp dim)")
+        if draft is not None or lookahead is not None:
+            raise ValueError("mesh serving: speculative/lookahead "
+                             "decode modes are single-device for now")
+        if n_slots % dp_m:
+            raise ValueError(f"n_slots={n_slots} must divide by dp={dp_m}")
+        if tp_m == 1:
+            return True
+        if getattr(cfg, "kv_lora_rank", 0):
+            raise ValueError("mesh serving: MLA caches have one "
+                             "latent head; tp>1 unsupported")
+        if getattr(cfg, "n_experts", 0):
+            if cfg.n_experts % tp_m:
+                raise ValueError(
+                    f"tp={tp_m} must divide n_experts={cfg.n_experts} (the "
+                    f"mesh axis shards experts for MoE models)")
+            return True
+        if cfg.n_heads % tp_m or cfg.n_kv_heads % tp_m:
+            raise ValueError(f"tp={tp_m} must divide n_heads={cfg.n_heads} "
+                             f"and n_kv_heads={cfg.n_kv_heads}")
+        if make_plan(cfg).tp_pack % tp_m:
+            raise ValueError(f"checkpoint packed with tp_pack="
+                             f"{make_plan(cfg).tp_pack}; tp={tp_m} must "
+                             f"divide it")
+        return False
+
+    def _head_sharded(self) -> bool:
+        return getattr(self.params, "head_shards", 1) > 1
+
+    def _init_rows(self, kv_quant: bool, unroll: bool,
+                   cuda_graph: bool) -> None:
+        """This rank's slots ``_rows`` (every slot on one device, its dp
+        group's on a mesh), their cache (its KV heads under tp) and
+        forward; on a mesh, the engine's place among the mesh's engines."""
+        mesh, cfg = self.mesh, self.cfg
+        dp = mesh.shape["dp"] if mesh is not None else 1
+        n_local = self.n_slots // dp
+        lo = mesh.coords["dp"] * n_local if mesh is not None else 0
+        self._rows = (lo, lo + n_local)
+        self._dp = mesh.group("dp") if mesh is not None else None
+        self.cache = init_kv_cache(
+            cfg, n_local, self.max_len, device=self.device,
+            quantized=kv_quant, layout="layers" if unroll else "stacked",
+            tp=self.params.tp)
+        self._fwd = make_engine_forward(cfg, mesh, decode_attn=self.decode_attn)
+        if mesh is None:
+            return
+        # the engines on one mesh, in the order every rank builds them: a
+        # message names its engine by its index here
+        engines = mesh.__dict__.setdefault("engines", [])
+        self._tag = len(engines)
+        engines.append(self)
+        self._follow_run = None
+        if self.device.type == "cuda" and cuda_graph and mesh.backend != "nccl":
+            print(f"[engine] mesh over {mesh.backend}: the decode step runs "
+                  "eagerly (gloo's collectives cannot be captured in a CUDA "
+                  "graph)", flush=True)
+
+    def _send(self, op: str, *args) -> None:
+        """Rank 0 of a mesh: the next device operation and (copies of) its
+        host inputs, to every other rank (:func:`follow`)."""
+        if self.mesh is None or self.mesh.size == 1 or self.mesh.rank != 0:
+            return
+        import torch.distributed as dist
+
+        args = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+        dist.broadcast_object_list([(self._tag, op, args)], src=0,
+                                   group=self.mesh.control)
+
+    def _apply(self, op: str, args) -> None:
+        """A follower: run device operation ``op`` on this rank's shard."""
+        if op == "step":
+            if self._follow_run is None:
+                self._follow_run = step_runner(
+                    self._forward_step, self.device, self.cuda_graph,
+                    self._pool)
+            self._step_in.copy_(args[0])
+            self._follow_run()
+        elif op == "prefill":
+            self._prefill_rows(*args)
+        elif op == "shift":
+            self._shift_rows(*args)
+        elif op == "fork":
+            self._fork_rows(*args)
+        elif op == "hidden":
+            self.hidden(*args)
+        else:
+            raise RuntimeError(f"unknown engine operation {op!r}")
+
+    def follow(self) -> None:
+        """A rank other than 0: run what rank 0's engines on this mesh send
+        until one of them closes (:func:`follow`)."""
+        follow(self.mesh)
+
+    def close(self) -> None:
+        """Rank 0 of a mesh: release the other ranks from :func:`follow`."""
+        self._send("stop")
+
+    def _forward_step(self) -> torch.Tensor:
+        """The decode step's forward over this rank's slots: the (n_slots,
+        V) logits, gathered over dp."""
+        tokens, lengths = self._step_in
+        lo, hi = self._rows
+        logits, _ = self._fwd(self.params, self.cache, tokens[lo:hi, None],
+                              lengths[lo:hi, None])
+        return all_gather(logits[:, 0], self._dp, 0)
+
+    def _prefill_rows(self, toks, pos, slots, nv) -> torch.Tensor:
+        """A prefill group: each dp group runs the rows of its own slots;
+        the (m, V) last-token logits summed over dp (zero rows where a
+        group holds none)."""
+        dev = self.device
+        lo, hi = self._rows
+        mine = ((slots >= lo) & (slots < hi)).nonzero()[:, 0]
+        every = len(mine) == len(slots)
+        # this rank holds every row (always on one device): no scatter
+        sel = slice(None) if every else mine
+        out = None if every else torch.zeros((len(slots), self.n_logits),
+                                             device=dev)
+        if len(mine):
+            logits, _ = self._fwd(
+                self.params, self.cache, toks[sel].to(dev), pos[sel].to(dev),
+                logits_at=torch.clamp(nv[sel] - 1, min=0).to(dev),
+                slots=(slots[sel] - lo).to(dev))
+            if every:
+                out = logits[:, 0]
+            else:
+                out[mine.to(dev)] = logits[:, 0]
+        return psum(out, self._dp)
+
+    def _shift_rows(self, i: int, start: int, count: int) -> None:
+        if self._rope_tables is None:
+            self._rope_tables = shift_tables(self.cfg, self.device)
+        lo, hi = self._rows
+        if lo <= i < hi:
+            kvc.seq_shift(self.cache, i - lo, start, count, self._rope_tables)
+
+    def _fork_rows(self, src: int, dst: int, length: int) -> None:
+        lo, hi = self._rows
+        if lo <= src < hi and lo <= dst < hi:
+            kvc.seq_cp(self.cache, src - lo, dst - lo, length)
+            return
+        # the slots lie in two dp groups: the source rows summed over dp
+        # (zeros where a group does not hold them), written where dst lies
+        for arrs in kvc.to_layered(self.cache).values():
+            for a in arrs:
+                rows = (a[src - lo, :length] if lo <= src < hi
+                        else torch.zeros_like(a[0, :length]))
+                rows = psum(rows, self._dp)
+                if lo <= dst < hi:
+                    a[dst - lo, :length] = rows
+
+    @torch.inference_mode()
+    def hidden(self, toks: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """Final-norm hidden states (B, T, D) of a cacheless forward (the
+        server's embeddings and rerank); on a mesh every rank runs it on
+        its shard (rank 0 sends it) and each gets the whole states."""
+        self._send("hidden", toks.cpu(), pos.cpu())
+        return self._fwd(self.params, None, toks.to(self.device),
+                         pos.to(self.device), output="hidden")[0]
 
     # --- host API ------------------------------------------------------------
 
@@ -518,11 +729,8 @@ class Engine:
             pos[r] = off + torch.arange(tb)
             slots[r] = i
             nv[r] = len(new)
-        logits, _ = forward(
-            self.params, self.cfg, toks.to(dev), pos.to(dev), self.cache,
-            logits_at=torch.clamp(nv - 1, min=0).to(dev), slots=slots.to(dev),
-            decode_attn=self.decode_attn)
-        logits = logits[:, 0]
+        self._send("prefill", toks, pos, slots, nv)
+        logits = self._prefill_rows(toks, pos, slots, nv)
         if self._spec is not None:
             # the draft prefills the same rows of its own cache (the prompt
             # translated into its vocabulary)
@@ -590,7 +798,7 @@ class Engine:
         if req.grammar is not None:
             req.grammar.reset()
             row_mask = torch.from_numpy(
-                self._grammar_row(req, self.params.n_logits))[None].to(dev)
+                self._grammar_row(req, self.n_logits))[None].to(dev)
         tok, row_state = sample_ex(
             logits, stack_params([s], device=dev), [self._gens[i]],
             {k: v[i:i + 1] for k, v in self._sampler_state.items()},
@@ -622,10 +830,8 @@ class Engine:
             return
         n_keep = min(N_KEEP, used - 1)
         n_discard = max(1, (used - n_keep) // 2)
-        if self._rope_tables is None:
-            self._rope_tables = shift_tables(self.cfg, self.device)
-        kvc.seq_shift(self.cache, i, n_keep + n_discard, n_discard,
-                      self._rope_tables)
+        self._send("shift", i, n_keep + n_discard, n_discard)
+        self._shift_rows(i, n_keep + n_discard, n_discard)
         if slot.generated - 1 >= n_discard:
             slot.generated -= n_discard
         else:
@@ -702,7 +908,7 @@ class Engine:
             return False
         t0 = time.perf_counter()
         if self._host_mask is None:
-            shape = (self.n_slots, self.params.n_logits)
+            shape = (self.n_slots, self.n_logits)
             self._host_mask = torch.ones(shape, dtype=torch.bool,
                                          pin_memory=self.device.type == "cuda")
             self._mask = torch.ones(shape, dtype=torch.bool,
@@ -728,11 +934,10 @@ class Engine:
             logits, _ = ssm.forward(self.params, self.cfg, tokens[:, None],
                                     self.cache, inplace=True,
                                     hold=lengths < 0)
+            logits = logits[:, 0]
         else:
-            logits, _ = forward(self.params, self.cfg, tokens[:, None],
-                                lengths[:, None], self.cache,
-                                decode_attn=self.decode_attn)
-        logits = _mask_pad_vocab(logits[:, 0].to(torch.float32),
+            logits = self._forward_step()
+        logits = _mask_pad_vocab(logits.to(torch.float32),
                                  self.cfg.vocab_size)
         valid = _window_mask(self.ring_cnt, self._sp["penalty_last_n"])
         nxt, state = sample_ex(
@@ -753,7 +958,7 @@ class Engine:
         key = features + (("grammar",) if grammar else ())
         prog = self._steps.get(key)
         if prog is None:
-            shapes = noise_shapes(self.n_slots, self.params.n_logits,
+            shapes = noise_shapes(self.n_slots, self.n_logits,
                                   features)
             noise = {name: torch.zeros(sh, device=self.device)
                      for name, sh in shapes.items()}
@@ -930,6 +1135,7 @@ class Engine:
         k_probs = max(self.slots[i].req.n_probs for i in active)
         t0 = time.perf_counter()
         grammar = self._grammar_mask(active)
+        self._send("step", self._host_in)
         self._step_in.copy_(self._host_in, non_blocking=True)
         if grammar:
             self._mask.copy_(self._host_mask, non_blocking=True)
@@ -966,10 +1172,16 @@ class Engine:
 
     # --- sequence/state ops ----------------------------------------------------
 
+    def _single_device(self, what: str) -> None:
+        if self.mesh is not None:
+            raise ValueError(f"mesh serving: {what} is single-device for now "
+                             "(ROADMAP Queue 1 item 6)")
+
     def save_slot(self, i: int) -> bytes:
         """Serialize slot i's cached prefix (the JAX package's npz; a
         recurrent slot's whole state)."""
         hist = self.slots[i].history
+        self._single_device("slot save")
         if self._recurrent:
             return state_mod.save_recurrent_state(self.cache, i, hist)
         return state_mod.save_slot_state(self.cache, i, len(hist), hist)
@@ -979,6 +1191,7 @@ class Engine:
         request admitted there reuses it through the prefix cache."""
         if self.slots[i].req is not None:
             raise RuntimeError(f"slot {i} is busy")
+        self._single_device("slot restore")
         load = (state_mod.load_recurrent_state if self._recurrent
                 else state_mod.load_slot_state)
         self.slots[i].history = load(self.cache, i, data)
@@ -992,7 +1205,9 @@ class Engine:
             for a in self.cache.values():
                 a[:, dst].copy_(a[:, src])
         else:
-            kvc.seq_cp(self.cache, src, dst, len(self.slots[src].history))
+            n = len(self.slots[src].history)
+            self._send("fork", src, dst, n)
+            self._fork_rows(src, dst, n)
         self.slots[dst].history = list(self.slots[src].history)
         self.slots[dst].length = 0
 

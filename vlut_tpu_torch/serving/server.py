@@ -241,8 +241,12 @@ class ServerState:
             mask = (torch.arange(t, device=toks.device)[None, None, :]
                     < lens[:, None, None]).expand(-1, t, -1)
         with self.lock, torch.inference_mode():
-            hidden, _ = forward(params, cfg, toks, pos, None,
-                                output="hidden", attn_mask=mask)
+            if self.engine is not None:
+                # on a mesh every rank runs it (the engine sends it)
+                hidden = self.engine.hidden(toks, pos)
+            else:
+                hidden, _ = forward(params, cfg, toks, pos, None,
+                                    output="hidden", attn_mask=mask)
             out = pool_hidden(hidden, lens, pooling).cpu().numpy()
         norms = np.linalg.norm(out, axis=-1, keepdims=True)
         return out / np.maximum(norms, 1e-12)
@@ -282,7 +286,7 @@ class ServerState:
         toks, pos, lens = _padded(seqs, eng.device)
         b, t = toks.shape
         with self.lock, torch.inference_mode():
-            hidden, _ = forward(params, cfg, toks, pos, None, output="hidden")
+            hidden = eng.hidden(toks, pos)
             if hasattr(params, "rank_head_w"):
                 last = hidden[torch.arange(b, device=toks.device),
                               lens - 1].to(torch.float32)
@@ -290,6 +294,9 @@ class ServerState:
                 if hasattr(params, "rank_head_b"):
                     sc = sc + params.rank_head_b.to(torch.float32)
                 return sc[:, 0].tolist()
+            if eng._head_sharded():
+                raise ValueError("rerank by log-probs reads the whole head; "
+                                 "under --tp it runs single-device")
             targets = torch.cat([toks[:, 1:], torch.zeros_like(toks[:, :1])],
                                 dim=1)
             lps = []
@@ -970,9 +977,9 @@ def add_server_args(ap: argparse.ArgumentParser) -> None:
                     help="decode attention: one fused kernel per layer, or "
                     "a row write and PyTorch attention")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel ways (not ported: must be 1)")
+                    help="tensor-parallel ways across visible devices")
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel ways (not ported: must be 1)")
+                    help="data-parallel ways (slots shard over chips)")
     ap.add_argument("--draft-model", default=None,
                     help="draft checkpoint for per-slot speculative decode")
     ap.add_argument("--draft-k", type=int, default=4)
@@ -986,27 +993,30 @@ def add_server_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
 
 
-def start_from_args(args) -> tuple[ThreadingHTTPServer, Router]:
+def start_from_args(args) -> tuple[ThreadingHTTPServer, Router] | None:
+    """Load the models and start the server; under ``--tp/--dp`` in a rank
+    other than 0 (``parallel/distributed.py`` started the ranks), follow
+    rank 0's engines until it closes them and return None."""
     from vlut_tpu_torch.config import ModelConfig
     from vlut_tpu_torch.convert.checkpoint import load_checkpoint
     from vlut_tpu_torch.models.ssm import MambaConfig
     from vlut_tpu_torch.convert.quantize import promote
+    from vlut_tpu_torch.parallel.distributed import rank_device
+    from vlut_tpu_torch.parallel.sharding import mesh_from_flags
+    from vlut_tpu_torch.runtime.engine import follow
     from vlut_tpu_torch.utils.tokenizer import Tokenizer
 
-    if args.tp != 1 or args.dp != 1:
-        raise NotImplementedError("tp/dp serving is not ported to "
-                                  "vlut_tpu_torch yet (ROADMAP Queue 1 "
-                                  "item 6)")
+    mesh = mesh_from_flags(args.tp, args.dp, args.device)
+    device = rank_device(args.device)
     draft = None
     if args.draft_model:
-        d_cfg, d_model, _ = load_checkpoint(args.draft_model,
-                                            device=args.device)
+        d_cfg, d_model, _ = load_checkpoint(args.draft_model, device=device)
         draft = (d_cfg, d_model)
     models = {}
     for spec in args.model:
         name, _, path = spec.rpartition("=")
         name = name or path
-        cfg, model, _ = load_checkpoint(path, device=args.device)
+        cfg, model, _ = load_checkpoint(path, device=device)
         if not isinstance(cfg, (ModelConfig, MambaConfig, EncoderConfig)):
             raise ValueError(
                 f"{path}: a {type(cfg).__name__} checkpoint runs through "
@@ -1016,6 +1026,9 @@ def start_from_args(args) -> tuple[ThreadingHTTPServer, Router]:
             cfg, model = promote(cfg, model, args.promote)
         if isinstance(cfg, EncoderConfig) or not getattr(cfg, "causal_attn",
                                                          True):
+            if mesh is not None:
+                raise ValueError(f"{path}: --tp/--dp serve engines; an "
+                                 "embedding-only model runs single-device")
             # embedding-only: no engine (an encoder, or a transformer that
             # attends both ways and so decodes from no cache)
             models[name] = ((cfg, model), Tokenizer(path))
@@ -1026,15 +1039,32 @@ def start_from_args(args) -> tuple[ThreadingHTTPServer, Router]:
             context_shift=not args.no_context_shift,
             decode_attn=args.decode_attn, draft=draft, k_draft=args.draft_k,
             lookahead=((args.lookahead_window, args.lookahead_ngram)
-                       if args.lookahead else None))
+                       if args.lookahead else None), mesh=mesh)
         models[name] = (engine, Tokenizer(path))
+    if mesh is not None and mesh.rank != 0:
+        follow(mesh)
+        return None
     return serve_multi(models, args.host, args.port,
                        default=next(iter(models)))
 
 
 def run_from_args(args) -> None:
-    """Serve until interrupted."""
-    httpd, router = start_from_args(args)
+    """Serve until interrupted (under ``--tp/--dp``: as rank 0 of the ranks
+    it starts, ``parallel/distributed.py``)."""
+    import torch.distributed as dist
+
+    from vlut_tpu_torch.parallel.distributed import backend_for, run_as_ranks
+    from vlut_tpu_torch.parallel.sharding import check_flags
+
+    if args.tp * args.dp > 1 and not dist.is_initialized():
+        check_flags(args.tp, args.dp, args.device)
+        return run_as_ranks("vlut_tpu_torch.serving.server:run_from_args",
+                            (args,), args.tp * args.dp,
+                            backend_for(args.device))
+    served = start_from_args(args)
+    if served is None:  # a follower rank, released at rank 0's shutdown
+        return
+    httpd, router = served
     print(f"listening on http://{httpd.server_address[0]}:"
           f"{httpd.server_address[1]} ({len(router.states)} model(s))",
           flush=True)
@@ -1044,6 +1074,22 @@ def run_from_args(args) -> None:
     except KeyboardInterrupt:
         httpd.shutdown()
         httpd.server_close()
+        close_engines(router)
+
+
+def close_engines(router: Router) -> None:
+    """Stop every engine loop, then release a mesh's other ranks (the last
+    message on the mesh, sent when no loop can send another)."""
+    states = list(router.states.values())
+    for st in states:
+        st.stop()
+    for st in states:
+        if st.thread.is_alive():
+            st.thread.join()
+    for st in states:
+        if st.engine is not None and st.engine.mesh is not None:
+            st.engine.close()
+            return
 
 
 def main(argv: list[str] | None = None) -> None:
