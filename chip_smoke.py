@@ -235,8 +235,21 @@ Phases (any failure exits non-zero; none is skipped):
      dp 2 (tokens equal to the CPU's ranks') and on one NCCL rank, graphed;
      ``mixtral_8x7b``'s widths (4 layers) at ep 2; sp 2 and pp 2 at the
      flagship's widths over 2 layers;
- 30. one JSON line of every kernel with its launches on the paths of phases
-     3-29, then the card, then ``{"ok": true, "device": ...}`` last.
+ 30. the train half of the mesh (``train_mesh_phase``):
+     ``llama3_8b_158``'s widths over 8 of its 32 layers (the float32 twin at
+     full depth is about 32 GB of weights alone), two gloo ranks sharing
+     this card: one SGD step of the float32 twin on one device, then the
+     same step at tp 2 (``make_sharded_train_step``), every leaf and its
+     update gathered and held to the single-device step (``bench/mesh.py``'s
+     ``TRAIN_*`` limits: JAX's own sharded test's, and the update's); three
+     QAT steps at tp 2, the tree gathered, packed and served on one device
+     (graphed tokens = eager) and at tp 2 (phase 29's layer-by-layer check);
+     a slot saved from the tp-2 engine (its K/V the ranks' heads bit for
+     bit), restored into a fresh tp-2 engine (read back bit-equal, the
+     uninterrupted run's tokens) and into a single-device engine (read back
+     bit-equal);
+ 31. one JSON line of every kernel with its launches on the paths of phases
+     3-30, then the card, then ``{"ok": true, "device": ...}`` last.
 
 Phase 2 holds its plain versions' float32 products in full float32;
 phases 3-28 run with TF32 allowed for matmuls and cuDNN convolutions, as a
@@ -2082,7 +2095,13 @@ def main() -> None:
     mark("mesh")
     mesh_phase(card, launches)
 
-    # 30. summary
+    # 30. the train half of the mesh: the flagship's widths (8 layers)
+    # trained at tp 2 against one device, packed, served, a slot saved and
+    # restored, in ranks sharing this card
+    mark("train_mesh")
+    train_mesh_phase(card, launches)
+
+    # 31. summary
     mark("summary")
     replaces = {
         "ternary_gemm_decode": ("vlut_tpu_torch/csrc/decode_gemm.cu",
@@ -2287,6 +2306,128 @@ def mesh_phase(card, launches) -> None:
         held("pp2", res, (None,))
     print(json.dumps({"phase": "mesh", "seconds": time.time() - t0}),
           flush=True)
+
+
+def train_mesh_phase(card, launches) -> None:
+    """Phase 30: the train half of the mesh, ``bench/mesh.py:train_rank``
+    (``FLAGSHIP_TRAIN``) in two gloo ranks sharing this card, as phase 29
+    runs its ranks.  Fails unless: (a) the tp-2 step's loss and every leaf
+    kind (the embedding, the norms, the column and row shards, the head) lie
+    within ``TRAIN_LOSS_RTOL`` / ``TRAIN_RTOL`` + ``TRAIN_ATOL`` of the
+    single-device step, and each kind's SGD update within
+    ``TRAIN_UPDATE_RTOL`` of the single-device update (in norm); (b) the QAT
+    losses are finite and equal in both ranks, the packed tree's graphed
+    tokens on one device equal its eager ones, and its tp-2 prefill and
+    first decode step hold phase 29's limits; (c) the saved slot's K/V are
+    rank 0's heads then rank 1's bit for bit, its restore into a fresh tp-2
+    engine reads back bit-equal and continues with the uninterrupted run's
+    tokens (every row reused), and a single-device engine reads it back
+    bit-equal.  Each path's launches go into ``launches``: the single-device
+    engine's #1, #3 and #7 graphed and eager, each rank's #4, #3 and #7 at
+    tp 2."""
+    import io
+
+    import numpy as np
+
+    from vlut_tpu_torch.bench import mesh
+    from vlut_tpu_torch.parallel.distributed import launch
+
+    t0 = time.time()
+    try:
+        r0, r1 = (r[0] for r in launch(
+            "vlut_tpu_torch.bench.mesh:run_cases",
+            ([("train_rank", mesh.FLAGSHIP_TRAIN)],), nprocs=2,
+            backend="gloo", timeout=900))
+    except RuntimeError as e:
+        fail(f"train mesh: a rank failed\n{str(e)[-6000:]}")
+    one = ("ternary_gemm_decode", "ternary_gemm_tiled", "decode_attention")
+    tp2 = ("ternary_gemm_fused_quant", "ternary_gemm_tiled",
+           "decode_attention")
+    for path, got, expect in (
+            ("train_mesh_single_graphed", r0["single_graphed_launches"], one),
+            ("train_mesh_single_eager", r0["single_eager_launches"], one),
+            ("train_mesh_tp2_rank0", r0["serve"]["launches"], tp2),
+            ("train_mesh_tp2_rank1", r1["serve"]["launches"], tp2)):
+        launches[path] = got
+        for k in expect:
+            if not got[k]:
+                fail(f"train mesh {path}: never launched {k}")
+    errs = r0["leaf_errors"]
+    print(json.dumps({
+        "phase": "train_mesh", "part": "gradient", "model": "llama3_8b_158",
+        "layers": r0["layers"], "layers_cut_from": 32, "batch": r0["batch"],
+        "mesh": r0["mesh"], "backend": r0["backend"],
+        "master_params": r0["master_params"],
+        "single_loss": r0["single_loss"], "tp_loss": r0["tp_loss"],
+        "loss_rel_err": r0["loss_rel_err"], "leaf_errors": errs,
+        "single_step_ms": r0["single_step_ms"],
+        "tp_step_ms": [r0["tp_step_ms"], r1["tp_step_ms"]],
+        "single_peak_gb": r0["single_peak_gb"], "card": card}), flush=True)
+    kinds = {"embed", "final_norm", "attn_norm", "ffn_norm", "wq", "wk",
+             "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"}
+    if set(errs) != kinds:
+        fail(f"train mesh: leaf kinds {sorted(errs)}, not {sorted(kinds)}")
+    bad = {k: e for k, e in errs.items() if not (
+        e["allclose_ratio"] <= 1
+        and e["update_rel_err"] <= mesh.TRAIN_UPDATE_RTOL)}
+    if bad or not r0["loss_rel_err"] <= mesh.TRAIN_LOSS_RTOL:
+        fail(f"train mesh: the tp-2 step parts from one device's: loss "
+             f"{r0['loss_rel_err']}, leaves {bad}")
+    serve = r0["serve"]
+    q = r0["qat_losses"]
+    print(json.dumps({
+        "phase": "train_mesh", "part": "qat_pack_serve", "qat_losses": q,
+        "qat_step_ms": [r0["qat_step_ms"], r1["qat_step_ms"]],
+        "qat_step_ms_median_after_first": [
+            r0["qat_step_ms_median_after_first"],
+            r1["qat_step_ms_median_after_first"]],
+        "pack_ms": [r0["pack_ms"], r1["pack_ms"]],
+        "peak_gb": [r0["train_peak_gb"], r1["train_peak_gb"]],
+        "single_graphed_equals_eager": r0["single_graphed_equals_eager"],
+        **{k: serve[k] for k in ("census", "ms_per_step", "prefill_logits",
+                                 "step_layer_rel_err", "step_logits",
+                                 "free_step_logits")},
+        "card": card}), flush=True)
+    if not (np.isfinite(q).all() and q == r1["qat_losses"]):
+        fail(f"train mesh: the QAT losses are not finite or differ between "
+             f"the ranks: {q} {r1['qat_losses']}")
+    if not r0["single_graphed_equals_eager"]:
+        fail("train mesh: the trained tree's graphed tokens differ from its "
+             "eager ones")
+    for key in ("prefill_logits", "step_logits"):
+        e = serve[key]
+        if not e["max_abs_err"] <= mesh.PREFILL_TOL * e["max_abs_logit"]:
+            fail(f"train mesh tp2 {key}: {e['max_abs_err']} past "
+                 f"{mesh.PREFILL_TOL} of {e['max_abs_logit']}")
+    if not serve["step_layer_rel_err"] <= mesh.LAYER_TOL:
+        fail(f"train mesh tp2: a layer of the step parts by "
+             f"{serve['step_layer_rel_err']}")
+    n = r0["saved_len"]
+    with np.load(io.BytesIO(r0["saved"])) as z:
+        same = len(z["tokens"]) == n and all(
+            z[f"kv_{k}"].tobytes() == np.stack([np.concatenate(
+                [r["slot_rows"][k][i][:n] for r in (r0, r1)], axis=1)
+                for i in range(len(r0["slot_rows"][k]))]).tobytes()
+            for k in ("k", "v"))
+        shape = list(z["kv_k"].shape)
+    print(json.dumps({
+        "phase": "train_mesh", "part": "slots", "saved_rows": n,
+        "kv_shape": shape, "bytes": len(r0["saved"]),
+        "file_is_the_ranks_heads": same, "cont": r0["cont"],
+        "restored_cont": r0["restored_cont"],
+        "restored_reused": r0["restored_reused"],
+        "restored_reads_back_equal": r0["restored_reads_back_equal"],
+        "single_reads_back_equal": r0["single_reads_back_equal"],
+        "seconds": time.time() - t0}), flush=True)
+    if not same:
+        fail("train mesh: the saved slot is not the ranks' heads bit for bit")
+    if r0["restored_cont"] != r0["cont"] or r0["restored_reused"] != n:
+        fail("train mesh: the restored slot continues otherwise than the "
+             "uninterrupted run")
+    if not (r0["restored_reads_back_equal"]
+            and r0["single_reads_back_equal"]):
+        fail("train mesh: the tp-2 engine or a single-device engine reads "
+             "the restored file back otherwise")
 
 
 def bench_tooling_phase(dev, built, card, reset, read) -> None:

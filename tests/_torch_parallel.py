@@ -1,7 +1,8 @@
 """Rank-side cases of the port's parallel tests.
 
-The tests (``test_torch_parallel*.py``, ``test_torch_distributed.py``) run
-these in gloo ranks started by ``vlut_tpu_torch.parallel.distributed.
+The tests (``test_torch_parallel*.py``, ``test_torch_distributed.py``,
+``test_torch_train_sharded.py``, ``test_torch_slots_mesh.py``) run these
+in gloo ranks started by ``vlut_tpu_torch.parallel.distributed.
 launch``, one group per world size, each rank running every case of its
 group in order (:func:`run_cases`).  The ranks import the port only; the
 weights arrive as the port's tensor tree of the JAX package's
@@ -303,3 +304,179 @@ def ring_cases(cases: list) -> dict:
             torch.as_tensor(v[:, cols]), p, p, q.shape[-1],
             mesh.group("sp"), **kw).numpy()
     return {"cols": (cols.start, cols.stop), "out": out}
+
+
+def train_step(cfg_fields, tree, dp, tp, tokens, mask, qat, lr):
+    """``make_sharded_train_step`` on a (dp, tp) mesh of this world: one SGD
+    (``lr``) step of the twin ``tree``; rank 0's loss and the gathered tree
+    after it (numpy), the others' None."""
+    from vlut_tpu_torch.config import ModelConfig
+    from vlut_tpu_torch.parallel.sharding import gather_tree
+    from vlut_tpu_torch.train import finetune as pf
+
+    cfg = ModelConfig(**cfg_fields)
+    mesh = make_mesh(dp=dp, tp=tp)
+    make, pspecs = pf.make_sharded_train_step(
+        cfg, mesh, tree, lambda ps: torch.optim.SGD(ps, lr=lr), qat=qat)
+    local = pf.shard_dense(tree, pspecs, mesh)
+    step = make(local)
+    loss = float(step(torch.as_tensor(tokens), torch.as_tensor(mask)))
+    whole = gather_tree(local, pspecs, mesh)
+    if mesh.rank != 0:
+        return None
+    return {"loss": loss, "tree": _numpy_tree(whole)}
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.detach().float().numpy()
+
+
+SLOT_PROMPT = [2] + list(b"The little model reads")
+SLOT_OTHER = [2] + list(b"of its own repo.")
+SLOT_MORE = list(b" the")
+# rank 0's saved slot files of this group, by mesh
+_SAVED: dict[str, bytes] = {}
+
+
+def _slot_engine(dp: int, tp: int):
+    from pathlib import Path
+
+    from vlut_tpu_torch.convert.checkpoint import load_checkpoint
+    from vlut_tpu_torch.runtime.engine import Engine
+
+    fixture = Path(__file__).parent / "fixtures" / "tiny_real"
+    cfg, model, _ = load_checkpoint(fixture, device="cpu")
+    return Engine(cfg, model, n_slots=2, max_len=256,
+                  mesh=make_mesh(dp=dp, tp=tp))
+
+
+def _slot_request(prompt):
+    from vlut_tpu_torch.runtime.engine import Request
+    from vlut_tpu_torch.runtime.sampling import SamplerParams
+
+    return Request(prompt=prompt, max_new_tokens=6,
+                   sampler=SamplerParams(temperature=0.0))
+
+
+def _continue(eng, hist):
+    """history + SLOT_MORE through ``eng``: (tokens, tokens reused)."""
+    req = _slot_request(hist + SLOT_MORE)
+    reused = eng.perf.n_reused_tokens
+    eng.run([req])
+    return req.output, eng.perf.n_reused_tokens - reused
+
+
+def slot_save(dp: int, tp: int):
+    """tiny_real through Engine(mesh=) (2 slots, ctx 256): SLOT_OTHER in
+    slot 0, SLOT_PROMPT in slot 1 (6 greedy tokens each); rank 0 saves
+    slot 1 (kept in ``_SAVED``) and continues it uninterrupted.  Every
+    rank returns its local KV rows of slot 1 (None where its dp group does
+    not hold it); rank 0 the file and the continuation."""
+    eng = _slot_engine(dp, tp)
+    out = {"coords": eng.mesh.coords, "local": None}
+    if eng.mesh.rank == 0:
+        eng.run([_slot_request(SLOT_OTHER), _slot_request(SLOT_PROMPT)])
+        saved = eng.save_slot(1)
+        _SAVED[f"dp{dp}tp{tp}"] = saved
+        out.update(saved=saved,
+                   cont=_continue(eng, list(eng.slots[1].history)))
+        eng.close()
+    else:
+        eng.follow()
+    lo, hi = eng._rows
+    if lo <= 1 < hi:
+        out["local"] = {k: [a[1 - lo, :32].float().numpy() for a in arrs]
+                        for k, arrs in eng.cache.items()}
+    return out
+
+
+def slot_restore(dp: int, tp: int, files: dict):
+    """A fresh Engine(mesh=) restores each file (name -> npz bytes, or None
+    for one this group saved) into slot 1, saves the slot again (gathered
+    from the ranks that wrote it) and continues its history + SLOT_MORE:
+    rank 0's {name: (tokens, tokens reused, the file saved again)}."""
+    eng = _slot_engine(dp, tp)
+    if eng.mesh.rank != 0:
+        eng.follow()
+        return None
+    out = {}
+    for name, data in files.items():
+        eng.restore_slot(1, data if data is not None else _SAVED[name])
+        again = eng.save_slot(1)
+        out[name] = (*_continue(eng, list(eng.slots[1].history)), again)
+    eng.close()
+    return out
+
+
+def slot_moe():
+    """A MoE model (4 experts) through Engine(mesh=) at tp 2, whose axis
+    carries the experts and whose KV heads stay whole on each rank: slot 1
+    saved, then restored into a fresh engine and saved again (rank 0's
+    two files)."""
+    from vlut_tpu_torch.config import ModelConfig
+    from vlut_tpu_torch.models.transformer import init_params
+    from vlut_tpu_torch.runtime.engine import Engine
+
+    cfg = ModelConfig(arch="llama", vocab_size=256, d_model=128, n_layers=2,
+                      n_heads=4, n_kv_heads=2, d_ff=128, max_seq_len=128,
+                      n_experts=4, n_experts_used=2, tp_pack=1)
+    model = init_params(cfg, seed=0)
+    mesh = make_mesh(dp=1, tp=2)
+    files = []
+    for restore in (False, True):
+        eng = Engine(cfg, model, n_slots=2, max_len=64, mesh=mesh)
+        if mesh.rank != 0:
+            eng.follow()
+            continue
+        if restore:
+            eng.restore_slot(1, files[0])
+        else:
+            eng.run([_slot_request(SLOT_OTHER[:8]),
+                     _slot_request(SLOT_PROMPT[:8])])
+        files.append(eng.save_slot(1))
+        eng.close()
+    return files or None
+
+
+def mesh_train(kw: dict):
+    """``bench/mesh.py:train_rank`` (``chip_smoke.py`` phase 30) at the
+    sizes ``kw`` gives."""
+    from vlut_tpu_torch.bench.mesh import train_rank
+
+    return train_rank(**kw)
+
+
+def sharded_ce(logits, targets, mask, vocab_size):
+    """``sharded_ce_loss`` over a ("tp",) mesh of this world: each rank
+    takes its block of the (B, T, Vp) logits; its loss and the gradient of
+    its block."""
+    from vlut_tpu_torch.train.finetune import sharded_ce_loss
+
+    world = torch.distributed.get_world_size()
+    mesh = Mesh({"tp": world}, [torch.device("cpu")] * world)
+    g = mesh.group("tp")
+    v_local = logits.shape[-1] // world
+    local = torch.as_tensor(logits[..., g.index * v_local:
+                                   (g.index + 1) * v_local].copy())
+    local.requires_grad_(True)
+    loss = sharded_ce_loss(local, torch.as_tensor(targets), g, v_local,
+                           mask=torch.as_tensor(mask), vocab_size=vocab_size)
+    loss.backward()
+    return {"loss": float(loss), "grad": local.grad.numpy()}
+
+
+def train_refusal(cfg_fields, tree):
+    """make_sharded_train_step of a twin with a tied head at tp = this
+    world: the message it raises."""
+    from vlut_tpu_torch.config import ModelConfig
+    from vlut_tpu_torch.train import finetune as pf
+
+    mesh = make_mesh(dp=1, tp=torch.distributed.get_world_size())
+    try:
+        pf.make_sharded_train_step(ModelConfig(**cfg_fields), mesh, tree,
+                                   lambda ps: torch.optim.SGD(ps, lr=0.1))
+    except ValueError as e:
+        return str(e)
+    return None

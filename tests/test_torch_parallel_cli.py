@@ -5,8 +5,9 @@ The CLI process becomes rank 0 and starts the others beside it
 "The little model" (a request whose tokens the mesh and the single-device
 engine share, ``test_torch_parallel_engine.py``) must equal the
 single-device ``generate``'s; a ``serve --tp 2`` completion must answer
-the single-device engine's tokens, and the server must shut its ranks down
-on SIGINT.
+the single-device engine's tokens, its ``/slots`` save and restore must
+move the served slot (the file as long as one device's), and the server
+must shut its ranks down on SIGINT.
 """
 
 import json
@@ -90,6 +91,14 @@ def test_serve_tp2_completion_and_shutdown():
             "prompt": "The little model", "n_predict": 8,
             "temperature": 0.0, "return_tokens": True})
         emb = _post(port, "/v1/embeddings", {"input": "The little model"})
+        # the served slot saved, restored into the other, the first erased:
+        # the same request again reuses the restored rows
+        saved = _post(port, "/slots/0?action=save", {"filename": "a"})
+        restored = _post(port, "/slots/1?action=restore", {"filename": "a"})
+        _post(port, "/slots/0?action=erase", {})
+        again = _post(port, "/completion", {
+            "prompt": "The little model", "n_predict": 8,
+            "temperature": 0.0, "return_tokens": True})
         proc.send_signal(signal.SIGINT)
         assert proc.wait(timeout=60) == 0, proc.stdout.read()[-3000:]
     finally:
@@ -100,8 +109,14 @@ def test_serve_tp2_completion_and_shutdown():
     ids = Tokenizer(str(TINY_REAL)).encode("The little model")
     req = Request(prompt=ids, max_new_tokens=8,
                   sampler=SamplerParams(temperature=0.0))
-    Engine(cfg, model, n_slots=2, max_len=256).run([req])
+    eng = Engine(cfg, model, n_slots=2, max_len=256)
+    eng.run([req])
     assert got["tokens"] == req.output
+    assert saved["n_saved"] == restored["n_restored"] == len(
+        eng.slots[0].history)
+    # the file is the single-device engine's, byte count for byte count
+    assert saved["n_bytes"] == len(eng.save_slot(0))
+    assert again["tokens"] == req.output
     assert len(emb["data"][0]["embedding"]) == cfg.d_model
 
 

@@ -282,10 +282,10 @@ def test_packed_tree_gives_jax_tokens():
 
 
 def test_tuple_tree_and_sharded_step_raise():
-    """A tuple-layers tree: JAX's ``pack_params`` and QAT loss raise
-    AttributeError (``params["layers"].items()``); the port refuses both
-    with a message, and trains such a tree without QAT.  The sharded step
-    and its loss name ROADMAP item 6."""
+    """A tuple-layers tree: JAX's ``pack_params``, QAT loss and
+    ``dense_param_specs`` raise AttributeError (``params["layers"]
+    .items()``); the port refuses them, and its sharded step, with a
+    message, and trains such a tree without QAT."""
     cj, twin_j, cfg, tree = _twin("tiny")
     tuple_j = {**twin_j, "layers": tuple(
         jax.tree.map(lambda x, i=i: x[i], twin_j["layers"])
@@ -308,9 +308,12 @@ def test_tuple_tree_and_sharded_step_raise():
     got = float(pf.causal_lm_loss(tuple_t, cfg, torch.from_numpy(toks),
                                   torch.from_numpy(mask)))
     assert abs(got - want) <= 1e-6 * abs(want)
-    for fn in (pf.make_sharded_train_step, pf.sharded_ce_loss):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fn(cfg)
+    with pytest.raises(AttributeError):
+        jf.dense_param_specs(cj, tuple_j)
+    for fn in (lambda: pf.dense_param_specs(cfg, tuple_t),
+               lambda: pf.make_sharded_train_step(cfg, None, tuple_t, None)):
+        with pytest.raises(NotImplementedError, match="tuple-layers"):
+            fn()
 
 
 def test_loss_past_the_attention_chunk():

@@ -104,7 +104,7 @@ from vlut_tpu_torch.ops.packing import (
 )
 from vlut_tpu_torch.ops.quant import quantize_activations, true_div
 from vlut_tpu_torch.ops.ternary_gemm import RECIP_127
-from vlut_tpu_torch.parallel._comm import all_gather, ppermute, psum
+from vlut_tpu_torch.parallel._comm import all_gather, copy_to, ppermute, psum
 from vlut_tpu_torch.ops.rope import (
     apply_mrope,
     apply_rope,
@@ -1939,12 +1939,14 @@ def _softmax_attention(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
                            norm_n=d, eps=eps)
     else:
         h_attn = _norm_d(x, lp, "attn_norm", cfg) if cfg.pre_norms else x
-        qkv = proj["wqkv"](h_attn, impl) if lp.fused else None
+        # the column shards' input: its gradient summed over tp
+        h_col = copy_to(h_attn, par.reduce)
+        qkv = proj["wqkv"](h_col, impl) if lp.fused else None
     if qkv is not None:
         qd, kvd = plan.q_dim_p, plan.kv_dim_p
         q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
     else:
-        q, k, v = (proj[n](h_attn, impl) for n in ("wq", "wk", "wv"))
+        q, k, v = (proj[n](h_col, impl) for n in ("wq", "wk", "wv"))
     if cfg.qkv_bias and hasattr(lp, "bq"):
         q, k, v = _add(q, lp.bq), _add(k, lp.bk), _add(v, lp.bv)
     q = q.reshape(b, t, -1, hd_p)
@@ -2020,7 +2022,7 @@ def _attn_out(x, att, h_attn, lp: DecoderLayer, *, cfg, plan, impl,
         # sigmoid gate of the attention output, from the attn-normed input
         if h_attn is None:
             h_attn = _norm_d(x, lp, "attn_norm", cfg)
-        gate = proj["w_attn_gate"](h_attn, impl)
+        gate = proj["w_attn_gate"](copy_to(h_attn, par.reduce), impl)
         att = att.reshape(b, t, -1).to(torch.float32) * torch.sigmoid(
             gate.to(torch.float32))
     # chunk-pad into wo's packed-K layout (a no-op when chunk == chunk_p)
@@ -2102,12 +2104,14 @@ def _ffn_block(x, x_in, h_attn, attn_out, lp: DecoderLayer, *, cfg, plan,
         a = _glu(proj["w_gate"](h, impl), proj["w_up"](h, impl), cfg)
         dn = proj["w_down"](a.to(x.dtype), impl, reduce=red)
     elif not cfg.ffn_gated:
-        up = proj["w_up"](h, impl)
+        up = proj["w_up"](copy_to(h, red), impl)
         if cfg.proj_bias:
             up = _add(up, lp.vec("b_up"))
         a = (_xielu(up, lp) if cfg.act_fn == "xielu"
              else _ACT[cfg.act_fn](up.to(torch.float32)))
     else:
+        # the column shards' input: its gradient summed over tp
+        h = copy_to(h, red)
         if "w_gateup" in proj:
             gu = proj["w_gateup"](h, impl)
             gate, up = gu[..., :ffl], gu[..., ffl:]
@@ -2377,7 +2381,10 @@ def forward(
 ) -> tuple[torch.Tensor, dict | None]:
     """Returns (float32 logits (B, T', V_padded), kv_cache updated in place),
     or with ``output="hidden"`` the final-norm hidden states (B, T, D) in
-    the embedding's dtype and no head (the embeddings and rerank path).
+    the embedding's dtype and no head (the embeddings and rerank path), or
+    with ``output="local_logits"`` under tp this rank's vocabulary columns
+    of a vocab-sharded head, not gathered (the sharded train step's
+    logits, as the JAX forward returns them under ``tp_axis``).
 
     With a cache, the T new tokens of row b occupy cache rows
     positions[b, 0] ... positions[b, 0] + T - 1 of slot b, or of slot
@@ -2419,8 +2426,9 @@ def forward(
         raise ValueError(f"decode_attn must be one of {DECODE_ATTN}")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}")
-    if output not in ("logits", "hidden"):
-        raise ValueError("output must be 'logits' or 'hidden'")
+    if output not in ("logits", "hidden", "local_logits"):
+        raise ValueError("output must be 'logits', 'hidden' or "
+                         "'local_logits'")
     if not ablate <= ABLATIONS:
         raise ValueError(f"unknown ablation {sorted(ablate - ABLATIONS)}")
     if "unfused" in ablate and impl == "auto":
@@ -2436,6 +2444,11 @@ def forward(
                                    or head_group.size != params.head_shards):
         raise ValueError(f"a head cut in {params.head_shards} runs over no "
                          "axis of that size")
+    if (output == "local_logits" and par.tp_size > 1
+            and params.head_shards != par.tp_size):
+        raise ValueError("local logits under tp take a vocab-sharded "
+                         "lm_head; a tied head (embed.T) is whole on every "
+                         "rank")
     if par.tp_size > 1 and cfg.pos_embed == "alibi":
         raise ValueError("alibi attention is not tp-sharded yet")
     if cfg.kv_lora_rank and (par.tp_size > 1 or sp is not None):
@@ -2480,18 +2493,26 @@ def forward(
                              dtype=torch.float32, device=x.device)
         return logits + x.sum(dim=-1, keepdim=True).to(torch.float32), kv_cache
     return head_logits(params, cfg, x,
-                       head_group if params.head_shards > 1 else None
-                       ), kv_cache
+                       head_group if params.head_shards > 1 else None,
+                       gather=output == "logits"), kv_cache
 
 
 def head_logits(params: TransformerLM, cfg: ModelConfig,
-                x: torch.Tensor, tp=None) -> torch.Tensor:
+                x: torch.Tensor, tp=None, gather: bool = True) -> torch.Tensor:
     """The head on final-norm hidden states, then its bias, the logit scale
     and the final softcap.  ``tp``: the head is this rank's vocabulary
     columns of a tp-way split, and the logits are gathered over the axis
-    (a tied head, ``embed.T``, is whole on every rank)."""
+    (a tied head, ``embed.T``, is whole on every rank), or with ``gather``
+    False kept local (x's gradient then summed over the axis)."""
+    sharded = tp is not None and (hasattr(params, "lm_head")
+                                  or hasattr(params, "lm_head_q"))
+    if sharded and not gather:
+        if hasattr(params, "lm_head_b"):
+            raise ValueError("local logits of a head with a bias are not "
+                             "supported (the bias is whole)")
+        x = copy_to(x, tp)
     logits = project_head(params, x)
-    if hasattr(params, "lm_head") or hasattr(params, "lm_head_q"):
+    if sharded and gather:
         logits = all_gather(logits, tp, -1)
     if hasattr(params, "lm_head_b"):
         logits = logits + params.lm_head_b.to(logits.dtype)

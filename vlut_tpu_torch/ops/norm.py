@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from vlut_tpu_torch.ops.quant import true_div
-from vlut_tpu_torch.parallel._comm import psum
+from vlut_tpu_torch.parallel._comm import copy_to, psum
 
 # chameleon's per-head LayerNorm fixes its epsilon (ChameleonLayerNorm)
 HEAD_LN_EPS = 1e-5
@@ -23,6 +23,13 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * weight.to(torch.float32)
     return out.to(x.dtype)
+
+
+def _shard_sum(s: torch.Tensor, group) -> torch.Tensor:
+    """A statistic of a dim sharded over ``group``: the shards' sums added,
+    and (the statistic scales every shard's outputs) its gradient summed
+    from every shard's."""
+    return copy_to(psum(s, group), group)
 
 
 def gain(weight: torch.Tensor, plus_one: bool = False) -> torch.Tensor:
@@ -38,7 +45,7 @@ def rms(x: torch.Tensor, weight: torch.Tensor, eps: float, n_logical: int,
     sharded over that mesh axis (bitnet's sub-norms under tp), and the sum
     of squares is summed over it."""
     xf = x.to(torch.float32)
-    ss = psum((xf * xf).sum(dim=-1, keepdim=True), group)
+    ss = _shard_sum((xf * xf).sum(dim=-1, keepdim=True), group)
     out = (xf * torch.rsqrt(true_div(ss, float(n_logical)) + eps)
            * gain(weight, plus_one))
     return out.to(x.dtype)
@@ -62,8 +69,9 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor,
     nemotron's (1 + w); ``group`` as for :func:`rms`."""
     xf = x.to(torch.float32)
     n = float(n_logical)
-    mean = true_div(psum(xf.sum(dim=-1, keepdim=True), group), n)
-    var = (true_div(psum((xf * xf).sum(dim=-1, keepdim=True), group), n)
+    mean = true_div(_shard_sum(xf.sum(dim=-1, keepdim=True), group), n)
+    var = (true_div(_shard_sum((xf * xf).sum(dim=-1, keepdim=True), group),
+                    n)
            - mean * mean)
     out = (xf - mean) * torch.rsqrt(var + eps) * gain(weight, plus_one)
     if bias is not None:

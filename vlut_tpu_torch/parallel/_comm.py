@@ -10,6 +10,15 @@ axis).  Every collective a helper issues is recorded for
 ``parallel/census.py`` under the HLO op name JAX's census counts it by,
 with the bytes of its result.
 
+Gradients (the sharded train step): where autograd records, :func:`psum`
+is Megatron's "g" (sum forward, identity backward: after a row shard, wo
+and w_down, and wherever every rank goes on to compute the same value)
+and :func:`copy_to` Megatron's "f" (identity forward, sum backward:
+before a column shard, whose replicated input gets a partial gradient
+from each rank's columns).  :func:`pmax` gives no gradient (JAX wraps
+its ``pmax`` in ``stop_gradient``).  Where nothing records (the
+engine's inference mode), they are the plain collectives.
+
 Gloo on CUDA tensors (two ranks sharing one card, where NCCL refuses a
 second rank on the device): the ops in :data:`GLOO_HOST_STAGED` are
 copied to the host, run there and copied back, in the gloo branch only;
@@ -68,18 +77,59 @@ def _all_reduce(x: torch.Tensor, g: Group, op) -> torch.Tensor:
     return out
 
 
+def _recorded(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _SumForward(torch.autograd.Function):
+    """Sum over the group forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        return _all_reduce(x, g, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """Identity forward, sum over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _all_reduce(dy, ctx.g, dist.ReduceOp.SUM), None
+
+
 def psum(x: torch.Tensor, g: Group | None) -> torch.Tensor:
-    """Sum of x over the group (``jax.lax.psum``)."""
+    """Sum of x over the group (``jax.lax.psum``); its gradient is the
+    identity."""
     if not _active(g):
         return x
+    if _recorded(x):
+        return _SumForward.apply(x, g)
     return _all_reduce(x, g, dist.ReduceOp.SUM)
 
 
+def copy_to(x: torch.Tensor, g: Group | None) -> torch.Tensor:
+    """x as it is, its gradient summed over the group: the replicated input
+    of a column-sharded product."""
+    if not _active(g) or not _recorded(x):
+        return x
+    return _SumBackward.apply(x, g)
+
+
 def pmax(x: torch.Tensor, g: Group | None) -> torch.Tensor:
-    """Elementwise max of x over the group (``jax.lax.pmax``)."""
+    """Elementwise max of x over the group (``jax.lax.pmax``), without a
+    gradient."""
     if not _active(g):
         return x
-    return _all_reduce(x, g, dist.ReduceOp.MAX)
+    return _all_reduce(x.detach(), g, dist.ReduceOp.MAX)
 
 
 def all_gather(x: torch.Tensor, g: Group | None, dim: int) -> torch.Tensor:
@@ -92,6 +142,17 @@ def all_gather(x: torch.Tensor, g: Group | None, dim: int) -> torch.Tensor:
     dist.all_gather_into_tensor(out, x.contiguous(), group=g.pg)
     _record("all-gather", out)
     return torch.cat(out.chunk(g.size, 0), dim=dim)
+
+
+def broadcast(x: torch.Tensor, g: Group | None, src: int) -> torch.Tensor:
+    """The x of the group's rank at axis index ``src``, in every rank, bit
+    for bit.  Not a census op: it serves a slot save, which the JAX
+    package makes by copying the sharded cache to the host."""
+    if not _active(g):
+        return x
+    out = x.contiguous().clone()
+    dist.broadcast(out, src=g.ranks[src], group=g.pg)
+    return out
 
 
 def ppermute(xs: tuple[torch.Tensor, ...], g: Group | None,

@@ -289,6 +289,23 @@ def shard_tree(tree: Any, specs: Any, mesh: Mesh) -> Any:
     return shard_tensor(tree, specs, mesh)
 
 
+@torch.no_grad()
+def gather_tree(tree: Any, specs: Any, mesh: Mesh) -> Any:
+    """The inverse of :func:`shard_tree`, in every rank: each leaf's blocks
+    gathered along the dims its spec shards (detached)."""
+    from vlut_tpu_torch.parallel._comm import all_gather
+
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_tree(v, s, mesh) for v, s in zip(tree, specs))
+    out = tree.detach()
+    for d, axis in enumerate(specs):
+        if axis is not None:
+            out = all_gather(out, mesh.group(axis), d)
+    return out
+
+
 def shard_params(params, mesh: Mesh, cfg: ModelConfig, tp: int | None = None):
     """This rank's shard of a :class:`TransformerLM` as a model over the
     local tree, on the mesh's device.  ``tp`` is the tp degree the local

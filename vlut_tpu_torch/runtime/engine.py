@@ -77,8 +77,9 @@ experts split over the same axis (attention replicated and fused), the
 slots split over dp (each dp group holds n_slots / dp of them).  Rank 0
 is the engine the caller drives: it owns the requests, the sampler and
 all host state, and before each device operation (a prefill group, a
-decode step, a context shift, a fork) it sends the operation's host
-inputs to the other ranks over a gloo group; they run the same forward
+decode step, a context shift, a fork, a slot save or restore) it sends
+the operation's host inputs to the other ranks over a gloo group; they
+run the same forward
 on their shards (:meth:`Engine.follow`) and hold no request state, so the
 ranks cannot part.  Each dp group runs its own slots' rows and the rows'
 logits are gathered over dp (a prefill group's rows sum over dp, zero
@@ -86,8 +87,9 @@ where a group holds no row).  Under NCCL the decode step is one CUDA
 graph per program on every rank, its collectives captured with it (on
 the card so far only as one rank, which issues no collective); under
 gloo (the CPU, or two ranks sharing one card) it runs eagerly, since
-gloo's collectives cannot be captured.  Slot save and restore stay
-single-device.
+gloo's collectives cannot be captured.  A slot save gathers every KV head
+of the slot over tp, from the dp group that holds it, into the same file
+one device writes; a restore writes each rank's block of the heads.
 """
 
 from __future__ import annotations
@@ -113,7 +115,7 @@ from vlut_tpu_torch.models.transformer import (
     shift_tables,
     unstack_layers,
 )
-from vlut_tpu_torch.parallel._comm import all_gather, psum
+from vlut_tpu_torch.parallel._comm import all_gather, broadcast, psum
 from vlut_tpu_torch.parallel.spmd import make_engine_forward
 from vlut_tpu_torch.runtime import kv_cache as kvc
 from vlut_tpu_torch.runtime import speculative as spec_mod
@@ -501,6 +503,10 @@ class Engine:
             self._fork_rows(*args)
         elif op == "hidden":
             self.hidden(*args)
+        elif op == "save":
+            self._slot_rows(*args)
+        elif op == "restore":
+            self._restore_rows(*args)
         else:
             raise RuntimeError(f"unknown engine operation {op!r}")
 
@@ -1172,30 +1178,74 @@ class Engine:
 
     # --- sequence/state ops ----------------------------------------------------
 
-    def _single_device(self, what: str) -> None:
-        if self.mesh is not None:
-            raise ValueError(f"mesh serving: {what} is single-device for now "
-                             "(ROADMAP Queue 1 item 6)")
-
     def save_slot(self, i: int) -> bytes:
         """Serialize slot i's cached prefix (the JAX package's npz; a
-        recurrent slot's whole state)."""
+        recurrent slot's whole state).  On a mesh the file is the same as
+        on one device: every KV head, from the dp group that holds the
+        slot."""
         hist = self.slots[i].history
-        self._single_device("slot save")
         if self._recurrent:
             return state_mod.save_recurrent_state(self.cache, i, hist)
-        return state_mod.save_slot_state(self.cache, i, len(hist), hist)
+        if self.mesh is None:
+            return state_mod.save_slot_state(self.cache, i, len(hist), hist)
+        self._send("save", i, len(hist))
+        return state_mod.save_slot_state(self._slot_rows(i, len(hist)), 0,
+                                         len(hist), hist)
+
+    def _slot_rows(self, i: int, length: int) -> dict:
+        """Every rank of a mesh: rows [0, length) of slot i as a one-slot
+        layered cache, each layer's KV heads gathered over tp in axis order
+        (where the heads are split: not under a MoE model's ep) and sent
+        from the dp group that holds the slot (bit for bit)."""
+        lo, hi = self._rows
+        n_local = hi - lo
+        tp = self._head_group()
+        out: dict[str, list] = {}
+        for name, arrs in kvc.to_layered(self.cache).items():
+            out[name] = []
+            for a in arrs:
+                rows = (a[i - lo, :length] if lo <= i < hi
+                        else torch.zeros_like(a[0, :length])).contiguous()
+                rows = all_gather(rows, tp, 1)
+                rows = broadcast(rows, self._dp, i // n_local)
+                out[name].append(rows[None])
+        return out
 
     def restore_slot(self, i: int, data: bytes) -> None:
         """Write a serialized prefix into idle slot i, in place; the next
-        request admitted there reuses it through the prefix cache."""
+        request admitted there reuses it through the prefix cache.  On a
+        mesh each rank of the dp group that holds the slot writes its tp
+        block of the heads."""
         if self.slots[i].req is not None:
             raise RuntimeError(f"slot {i} is busy")
-        self._single_device("slot restore")
-        load = (state_mod.load_recurrent_state if self._recurrent
-                else state_mod.load_slot_state)
-        self.slots[i].history = load(self.cache, i, data)
+        if self._recurrent:
+            hist = state_mod.load_recurrent_state(self.cache, i, data)
+        elif self.mesh is None:
+            hist = state_mod.load_slot_state(self.cache, i, data)
+        else:
+            # checked here first: a follower that failed would end the mesh
+            state_mod.load_slot_state(self.cache, None, data,
+                                      self._head_block())
+            self._send("restore", i, data)
+            hist = self._restore_rows(i, data)
+        self.slots[i].history = hist
         self.slots[i].length = 0
+
+    def _head_group(self):
+        """The mesh axis this rank's KV heads are split over: tp, or none
+        (a MoE model's axis carries experts)."""
+        return self.mesh.group("tp") if self.params.tp > 1 else None
+
+    def _head_block(self) -> tuple[int, int]:
+        """This rank's block of the KV heads: (index, count)."""
+        g = self._head_group()
+        return (g.index, g.size) if g is not None else (0, 1)
+
+    def _restore_rows(self, i: int, data: bytes) -> list[int]:
+        lo, hi = self._rows
+        return state_mod.load_slot_state(
+            kvc.to_layered(self.cache), i - lo if lo <= i < hi else None,
+            data, self._head_block())
 
     def fork_slot(self, src: int, dst: int) -> None:
         """Copy slot src's cached prefix to idle slot dst (seq_cp)."""

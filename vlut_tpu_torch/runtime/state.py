@@ -22,7 +22,11 @@ The port writes the zip entries stored rather than deflated; ``np.load``
 reads either.
 
 A restore writes into the cache tensors in place (``copy_``): a captured
-decode graph holds them by pointer.
+decode graph holds them by pointer.  Under tp each rank's cache holds a
+contiguous block of every layer's KV heads (``parallel/sharding.py:
+cache_specs_for``); the file holds them whole, in global head order, so
+it is the same whatever the mesh (``Engine.save_slot`` gathers the
+blocks, ``shard=`` restores one).
 """
 
 from __future__ import annotations
@@ -71,9 +75,13 @@ def save_slot_state(cache: dict, slot: int, length: int,
 
 
 @torch.no_grad()
-def load_slot_state(cache: dict, slot: int, data: bytes) -> list[int]:
+def load_slot_state(cache: dict, slot: int | None, data: bytes,
+                    shard: tuple[int, int] = (0, 1)) -> list[int]:
     """Write a serialized slot into ``slot`` of ``cache`` in place; returns
-    its token history."""
+    its token history.  ``shard`` (index, count): ``cache`` holds block
+    ``index`` of ``count`` of every layer's KV heads (a tp rank's), and
+    takes those heads of the file.  ``slot`` None: check the file against
+    the cache and write nothing."""
     with np.load(io.BytesIO(data)) as z:
         if int(z["version"]) != STATE_VERSION:
             raise ValueError("unsupported state version")
@@ -92,15 +100,22 @@ def load_slot_state(cache: dict, slot: int, data: bytes) -> list[int]:
     length = arrays["k"].shape[1]
     if length > max_len_of(cache):
         raise ValueError("state longer than cache capacity")
-    heads = max(a.shape[2] for a in cache["k"])
+    index, count = shard
+    heads = max(a.shape[2] for a in cache["k"]) * count
     for name, arrs in cache.items():
         rows = arrays[name]
         if rows.shape[0] != len(arrs) or rows.shape[2] != heads or (
                 rows.shape[3:] != tuple(arrs[0].shape[3:])):
             raise ValueError(f"state entry {name} {rows.shape} does not fit "
-                             f"the cache {tuple(arrs[0].shape)}")
+                             f"the cache {tuple(arrs[0].shape)}"
+                             + (f" x {count} head blocks" if count > 1
+                                else ""))
+        if slot is None:
+            continue
         for i, a in enumerate(arrs):
-            a[slot, :length].copy_(torch.from_numpy(rows[i][:, :a.shape[2]]))
+            h = a.shape[2]
+            a[slot, :length].copy_(torch.from_numpy(
+                np.ascontiguousarray(rows[i][:, index * h:(index + 1) * h])))
     return [int(t) for t in tokens]
 
 

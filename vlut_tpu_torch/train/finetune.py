@@ -1,4 +1,4 @@
-"""Finetuning and QAT of ternary models (port of the single-device part of
+"""Finetuning and QAT of ternary models (port of
 ``vlut_tpu/train/finetune.py``; reference: ggml-opt + finetune).
 
 * **float twin** (:func:`float_twin_params`): each packed projection
@@ -16,10 +16,21 @@
   servable packed tree by absmean quantization, each scale decided on the
   host in numpy as the JAX package decides it.
 
+* **the sharded step** (:func:`make_sharded_train_step`): the same step
+  over a ("dp", "tp") mesh of ``parallel/`` (one process per device):
+  the batch's rows split over dp, the dense projections Megatron-split
+  over tp (:func:`dense_param_specs`), the loss a vocab-sharded
+  cross-entropy (:func:`sharded_ce_loss`) that reduces over tp instead of
+  gathering the logits and divides by the whole batch's mask count, the
+  gradients summed over dp.  Its gradient is the single-device step's at
+  every mask (the JAX package's is dp / tp times it with a full mask, and
+  a mean of the dp shards' masked means otherwise: ROADMAP "Faults of the
+  reference"); :func:`shard_dense` cuts a rank's leaves,
+  and ``parallel/sharding.py:gather_tree`` puts a trained tree back
+  together for :func:`pack_params`.
+
 The step runs eagerly on the leaves' device (the card unless the twin was
-built on the CPU), never inside the decode step's CUDA graph.  The
-sharded step (``make_sharded_train_step``, its vocab-sharded loss and
-parameter specs) needs the port's ``parallel/`` (ROADMAP Queue 1 item 6).
+built on the CPU), never inside the decode step's CUDA graph.
 """
 
 from __future__ import annotations
@@ -36,8 +47,10 @@ from vlut_tpu_torch.models.transformer import (
     TernarySpec, TransformerLM, forward, layer_specs, weight_specs)
 from vlut_tpu_torch.ops.packing import TernaryTensor, pack_ternary, unpack_ternary
 from vlut_tpu_torch.ops.quant import true_div
+from vlut_tpu_torch.parallel._comm import pmax, psum
+from vlut_tpu_torch.parallel.sharding import (
+    _COL_NAMES, _ROW_NAMES, Mesh, _replicated, shard_tree)
 
-PARALLEL = "ROADMAP Queue 1 item 6 (parallelism)"
 _TUPLE_TREE = ("takes the stacked tree: the JAX package's {} reads "
                "params['layers'].items(), which a tuple-layers tree (one "
                "dict per layer) does not have (ROADMAP Queue 3, faults of "
@@ -229,15 +242,7 @@ def causal_lm_loss(
     """Mean next-token cross-entropy (float32 logits) of a twin (model or
     tree) over ``tokens``; a model is built over the tree for the call, so
     gradients reach the tree's leaves."""
-    tree = _tree_of(params)
-    if qat:
-        tree = _apply_ste(tree)
-    if isinstance(tree["layers"], dict):
-        # the stacked leaves unbound once: their backward stacks the layers'
-        # gradients in one op, where a layer's view taken in the layer loop
-        # adds a whole-stack gradient per layer
-        tree = {**tree, "layers": _unbound(tree["layers"], cfg.n_layers)}
-    model = TransformerLM(cfg, tree)
+    model = _loss_model(params, cfg, qat)
     b, t = tokens.shape
     pos = torch.arange(t, device=tokens.device).expand(b, t)
     logits, _ = forward(model, cfg, tokens, pos, None)
@@ -247,6 +252,21 @@ def causal_lm_loss(
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     m = torch.ones_like(nll) if mask is None else mask[:, 1:].to(nll.dtype)
     return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def _loss_model(params, cfg: ModelConfig, qat: bool, tp: int = 1,
+                head_shards: int = 1) -> TransformerLM:
+    """The model a loss runs: over the tree's leaves (through the STE with
+    ``qat``), so gradients reach them."""
+    tree = _tree_of(params)
+    if qat:
+        tree = _apply_ste(tree)
+    if isinstance(tree["layers"], dict):
+        # the stacked leaves unbound once: their backward stacks the layers'
+        # gradients in one op, where a layer's view taken in the layer loop
+        # adds a whole-stack gradient per layer
+        tree = {**tree, "layers": _unbound(tree["layers"], cfg.n_layers)}
+    return TransformerLM(cfg, tree, tp=tp, head_shards=head_shards)
 
 
 def _unbound(layers: dict[str, Any], n: int) -> list[dict[str, Any]]:
@@ -286,24 +306,162 @@ def make_train_step(
         with torch.enable_grad():
             loss = causal_lm_loss(params, cfg, tokens, mask, qat=qat)
             loss.backward()
-        for group in optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        _zero_missing(optimizer)
         optimizer.step()
         return loss.detach()
 
     return step
 
 
-def make_sharded_train_step(*args, **kwargs):
-    """The (dp, tp) SPMD step of the JAX package (its shard_map'd step,
-    ``sharded_ce_loss`` and ``dense_param_specs``): not ported yet."""
-    raise NotImplementedError(
-        f"the sharded train step needs the port's parallel/, {PARALLEL}")
+def _zero_missing(optimizer: torch.optim.Optimizer) -> None:
+    """A zero gradient for each leaf the loss did not reach (JAX's
+    ``value_and_grad`` gives one), so weight decay still applies to it."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
 
-def sharded_ce_loss(*args, **kwargs):
-    """The vocab-sharded cross-entropy of the sharded step: not ported."""
-    raise NotImplementedError(
-        f"the vocab-sharded loss needs the port's parallel/, {PARALLEL}")
+# --- the sharded step (dp batch x tp Megatron shards) ------------------------
+
+def dense_param_specs(cfg: ModelConfig, params) -> dict[str, Any]:
+    """The spec tree of a twin (model or stacked tree), in the tuples of
+    ``parallel/sharding.py:param_specs``: columns on tp for wq / wk / wv /
+    w_gate / w_up (and w_attn_gate), rows on tp for wo / w_down, the
+    sub-norm gains on tp, the head's columns on tp, the rest replicated."""
+    tree = _tree_of(params)
+    if not isinstance(tree["layers"], dict):
+        raise NotImplementedError("the sharded step " + _TUPLE_TREE.format(
+            "dense_param_specs"))
+
+    def layer_spec(name: str, v):
+        if isinstance(v, dict) and "dense" in v:
+            nd = v["dense"].dim()
+            if name in _COL_NAMES:
+                return {"dense": (None,) * (nd - 1) + ("tp",)}
+            if name in _ROW_NAMES:
+                return {"dense": (None,) * (nd - 2) + ("tp", None)}
+        elif name in ("attn_sub_norm", "ffn_sub_norm"):
+            return (None,) * (v.dim() - 1) + ("tp",)
+        return _replicated(v)
+
+    specs = {k: _replicated(v) for k, v in tree.items() if k != "layers"}
+    specs["layers"] = {name: layer_spec(name, v)
+                       for name, v in tree["layers"].items()}
+    if "lm_head" in tree:
+        specs["lm_head"] = (None, "tp")
+    return specs
+
+
+def shard_dense(params, pspecs: dict[str, Any], mesh: Mesh) -> dict[str, Any]:
+    """This rank's block of a twin under ``pspecs`` (``shard_tree``), on the
+    mesh's device, as :func:`trainable` leaves."""
+    local = shard_tree(_tree_of(params), pspecs, mesh)
+    return trainable(_map(local, lambda t: t.to(mesh.device)))
+
+
+def sharded_ce_loss(local_logits: torch.Tensor, targets: torch.Tensor, tp,
+                    v_local: int, mask: torch.Tensor | None = None,
+                    vocab_size: int | None = None, dp=None) -> torch.Tensor:
+    """Stable cross-entropy over vocab-sharded logits, as the JAX package's:
+    ``local_logits`` (B, T, v_local) this rank's columns of the tp Group
+    ``tp`` (None: the whole vocabulary), ``targets`` (B, T) global ids.
+    The pad columns past ``vocab_size`` set to -1e30, the max taken
+    without a gradient (over tp), the log-sum-exp of the sums over tp,
+    each target's logit from the rank that holds it, the masked mean.
+    ``dp`` is the Group the batch's rows are split over (None: this rank
+    holds them all): the mean divides by the mask's count summed over it,
+    so the dp ranks' losses sum to the whole batch's masked mean."""
+    lg = local_logits.to(torch.float32)
+    off = (tp.index if tp is not None else 0) * v_local
+    if vocab_size is not None:
+        col = off + torch.arange(v_local, device=lg.device)
+        lg = torch.where(col < vocab_size, lg, torch.full_like(lg, -1e30))
+    m = pmax(lg.detach().amax(dim=-1), tp)
+    se = torch.exp(lg - m[..., None]).sum(dim=-1)
+    lse = torch.log(psum(se, tp)) + m
+    local_t = targets.long() - off
+    in_shard = (local_t >= 0) & (local_t < v_local)
+    tl = torch.gather(lg, -1, torch.clamp(local_t, 0, v_local - 1)[..., None]
+                      )[..., 0]
+    target_logit = psum(torch.where(in_shard, tl, torch.zeros_like(tl)), tp)
+    nll = lse - target_logit
+    w = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+    return (nll * w).sum() / torch.clamp(psum(w.sum(), dp), min=1.0)
+
+
+def make_sharded_train_step(
+    cfg: ModelConfig,
+    mesh: Mesh,
+    params_tree,
+    optimizer: Callable[[list[torch.Tensor]], torch.optim.Optimizer],
+    qat: bool = False,
+):
+    """The train step over a ("dp", "tp") mesh, in every rank: returns
+    ``(make, pspecs)``.  ``pspecs`` is :func:`dense_param_specs` of the
+    twin; ``make(local)`` takes this rank's trainable block
+    (:func:`shard_dense`), builds ``optimizer(leaves(local))`` and returns
+    ``step(tokens, mask=None) -> loss``, which updates ``local`` in place.
+    ``tokens`` / ``mask`` are the whole (B, T) batch; this rank takes its
+    dp group's rows.  One step: the local loss (the vocab-sharded
+    cross-entropy of this rank's rows, divided by the whole batch's mask
+    count), its backward (the collectives' gradients sum where the
+    single-device graph adds, ``parallel/_comm.py``), the gradients and
+    the loss summed over dp, and the optimizer's step in place, all in
+    full float32: the single-device step's gradient at every mask.  With
+    ``qat`` each shard is ternarized with its own mean |w|, as the JAX
+    package's step does inside ``shard_map``."""
+    tree = _tree_of(params_tree)
+    pspecs = dense_param_specs(cfg, tree)
+    tp_g, dp_g = mesh.group("tp"), mesh.group("dp")
+    tp, dp = tp_g.size, dp_g.size
+    if tp > 1 and "lm_head" not in tree:
+        raise ValueError(
+            "the sharded step takes an untied head at tp > 1: a tied head "
+            "(embed.T) is whole on every rank and has no vocabulary shard "
+            "(the JAX package's step then reads it as its shard: ROADMAP, "
+            "faults of the reference)")
+    if tp > 1 and getattr(cfg, "n_experts", 0):
+        raise ValueError("the sharded step splits dense projections over tp; "
+                         "a MoE model's experts are not split")
+    v_local = make_plan(cfg).vocab_p // tp
+
+    def local_loss(params, tokens, mask):
+        model = _loss_model(params, cfg, qat, tp=tp, head_shards=tp)
+        b, t = tokens.shape
+        pos = torch.arange(t, device=tokens.device).expand(b, t)
+        logits, _ = forward(model, cfg, tokens, pos, None, tp=tp_g,
+                            output="local_logits")
+        return sharded_ce_loss(logits[:, :-1], tokens[:, 1:], tp_g, v_local,
+                               mask=mask[:, 1:], vocab_size=cfg.vocab_size,
+                               dp=dp_g)
+
+    def make(local: dict[str, Any]) -> Callable:
+        opt = optimizer(leaves(local))
+
+        @full_float32()
+        def step(tokens: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+            b = tokens.shape[0]
+            if b % dp:
+                raise ValueError(f"a batch of {b} rows over dp={dp}")
+            rows = slice(mesh.coords["dp"] * (b // dp),
+                         (mesh.coords["dp"] + 1) * (b // dp))
+            dev = mesh.device
+            toks = tokens[rows].to(dev)
+            m = (torch.ones_like(toks, dtype=torch.bool) if mask is None
+                 else mask[rows].to(dev))
+            opt.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                loss = local_loss(local, toks, m)
+                loss.backward()
+            _zero_missing(opt)
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    p.grad = psum(p.grad, dp_g)
+            opt.step()
+            return psum(loss.detach(), dp_g)
+
+        return step
+
+    return make, pspecs
