@@ -22,7 +22,11 @@ Phases (any failure exits non-zero; none is skipped):
      engine.py), with the bf16 and the q8 cache, each with the fused and
      the composed decode attention (the A/B of ms per decode step), each
      graphed (the main path) and eager: identical greedy tokens; the fused
-     runs profile 4 decode steps (kernels, launch calls, idle share);
+     runs profile 4 decode steps (kernels, launch calls, idle share), and
+     the graphed ones hold each fused layer (from the composed step's
+     input) within ``bench/engine.py:PATHS_X`` of the noise floor of the
+     composed one (``paths_ok``; ``bench/paths_check.py`` shows it
+     failing wiring faults at full width);
   6. tiny_real through the engine on the card (graphed and eager) and on
      the CPU, bf16 and q8 cache: identical greedy tokens; seeded sampling
      (temperature 0.8, top-k 40, XTC, mirostat rows) graphed and eager on
@@ -90,7 +94,16 @@ Phases (any failure exits non-zero; none is skipped):
      of 64-512, the ninth admitted beside the long one's decode,
      composed: its softcap gate), each graphed against
      eager (identical tokens), with ms per decode step, prompt tok/s and
-     the tied head's time; then each knob family of the CPU tests (d 256,
+     the tied head's time; falcon-7b (its published config.json typed in
+     ``bench/zoo.py:FALCON_7B``, through the port's ``config_from_hf``: d
+     4544, 32 layers, 71 heads of 64 over one KV head, parallel attention,
+     vocabulary 65024; random packed weights from seed 19) through the
+     engine (16 slots, ctx 2048, 16 greedy requests of 64-1000 prompt
+     tokens, 16 new tokens): bf16 fused (#7 in five head groups) graphed
+     and eager (identical tokens), q8 fused (#8) and bf16 composed (#5)
+     graphed, #7 / #8 launched 32 a step, each fused layer (from the
+     composed step's input) within ``bench/engine.py:PATHS_X`` of the
+     noise floor of the composed one; then each knob family of the CPU tests (d 256,
      heads of 128, 2 layers) on the card against the CPU (each layer from
      the CPU's input and the logits within 2e-2 of the largest, the CPU's
      greedy tokens) and graphed against eager; every kernel the JAX gates
@@ -213,9 +226,13 @@ Phases (any failure exits non-zero; none is skipped):
      WavTokenizer vocoder at ``VocoderConfig``'s defaults; seed 27): a
      seeded 20-word speaker profile (each code, duration and markup one
      token, as OuteTTS-0.2 tokenizes them), guide tokens, top-k 4, 256 tokens, the
-     prefill through #3 and each step (#4, #1, #5; a CUDA graph) twice (one
-     stream; an eager run its first 32 tokens), the step's device and the host's sampling times
-     apart, and ``codes_to_audio`` of 750 seeded codes (10 s); then every
+     prefill through #3 and each step (#4, #1, #7 at G 7, 24 launches a
+     step and no #5; a CUDA graph) twice (one stream; an eager run its
+     first 32 tokens), the step's device and the host's sampling times
+     apart; the step composed (#5) for 64 tokens beside it (graphed ms,
+     device ms by kernel, launches) and each fused layer within
+     ``PATHS_X`` of the noise floor of the composed one; and
+     ``codes_to_audio`` of 750 seeded codes (10 s); then every
      family of ``bench/audio_zoo.py`` (five projectors, lfm2-a's conformer,
      the vocoder + ISTFT) card against CPU, and ``convert-audio`` ->
      ``describe --audio`` and ``convert-vocoder`` -> ``tts`` on tiny_real:
@@ -333,11 +350,16 @@ range skipped, the one-array form), one call the writer's kernel alone
 in a profiler trace and in a CUDA graph of it,
 timed in graphs of 20 calls beside one index_put_ per array.  #7 and #8
 are timed at the decode paths' shapes (the flagship engine's B 32 S 2048
-without and with a 512-row window, the batched cache B 32 S 184,
-bench-sweep's tg at B 1 and 32, tiny_real's heads) with the tensors the model's layer hands them,
-beside scaled_dot_product_attention, each with its plan, the host's eager
-dispatch of one call, and the device kernels one call runs: the attention
-kernel alone, or the phase fails.
+without and with a 512-row window, beside the times before head groups,
+the batched cache B 32 S 184, bench-sweep's tg at B 1 and 32, tiny_real's heads, OuteTTS's
+cache at its prefill's rows and full, falcon-7b's and starcoder's engines
+at 71 and 48 heads over one, G 3 at hd 256, hd / hdv 128 / 256 and 256 /
+128, hd 512) with the tensors the model's layer hands them, beside
+scaled_dot_product_attention, each with its plan (rows per block, head
+groups), the host's eager dispatch of one call, and the device kernels
+one call runs: the attention kernel alone, or the phase fails.  The
+untimed checks of #7 / #8 include head groups (G 71, 7 and 3) and hdv !=
+hd at the edge starts with large values in the rows a slot does not see.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result.  It imports nothing of JAX.
@@ -957,20 +979,20 @@ def phase_kernels(dev, seed: int | None = None) -> dict:
     # window past 5,000 rows (gemma2_2b itself decodes composed: its
     # softcap gate)
     decode_attention_kernels(dev, gen, record, (
-        ("qwen3_4b", 16, 2048, 8, 4, 128, 0, "spread"),
-        ("hd256_w4096", 8, 8192, 4, 2, 256, 4096, 5000)))
+        ("qwen3_4b", 16, 2048, 8, 4, 128, 128, 0, "spread"),
+        ("hd256_w4096", 8, 8192, 4, 2, 256, 256, 4096, 5000)))
     # #7/#8 at a heterogeneous stack's narrower layer (phase 20's
     # hetero_heads: 2 query heads over 1 KV head in a model of 4 over 2,
     # the layer's cache holding its own head; mixtral_8x7b's 32/8 heads of
     # 128 at B 16 S 2048 are qwen3_4b's shape above)
     decode_attention_kernels(dev, gen, record, (
-        ("hetero_hkv1", 4, 2048, 1, 2, 128, 0, "spread"),))
+        ("hetero_hkv1", 4, 2048, 1, 2, 128, 128, 0, "spread"),))
     # #5, #7 and #8 at a tp-2 rank's share of the flagship engine (phase
     # 29): 4 of the 8 KV heads, 16 of the 32 query heads
     kv_kernels(dev, gen, record, (("tp2", 32, 2048, 4, False, 128),
                                   ("tp2_q8", 32, 2048, 4, True, 128)))
     decode_attention_kernels(dev, gen, record, (
-        ("tp2", 32, 2048, 4, 4, 128, 0, "spread"),))
+        ("tp2", 32, 2048, 4, 4, 128, 128, 0, "spread"),))
     tq_kernels(dev, gen, record)
 
     # --- deepseek_v2_lite (phase 21), mamba_2_8b / codestral_mamba_7b
@@ -1009,7 +1031,7 @@ def phase_kernels(dev, seed: int | None = None) -> dict:
         tiled_timed("ternary_gemm_tiled_zoo", label, m_img, k, n, "i2",
                     iters=5, rotate=False)
     decode_attention_kernels(dev, gen, record, (
-        ("llava_1_5_7b", 1, 1024, 32, 1, 128, 0, m_img),))
+        ("llava_1_5_7b", 1, 1024, 32, 1, 128, 128, 0, m_img),))
     # the audio half (phase 27): the flagship's four through #3 at the
     # audio-bearing prefill's M (#1 / #7 at its decode are the flagship's
     # B 1 shapes, and #7 is timed at that cache here); outetts_0_2_500m's
@@ -1024,7 +1046,8 @@ def phase_kernels(dev, seed: int | None = None) -> dict:
         tiled_timed("ternary_gemm_tiled_zoo", f"audio_{label}",
                     m_audio["describe"], k, n, "i2", iters=5, rotate=False)
     decode_attention_kernels(dev, gen, record, (
-        ("llama3_8b_audio", 1, 1024, 8, 4, 128, 0, m_audio["describe"]),))
+        ("llama3_8b_audio", 1, 1024, 8, 4, 128, 128, 0,
+         m_audio["describe"]),))
     for proj in audio_zoo.outetts_projections():
         zoo_timed(*proj, 1)
     for label, k, n, *_ in audio_zoo.outetts_projections():
@@ -1710,17 +1733,26 @@ def tq_kernels(dev, gen, record) -> None:
 ATT_RTOL = ATT_ATOL = 2e-5
 
 
+# the device ms of #7 / #8 at the flagship engine's shape (B 32, S 2048)
+# before head groups, when a block held all of a KV head's heads (NVIDIA
+# H100 80GB HBM3, 700 W), printed beside this run's
+BEFORE_GROUPS_MS = {False: 0.0535, True: 0.0426}
+
+
 def decode_attention_kernels(dev, gen, record, shapes=None) -> None:
     """#7 and #8 at the decode paths' shapes (bench/attention_study.py:
     SHAPES: the flagship engine's B 32, S 2048 with starts spread over
     64-1900, without and with a 512-row window, the flagship batched cache
-    B 32 S 184, bench-sweep's tg at B 1 and 32 (S 552) and tiny_real's
-    heads), with the tensors ``_layer_step`` hands the kernel (bf16 q and
-    rows, v a strided slice of the qkv output, int64 starts) and the cache
-    rotated past the L2 where it fits in it.  Cache rows, codes and scales
-    must equal the plain version's, the output (float32 summed in another
-    order) agree to rtol and atol 2e-5, and two calls be bit-identical.
-    Each shape records its plan (cache rows per block), the host's eager
+    B 32 S 184, bench-sweep's tg at B 1 and 32 (S 552), tiny_real's heads,
+    OuteTTS's cache (B 1, S 8192, 14 heads over 2) at its prefill's rows
+    and full, falcon-7b's and starcoder's engines (B 16, S 2048, 71 and 48
+    heads over 1), G 3 at hd 256, hdv != hd both ways and hd 512), with the
+    tensors ``_layer_step`` hands the kernel (bf16 q and rows, v a strided
+    slice of the qkv output, int64 starts) and the cache rotated past the
+    L2 where it fits in it.  Cache rows, codes and scales must equal the
+    plain version's, the output (float32 summed in another order) agree to
+    rtol and atol 2e-5, and two calls be bit-identical.  Each shape
+    records its plan (cache rows per block, head groups), the host's eager
     dispatch of one call and the device kernels one call runs, which must
     be the kernel alone: no cast, copy or memset."""
     import torch
@@ -1729,12 +1761,12 @@ def decode_attention_kernels(dev, gen, record, shapes=None) -> None:
     from vlut_tpu_torch.ops import decode_attention as da
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for label, b, s, hkv, g, hd, window, starts in shapes or st.SHAPES:
+    for label, b, s, hkv, g, hd, hdv, window, starts in shapes or st.SHAPES:
         for q8 in (False, True):
             name = ("decode_attention_int8" if q8 else "decode_attention") + (
                 "" if label == "engine" else "_" + label)
             case = st.Case(gen, b, s, hkv, g, hd, window, starts, q8,
-                           rotate=True)
+                           rotate=True, hdv=hdv)
             why, err = st.check_case(case)
             if why:
                 fail(f"{name}: {why}")
@@ -1748,19 +1780,22 @@ def decode_attention_kernels(dev, gen, record, shapes=None) -> None:
             lib_ms = library_ms(case.sdpa())
             rows = case.rows()
             h = hkv * g
-            # visible rows read once (int8: codes and scales), the new rows,
-            # q, the output
-            row_b = hkv * (hd + 4) * 2 if q8 else hkv * hd * 2 * 2
-            nbytes = (rows * row_b + b * h * hd * (2 + 4)
-                      + b * hkv * hd * 2 * 2)
-            b_ms, by = bound_ms(nbytes, 4.0 * rows * h * hd, F32_OPS_PER_S)
+            # visible rows read once (int8: codes and both scales), the new
+            # rows, q, the output
+            row_b = hkv * (hd + hdv + 8) if q8 else hkv * (hd + hdv) * 2
+            nbytes = (rows * row_b + b * h * (hd * 2 + hdv * 4)
+                      + b * hkv * (hd + hdv) * 2)
+            b_ms, by = bound_ms(nbytes, 2.0 * rows * h * (hd + hdv),
+                                F32_OPS_PER_S)
+            extra = ({"before_groups_ms": BEFORE_GROUPS_MS[q8]}
+                     if label == "engine" else {})
             record(name, shape=(f"B={b} S={s} H={h} Hkv={hkv} hd={hd} "
-                                f"window={window} rows={rows} "
+                                f"hdv={hdv} window={window} rows={rows} "
                                 + ("int8" if q8 else "bf16")),
                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                   library_ms=lib_ms, max_abs_err=err,
-                   rows_per_block=da.attn_plan(b, hkv, da.span(s, window),
-                                               sms),
+                   library_ms=lib_ms, max_abs_err=err, **extra,
+                   rows_per_block=st.plan(case, sms),
+                   heads_groups=da.head_groups(g, hd, hdv),
                    eager_us=st.eager_us(case.call()), launched=launched,
                    library="scaled_dot_product_attention(enable_gqa) over "
                    + ("the cache dequantized to bf16 beforehand" if q8
@@ -1946,6 +1981,12 @@ def main() -> None:
                 print(json.dumps({"phase": "engine", **out, "launches": got,
                                   "card": card}), flush=True)
                 torch.cuda.empty_cache()
+                if ("attention_paths" in out
+                        and not bench_engine.paths_ok(out["attention_paths"])):
+                    fail(f"flagship engine ({cache}): a fused layer differs "
+                         f"from the composed one past "
+                         f"{bench_engine.PATHS_X} x the noise floor: "
+                         f"{out['attention_paths']}")
             if (engine_out[(cache, mode, "graph")]
                     != engine_out[(cache, mode, "eager")]):
                 fail(f"flagship engine ({cache}, {mode}): the graphed step's "
@@ -3183,10 +3224,18 @@ def zoo_phase(dev, card, reset, read) -> None:
     t_phase = time.time()
     out: dict = {"phase": "zoo", "card": card}
 
-    def engine_runs(name, built, runs, requests, n_slots, ctx, expect):
+    def engine_runs(name, built, runs, requests, n_slots, ctx, expect,
+                    eager=None, paths=False):
+        """Each (cache, mode) of ``runs`` graphed and (those of ``eager``,
+        default all) eagerly, the tokens equal; with ``paths`` the first
+        graphed run also compares the fused and composed paths' logits
+        (bench/engine.py:compare_paths)."""
         toks, res = {}, {}
         for cache, mode in runs:
             for graph in (True, False):
+                if not graph and eager is not None and (cache,
+                                                        mode) not in eager:
+                    continue
                 run = "graph" if graph else "eager"
                 reset()
                 # the first cell's graphed run profiles 4 decode steps
@@ -3195,7 +3244,8 @@ def zoo_phase(dev, card, reset, read) -> None:
                 r = bench_engine.run(
                     name, device=dev, built=built, kv_quant=cache == "q8",
                     decode_attn=mode, cuda_graph=graph, n_slots=n_slots,
-                    ctx=ctx, requests=requests(), profile_steps=prof)
+                    ctx=ctx, requests=requests(), profile_steps=prof,
+                    check_paths=paths and graph and (cache, mode) == runs[0])
                 got = read(f"zoo_{name}_{cache}_{mode}_{run}",
                            expect(cache, mode))
                 toks[(cache, mode, run)] = r.pop("outputs")
@@ -3204,14 +3254,17 @@ def zoo_phase(dev, card, reset, read) -> None:
                         "decode_ms_per_step", "replay_ms_per_step",
                         "replayed_steps", "prompt_tok_per_s",
                         "decode_tok_per_s", "prompt_tokens", "decode_steps",
-                        "capture_s", "wall_s")} | {"launches": got} | (
-                    {"profile": r["profile"]} if "profile" in r else {})
+                        "capture_s", "wall_s")} | {
+                    "launches": got, "profiled_steps": prof} | {
+                    k: r[k] for k in ("profile", "attention_paths")
+                    if k in r}
                 print(json.dumps({"phase": "zoo", "model": name,
                                   "cache": cache, "decode_attn": mode,
                                   "run": run, **res[f"{cache}_{mode}_{run}"],
                                   "card": card}), flush=True)
                 torch.cuda.empty_cache()
-            if toks[(cache, mode, "graph")] != toks[(cache, mode, "eager")]:
+            if ((cache, mode, "eager") in toks and toks[(cache, mode, "graph")]
+                    != toks[(cache, mode, "eager")]):
                 fail(f"zoo {name} ({cache}, {mode}): the graphed step's "
                      "greedy tokens differ from the eager step's")
         return res
@@ -3230,6 +3283,48 @@ def zoo_phase(dev, card, reset, read) -> None:
                                            seed=12),
         16, 2048, lambda c, m: ("ternary_gemm_decode", "ternary_gemm_tiled",
                                 attn_of.get((c, m), "write_rows_pair")))
+    del built
+    torch.cuda.empty_cache()
+
+    # (a2) falcon-7b (bench/zoo.py:FALCON_7B, its published config.json:
+    # d 4544, 32 layers, 71 heads of 64 over one KV head, parallel
+    # attention and MLP, vocabulary 65024), random packed weights from seed
+    # 19: 16 slots, ctx 2048, 16 greedy requests of 64-1000 prompt tokens
+    # (seed 19), 16 new tokens; bf16 fused (#7, graphed and eager, with the
+    # fused-vs-composed logits), q8 fused (#8) and bf16 composed (#5)
+    # graphed; #7 / #8 launched once a layer every step
+    built = zoo.hf_model(zoo.FALCON_7B, dev, seed=19)
+    cfg_f = built[0]
+    kinds = zoo.expected_kernels(cfg_f, built[1])
+    falcon_kernels = {
+        ("bf16", "fused"): kinds,
+        ("q8", "fused"): tuple(k.replace("decode_attention",
+                                         "decode_attention_int8")
+                               for k in kinds),
+        ("bf16", "composed"): zoo.expected_kernels(cfg_f, built[1],
+                                                   "composed")}
+    out["falcon_7b"] = engine_runs(
+        "falcon_7b", built, (("bf16", "fused"), ("q8", "fused"),
+                             ("bf16", "composed")),
+        lambda: bench_engine.make_requests(cfg_f.vocab_size, 16, 64, 1000,
+                                           16, seed=19),
+        16, 2048, lambda c, m: falcon_kernels[(c, m)],
+        eager={("bf16", "fused")}, paths=True)
+    for run, attn in (("bf16_fused_graph", "decode_attention"),
+                      ("bf16_fused_eager", "decode_attention"),
+                      ("q8_fused_graph", "decode_attention_int8")):
+        r = out["falcon_7b"][run]
+        steps = r["decode_steps"] + r["profiled_steps"]
+        if r["launches"][attn] != cfg_f.n_layers * steps:
+            fail(f"falcon_7b {run}: {attn} launched "
+                 f"{r['launches'][attn]} times in {steps} steps (want "
+                 f"{cfg_f.n_layers} a step)")
+    paths = out["falcon_7b"]["bf16_fused_graph"]["attention_paths"]
+    if not bench_engine.paths_ok(paths):
+        fail(f"falcon_7b: a fused layer differs from the composed one by "
+             f"{paths['max_rel_layer_diff']} of its largest value, past "
+             f"{bench_engine.PATHS_X} x the noise floor "
+             f"{paths['noise_floor']}")
     del built
     torch.cuda.empty_cache()
 
@@ -5103,6 +5198,29 @@ def audio_cli_case(dev, fixture, reset, read) -> dict:
     return out
 
 
+def tts_attention_paths(cfg, model, ids, first: int, dev) -> dict:
+    """bench/engine.py:compare_paths at a TTS step: the prompt prefilled
+    into a one-slot cache of min(8192, max_seq_len) rows, as
+    runtime/tts.py:generate_codes fills it, then the first generated
+    token at its position."""
+    import torch
+
+    from vlut_tpu_torch.bench.engine import compare_paths
+    from vlut_tpu_torch.models.transformer import (
+        forward, fuse_projections, init_kv_cache, unstack_layers)
+
+    m2 = unstack_layers(fuse_projections(model, cfg), cfg)
+    cache = init_kv_cache(cfg, 1, max_len=min(8192, cfg.max_seq_len),
+                          device=dev)
+    t = len(ids)
+    with torch.inference_mode():
+        forward(m2, cfg, torch.tensor([ids], device=dev),
+                torch.arange(t, device=dev)[None], cache,
+                logits_at=torch.tensor([t - 1], device=dev))
+        return compare_paths(m2, cfg, torch.tensor([[first]], device=dev),
+                             torch.tensor([[t]], device=dev), cache)
+
+
 def audio_phase(dev, built, fixture, card, reset, read) -> None:
     """Phase 27: the audio half.  (a) ``describe --audio`` at full width:
     the whisper-large-v3 encoder and ultravox projector at ``AudioConfig``'s
@@ -5117,7 +5235,8 @@ def audio_phase(dev, built, fixture, card, reset, read) -> None:
     graphed and eager; the log-mel (host clock), tower, projector, prefill
     and token times and a profile of the decode.  (b) ``tts`` at full
     width: ``outetts_0_2_500m`` (seed 27, packed i2; its q/k/v biases keep
-    it unfused: #4 and #1 per step, heads of 64 at G 7 composed: #5) and
+    it unfused: #4 and #1 per step, and #7 over its 14 heads of 64 (padded
+    to 128) over 2, 24 launches a step, no #5) and
     the WavTokenizer vocoder at ``VocoderConfig``'s defaults (seed 27); a
     seeded speaker profile of 20 words, ``audio_zoo.TTS_TEXT``
     (``audio_zoo.outetts_tokenizer``: each code, duration and markup one
@@ -5125,7 +5244,10 @@ def audio_phase(dev, built, fixture, card, reset, read) -> None:
     256 tokens, seed 27: two graphed runs give one stream
     (the first counted) and an eager run of 32 its first 32 tokens; the
     prefill's ms, each graphed step's ms and each host sampling's ms apart,
-    a replay's device ms and a profile of 8 replays, then ``codes_to_audio`` of 750 seeded codes (10 s) with the
+    a replay's device ms and a profile of 8 replays; the same step composed
+    (#5, 64 tokens) timed and profiled beside it, and the fused step's
+    layers held to the composed one's (:func:`tts_attention_paths`,
+    ``bench/engine.py:paths_ok``); then ``codes_to_audio`` of 750 seeded codes (10 s) with the
     vocoder's and the ISTFT's times.  (c) ``bench/audio_zoo.py``: each
     family card against CPU, and the CLI end to end on tiny_real
     (:func:`audio_cli_case`)."""
@@ -5137,6 +5259,7 @@ def audio_phase(dev, built, fixture, card, reset, read) -> None:
     import torch
 
     from vlut_tpu_torch.bench import audio_zoo as az
+    from vlut_tpu_torch.bench import engine as bench_engine
     from vlut_tpu_torch.bench import flagship
     from vlut_tpu_torch.cli import describe
     from vlut_tpu_torch.device import tf32
@@ -5259,13 +5382,14 @@ def audio_phase(dev, built, fixture, card, reset, read) -> None:
     ids, processed = tts.prompt_ids(tts_tok, az.TTS_TEXT, speaker)
     guide = tts.prepare_guide_tokens(tts_tok, processed)
 
-    def codes(n_tok, graph=True, stats=None):
+    def codes(n_tok, graph=True, stats=None, decode_attn="fused"):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         toks = tts.generate_codes(tcfg, tmodel, tts_tok, ids,
                                   guide_tokens=guide,
                                   n_predict=n_tok, top_k=4, seed=27,
-                                  cuda_graph=graph, stats=stats)
+                                  cuda_graph=graph, stats=stats,
+                                  decode_attn=decode_attn)
         torch.cuda.synchronize()
         return toks, (time.perf_counter() - t1) * 1e3
 
@@ -5275,7 +5399,16 @@ def audio_phase(dev, built, fixture, card, reset, read) -> None:
     stream, ms256 = codes(256, stats=stats)
     tts_launches = read("audio_tts", (
         "ternary_gemm_tiled", "ternary_gemm_fused_quant",
-        "ternary_gemm_decode", "write_rows_pair"))
+        "ternary_gemm_decode", "decode_attention"))
+    # every step's attention is #7's (14 heads over 2, G 7): one launch a
+    # layer, no composed attention (its row writer #5) anywhere in the run
+    n_steps = len(stats["step_s"])
+    if (tts_launches["decode_attention"] != tcfg.n_layers * n_steps
+            or tts_launches["write_rows_pair"]):
+        fail(f"tts: {n_steps} steps launched #7 "
+             f"{tts_launches['decode_attention']} times (want "
+             f"{tcfg.n_layers} a step) and #5 "
+             f"{tts_launches['write_rows_pair']} times (want none)")
     again, _ = codes(256)
     # the eager steps (about 0.13 s each at this cache) for the stream's
     # first 32 tokens: a stream depends only on the tokens before it
@@ -5289,6 +5422,31 @@ def audio_phase(dev, built, fixture, card, reset, read) -> None:
         step_device_ms = cuda_ms(step, iters=20, warmup=2)
         step_prof = flagship.profile_decode(
             lambda: [step() for _ in range(8)], 8, top=10)
+    # the same step composed (the row writer #5 and float32 attention
+    # over the cache): 64 tokens graphed, timed and profiled as above
+    del step
+    cstats: dict = {}
+    reset()
+    composed_stream, _ = codes(64, stats=cstats, decode_attn="composed")
+    composed_launches = read("audio_tts_composed", (
+        "ternary_gemm_fused_quant", "ternary_gemm_decode", "write_rows_pair"))
+    cstep = cstats.pop("run")
+    with torch.inference_mode():
+        c_device_ms = cuda_ms(cstep, iters=20, warmup=2)
+        c_prof = flagship.profile_decode(
+            lambda: [cstep() for _ in range(8)], 8, top=10)
+    del cstep
+    torch.cuda.empty_cache()
+    # the fused step against the composed one at the prefill's end (the
+    # first generated token at its position), layer by layer beside the
+    # noise floor: the composed step with a relative 1e-6 of noise on
+    # every layer's attention output
+    paths = tts_attention_paths(tcfg, tmodel, ids, stream[0], dev)
+    if not bench_engine.paths_ok(paths):
+        fail(f"tts: a fused layer differs from the composed one by "
+             f"{paths['max_rel_layer_diff']} of its largest value, past "
+             f"{bench_engine.PATHS_X} x the noise floor "
+             f"{paths['noise_floor']}")
     lo, hi = tts.detect_code_range(tts_tok)
     in_range = [c - lo for c in stream if lo <= c <= hi]
     out["tts"] = {
@@ -5303,6 +5461,20 @@ def audio_phase(dev, built, fixture, card, reset, read) -> None:
         "step_device_ms": step_device_ms, "step_profile": step_prof,
         "graph": stats["graph"],
         "launches": tts_launches, "tokens_head": stream[:24],
+        "fused_vs_composed": {
+            "step_ms_median": [statistics.median(replays) * 1e3,
+                               statistics.median(cstats["step_s"][2:]) * 1e3],
+            "step_device_ms": [step_device_ms, c_device_ms],
+            "kernels_per_step": [step_prof["kernels_per_step"],
+                                 c_prof["kernels_per_step"]],
+            "launches_per_step": [
+                {k: n / n_steps for k, n in tts_launches.items() if n},
+                {k: n / len(cstats["step_s"])
+                 for k, n in composed_launches.items() if n}],
+            "composed_step_profile": c_prof,
+            "composed_tokens_agree": sum(
+                a == b for a, b in zip(stream, composed_stream)) / 64,
+            "paths": paths, "bound_x_noise_floor": bench_engine.PATHS_X},
         "codes_in_range": len(in_range), "runs_identical": stream == again,
         "graph_equals_eager": stream[:32] == eager_stream,
     }

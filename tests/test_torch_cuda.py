@@ -272,7 +272,7 @@ def test_kv_writer_skips_starts_out_of_range(dev):
         kv_update._write_plain(want[0], rows[0], start)
 
 
-def _attn_inputs(dev, b, s, hkv, g, hd, seed, starts=None):
+def _attn_inputs(dev, b, s, hkv, g, hd, seed, starts=None, hdv=None):
     gen = torch.Generator(device=dev).manual_seed(seed)
     rn = lambda *sh: torch.randn(sh, generator=gen, device=dev)  # noqa: E731
     if starts is None:
@@ -281,8 +281,9 @@ def _attn_inputs(dev, b, s, hkv, g, hd, seed, starts=None):
         start[0], start[-1] = 0, s - 1
     else:
         start = torch.tensor(starts, device=dev, dtype=torch.int32)
-    return (rn(b, 1, hkv * g, hd), rn(b, 1, hkv, hd), rn(b, 1, hkv, hd),
-            rn(b, s, hkv, hd), rn(b, s, hkv, hd), start)
+    hdv = hdv or hd
+    return (rn(b, 1, hkv * g, hd), rn(b, 1, hkv, hd), rn(b, 1, hkv, hdv),
+            rn(b, s, hkv, hd), rn(b, s, hkv, hdv), start)
 
 
 def _hidden(start, s, window):
@@ -311,18 +312,18 @@ _ATT_BASE = [(5, 300, hkv, g, hd, w, None, False)
                                 (2, 2, 256))
              for w in (0, 37)]
 _ATT_MORE = (
-    [(b, s, hkv, (4, 2, 1, 8)[i % 4], 256 if i % 3 == 2 else 128, 0, None,
-      False) for i, (b, hkv, s) in enumerate(
-          da.PLAN_SHAPES)]
+    [(b, s, hkv, g, 256 if i % 3 == 2 and g <= 8 else 128, 0, None, False)
+     for i, (b, hkv, s, g) in enumerate(da.PLAN_SHAPES)]
     + [(1, 40, 8, 4, 128, 0, [39], False)]
     + [(5, 300, 2, 4, 128, w, [0, 299, 300, -1, 17], True) for w in (0, 37)])
 
 
-def _attn_check(dev, q8, b, s, hkv, g, hd, window, starts, hide, seed):
+def _attn_check(dev, q8, b, s, hkv, g, hd, window, starts, hide, seed,
+                hdv=None):
     from vlut_tpu_torch.runtime.kv_cache import quantize_kv
 
     q, kn, vn, kf, vf, start = _attn_inputs(dev, b, s, hkv, g, hd, seed,
-                                            starts)
+                                            starts, hdv)
     if q8:
         (kc, ksc), (vc, vsc) = quantize_kv(kf), quantize_kv(vf)
         cache = [kc, vc, ksc, vsc]
@@ -361,6 +362,45 @@ def test_decode_attention_matches_plain(dev, case):
     2, 2, 256)] + _ATT_MORE)
 def test_decode_attention_int8_matches_plain(dev, case):
     _attn_check(dev, True, *case, seed=9)
+
+
+# (B, S, Hkv, G, hd, hdv, window, starts, hidden rows): the head shapes
+# past G in (1, 2, 4, 8) and hdv = hd: OuteTTS's G 7, falcon-7b's 71 and
+# starcoder's 48 over one KV head (five and three head groups), G 3 and 12
+# at hd 256, hdv != hd both ways, hd 384 and 512
+_ATT_GROUPS = [
+    (3, 300, 2, 7, 128, 128, 0, None, False),
+    (3, 300, 2, 7, 128, 128, 37, [0, 299, 150], True),
+    (4, 300, 1, 71, 128, 128, 37, [0, 299, 300, 17], True),
+    (4, 300, 1, 48, 128, 128, 0, None, False),
+    (4, 300, 2, 3, 256, 256, 0, None, False),
+    (4, 300, 2, 12, 256, 256, 37, None, False),
+    (4, 300, 2, 4, 128, 256, 0, None, False),
+    (4, 300, 2, 4, 256, 128, 37, None, False),
+    (2, 300, 2, 5, 384, 128, 0, None, False),
+    (4, 300, 2, 4, 512, 512, 0, None, False),
+]
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", _ATT_GROUPS)
+def test_decode_attention_head_groups_and_widths(dev, q8, case):
+    """#7 / #8 at any group size (head groups) and hd, hdv each up to 512:
+    rows, codes and scales bit-exact, the output within ATT_TOL, two calls
+    bit-identical, one launch."""
+    b, s, hkv, g, hd, hdv, window, starts, hide = case
+    _attn_check(dev, q8, b, s, hkv, g, hd, window, starts, hide, seed=g,
+                hdv=hdv)
+
+
+def test_decode_attention_refuses_wider_heads(dev):
+    """A head wider than 512 raises ValueError naming the limit; the gate
+    keeps such a layer composed."""
+    q, kn, vn, kf, vf, start = _attn_inputs(dev, 1, 32, 1, 2, 640, 0)
+    with pytest.raises(ValueError, match="512"):
+        da.decode_attention(q, kn, vn, kf.to(torch.bfloat16),
+                            vf.to(torch.bfloat16), start, 0, scale=0.1)
+    assert not da.supports(2, 1, 640, 640)
 
 
 @pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])

@@ -19,7 +19,8 @@ from vlut_tpu.ops.decode_attention import (
     decode_attention_pallas,
 )
 from vlut_tpu.runtime.kv_cache import quantize_kv as jax_quantize_kv
-from vlut_tpu_torch.ops import decode_attention as da
+from vlut_tpu_torch.bench import attention_study as study
+from vlut_tpu_torch.ops import _build, decode_attention as da
 from vlut_tpu_torch.runtime import kv_cache
 
 torch.set_num_threads(1)
@@ -31,12 +32,12 @@ def _bf16_np(t: torch.Tensor) -> np.ndarray:
     return t.view(torch.int16).numpy().view(jnp.bfloat16)
 
 
-def _inputs(b, s, hkv, g, hd, seed):
+def _inputs(b, s, hkv, g, hd, seed, hdv=None):
     rng = np.random.default_rng(seed)
-    h = hkv * g
+    h, hdv = hkv * g, hdv or hd
     f32 = lambda *sh: rng.standard_normal(sh).astype(np.float32)  # noqa: E731
-    q, kn, vn = f32(b, 1, h, hd), f32(b, 1, hkv, hd), f32(b, 1, hkv, hd)
-    kf, vf = f32(b, s, hkv, hd), f32(b, s, hkv, hd)
+    q, kn, vn = f32(b, 1, h, hd), f32(b, 1, hkv, hd), f32(b, 1, hkv, hdv)
+    kf, vf = f32(b, s, hkv, hd), f32(b, s, hkv, hdv)
     # ragged lengths incl. 0 (empty history) and S - 1 (full cache)
     start = np.asarray([0, 1, s // 2, s - 1][:b], np.int32)
     return q, kn, vn, kf, vf, start
@@ -49,14 +50,26 @@ CASES = [
     dict(b=4, s=96, hkv=2, g=4, hd=128, window=0, cs=512),
     dict(b=4, s=96, hkv=2, g=2, hd=64, window=7, cs=32),
     dict(b=4, s=64, hkv=4, g=1, hd=64, window=0, cs=16),
+    # the head shapes the kernel takes past G in (1, 2, 4, 8) and hdv = hd:
+    # an odd G with hdv > hd, OuteTTS's G 7 with hdv < hd, G 12 at hd 256
+    # (two groups of 6 in the kernel), falcon-7b's 71 over 1 (five groups)
+    dict(b=4, s=96, hkv=2, g=3, hd=128, hdv=256, window=0, cs=32),
+    dict(b=4, s=64, hkv=1, g=7, hd=256, hdv=128, window=9, cs=32),
+    dict(b=4, s=64, hkv=2, g=12, hd=256, window=0, cs=32),
+    dict(b=4, s=64, hkv=1, g=71, hd=128, window=0, cs=32),
 ]
-IDS = ["gqa", "single_chunk", "window", "mha"]
+IDS = ["gqa", "single_chunk", "window", "mha", "g3_hdv256", "g7_hdv128",
+       "g12_hd256", "g71"]
+# the seed of the first four cases' bf16 inputs (the others take their G)
+SEED = 4
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_bf16_plain_matches_pallas(case):
     b, s, hkv, g, hd = (case[k] for k in ("b", "s", "hkv", "g", "hd"))
-    q, kn, vn, kf, vf, start = _inputs(b, s, hkv, g, hd, seed=len(IDS))
+    hdv = case.get("hdv", hd)
+    q, kn, vn, kf, vf, start = _inputs(b, s, hkv, g, hd,
+                                       seed=SEED if g <= 4 else g, hdv=hdv)
     scale = 1.0 / float(np.sqrt(hd))
     kc_j = jnp.asarray(kf, jnp.bfloat16)
     vc_j = jnp.asarray(vf, jnp.bfloat16)
@@ -79,7 +92,8 @@ def test_bf16_plain_matches_pallas(case):
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_int8_plain_matches_pallas(case):
     b, s, hkv, g, hd = (case[k] for k in ("b", "s", "hkv", "g", "hd"))
-    q, kn, vn, kf, vf, start = _inputs(b, s, hkv, g, hd, seed=7)
+    hdv = case.get("hdv", hd)
+    q, kn, vn, kf, vf, start = _inputs(b, s, hkv, g, hd, seed=7, hdv=hdv)
     scale = 1.0 / float(np.sqrt(hd))
     quant = jax.jit(jax_quantize_kv)
     kc_j, ksc_j = quant(jnp.asarray(kf))
@@ -135,8 +149,9 @@ def test_quantize_kv_matches_jitted_jax(shape):
 # sums 16 exact products per k-step into float32, the softmax runs online
 # per 16-row stage (a lane keeps its own partial denominator), the warps'
 # teams (the stages dealt in turn) and then the splits of `rows` cache rows
-# meet in order.  The
-# emulation below repeats that order; a kernel built on two terms, or
+# meet in order.  A KV head's query heads run in groups of
+# da.head_groups' size, whose m-tile count and the V width set the teams.
+# The emulation below repeats that order; a kernel built on two terms, or
 # merging the splits in the order the blocks arrive, fails these tests.
 
 TERMS = 3  # bf16 terms of a float32 operand
@@ -163,23 +178,28 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def _team_cfg(g, hd):
-    mt = (g + 3) // 4
-    return 4 // (mt * hd // 128)  # teams of warps in a block
+def _team_cfg(heads, hdv):
+    """Teams of warps in a block of ``heads`` query heads (its m-tiles:
+    ceil(heads / 4)) over V heads of width hdv: a team's warps split the
+    value columns so that a lane keeps at most 64 accumulators."""
+    mt = (heads + 3) // 4
+    vw = mt * hdv // 128
+    return 4 // (1 if vw <= 1 else 2 if vw <= 2 else 4)
 
 
 def _emulate(q, kn, vn, kc, vc, ksc, vsc, start, window, scale, rows,
              arrival=None):
-    """The kernel's output (B, 1, H, hd) for caches kc/vc (bf16, or int8
+    """The kernel's output (B, 1, H, hdv) for caches kc/vc (bf16, or int8
     codes with scales ksc/vsc); ``arrival(b, kvh, n)`` is the order in
-    which the n split blocks of a (slot, KV head) finish."""
+    which the n split blocks of a (slot, KV head, head group) finish."""
     b, s, hkv, hd = kc.shape
-    h = q.shape[2]
+    h, hdv = q.shape[2], vc.shape[-1]
     g = h // hkv
     q8 = ksc is not None
-    nt = _team_cfg(g, hd)
+    heads, _ = da.head_groups(g, hd, hdv)
+    nt = _team_cfg(heads, hdv)
     kflat = kc.reshape(b * s, hkv, hd).float()
-    vflat = vc.reshape(b * s, hkv, hd).float()
+    vflat = vc.reshape(b * s, hkv, hdv).float()
     if q8:
         kn_q, kn_s = kv_cache.quantize_kv(kn[:, 0].float())
         vn_q, vn_s = kv_cache.quantize_kv(vn[:, 0].float())
@@ -189,23 +209,25 @@ def _emulate(q, kn, vn, kc, vc, ksc, vsc, start, window, scale, rows,
     else:
         knv = kn[:, 0].to(torch.bfloat16).float()
         vnv = vn[:, 0].to(torch.bfloat16).float()
-    out = torch.zeros(b, 1, h, hd)
+    out = torch.zeros(b, 1, h, hdv)
     neg = torch.tensor(NEG_F32)
     for bi in range(b):
         st = int(start[bi])
         hi_r = min(st, s)
         lo_r = max(0, st - window + 1) if window > 0 else 0
         n_act = -(-(hi_r - lo_r) // rows) if hi_r > lo_r else 0
-        for kvh in range(hkv):
-            qs = q[bi, 0, kvh * g:(kvh + 1) * g].float() * scale  # (G, hd)
+        for kvh, h0 in ((k, k * g + i) for k in range(hkv)
+                        for i in range(0, g, heads)):
+            gc = min(heads, (kvh + 1) * g - h0)  # the group's heads
+            qs = q[bi, 0, h0:h0 + gc].float() * scale  # (gc, hd)
             qt = _split_terms(qs)
             splits = []
             for sp in range(max(n_act, 1)):
                 r0 = lo_r + sp * rows
                 r1 = min(hi_r, r0 + rows)
                 nch = -(-(r1 - r0) // 16) if r1 > r0 else 0
-                teams = [[neg.expand(g).clone(), torch.zeros(g, 4),
-                          [torch.zeros(g, hd) for _ in range(3)]]
+                teams = [[neg.expand(gc).clone(), torch.zeros(gc, 4),
+                          [torch.zeros(gc, hdv) for _ in range(3)]]
                          for _ in range(nt)]
                 for c in range(nch):
                     team = c % nt
@@ -217,7 +239,7 @@ def _emulate(q, kn, vn, kc, vc, ksc, vsc, start, window, scale, rows,
                                      kflat[idx.clamp(max=b * s - 1), kvh], 0)
                     vr = torch.where(inside[:, None],
                                      vflat[idx.clamp(max=b * s - 1), kvh], 0)
-                    sc = [torch.zeros(g, 16) for _ in range(3)]
+                    sc = [torch.zeros(gc, 16) for _ in range(3)]
                     for ks in range(hd // 16):
                         d = slice(16 * ks, 16 * ks + 16)
                         for t in range(3):
@@ -234,7 +256,7 @@ def _emulate(q, kn, vn, kc, vc, ksc, vsc, start, window, scale, rows,
                     p = torch.where(valid, torch.exp(score - m_new[:, None]),
                                     torch.zeros(()))
                     # lane t's rows 2t, 2t+1, 8+2t, 9+2t, summed in order
-                    pl = p.view(g, 2, 4, 2)
+                    pl = p.view(gc, 2, 4, 2)
                     part = ((pl[:, 0, :, 0] + pl[:, 0, :, 1]) + pl[:, 1, :, 0]
                             ) + pl[:, 1, :, 1]
                     lp = _fma(lp, alpha[:, None], part)
@@ -262,8 +284,8 @@ def _emulate(q, kn, vn, kc, vc, ksc, vsc, start, window, scale, rows,
                 state = _merge([splits[i] for i in order])
             else:
                 state = splits[0]
-            out[bi, 0, kvh * g:(kvh + 1) * g] = _finish(
-                state, qs, knv[bi, kvh], vnv[bi, kvh])
+            out[bi, 0, h0:h0 + gc] = _finish(state, qs, knv[bi, kvh],
+                                             vnv[bi, kvh])
     return out
 
 
@@ -303,10 +325,10 @@ def _finish(state, qs, knv, vnv):
     return num / l_new[:, None]
 
 
-def _emu_inputs(b, s, hkv, g, hd, seed, q_spread=0.0):
+def _emu_inputs(b, s, hkv, g, hd, seed, q_spread=0.0, hdv=None):
     """_inputs with starts that give several splits of 32 rows, and q's
     elements spread over 2^-q_spread..2^q_spread in magnitude."""
-    q, kn, vn, kf, vf, _ = _inputs(b, s, hkv, g, hd, seed)
+    q, kn, vn, kf, vf, _ = _inputs(b, s, hkv, g, hd, seed, hdv)
     rng = np.random.default_rng(seed + 1)
     if q_spread:
         q = (q * np.exp2(rng.uniform(-q_spread, q_spread, q.shape))
@@ -315,10 +337,12 @@ def _emu_inputs(b, s, hkv, g, hd, seed, q_spread=0.0):
     return q, kn, vn, kf, vf, start
 
 
-def _emulate_case(q8, g, hd, window, seed, q_spread=0.0, arrival=None):
+def _emulate_case(q8, g, hd, window, seed, q_spread=0.0, arrival=None,
+                  hdv=None, hkv=2):
     """(emulated kernel, plain version, JAX kernel in interpret mode)."""
-    b, s, hkv = 3, 96, 2
-    q, kn, vn, kf, vf, start = _emu_inputs(b, s, hkv, g, hd, seed, q_spread)
+    b, s = 3, 96
+    q, kn, vn, kf, vf, start = _emu_inputs(b, s, hkv, g, hd, seed, q_spread,
+                                           hdv)
     scale = 1.0 / float(np.sqrt(hd))
     tq, tkn, tvn, tst = (torch.from_numpy(x) for x in (q, kn, vn, start))
     if q8:
@@ -351,15 +375,26 @@ def _emulate_case(q8, g, hd, window, seed, q_spread=0.0, arrival=None):
     return got.numpy(), plain.numpy(), np.asarray(want)
 
 
+EMULATED = [
+    (1, 128, 128, 0), (2, 256, 256, 0), (4, 128, 128, 9), (8, 128, 128, 0),
+    (8, 256, 256, 9), (4, 256, 256, 0),
+    # head groups: G 7 (one group of two m-tiles), G 12 at hd 256 (two
+    # groups of 6), G 71 (five groups, 15 heads but the last's 11), and
+    # hdv != hd (the teams set by hdv)
+    (7, 128, 128, 0), (12, 256, 256, 9), (71, 128, 128, 0), (3, 128, 256, 0),
+    (4, 256, 128, 9)]
+
+
 @pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("g,hd,window", [
-    (1, 128, 0), (2, 256, 0), (4, 128, 9), (8, 128, 0), (8, 256, 9),
-    (4, 256, 0)])
-def test_kernel_order_emulated(q8, g, hd, window):
+@pytest.mark.parametrize("g,hd,hdv,window", EMULATED, ids=[
+    f"{g}-{hd}-{window}" if hdv == hd else f"{g}-{hd}-{hdv}-{window}"
+    for g, hd, hdv, window in EMULATED])
+def test_kernel_order_emulated(q8, g, hd, hdv, window):
     """The kernel's arithmetic (three-term operands, float32 per k-step,
     online softmax per stage, teams and splits merged in order) within
     1e-5 of the plain version and 2e-5 of the JAX kernel."""
-    got, plain, want = _emulate_case(q8, g, hd, window, seed=g + hd)
+    got, plain, want = _emulate_case(q8, g, hd, window, seed=g + hd,
+                                     hdv=hdv, hkv=1 if g > 8 else 2)
     np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got, want, **TOL)
 
@@ -377,41 +412,83 @@ def test_kernel_order_emulated_wide_q(q8):
 Q_SPREAD = 5.0
 
 
-@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
-def test_kernel_merge_is_independent_of_arrival(q8):
+@pytest.mark.parametrize("q8,g", [
+    (False, 2), (True, 2), (False, 7), (True, 7), (False, 71), (True, 71)],
+    ids=["bf16", "int8", "bf16-g7", "int8-g7", "bf16-g71", "int8-g71"])
+def test_kernel_merge_is_independent_of_arrival(q8, g):
     """Whichever split block arrives last, the output is bit-identical: the
     last block merges the splits' states in split order."""
-    rng = np.random.default_rng(5)
     outs = [
-        _emulate_case(q8, 2, 128, 0, seed=11, arrival=(
-            lambda b, kvh, n, r=r: list(r.permutation(n))))[0]
+        _emulate_case(q8, g, 128, 0, seed=11, hkv=1 if g > 8 else 2,
+                      arrival=(lambda b, kvh, n, r=r: list(r.permutation(n))))[0]
         for r in (np.random.default_rng(i) for i in range(3))]
-    del rng
     for o in outs[1:]:
         np.testing.assert_array_equal(o, outs[0])
 
 
 def test_attn_plan_fills_half_a_wave_at_every_plan_shape():
     """At each PLAN_SHAPES entry a full cache gives at least half a wave of
-    blocks on 132 SMs (or the plan takes the fewest rows), and the list
-    reaches every rows-per-block choice."""
-    seen = set()
-    for b, hkv, s in da.PLAN_SHAPES:
-        rows = da.attn_plan(b, hkv, s, 132)
+    blocks (of (slot, KV head, head group)) on 132 SMs (or the plan takes
+    the fewest rows), and the list reaches every rows-per-block choice and
+    a shape whose head groups move the plan."""
+    seen, moved = set(), False
+    for b, hkv, s, g in da.PLAN_SHAPES:
+        groups = da.head_groups(g, 128, 128)[1]
+        rows = da.attn_plan(b, hkv, s, 132, groups)
         assert rows in da.ROWS and rows % 16 == 0
-        assert 2 * b * hkv * -(-s // rows) >= 132 or rows == da.ROWS[0]
+        assert (2 * b * hkv * groups * -(-s // rows) >= 132
+                or rows == da.ROWS[0])
         seen.add(rows)
-    assert seen == set(da.ROWS)
+        moved |= rows != da.attn_plan(b, hkv, s, 132)
+    assert seen == set(da.ROWS) and moved
 
 
-@pytest.mark.parametrize("b,hkv,s,window", [
-    (32, 8, 2048, 0), (32, 8, 2048, 512), (1, 8, 552, 0), (32, 8, 552, 0),
-    (32, 8, 184, 0), (4, 2, 256, 0), (1, 1, 1, 0)])
-def test_attn_plan_rows(b, hkv, s, window):
+PLANNED = [
+    (32, 8, 2048, 0, 4), (32, 8, 2048, 512, 4), (1, 8, 552, 0, 4),
+    (32, 8, 552, 0, 4), (32, 8, 184, 0, 4), (4, 2, 256, 0, 2), (1, 1, 1, 0, 1),
+    (1, 2, 8192, 0, 7), (16, 1, 2048, 0, 71), (16, 1, 2048, 0, 48)]
+
+
+@pytest.mark.parametrize("b,hkv,s,window,g", PLANNED, ids=[
+    f"{b}-{hkv}-{s}-{window}" + (f"-g{g}" if g > 4 else "")
+    for b, hkv, s, window, g in PLANNED])
+def test_attn_plan_rows(b, hkv, s, window, g):
     """The plan takes the most rows per block that still give a full cache
-    half a wave of blocks, else the fewest; a window caps the span."""
+    half a wave of blocks (of (slot, KV head, head group)), else the
+    fewest; a window caps the span."""
     span = da.span(s, window)
-    rows = da.attn_plan(b, hkv, span, 132)
-    assert rows == da.ROWS[0] or 2 * b * hkv * -(-span // rows) >= 132
+    units = b * hkv * da.head_groups(g, 128, 128)[1]
+    rows = da.attn_plan(b, hkv, span, 132, units // (b * hkv))
+    assert rows == da.ROWS[0] or 2 * units * -(-span // rows) >= 132
     bigger = [r for r in da.ROWS if r > rows]
-    assert all(2 * b * hkv * -(-span // r) < 132 for r in bigger)
+    assert all(2 * units * -(-span // r) < 132 for r in bigger)
+
+
+def test_head_groups():
+    """The fewest groups of at most 4 x 512 / max(hd, hdv) heads, equal but
+    the last; G <= 8 at hd 128 or 256 stays one group (one block
+    per KV head, as before head groups)."""
+    for g in (1, 2, 4, 8):
+        for hd in (128, 256):
+            assert da.head_groups(g, hd, hd) == (g, 1)
+    assert da.head_groups(7, 128, 128) == (7, 1)
+    assert da.head_groups(71, 128, 128) == (15, 5)
+    assert da.head_groups(48, 128, 128) == (16, 3)
+    assert da.head_groups(12, 256, 256) == (6, 2)
+    assert da.head_groups(4, 512, 128) == (4, 1)
+    assert da.head_groups(5, 384, 128) == (3, 2)
+    for g in range(1, 80):
+        for hd, hdv in ((128, 128), (256, 128), (512, 384)):
+            heads, n = da.head_groups(g, hd, hdv)
+            assert heads * n >= g > heads * (n - 1)
+            assert heads <= 4 * (512 // max(hd, hdv))
+
+
+@pytest.mark.parametrize("name", [*sorted(study.ABLATIONS), "timeline"])
+def test_study_edits_match_the_kernel_source(name):
+    """bench/attention_study.py's ablations and timeline patch the kernel's
+    lines by text: each edit still finds its line in the source."""
+    src = (_build.CSRC / study.SOURCE).read_text()
+    for old, new in {**study.ABLATIONS, "timeline": study.TIMELINE}[name]:
+        assert old in src, old
+        src = src.replace(old, new, 1)

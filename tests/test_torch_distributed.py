@@ -36,6 +36,11 @@ import _torch_parallel as w
 args = pickle.load(open({args!r}, "rb"))
 out = w.multihost_forward(*args)
 pickle.dump(out, open({out!r} + str(out["rank"]), "wb"))
+# leave the group together: a rank whose peers exit first can abort in
+# gloo's threads at exit
+import torch.distributed as dist
+dist.barrier()
+dist.destroy_process_group()
 """
 
 

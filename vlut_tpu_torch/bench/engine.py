@@ -79,50 +79,102 @@ def make_requests(vocab: int, n: int = N_REQUESTS, lo: int = PROMPT_LO,
 
 
 def compare_attention_paths(eng: Engine) -> dict:
-    """The next decode step's logits through the fused and the composed
-    attention on the engine's current cache (each writes the same rows),
-    compared: the largest difference over the largest logit, and the share
-    of slots whose greedy token agrees.  Beside it, the same comparison of
-    the composed path with itself after a relative 1e-6 of noise on every
-    layer's attention output: how far float rounding alone moves these
-    logits (the int8 activation codes of 32 layers amplify it)."""
-    dev = eng.device
+    """:func:`compare_paths` at the engine's next decode step: each busy
+    slot's last token at its position, an idle slot's scratch row."""
     tokens = torch.zeros((eng.n_slots, 1), dtype=torch.long)
     lengths = torch.full((eng.n_slots, 1), eng.max_len - 1, dtype=torch.long)
     for i, s in enumerate(eng.slots):
         if s.req is not None:
             tokens[i, 0] = s.req.output[-1]
             lengths[i, 0] = s.length + s.generated - 1
-    v = eng.cfg.vocab_size
+    return compare_paths(eng.params, eng.cfg, tokens.to(eng.device),
+                         lengths.to(eng.device), eng.cache)
 
-    def logits(mode):
-        return forward(eng.params, eng.cfg, tokens.to(dev), lengths.to(dev),
-                       eng.cache, decode_attn=mode)[0][:, 0, :v].clone()
 
-    def compare(a, b):
-        return {"max_rel_logit_diff": float((a - b).abs().max()
-                                            / b.abs().max()),
+# The bound of :func:`paths_ok`, as a multiple of the layers' noise floor
+# (:func:`compare_paths`).  The kernel's float32 sums differ from the
+# composed ones by a relative 1e-7 to 1e-6 (its outputs are held to 2e-5
+# of the plain version's), the size of the floor's noise; what reaches a
+# layer's output is the int8 activation codes that round the other way,
+# each moving it by more than the rounding did.  So the kernel's
+# difference is held to 8 x the largest floor: room for its codes landing
+# on larger activations than the noise's did, far below what a wrong
+# attention (a dropped head or group, a misplaced value column) gives.
+PATHS_X = 8.0
+
+
+def compare_paths(params, cfg, tokens: torch.Tensor, positions: torch.Tensor,
+                  cache, draws: int = 8) -> dict:
+    """A decode step (tokens and positions (B, 1) on the cache's device)
+    through the fused and the composed attention on the same cache (each
+    writes the same rows), compared two ways: the logits (the largest
+    difference over the largest logit, and the share of slots whose greedy
+    token agrees), and layer by layer (``bench/zoo.py:layers_replaced``:
+    each fused layer from the composed step's input; the largest over the
+    layers of its output's largest difference over its largest value).
+    Beside them, the noise floor: the composed step against itself after a
+    relative 1e-6 of noise on every layer's attention output, the largest
+    of ``draws`` draws.  Float rounding moves a step by the int8 activation
+    codes it flips, each by far more than the rounding did, and a random
+    model carries a flip through every later layer: the logits' floor is
+    of their own scale, so they are printed, not held.  A layer from the
+    composed input carries a flip through itself only; :func:`paths_ok`
+    holds the layers.  None of these forwards counts a launch."""
+    from vlut_tpu_torch.bench.zoo import layers_replaced
+
+    dev = tokens.device
+    v = cfg.vocab_size
+
+    def step(mode, by=None):
+        seen: list = []
+        with layers_replaced(seen, by):
+            lg = forward(params, cfg, tokens, positions, cache,
+                         decode_attn=mode)[0][:, 0, :v].float().clone()
+        return lg, seen
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def compare(a, b, layers):
+        return {"max_rel_logit_diff": rel(a, b),
                 "argmax_agree": float((a.argmax(-1) == b.argmax(-1))
-                                      .float().mean())}
+                                      .float().mean()),
+                "max_rel_layer_diff": max(rel(x, y)
+                                          for x, y in zip(layers, c_layers))}
 
     # a comparison, not the serving path: its kernel launches are not counted
     wrappers = (dattn.decode_attention, dattn.decode_attention_int8,
                 write_rows_pair, tg.ternary_gemm_decode,
                 tg.ternary_gemm_fused_quant, tg.ternary_gemm_tiled)
     counts = [w.launches for w in wrappers]
-    f, c = logits("fused"), logits("composed")
+    c, c_layers = step("composed")
+    f = step("fused")[0]
+    got = compare(f, c, step("fused", c_layers)[1])
     gen = torch.Generator(device=dev).manual_seed(0)
     attention = transformer._attention
     transformer._attention = lambda *a, **k: (lambda o: o * (
         1 + 1e-6 * torch.randn(o.shape, generator=gen, device=o.device)))(
             attention(*a, **k))
     try:
-        noisy = logits("composed")
+        floors = [compare(step("composed")[0], c,
+                          step("composed", c_layers)[1])
+                  for _ in range(draws)]
     finally:
         transformer._attention = attention
         for w, n in zip(wrappers, counts):
             w.launches = n
-    return {**compare(f, c), "noise_floor": compare(noisy, c)}
+    return {**got, "noise_floor": {
+        "max_rel_logit_diff": max(x["max_rel_logit_diff"] for x in floors),
+        "argmax_agree": min(x["argmax_agree"] for x in floors),
+        "max_rel_layer_diff": max(x["max_rel_layer_diff"] for x in floors),
+        "layer_draws": [x["max_rel_layer_diff"] for x in floors]}}
+
+
+def paths_ok(paths: dict) -> bool:
+    """Whether :func:`compare_paths`' fused layers lie within
+    :data:`PATHS_X` of the layers' noise floor."""
+    return (paths["max_rel_layer_diff"]
+            <= PATHS_X * paths["noise_floor"]["max_rel_layer_diff"])
 
 
 @torch.inference_mode()

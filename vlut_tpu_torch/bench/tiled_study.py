@@ -129,7 +129,8 @@ def compile_variants(dirs: dict[str, pathlib.Path],
     loads the libraries."""
     lib = pathlib.Path(source).stem + ".so"
     procs = {v: subprocess.Popen(
-        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(d), "-o",
+        [_build.nvcc_path(), *_build.NVCC_FLAGS,
+         *_build.SOURCE_FLAGS.get(source, ()), "-I", str(d), "-o",
          str(d / lib), str(d / source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for v, d in dirs.items()}

@@ -28,6 +28,10 @@ The presets' serving runs are ``python -m vlut_tpu_torch.bench.engine
 --model qwen3_4b`` (or ``gemma2_2b``, or ``mixtral_8x7b``: Mixtral-8x7B's
 widths, the MoE model of ``chip_smoke.py`` phase 20, or
 ``deepseek_v2_lite``: DeepSeek-V2-Lite's, the MLA model of phase 21).
+:data:`FALCON_7B` is tiiuae/falcon-7b's published ``config.json``, typed
+here; :func:`hf_model` turns it into a config by the port's
+``config_from_hf`` and random packed weights (phase 19's multi-query
+cell: 71 query heads over one KV head).
 """
 
 from __future__ import annotations
@@ -50,6 +54,22 @@ from vlut_tpu_torch.models.dims import make_plan
 from vlut_tpu_torch.ops import decode_attention as dattn
 from vlut_tpu_torch.ops import matmul as mm
 from vlut_tpu_torch.ops import norm as nrm
+
+# huggingface.co/tiiuae/falcon-7b config.json: hidden 4544, 32 layers, 71
+# heads of 64 over one KV head (multi_query), parallel attention and MLP,
+# no biases, rope, vocabulary 65024 (the MLP 4 x 4544 and the exact gelu
+# are the converter's falcon defaults, as HF's FalconConfig has them)
+FALCON_7B = {
+    "alibi": False, "apply_residual_connection_post_layernorm": False,
+    "architectures": ["FalconForCausalLM"], "attention_dropout": 0.0,
+    "bias": False, "bos_token_id": 11, "eos_token_id": 11,
+    "hidden_dropout": 0.0, "hidden_size": 4544, "initializer_range": 0.02,
+    "layer_norm_epsilon": 1e-05, "model_type": "falcon",
+    "multi_query": True, "new_decoder_architecture": False,
+    "num_attention_heads": 71, "num_hidden_layers": 32,
+    "parallel_attn": True, "torch_dtype": "bfloat16", "use_cache": True,
+    "vocab_size": 65024,
+}
 
 BASE = ModelConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=2,
                    n_kv_heads=1, d_ff=512, head_dim=128, max_seq_len=256)
@@ -271,6 +291,33 @@ def family_tree(cfg: ModelConfig, seed: int = 0) -> dict:
     return tree
 
 
+def hf_config(raw: dict) -> ModelConfig:
+    """The port's ``config_from_hf`` of an HF ``config.json`` given as a
+    dict (written to a scratch directory under the checkout's build/)."""
+    import pathlib
+    import tempfile
+
+    from vlut_tpu_torch.convert.convert import config_from_hf
+    from vlut_tpu_torch.ops._build import BUILD_DIR
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as d:
+        (pathlib.Path(d) / "config.json").write_text(json.dumps(raw))
+        return config_from_hf(pathlib.Path(d))
+
+
+def hf_model(raw: dict, device, seed: int = 0):
+    """(cfg, serving model) of an HF ``config.json`` given as a dict:
+    :func:`hf_config`, random packed weights from ``seed`` made on
+    ``device`` (int8 head unless tied), fused where the gates let,
+    unrolled."""
+    cfg = hf_config(raw)
+    model = tt.init_params_fast(cfg, seed=seed, device=device)
+    model = tt.unstack_layers(tt.fuse_projections(tt.quantize_head(model),
+                                                  cfg), cfg)
+    return cfg, model
+
+
 def serving_model(cfg: ModelConfig, tree: dict, device) -> tt.TransformerLM:
     """The serving tree (fused where the gates let, unrolled) on ``device``."""
     model = tt.TransformerLM(cfg, tt._tree_to(tree, device))
@@ -307,12 +354,12 @@ def expected_kernels(cfg: ModelConfig, model: tt.TransformerLM,
         if not lp.has_attn:
             continue
         cl = tt.layer_config(cfg, i)
+        hd_p = make_plan(cl).hd_p  # K and V heads padded alike
         attn = (decode_attn == "fused" and not lp.mla
                 and cfg.pos_embed != "alibi"
                 and not cfg.attn_sinks and not cfg.attn_logit_softcap
                 and cfg.swa_type != "chunked"
-                and dattn.supports(cl.n_heads, cl.n_kv_heads,
-                                   make_plan(cl).hd_p))
+                and dattn.supports(cl.n_heads, cl.n_kv_heads, hd_p, hd_p))
         found.add("decode_attention" if attn else "write_rows_pair")
     order = ("ternary_gemm_tiled", "ternary_gemm_decode",
              "ternary_gemm_fused_quant", "decode_attention",

@@ -16,61 +16,77 @@
 //     cache-dtype value (bf16-rounded, or quantized then dequantized), in
 //     float32 as the JAX kernel does at Precision.HIGHEST.
 //
+// Shapes: any group size G = H / Hkv >= 1, a K head width hd and a V head
+// width hdv each of 128, 256, 384 or 512, in any pair (the Pallas kernels'
+// domain at the 128-lane widths the port pads heads to).  The output is
+// (B, H, hdv).
+//
 // Rows at or past start are never visible, so the order of the write and
 // the reads does not matter.
 //
 // Bound: bytes.  A call must read the visible K and V rows once (rows x
-// Hkv x hd x 2 bytes x 2 in bf16, half that plus 8 bytes of scales per row
-// and head in int8), against 4 flops per element and query head; at the
-// flagship (B 32, Hkv 8, H 32, hd 128, 31,424 rows) that is 129 MB (0.039
-// ms at 3.35 TB/s) against 0.5 GFLOP of float32 (0.008 ms at 67 TFLOP/s).
-// So the design has to keep copies in flight and spend few instructions
-// and little shared-memory traffic per cache byte.
+// Hkv x (hd + hdv) x 2 bytes in bf16, half that plus 8 bytes of scales per
+// row and head in int8), against 2 (hd + hdv) flops per row and query
+// head; at the flagship (B 32, Hkv 8, H 32, hd 128, 31,424 rows) that is
+// 129 MB (0.039 ms at 3.35 TB/s) against 0.5 GFLOP of float32 (0.008 ms
+// at 67 TFLOP/s).  So the design has to keep copies in flight and spend
+// few instructions and little shared-memory traffic per cache byte.
 //
-// Design: one launch, one block of four warps per (slot, KV head, split of
-// `rows` cache rows; ops/decode_attention.py:attn_plan picks `rows`: the
-// most that leave at least half a wave of blocks).  A split past the
-// slot's visible rows exits at once.
-//   * Copies: the block's first thread copies the slot's q rows of its KV
-//     head and the new K and V rows into shared memory by three 1-D bulk
-//     copies on one mbarrier (they are read for the q fragments and for the
-//     new token's term).  The cache comes in stages of 16 rows.  The warps
-//     form teams (one warp, or two or four where one warp's accumulators
-//     would not fit); team i takes the block's stages i, i + teams, ...
-//     Lane 0 of a team keeps its 2-4 stages in flight: K and V as 2-D TMA
-//     boxes of 16 rows x 128 bytes in the 128-byte swizzle over the cache
-//     seen as (B*S rows, Hkv*hd), on one mbarrier per stage; in int8 the
-//     team's first warp also copies the stage's 16 K and 16 V scales
-//     (cp.async, counted on the same mbarrier).  Rows of a stage past the
-//     split's end (the next split's or slot's, a stale row, the scratch
-//     row) are loaded but get p = 0.
+// Design: one launch, one block of four warps per (slot, KV head, head
+// group, split of `rows` cache rows; ops/decode_attention.py:attn_plan
+// picks `rows`: the most that leave at least half a wave of blocks, and
+// head_groups the groups).  A block holds at most 4 x 512 / max(hd, hdv)
+// query heads (16 at 128): a KV head's G heads are dealt into the fewest
+// groups of at most that many, of equal size but the last.  The kernel is
+// instantiated per m-tile count MT = ceil(group / 4), not per G: the rows
+// of the last m-tile past the group's heads are zero and never stored.
+// Each group re-reads its KV head's rows (from L2 when the groups run
+// together).  A split past the slot's visible rows exits at once.
+//   * Copies: the block's first thread copies the group's q rows and the
+//     new K and V rows into shared memory by three 1-D bulk copies on one
+//     mbarrier (they are read for the q fragments and for the new token's
+//     term).  The cache comes in stages of 16 rows.  The warps form teams
+//     (one warp, or two or four where one warp's accumulators would not
+//     fit); team i takes the block's stages i, i + teams, ...  Lane 0 of a
+//     team keeps its 2-4 stages in flight: K and V as 2-D TMA boxes of 16
+//     rows x 128 bytes in the 128-byte swizzle over the caches seen as
+//     (B*S rows, Hkv*hd) and (B*S rows, Hkv*hdv), on one mbarrier per
+//     stage; in int8 the team's first warp also copies the stage's 16 K
+//     and 16 V scales (cp.async, counted on the same mbarrier).  Rows of a
+//     stage past the split's end (the next split's or slot's, a stale row,
+//     the scratch row) are loaded but get p = 0.
 //   * Products on the tensor cores, mma.sync m16n8k16 bf16 -> float32.  q
 //     (times the softmax scale) and p are float32; each enters as three
 //     bf16 terms hi + mid + lo, which equal it exactly, so the products
 //     are those of float32 operands.  The terms sit in the rows of the A
 //     operand: row 4t + j holds term t of query head j (four heads per
-//     m-tile, two m-tiles at G 8), so lane l < 16 holds the hi and lo
-//     terms of head (l / 4) % 4 and lane l + 16 its mid term; a score is
-//     the sum of its lane's two rows and the partner lane's one (one
-//     shuffle).  K is read by ldmatrix and V by ldmatrix.trans; the score
-//     product's C fragment becomes the value product's A fragment in
-//     registers (as in FlashAttention-2), where p is split.  bf16 cache
-//     values are exact as B; int8 codes are too: each lane converts the
-//     codes its ldmatrix returned, once per block, and the K scale is
-//     applied to the score after the product, the V scale folded into p
-//     before its split.  In int8 a lane's ldmatrix word holds four codes of
-//     one K row (k = 4t..4t+3 of a 16-wide step, taken as k = 2t, 2t+1,
-//     2t+8, 2t+9 with q laid out to match) and two codes of two V rows (an
-//     even and an odd output column: the value product's columns are d and
-//     d + 1 of each 16-wide step in two n-tiles).
+//     m-tile), so lane l < 16 holds the hi and lo terms of head (l / 4) %
+//     4 and lane l + 16 its mid term; a score is the sum of its lane's two
+//     rows and the partner lane's one (one shuffle).  K is read by
+//     ldmatrix and V by ldmatrix.trans; the score product's C fragment
+//     becomes the value product's A fragment in registers (as in
+//     FlashAttention-2), where p is split.  bf16 cache values are exact as
+//     B; int8 codes are too: each lane converts the codes its ldmatrix
+//     returned, once per block, and the K scale is applied to the score
+//     after the product, the V scale folded into p before its split.  In
+//     int8 a lane's ldmatrix word holds four codes of one K row (k =
+//     4t..4t+3 of a 16-wide step, taken as k = 2t, 2t+1, 2t+8, 2t+9 with q
+//     laid out to match) and two codes of two V rows (an even and an odd
+//     output column: the value product's columns are d and d + 1 of each
+//     16-wide step in two n-tiles).  A team's warps split the hdv value
+//     columns; every warp of a team computes the whole score.
 //   * Online softmax in float32 per stage and head; a lane keeps its own
 //     partial denominator.  At the end the teams' states meet in shared
-//     memory in team order.  A (slot, KV head) with one split finishes in
-//     its block; with more, every block stores its state, and the last to
-//     arrive (elected by an acquire-release add on a counter per (slot, KV
-//     head), which it resets) merges them in split order, adds the new
-//     token, writes the output and the new cache row.  No float atomics: a
-//     result does not depend on which block arrives last.
+//     memory in team order.  A (slot, KV head, group) with one split
+//     finishes in its block; with more, every block stores its state, and
+//     the last to arrive (elected by an acquire-release add on a counter
+//     per (slot, KV head, group), which it resets) merges them in split
+//     order, adds the new token and writes the output.  Each group computes
+//     the new row's cache value for its own term (in int8 the same
+//     quantization); the finishing block of group 0 writes it.  No float
+//     atomics: a result does not depend on which block arrives last, and a
+//     head's arithmetic does not depend on G (only on the m-tile count and
+//     hdv, which set the teams).
 //
 // On the H100 the bf16 call streams within a few percent of its copies
 // alone; the int8 call is bound by its arithmetic and per-block latency
@@ -93,33 +109,49 @@ constexpr int kRingBytes = 65536;  // a block's stages: three blocks per SM
 constexpr float kNeg = -1e30f;
 constexpr float kRecip127 = 1.0f / 127.0f;  // the float32 reciprocal
 
-template <int HD, int G, bool Q8>
+// The heads one block holds: 4 x 512 / max(hd, hdv), so that q's
+// fragments and a team's accumulators stay within their budgets.
+constexpr int kMaxHeadWidth = 512;
+
+template <int HD, int HDV, int MT, bool Q8>
 struct Cfg {
   using T = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
-  static constexpr int MT = (G + 3) / 4;        // m-tiles of query heads
-  static constexpr int CG = MT * HD / 128;      // warps per team
+  static constexpr int GH = 4 * MT;             // head rows of the m-tiles
+  static constexpr int VW = MT * HDV / 128;     // warps the values need
+  static constexpr int CG = VW <= 1 ? 1 : (VW <= 2 ? 2 : 4);  // per team
   static constexpr int NT = kWarps / CG;        // teams
-  static constexpr int NCOL = HD / CG;          // value columns per warp
+  static constexpr int NCOL = HDV / CG;         // value columns per warp
   static constexpr int NTW = NCOL / 8;          // value n-tiles per warp
   static constexpr int KS = HD / 16;            // k-steps of a score
-  static constexpr int EPL = HD / 32;           // elements per lane
-  static constexpr int ROW = HD * static_cast<int>(sizeof(T));
-  static constexpr int NBOX = ROW / 128;        // boxes per K (V) stage
-  static constexpr int SB = 2 * NBOX * kBox;    // bytes of one stage
+  static constexpr int EPL = HD / 32;           // q and K elements per lane
+  static constexpr int EPLV = HDV / 32;         // V and output elements
+  static constexpr int ROWK = HD * static_cast<int>(sizeof(T));
+  static constexpr int ROWV = HDV * static_cast<int>(sizeof(T));
+  static constexpr int NBOXK = ROWK / 128;      // boxes per K stage
+  static constexpr int NBOXV = ROWV / 128;      // boxes per V stage
+  static constexpr int SB = (NBOXK + NBOXV) * kBox;  // bytes of one stage
   static constexpr int D0 = kRingBytes / (NT * SB);
   static constexpr int D = D0 < 2 ? 2 : (D0 > 4 ? 4 : D0);  // stages/team
   static constexpr int SLOTS = NT * D;
   static constexpr bool QREG = MT * HD <= 128;  // q's fragments in registers
-  static constexpr int STATE = HD + 2;          // m, l, numerator
+  static constexpr int STATE = HDV + 2;         // m, l, numerator
   static constexpr int RING = SLOTS * SB;
   static constexpr int SCALES = RING;           // Q8: [SLOTS][32] floats
   static constexpr int QFRAG = SCALES + (Q8 ? SLOTS * 128 : 0);
   static constexpr int BARS = QFRAG + (QREG ? 0 : MT * KS * 32 * 16);
-  static constexpr int FLAG = BARS + (SLOTS + 2) * 8;  // after the bars
-  static constexpr int FIN = FLAG + 16;  // q rows, new K and V rows (as given)
-  static constexpr int SMEM = FIN + (G + 2) * HD * 4 + 1024;  // + slack
-  static_assert(NT * G * STATE * 4 <= RING, "team states fit the ring");
-  static_assert(NTW * MT * 4 == 64, "64 accumulators per lane");
+  // after the bars, 16-byte aligned (the bulk copies into `fin`)
+  static constexpr int FLAG = BARS + ((SLOTS + 2) * 8 + 15) / 16 * 16;
+  // the group's q rows (room for GH float32 rows), then the new K and V
+  // rows, as given
+  static constexpr int FIN = FLAG + 16;
+  static constexpr int KNEW = GH * HD * 4;      // the new K row in `fin`
+  static constexpr int VNEW = KNEW + HD * 4;    // the new V row
+  static constexpr int SMEM = FIN + VNEW + HDV * 4 + 1024;  // + slack
+  static_assert(MT * (HD > HDV ? HD : HDV) <= kMaxHeadWidth,
+                "the heads a block holds");
+  static_assert(NT * GH * STATE * 4 <= RING, "team states fit the ring");
+  static_assert(NTW * MT * 4 <= 64, "at most 64 accumulators per lane");
+  static_assert(NCOL % (Q8 ? 32 : 16) == 0, "whole ldmatrix column blocks");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -327,19 +359,20 @@ __device__ __forceinline__ uint32_t swz(uint32_t base, int row, int byte) {
 
 struct Params {
   const void* q;       // (B, H, hd) rows q_ld elements apart, bf16 or f32
-  const void* k_new;   // (B, Hkv, hd) rows k_ld (v_ld) elements apart
-  const void* v_new;
-  void* kc;            // (B, S, Hkv, hd) caches
+  const void* k_new;   // (B, Hkv, hd) rows k_ld elements apart
+  const void* v_new;   // (B, Hkv, hdv) rows v_ld elements apart
+  void* kc;            // (B, S, Hkv, hd) and (B, S, Hkv, hdv) caches
   void* vc;
   float* ksc;          // (B, S, Hkv) scales, int8 form
   float* vsc;
   const void* start;   // (B,) int32 or int64
   float* part;         // the splits' states
-  int* counters;       // (B * Hkv,) zero between calls
-  float* out;          // (B, H, hd) float32
+  int* counters;       // (B * Hkv * groups,) zero between calls
+  float* out;          // (B, H, hdv) float32
   long q_ld, k_ld, v_ld;
   int q_bf16, new_bf16, start_i64;
   int s, hkv, window, rows, nsplit;
+  int g, gh, groups;   // heads per KV head, per group; groups per KV head
   float scale;
 };
 
@@ -366,13 +399,14 @@ __device__ __forceinline__ void merge_states(const float* src, int n,
   }
 }
 
-// The new row of (b, kvh) as the cache stores it: its values as float32
-// (the lane's EPL elements), written into cache row `row` when `write`.
-template <int HD, bool Q8>
+// The new row of (b, kvh), W wide, as the cache stores it: its values as
+// float32 (the lane's W / 32 elements), written into cache row `row` when
+// `write`.
+template <int W, bool Q8>
 __device__ __forceinline__ void new_row(const void* src, bool src_bf16,
                                         void* dst_row, float* dst_scale,
                                         bool write, int lane, float* vals) {
-  constexpr int EPL = HD / 32;
+  constexpr int EPL = W / 32;
   float x[EPL];
 #pragma unroll
   for (int e = 0; e < EPL; ++e) x[e] = load_f(src, lane * EPL + e, src_bf16);
@@ -402,28 +436,30 @@ __device__ __forceinline__ void new_row(const void* src, bool src_bf16,
   }
 }
 
-// Head j of (b, kvh) from its merged state: the new token's term, the
-// output, and (warp 0 of the finishing block, when start is in range) the
-// new cache rows.  `fin` holds the G q rows, then the new K and V rows, as
-// the caller gave them (bf16 or float32).
-template <int HD, int G, bool Q8>
+// Head j of the group (query head `head` of slot b, over KV head kvh) from
+// its merged state: the new token's term, the output, and (when `writer`
+// and start is in range) the new cache rows.  `fin` holds the group's q
+// rows, then the new K and V rows, as the caller gave them (bf16 or
+// float32).
+template <int HD, int HDV, int MT, bool Q8>
 __device__ __forceinline__ void finish(const Params& p, const uint8_t* fin,
-                                       int b, int kvh, int j, int st,
-                                       bool writer, int lane, float M, float L,
-                                       const float (&acc)[HD / 32]) {
-  constexpr int EPL = HD / 32;
-  const int h = p.hkv * G;
+                                       int b, int kvh, int head, int j,
+                                       int st, bool writer, int lane, float M,
+                                       float L, const float (&acc)[HDV / 32]) {
+  using C = Cfg<HD, HDV, MT, Q8>;
+  constexpr int EPL = C::EPL, EPLV = C::EPLV;
+  const int h = p.hkv * p.g;
   const bool write = writer && st >= 0 && st < p.s;
   const long row =
       (static_cast<long>(b) * p.s + (write ? st : 0)) * p.hkv + kvh;
-  const uint8_t* kn_src = fin + G * HD * (p.q_bf16 ? 2 : 4);
-  const uint8_t* vn_src = kn_src + HD * (p.new_bf16 ? 2 : 4);
   const size_t esz = Q8 ? 1 : 2;
-  float kn[EPL], vn[EPL];
-  new_row<HD, Q8>(kn_src, p.new_bf16, static_cast<char*>(p.kc) + row * HD * esz,
+  float kn[EPL], vn[EPLV];
+  new_row<HD, Q8>(fin + C::KNEW, p.new_bf16,
+                  static_cast<char*>(p.kc) + row * HD * esz,
                   p.ksc + (Q8 ? row : 0), write, lane, kn);
-  new_row<HD, Q8>(vn_src, p.new_bf16, static_cast<char*>(p.vc) + row * HD * esz,
-                  p.vsc + (Q8 ? row : 0), write, lane, vn);
+  new_row<HDV, Q8>(fin + C::VNEW, p.new_bf16,
+                   static_cast<char*>(p.vc) + row * HDV * esz,
+                   p.vsc + (Q8 ? row : 0), write, lane, vn);
   float d = 0.0f;
 #pragma unroll
   for (int e = 0; e < EPL; ++e)
@@ -434,19 +470,19 @@ __device__ __forceinline__ void finish(const Params& p, const uint8_t* fin,
   const float alpha = expf(M - m_new);
   const float pn = expf(sn - m_new);
   const float l_new = L * alpha + pn;
-  float* o = p.out + (static_cast<long>(b) * h + kvh * G + j) * HD + lane * EPL;
+  float* o = p.out + (static_cast<long>(b) * h + head) * HDV + lane * EPLV;
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) o[e] = (acc[e] * alpha + pn * vn[e]) / l_new;
+  for (int e = 0; e < EPLV; ++e) o[e] = (acc[e] * alpha + pn * vn[e]) / l_new;
 }
 
-template <int HD, int G, bool Q8>
+template <int HD, int HDV, int MT, bool Q8>
 __global__ void __launch_bounds__(kThreads)
     decode_attn_kernel(const __grid_constant__ CUtensorMap tmk,
                        const __grid_constant__ CUtensorMap tmv,
                        const Params p) {
-  using C = Cfg<HD, G, Q8>;
-  constexpr int MT = C::MT, CG = C::CG, NT = C::NT, D = C::D, KS = C::KS;
-  constexpr int NTW = C::NTW, EPL = C::EPL;
+  using C = Cfg<HD, HDV, MT, Q8>;
+  constexpr int CG = C::CG, NT = C::NT, D = C::D, KS = C::KS, GH = C::GH;
+  constexpr int NTW = C::NTW, EPLV = C::EPLV;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1,024 bytes of the shared window
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -455,8 +491,12 @@ __global__ void __launch_bounds__(kThreads)
   int* flag = reinterpret_cast<int*>(smem + C::FLAG);
   const uint8_t* fin = smem + C::FIN;
 
-  const int pair = blockIdx.x, sp = blockIdx.y;
+  // block (slot b, KV head kvh, head group grp) x split sp
+  const int unit = blockIdx.x, sp = blockIdx.y;
+  const int grp = unit % p.groups, pair = unit / p.groups;
   const int b = pair / p.hkv, kvh = pair % p.hkv;
+  const int h0 = kvh * p.g + grp * p.gh;        // the group's first head
+  const int gc = min(p.gh, p.g - grp * p.gh);   // and its heads
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int st = p.start_i64
                      ? static_cast<int>(static_cast<const int64_t*>(p.start)[b])
@@ -474,7 +514,7 @@ __global__ void __launch_bounds__(kThreads)
   const int g = lane >> 2, t = lane & 3;
   const bool upper = lane >= 16;
   const long grow = static_cast<long>(b) * p.s;  // the slot's first row
-  const int col = kvh * C::ROW;                  // the head's first byte
+  const int colk = kvh * C::ROWK, colv = kvh * C::ROWV;  // the head's bytes
 
   if (tid == 0) {
     for (int i = 0; i < C::SLOTS; ++i) mbar_init(&bars[i], Q8 ? 33 : 1);
@@ -483,23 +523,26 @@ __global__ void __launch_bounds__(kThreads)
     prefetch_tensormap(&tmv);
   }
   __syncthreads();
-  // the slot's q rows of this KV head and its new K and V rows, by the TMA
-  // unit, for the score product's A fragments and the new token's term
+  // the group's q rows and the slot's new K and V rows of this KV head,
+  // by the TMA unit, for the score product's A fragments and the new
+  // token's term (only the group's own q rows: the last slot's q is never
+  // read past its end)
   if (tid == 0) {
     const int qb = p.q_bf16 ? 2 : 4, nb = p.new_bf16 ? 2 : 4;
-    mbar_arrive_expect(fbar, (G * qb + 2 * nb) * HD);
+    mbar_arrive_expect(fbar, gc * HD * qb + (HD + HDV) * nb);
     const uint32_t dst = smem_addr(fin);
     bulk_load(dst, static_cast<const char*>(p.q) +
-                       (static_cast<long>(b) * p.q_ld + kvh * G * HD) * qb,
-              G * HD * qb, fbar);
-    bulk_load(dst + G * HD * qb,
+                       (static_cast<long>(b) * p.q_ld +
+                        static_cast<long>(h0) * HD) * qb,
+              gc * HD * qb, fbar);
+    bulk_load(dst + C::KNEW,
               static_cast<const char*>(p.k_new) +
                   (static_cast<long>(b) * p.k_ld + kvh * HD) * nb,
               HD * nb, fbar);
-    bulk_load(dst + G * HD * qb + HD * nb,
+    bulk_load(dst + C::VNEW,
               static_cast<const char*>(p.v_new) +
-                  (static_cast<long>(b) * p.v_ld + kvh * HD) * nb,
-              HD * nb, fbar);
+                  (static_cast<long>(b) * p.v_ld + kvh * HDV) * nb,
+              HDV * nb, fbar);
   }
 
   // chunk i of this team into its slot (lane 0: the boxes; in int8 every
@@ -512,12 +555,13 @@ __global__ void __launch_bounds__(kThreads)
       mbar_arrive_expect(bar, C::SB);
       const uint32_t dst = smem_addr(smem + slot * C::SB);
 #pragma unroll
-      for (int x = 0; x < C::NBOX; ++x) {
-        tma_load_2d(dst + x * kBox, &tmk, col + 128 * x,
+      for (int x = 0; x < C::NBOXK; ++x)
+        tma_load_2d(dst + x * kBox, &tmk, colk + 128 * x,
                     static_cast<int>(grow + rb), bar);
-        tma_load_2d(dst + (C::NBOX + x) * kBox, &tmv, col + 128 * x,
+#pragma unroll
+      for (int x = 0; x < C::NBOXV; ++x)
+        tma_load_2d(dst + (C::NBOXK + x) * kBox, &tmv, colv + 128 * x,
                     static_cast<int>(grow + rb), bar);
-      }
     }
     if constexpr (Q8) {
       const int r = rb + (lane & 15);
@@ -541,7 +585,7 @@ __global__ void __launch_bounds__(kThreads)
   {
     auto qfrag = [&](int mt, int ks, uint32_t (&a)[4]) {
       const int j = 4 * mt + (g & 3);
-      if (j >= G) {
+      if (j >= gc) {
         a[0] = a[1] = a[2] = a[3] = 0u;
         return;
       }
@@ -603,7 +647,7 @@ __global__ void __launch_bounds__(kThreads)
     const int rb = r0 + (team + i * NT) * kChunk;
     mbar_wait(&bars[slot], (i / D) & 1);
     const uint32_t kb = smem_addr(smem + slot * C::SB);
-    const uint32_t vb = kb + C::NBOX * kBox;
+    const uint32_t vb = kb + C::NBOXK * kBox;
     const float* scl =
         reinterpret_cast<const float*>(smem + C::SCALES + slot * 128);
 
@@ -744,14 +788,14 @@ __global__ void __launch_bounds__(kThreads)
 
   // the teams' states meet in shared memory (the ring is free now)
   __syncthreads();
-  float* tst = reinterpret_cast<float*>(smem);  // [NT][G][STATE]
+  float* tst = reinterpret_cast<float*>(smem);  // [NT][GH][STATE]
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const int j = 4 * mt + (g & 3);
     float lt = l[mt] + __shfl_xor_sync(0xffffffffu, l[mt], 1);
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    float* dst = tst + (team * G + j) * C::STATE;
-    const bool mine = !upper && j < G;
+    float* dst = tst + (team * GH + j) * C::STATE;
+    const bool mine = !upper && j < gc;
 #pragma unroll
     for (int n = 0; n < NTW; ++n) {
 #pragma unroll
@@ -776,18 +820,20 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   const bool alone = n_act <= 1;
-  float M, L, o[EPL];
-  for (int j = warp; j < G; j += kWarps) {
-    merge_states<EPL, false>(tst + j * C::STATE, NT, G * C::STATE, lane, M,
-                             L, o);
+  const bool writer = warp == 0 && grp == 0;  // group 0 writes the new rows
+  float M, L, o[EPLV];
+  for (int j = warp; j < gc; j += kWarps) {
+    merge_states<EPLV, false>(tst + j * C::STATE, NT, GH * C::STATE, lane, M,
+                              L, o);
     if (alone) {
-      finish<HD, G, Q8>(p, fin, b, kvh, j, st, warp == 0, lane, M, L, o);
+      finish<HD, HDV, MT, Q8>(p, fin, b, kvh, h0 + j, j, st, writer, lane, M,
+                              L, o);
     } else {
       float* dst =
           p.part +
-          ((static_cast<long>(pair) * p.nsplit + sp) * G + j) * C::STATE;
+          ((static_cast<long>(unit) * p.nsplit + sp) * p.gh + j) * C::STATE;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) dst[2 + lane * EPL + e] = o[e];
+      for (int e = 0; e < EPLV; ++e) dst[2 + lane * EPLV + e] = o[e];
       if (lane == 0) {
         dst[0] = M;
         dst[1] = L;
@@ -796,18 +842,21 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (alone) return;
 
-  // the last block of the (slot, KV head) to arrive merges the splits
+  // the last block of the (slot, KV head, group) to arrive merges the
+  // splits
   __syncthreads();
-  if (tid == 0) *flag = arrive(&p.counters[pair]) == n_act - 1;
+  if (tid == 0) *flag = arrive(&p.counters[unit]) == n_act - 1;
   __syncthreads();
   if (!*flag) return;
-  const float* src = p.part + static_cast<long>(pair) * p.nsplit * G * C::STATE;
-  for (int j = warp; j < G; j += kWarps) {
-    merge_states<EPL, true>(src + j * C::STATE, n_act, G * C::STATE, lane, M,
+  const float* src =
+      p.part + static_cast<long>(unit) * p.nsplit * p.gh * C::STATE;
+  for (int j = warp; j < gc; j += kWarps) {
+    merge_states<EPLV, true>(src + j * C::STATE, n_act, p.gh * C::STATE, lane,
+                             M, L, o);
+    finish<HD, HDV, MT, Q8>(p, fin, b, kvh, h0 + j, j, st, writer, lane, M,
                             L, o);
-    finish<HD, G, Q8>(p, fin, b, kvh, j, st, warp == 0, lane, M, L, o);
   }
-  if (tid == 0) p.counters[pair] = 0;
+  if (tid == 0) p.counters[unit] = 0;
 }
 
 // cuTensorMapEncodeTiled, looked up once through the runtime (the library
@@ -853,31 +902,58 @@ bool encode_map(CUtensorMap* map, const void* base, long inner, long rows) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, int G, bool Q8>
+template <int HD, int HDV, int MT, bool Q8>
 int launch(const Params& p, int b, cudaStream_t stream) {
-  using C = Cfg<HD, G, Q8>;
+  using C = Cfg<HD, HDV, MT, Q8>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_attn_kernel<HD, G, Q8>,
+      decode_attn_kernel<HD, HDV, MT, Q8>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const long inner = static_cast<long>(p.hkv) * C::ROW;
   const long rows = static_cast<long>(b) * p.s;
   CUtensorMap tmk, tmv;
-  if (!encode_map(&tmk, p.kc, inner, rows) ||
-      !encode_map(&tmv, p.vc, inner, rows))
+  if (!encode_map(&tmk, p.kc, static_cast<long>(p.hkv) * C::ROWK, rows) ||
+      !encode_map(&tmv, p.vc, static_cast<long>(p.hkv) * C::ROWV, rows))
     return static_cast<int>(cudaErrorNotSupported);
-  decode_attn_kernel<HD, G, Q8>
-      <<<dim3(b * p.hkv, p.nsplit), kThreads, C::SMEM, stream>>>(tmk, tmv, p);
+  decode_attn_kernel<HD, HDV, MT, Q8>
+      <<<dim3(b * p.hkv * p.groups, p.nsplit), kThreads, C::SMEM, stream>>>(
+          tmk, tmv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instance of `mt` m-tiles: 1 to 512 / max(hd, hdv) of them.
+template <int HD, int HDV, bool Q8>
+int launch_mt(int mt, const Params& p, int b, cudaStream_t stream) {
+  constexpr int most = kMaxHeadWidth / (HD > HDV ? HD : HDV);
+  if (mt == 1) return launch<HD, HDV, 1, Q8>(p, b, stream);
+  if constexpr (most >= 2) {
+    if (mt == 2) return launch<HD, HDV, 2, Q8>(p, b, stream);
+  }
+  if constexpr (most >= 4) {
+    if (mt == 3) return launch<HD, HDV, 3, Q8>(p, b, stream);
+    if (mt == 4) return launch<HD, HDV, 4, Q8>(p, b, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <int HD, bool Q8>
-int launch_g(int g, const Params& p, int b, cudaStream_t stream) {
-  switch (g) {
-    case 1: return launch<HD, 1, Q8>(p, b, stream);
-    case 2: return launch<HD, 2, Q8>(p, b, stream);
-    case 4: return launch<HD, 4, Q8>(p, b, stream);
-    case 8: return launch<HD, 8, Q8>(p, b, stream);
+int launch_hdv(int hdv, int mt, const Params& p, int b, cudaStream_t stream) {
+  switch (hdv) {
+    case 128: return launch_mt<HD, 128, Q8>(mt, p, b, stream);
+    case 256: return launch_mt<HD, 256, Q8>(mt, p, b, stream);
+    case 384: return launch_mt<HD, 384, Q8>(mt, p, b, stream);
+    case 512: return launch_mt<HD, 512, Q8>(mt, p, b, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool Q8>
+int launch_hd(int hd, int hdv, int mt, const Params& p, int b,
+              cudaStream_t stream) {
+  switch (hd) {
+    case 128: return launch_hdv<128, Q8>(hdv, mt, p, b, stream);
+    case 256: return launch_hdv<256, Q8>(hdv, mt, p, b, stream);
+    case 384: return launch_hdv<384, Q8>(hdv, mt, p, b, stream);
+    case 512: return launch_hdv<512, Q8>(hdv, mt, p, b, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -887,43 +963,39 @@ int launch_g(int g, const Params& p, int b, cudaStream_t stream) {
 extern "C" {
 
 // One call of #7 (quantized == 0) or #8.  q: (b, h, hd) rows q_ld elements
-// apart, bf16 (q_bf16) or float32; k_new/v_new: (b, hkv, hd) rows k_ld /
-// v_ld elements apart, bf16 (new_bf16) or float32 (each slot's rows
-// 16-byte aligned: they are copied whole); kc/vc: (b, s, hkv, hd) bf16
-// or int8 caches, updated in place, 16-byte aligned; ksc/vsc: (b, s, hkv)
-// float32 scales (int8 form only, else null); start: (b,) int32 or int64
-// (start_i64); rows: cache rows per block, a multiple of 16, and nsplit >=
-// ceil(visible rows / rows) for every slot; part: b * hkv * nsplit * h /
-// hkv * (hd + 2) floats; counters: b * hkv ints, zero (and zero again
-// after the call); out: (b, h, hd) float32.  hd must be 128 or 256 and h /
-// hkv one of 1, 2, 4, 8.
+// apart, bf16 (q_bf16) or float32; k_new: (b, hkv, hd) and v_new: (b, hkv,
+// hdv) rows k_ld / v_ld elements apart, bf16 (new_bf16) or float32 (each
+// slot's rows 16-byte aligned: they are copied whole); kc: (b, s, hkv, hd)
+// and vc: (b, s, hkv, hdv) bf16 or int8 caches, updated in place, 16-byte
+// aligned; ksc/vsc: (b, s, hkv) float32 scales (int8 form only, else
+// null); start: (b,) int32 or int64 (start_i64); hd and hdv each 128, 256,
+// 384 or 512; heads: query heads per block (a KV head's h / hkv heads in
+// groups = ceil(h / hkv / heads) blocks), at most 4 x 512 / max(hd, hdv);
+// rows: cache rows per block, a multiple of 16, and nsplit >= ceil(visible
+// rows / rows) for every slot; part: b * hkv * groups * nsplit * heads *
+// (hdv + 2) floats; counters: b * hkv * groups ints, zero (and zero again
+// after the call); out: (b, h, hdv) float32.
 int vlut_decode_attn(const void* q, long q_ld, int q_bf16, const void* k_new,
                      long k_ld, const void* v_new, long v_ld, int new_bf16,
-                     void* kc,
-                     void* vc, void* ksc, void* vsc, const void* start,
-                     int start_i64, int b, int s, int h, int hkv, int hd,
-                     int window, float scale, int quantized, int rows,
-                     int nsplit, void* part, void* counters, void* out,
-                     void* stream) {
-  if (b <= 0 || s <= 0 || hkv <= 0 || h % hkv != 0 || rows <= 0 ||
-      rows % kChunk != 0 || nsplit <= 0)
+                     void* kc, void* vc, void* ksc, void* vsc,
+                     const void* start, int start_i64, int b, int s, int h,
+                     int hkv, int hd, int hdv, int heads, int window,
+                     float scale, int quantized, int rows, int nsplit,
+                     void* part, void* counters, void* out, void* stream) {
+  if (b <= 0 || s <= 0 || hkv <= 0 || h <= 0 || h % hkv != 0 || rows <= 0 ||
+      rows % kChunk != 0 || nsplit <= 0 || heads <= 0 || heads > h / hkv ||
+      (hd > hdv ? hd : hdv) * ((heads + 3) / 4) > kMaxHeadWidth)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int g = h / hkv;
   Params p{q, k_new, v_new, kc, vc, static_cast<float*>(ksc),
            static_cast<float*>(vsc), start, static_cast<float*>(part),
            static_cast<int*>(counters), static_cast<float*>(out), q_ld, k_ld,
            v_ld, q_bf16, new_bf16, start_i64, s, hkv, window, rows, nsplit,
-           scale};
+           g, heads, (g + heads - 1) / heads, scale};
   auto st = static_cast<cudaStream_t>(stream);
-  const int g = h / hkv;
-  if (hd == 128) {
-    return quantized ? launch_g<128, true>(g, p, b, st)
-                     : launch_g<128, false>(g, p, b, st);
-  }
-  if (hd == 256) {
-    return quantized ? launch_g<256, true>(g, p, b, st)
-                     : launch_g<256, false>(g, p, b, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int mt = (heads + 3) / 4;
+  return quantized ? launch_hd<true>(hd, hdv, mt, p, b, st)
+                   : launch_hd<false>(hd, hdv, mt, p, b, st);
 }
 
 }  // extern "C"

@@ -1686,14 +1686,16 @@ class _SlotKV:
                                       scale=scale)
 
 
-def _fused_attn_ok(cfg: ModelConfig, heads: tuple[int, int], hd_p: int,
-                   t: int, kvio: _SlotKV | None, decode_attn: str,
+def _fused_attn_ok(cfg: ModelConfig, heads: tuple[int, int],
+                   widths: tuple[int, int], t: int, kvio: _SlotKV | None,
+                   decode_attn: str,
                    attn_mask: torch.Tensor | None = None) -> bool:
     """The decode-attention gate: one token per slot over the whole cache
     under the causal mask (no ``attn_mask`` override), a model whose
     attention the kernels compute (no ALiBi, sinks, softcap, chunked
     windows or bidirectional attention), and the kernels' head shapes:
-    the layer's own (query heads, KV heads) and padded head width."""
+    the layer's own (query heads, KV heads) and padded (K, V) head
+    widths."""
     return (
         decode_attn == "fused" and attn_mask is None
         and kvio is not None and kvio.slots is None and t == 1
@@ -1702,7 +1704,7 @@ def _fused_attn_ok(cfg: ModelConfig, heads: tuple[int, int], hd_p: int,
         and not cfg.attn_logit_softcap
         and getattr(cfg, "swa_type", "window") != "chunked"
         and getattr(cfg, "causal_attn", True)
-        and dattn.supports(heads[0], heads[1], hd_p)
+        and dattn.supports(heads[0], heads[1], *widths)
     )
 
 
@@ -1973,8 +1975,9 @@ def _softmax_attention(x, lp: DecoderLayer, kvio, *, cfg, plan, params, li,
             safe_pos.to(torch.float32) + cfg.attn_temp_offset,
             float(cfg.attn_temp_floor))) + 1.0) * cfg.attn_temp_scale + 1.0
         q = q * tf[..., None, None].to(q.dtype)
-    fused = _fused_attn_ok(cfg, (q.shape[2], k.shape[2]), hd_p, t, kvio,
-                           decode_attn, attn_mask)
+    fused = _fused_attn_ok(cfg, (q.shape[2], k.shape[2]),
+                           (q.shape[-1], v.shape[-1]), t, kvio, decode_attn,
+                           attn_mask)
     if fused and "no_attn" in ablate:
         att = q.to(torch.float32)
     elif fused:

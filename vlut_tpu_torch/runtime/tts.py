@@ -179,7 +179,7 @@ def generate_codes(
     guide_tokens: list[int] | None = None,
     n_predict: int = 4096, top_k: int = 4, seed: int = 0,
     max_ctx: int = 8192, cuda_graph: bool = True,
-    stats: dict | None = None,
+    stats: dict | None = None, decode_attn: str = "fused",
 ) -> list[int]:
     """The text-to-codes decode loop with guide-token forcing: the raw
     generated token stream (codes and markup; the caller keeps the code
@@ -188,9 +188,9 @@ def generate_codes(
     One prefill of the prompt into a one-slot cache of ``min(max_ctx,
     cfg.max_seq_len)`` rows, then one single-token step per token over the
     fused tree, its logits written into a static tensor: a CUDA graph
-    replayed on the card (``cuda_graph=False``: eager), eager on the CPU
-    (``forward``'s gate sends a head shape the fused attention does not
-    take through the composed one).  ``stats``,
+    replayed on the card (``cuda_graph=False``: eager), eager on the CPU.
+    Its attention is ``decode_attn``'s: the fused kernel (#7 / #8, which
+    takes OuteTTS's 14 heads over 2) or the composed path.  ``stats``,
     when given, receives the prefill's seconds, each step's seconds (the
     step and the copy of its logits to the host), each host sampling's
     seconds, the step program's stats and the program itself (``run``:
@@ -223,7 +223,8 @@ def generate_codes(
                      sample_s=[], prompt_tokens=t)
 
     def step():
-        out, _ = forward(m2, cfg, st["token"], st["pos"], cache)
+        out, _ = forward(m2, cfg, st["token"], st["pos"], cache,
+                         decode_attn=decode_attn)
         return out[0, 0, :v].to(torch.float32)
 
     run = step_runner(step, dev, cuda_graph)
