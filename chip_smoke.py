@@ -8,7 +8,11 @@ Phases (any failure exits non-zero; none is skipped):
   2. hold every kernel against its plain PyTorch version on the card at the
      serving path's shapes, and time kernel, plain version, one library call
      and the card's lower bound for the same work (kernel and library call
-     timed inside a CUDA graph, so the time is the device's);
+     timed inside a CUDA graph, so the time is the device's); #7 / #8 also
+     past heads of 512 (bench/attention_study.py:SHAPES: DeepSeek-V2-Lite's
+     latent widths 640 / 512, 1024 / 1024, 128 / 2048, 2048 / 128, 4096 /
+     4096, G 7 at 768), with the SDPA backend that ran and the composed
+     step's row write and attention timed beside the kernel;
   3. the flagship: llama3_8b_158 at full width and depth, prefill 32 x 128
      plus greedy batched decode (vlut_tpu_torch/bench/flagship.py), with the
      composed decode attention (row write #5 + PyTorch) and the fused one
@@ -103,7 +107,12 @@ Phases (any failure exits non-zero; none is skipped):
      and eager (identical tokens), q8 fused (#8) and bf16 composed (#5)
      graphed, #7 / #8 launched 32 a step, each fused layer (from the
      composed step's input) within ``bench/engine.py:PATHS_X`` of the
-     noise floor of the composed one; then each knob family of the CPU tests (d 256,
+     noise floor of the composed one; heads of 576 (padded to 640: #7 /
+     #8's wide path) in ``tiny``'s fields, 2 layers, through the engine,
+     bf16 and q8 fused, graphed = eager = the CPU's tokens, #7 / #8 two a
+     step, each fused layer within ``PATHS_X`` of the floor, the composed
+     step (#5 / #6) graphed and timed beside the fused one; then each
+     knob family of the CPU tests (d 256,
      heads of 128, 2 layers) on the card against the CPU (each layer from
      the CPU's input and the logits within 2e-2 of the largest, the CPU's
      greedy tokens) and graphed against eager; every kernel the JAX gates
@@ -183,6 +192,13 @@ Phases (any failure exits non-zero; none is skipped):
      checkpoints, each served on the card against the CPU, layer by layer;
      tiny_real written as an HF directory, converted by ``cli convert`` on
      the card and on the CPU (equal) and ``cli generate``: the CPU's text;
+     the host packer (convert/native.py, g++) at llama3_8b_158's widths:
+     two layers' projections, padded by ``pad_weight``, packed by
+     ``pack_ternary`` natively, by torch on the host and by torch on the
+     card, the bytes equal (and ``pack_weight``'s on the card), seconds and
+     GB/s of each, the build's seconds; ``ternarize_absmean`` and
+     ``detect_ternary`` against the port's numpy ternarize and the
+     converter's exact-ternary check on a full-width matrix;
  25. the trainer (vlut_tpu_torch/train/finetune.py): ``bitnet_2b_4t`` at
      its published widths (d 2560, 30 layers, 20/5 heads, d_ff 6912,
      vocabulary 128256, sub-norms), random packed weights from seed 25,
@@ -1737,6 +1753,19 @@ ATT_RTOL = ATT_ATOL = 2e-5
 # before head groups, when a block held all of a KV head's heads (NVIDIA
 # H100 80GB HBM3, 700 W), printed beside this run's
 BEFORE_GROUPS_MS = {False: 0.0535, True: 0.0426}
+# the device ms of #7 / #8 at the same shape before the wide path (heads
+# of at most 512 only; the same kernel instances), printed beside this
+# run's (NVIDIA H100 80GB HBM3, 700 W)
+BEFORE_WIDE_MS = {False: 0.0558, True: 0.0448}
+
+
+def sdpa_backend(kernels: list[str]) -> str:
+    """The backend of an SDPA call, read from the device kernels it ran."""
+    for key, backend in (("cudnn", "cudnn"), ("fmha", "efficient"),
+                         ("flash", "flash")):
+        if any(key in k for k in kernels):
+            return backend
+    return f"math ({len(kernels)} kernels)"
 
 
 def decode_attention_kernels(dev, gen, record, shapes=None) -> None:
@@ -1746,15 +1775,18 @@ def decode_attention_kernels(dev, gen, record, shapes=None) -> None:
     B 32 S 184, bench-sweep's tg at B 1 and 32 (S 552), tiny_real's heads,
     OuteTTS's cache (B 1, S 8192, 14 heads over 2) at its prefill's rows
     and full, falcon-7b's and starcoder's engines (B 16, S 2048, 71 and 48
-    heads over 1), G 3 at hd 256, hdv != hd both ways and hd 512), with the
-    tensors ``_layer_step`` hands the kernel (bf16 q and rows, v a strided
+    heads over 1), G 3 at hd 256, hdv != hd both ways, hd 512, and past
+    512 the wide path's six shapes), with the tensors ``_layer_step``
+    hands the kernel (bf16 q and rows, v a strided
     slice of the qkv output, int64 starts) and the cache rotated past the
     L2 where it fits in it.  Cache rows, codes and scales must equal the
     plain version's, the output (float32 summed in another order) agree to
     rtol and atol 2e-5, and two calls be bit-identical.  Each shape
     records its plan (cache rows per block, head groups), the host's eager
     dispatch of one call and the device kernels one call runs, which must
-    be the kernel alone: no cast, copy or memset."""
+    be the kernel alone: no cast, copy or memset.  At the wide shapes and
+    the engine's it also times the composed step's row write and
+    attention (``Case.composed``), which the gate would take instead."""
     import torch
 
     from vlut_tpu_torch.bench import attention_study as st
@@ -1771,13 +1803,23 @@ def decode_attention_kernels(dev, gen, record, shapes=None) -> None:
             if why:
                 fail(f"{name}: {why}")
             launched = device_kernels(case.call())
-            if len(launched) != 1 or "decode_attn_kernel" not in launched[0]:
+            # decode_attn_kernel, or past heads of 512 decode_attn_wide
+            kernel = "decode_attn_wide" if da.wide(hd, hdv) else \
+                "decode_attn_kernel"
+            if len(launched) != 1 or kernel not in launched[0]:
                 fail(f"{name}: one call ran {launched}, not the attention "
                      "kernel alone")
             ms = cuda_ms(case.call(), graph=True)
             plain_ms = cuda_ms(lambda: case.want(case.copies[0]), iters=3,
                                warmup=1)
             lib_ms = library_ms(case.sdpa())
+            lib_ran = (sdpa_backend(device_kernels(case.sdpa(), capture=False))
+                       if lib_ms is not None else "refused")
+            # the composed step's row write and attention, which the gate
+            # would take in the kernel's place: at the wide shapes and at
+            # the flagship engine's for scale
+            composed = ({"composed_ms": cuda_ms(case.composed(), graph=True)}
+                        if da.wide(hd, hdv) or label == "engine" else {})
             rows = case.rows()
             h = hkv * g
             # visible rows read once (int8: codes and both scales), the new
@@ -1787,19 +1829,21 @@ def decode_attention_kernels(dev, gen, record, shapes=None) -> None:
                       + b * hkv * (hd + hdv) * 2)
             b_ms, by = bound_ms(nbytes, 2.0 * rows * h * (hd + hdv),
                                 F32_OPS_PER_S)
-            extra = ({"before_groups_ms": BEFORE_GROUPS_MS[q8]}
+            extra = ({"before_groups_ms": BEFORE_GROUPS_MS[q8],
+                      "before_wide_ms": BEFORE_WIDE_MS[q8]}
                      if label == "engine" else {})
             record(name, shape=(f"B={b} S={s} H={h} Hkv={hkv} hd={hd} "
                                 f"hdv={hdv} window={window} rows={rows} "
                                 + ("int8" if q8 else "bf16")),
                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                   library_ms=lib_ms, max_abs_err=err, **extra,
+                   library_ms=lib_ms, max_abs_err=err, **extra, **composed,
                    rows_per_block=st.plan(case, sms),
                    heads_groups=da.head_groups(g, hd, hdv),
                    eager_us=st.eager_us(case.call()), launched=launched,
+                   value_slices=da.value_slices(hd, hdv),
                    library="scaled_dot_product_attention(enable_gqa) over "
                    + ("the cache dequantized to bf16 beforehand" if q8
-                      else "the bf16 rows"))
+                      else "the bf16 rows"), library_ran=lib_ran)
             del case
             torch.cuda.empty_cache()
 
@@ -3328,6 +3372,9 @@ def zoo_phase(dev, card, reset, read) -> None:
     del built
     torch.cuda.empty_cache()
 
+    # (a3) heads wider than 512 through the engine
+    out["wide_heads"] = wide_heads_case(dev, card, reset, read)
+
     # (b) gemma2_2b: 8 slots, ctx 8192, one greedy request of 5,000 tokens
     # (its 4,096 window bites on the even layers) and 8 of 64-512 tokens,
     # 16 new tokens (the long one 32, so that it still decodes past its
@@ -3390,6 +3437,92 @@ def zoo_phase(dev, card, reset, read) -> None:
         "free_rel_logit_err", "launches")} for n, r in fams.items()}
     out["seconds"] = time.time() - t_phase
     print(json.dumps(out), flush=True)
+
+
+def wide_heads_case(dev, card, reset, read) -> dict:
+    """Phase 19 (a3): heads wider than 512 at model level.  ``tiny``'s
+    fields with 4 heads of 576 over 2 (DeepSeek-V2's latent row width,
+    padded to 640: #7 / #8's wide path, K in pieces of 512 + 128), 2
+    layers, random packed weights from seed 25 (``bench/zoo.py:
+    family_tree``), through the engine (4 slots, ctx 128, 6 greedy requests
+    of 16-64 prompt tokens, seed 25, 12 new tokens) with the bf16 and the
+    q8 cache, fused: on the card graphed (the counted path: #7 / #8 two a
+    step) and eager, and on the CPU (the plain versions).  The tokens must
+    be equal across the three, and each fused layer of a graphed run (from
+    the composed step's input, ``bench/engine.py:compare_paths``) within
+    ``PATHS_X`` of the layers' noise floor (``paths_ok``).  The composed
+    step, graphed, is timed beside the fused one (#5 / #6 counted)."""
+    import dataclasses
+
+    import torch
+
+    from vlut_tpu_torch.bench import engine as bench_engine
+    from vlut_tpu_torch.bench import zoo
+    from vlut_tpu_torch.config import PRESETS
+    from vlut_tpu_torch.models.dims import make_plan
+    from vlut_tpu_torch.ops import decode_attention as da
+
+    t0 = time.time()
+    cfg = dataclasses.replace(PRESETS["tiny"], head_dim=576)
+    hd_p = make_plan(cfg).hd_p
+    if hd_p != 640 or not da.wide(hd_p, hd_p):
+        fail(f"wide heads: head_dim 576 padded to {hd_p}, not the wide path")
+    tree = zoo.family_tree(cfg, seed=25)
+    models = {"card": zoo.serving_model(cfg, tree, dev),
+              "cpu": zoo.serving_model(cfg, tree, "cpu")}
+    out: dict = {"hd_p": hd_p}
+    for cache in ("bf16", "q8"):
+        attn = "decode_attention_int8" if cache == "q8" else "decode_attention"
+        toks, runs = {}, {}
+        for run in ("graph", "eager", "cpu", "composed"):
+            reset()
+            r = bench_engine.run(
+                "wide_heads", device="cpu" if run == "cpu" else dev,
+                built=(cfg, models["cpu" if run == "cpu" else "card"]),
+                kv_quant=cache == "q8",
+                decode_attn="composed" if run == "composed" else "fused",
+                cuda_graph=run in ("graph", "composed"), n_slots=4, ctx=128,
+                requests=bench_engine.make_requests(cfg.vocab_size, 6, 16,
+                                                    64, 12, seed=25),
+                check_paths=run == "graph")
+            toks[run] = r.pop("outputs")
+            runs[run] = {k: r[k] for k in ("decode_steps",
+                                           "decode_ms_per_step",
+                                           "replay_ms_per_step")
+                         if k in r}
+            if run == "composed":
+                # the step the gate would take without the wide path:
+                # timed beside the fused one, not held to its tokens
+                runs[run]["launches"] = read(
+                    f"wide_heads_{cache}_composed_graph",
+                    ("write_rows_pair",))
+            elif run != "cpu":
+                got = read(f"wide_heads_{cache}_fused_{run}", (attn,))
+                runs[run]["launches"] = got
+                if got[attn] != cfg.n_layers * r["decode_steps"]:
+                    fail(f"wide heads {cache} {run}: {attn} launched "
+                         f"{got[attn]} times in {r['decode_steps']} steps "
+                         f"(want {cfg.n_layers} a step)")
+            if run == "graph":
+                paths = r.get("attention_paths")
+                runs[run]["attention_paths"] = paths
+                if paths is None or not bench_engine.paths_ok(paths):
+                    fail(f"wide heads {cache}: a fused layer differs from "
+                         f"the composed one by {paths['max_rel_layer_diff']}"
+                         f" of its largest value, past {bench_engine.PATHS_X}"
+                         f" x the noise floor {paths['noise_floor']}")
+            torch.cuda.empty_cache()
+        runs["graph_equals_eager"] = toks["graph"] == toks["eager"]
+        runs["card_equals_cpu"] = toks["graph"] == toks["cpu"]
+        runs["composed_equals_fused"] = toks["composed"] == toks["graph"]
+        out[cache] = runs
+        if not (runs["graph_equals_eager"] and runs["card_equals_cpu"]):
+            fail(f"wide heads {cache}: tokens graphed / eager / CPU differ: "
+                 f"{runs}")
+    out["seconds"] = time.time() - t0
+    print(json.dumps({"phase": "zoo", "wide_heads": out, "card": card}),
+          flush=True)
+    return out
 
 
 def moe_phase(dev, card, reset, read) -> None:
@@ -4625,7 +4758,8 @@ def convert_phase(dev, fixture, card, reset, read) -> None:
     ``bench/recurrent_zoo.py:card_vs_cpu``).  (c) tiny_real written as an
     HF directory in the float32 layout, ``cli convert`` on the card and
     with ``--device cpu`` (equal), ``cli generate --temp 0`` of each on its
-    device: the CPU's text."""
+    device: the CPU's text.  (d) The host packer at ``llama3_8b_158``'s
+    widths (:func:`native_pack_case`)."""
     import contextlib
     import io
     import shutil
@@ -4771,10 +4905,129 @@ def convert_phase(dev, fixture, card, reset, read) -> None:
         want = text_of(gen + ["--model", str(d / "cpu"), "--device", "cpu"])
     out["fixture"] = {"text": want, "card_equals_cpu_conversion": equal,
                       "text_equal": got == want}
-    out["seconds"] = time.time() - t_phase
-    print(json.dumps(out), flush=True)
     if not (equal and got == want):
         fail(f"tiny_real round trip: {out['fixture']} (card text {got!r})")
+
+    # (d) the host packer at llama3_8b_158's widths
+    out["native_pack"] = native_pack_case(dev)
+    out["seconds"] = time.time() - t_phase
+    print(json.dumps(out), flush=True)
+
+
+def native_pack_case(dev) -> dict:
+    """Phase 24 (d): the host packer (``convert/native.py``, g++'s build of
+    ``csrc/vlut_pack.cpp``) at ``llama3_8b_158``'s widths: two layers'
+    projections (wq, wk, wv, wo, w_gate, w_up, w_down) of random trits
+    made on the host from seed 24, in i2 and i1, padded as the checkpoint
+    lays them out (``pad_weight``, untimed) and packed by ``pack_ternary``
+    three ways: the native route on the host (``use_native=True``), torch
+    on the host and torch on the card (the padded trits copied there
+    first, untimed).  The bytes must be equal, and equal to
+    ``pack_weight``'s on the card from the unpadded trits.  Seconds and
+    GB/s of each route (padded trit bytes read plus packed bytes written,
+    over the seconds; host clock, the card's ending in a sync), and the
+    seconds of a build into an empty directory.  On one full-width float matrix (4096 x
+    14336 normals x 0.02): ``native.ternarize_absmean`` against
+    ``ops/packing.py:ternarize`` (the scales within a relative 4e-6,
+    about log2(58.7M) float32 ulps, the bound of numpy's pairwise float32
+    mean that the library takes in float64; a trit may differ only where w
+    / scale lies within 1e-5 of a rounding boundary, the library
+    multiplying by 1 / scale where numpy divides), and ``native.detect_ternary``
+    against the converter's exact-ternary check on it and on an exactly
+    ternary matrix."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vlut_tpu_torch.config import PRESETS
+    from vlut_tpu_torch.convert import convert, native
+    from vlut_tpu_torch.models import transformer as tt
+    from vlut_tpu_torch.models.dims import make_plan
+    from vlut_tpu_torch.ops import _build, packing
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        t0 = time.perf_counter()
+        _build.build(native.SOURCE, pathlib.Path(d))
+        build_s = time.perf_counter() - t0
+    native.get_lib()
+    base = PRESETS["llama3_8b_158"]
+    d, hq, hkv, ff = base.d_model, base.n_heads, base.n_kv_heads, base.d_ff
+    hd = base.head_dim or d // hq
+    shapes = {"wq": (d, hq * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd),
+              "wo": (hq * hd, d), "w_gate": (d, ff), "w_up": (d, ff),
+              "w_down": (ff, d)}
+    rng = np.random.default_rng(24)
+    routes = ("native_host", "torch_host", "torch_card")
+    res = {}
+    for fmt in ("i2", "i1"):
+        cfg = dataclasses.replace(base, weight_fmt=fmt)
+        sec = dict.fromkeys(routes, 0.0)
+        nbytes = 0
+        kb = make_plan(cfg).kb
+        for layer in range(2):
+            for name, (k, n) in shapes.items():
+                trits = rng.integers(-1, 2, (k, n), dtype=np.int8)
+                padded = np.ascontiguousarray(tt.pad_weight(name, trits, cfg))
+                on_card = torch.from_numpy(padded).to(dev)
+                torch.cuda.synchronize()
+                packed = {}
+                for route in routes:
+                    t0 = time.perf_counter()
+                    t = packing.pack_ternary(
+                        on_card if route == "torch_card" else padded, 0.5,
+                        fmt, kb, use_native=route == "native_host")
+                    if route == "torch_card":
+                        torch.cuda.synchronize()
+                    sec[route] += time.perf_counter() - t0
+                    packed[route] = t.packed.cpu()
+                packed["pack_weight_card"] = tt.pack_weight(
+                    name, torch.from_numpy(trits).to(dev), 0.5, cfg
+                ).packed.cpu()
+                nbytes += padded.size + packed["native_host"].numel()
+                for route in packed:
+                    if not torch.equal(packed[route], packed["native_host"]):
+                        fail(f"native packer: {fmt} layer {layer} {name}: "
+                             f"{route}'s bytes differ from the native route's")
+                del on_card
+        res[fmt] = {"bytes": nbytes, **{
+            r: {"seconds": sec[r], "gb_per_s": nbytes / sec[r] / 1e9}
+            for r in routes}}
+    w = (rng.standard_normal((d, ff), dtype=np.float32) * 0.02
+         ).astype(np.float32)
+    t0 = time.perf_counter()
+    tn, sn = native.ternarize_absmean(w)
+    tern_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp, sp = packing.ternarize(w)
+    numpy_s = time.perf_counter() - t0
+    diff = tn != tp
+    ratio = np.abs(w[diff]) / np.float32(sp)
+    edge = np.minimum(np.abs(ratio - 0.5), np.abs(ratio - 1.5))
+    exact = (rng.integers(-1, 2, (d, d)).astype(np.float32)
+             * np.float32(0.05))
+    detect = {"float": native.detect_ternary(w),
+              "exact": native.detect_ternary(exact)}
+    checks = {"float": convert._is_exact_ternary(w),
+              "exact": convert._is_exact_ternary(exact)}
+    res["ternarize"] = {
+        "native_scale": float(sn), "numpy_scale": float(sp),
+        "trits_differing": int(diff.sum()),
+        "largest_boundary_distance": float(edge.max()) if diff.any() else 0.0,
+        "native_s": tern_s, "numpy_s": numpy_s,
+        "detect_ternary": detect,
+        "exact_check": {k: list(v) for k, v in checks.items()}}
+    if (abs(float(sn) - float(sp)) > 4e-6 * float(sp)
+            or (diff.any() and float(edge.max()) > 1e-5)):
+        fail(f"native ternarize_absmean: {res['ternarize']}")
+    if not (detect["float"] == -1.0 and not checks["float"][0]
+            and checks["exact"][0] and detect["exact"] == checks["exact"][1]
+            == np.float32(0.05)):
+        fail(f"native detect_ternary: {detect} against {checks}")
+    res["build_s"] = build_s
+    print(json.dumps({"phase": "convert", "native_pack": res}), flush=True)
+    return res
 
 
 def family_back(cfg, tree: dict, dst: pathlib.Path) -> list[str]:

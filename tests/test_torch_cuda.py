@@ -19,6 +19,7 @@ import torch
 
 from vlut_tpu_torch.ops import decode_attention as da
 from vlut_tpu_torch.ops import kv_update, ternary_gemm as tg, tq
+from vlut_tpu_torch.bench.attention_study import SHAPES as ATT_SHAPES
 from vlut_tpu_torch.bench.kv_study import SHAPES as KV_SHAPES
 from vlut_tpu_torch.ops.packing import pack_ternary
 
@@ -393,14 +394,24 @@ def test_decode_attention_head_groups_and_widths(dev, q8, case):
                 hdv=hdv)
 
 
-def test_decode_attention_refuses_wider_heads(dev):
-    """A head wider than 512 raises ValueError naming the limit; the gate
-    keeps such a layer composed."""
-    q, kn, vn, kf, vf, start = _attn_inputs(dev, 1, 32, 1, 2, 640, 0)
-    with pytest.raises(ValueError, match="512"):
-        da.decode_attention(q, kn, vn, kf.to(torch.bfloat16),
-                            vf.to(torch.bfloat16), start, 0, scale=0.1)
-    assert not da.supports(2, 1, 640, 640)
+# the wide path (hd or hdv above 512: K pieces, V slices) at chip_smoke.py
+# phase 2's shapes (bench/attention_study.py:SHAPES): DeepSeek-V2-Lite's
+# latent widths, 1024 / 1024, 128 / 2048, 2048 / 128, 4096 / 4096, G 7 at
+# 768 over 8,192 rows
+_ATT_WIDE = [sh for sh in ATT_SHAPES if da.wide(sh[5], sh[6])]
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("shape", _ATT_WIDE, ids=[sh[0] for sh in _ATT_WIDE])
+def test_decode_attention_wide_heads(dev, q8, shape):
+    """#7 / #8 past heads of 512 against the plain version: rows, codes and
+    scales (over the whole rows) bit-exact, the output within ATT_TOL, two
+    calls bit-identical, one launch."""
+    _, b, s, hkv, g, hd, hdv, window, starts = shape
+    starts = ([starts] * b if isinstance(starts, int) else
+              np.linspace(s // 16, s - 1, b).round().astype(int).tolist())
+    _attn_check(dev, q8, b, s, hkv, g, hd, window, starts, False, seed=g,
+                hdv=hdv)
 
 
 @pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])

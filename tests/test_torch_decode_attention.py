@@ -57,9 +57,18 @@ CASES = [
     dict(b=4, s=64, hkv=1, g=7, hd=256, hdv=128, window=9, cs=32),
     dict(b=4, s=64, hkv=2, g=12, hd=256, window=0, cs=32),
     dict(b=4, s=64, hkv=1, g=71, hd=128, window=0, cs=32),
+    # heads wider than 512 (the kernel's wide path: K pieces, V slices):
+    # DeepSeek-V2-Lite's latent widths, square, V alone, K alone (the int8
+    # scale over the whole 2048-wide row), odd G with slices
+    dict(b=4, s=64, hkv=2, g=4, hd=640, hdv=512, window=0, cs=32),
+    dict(b=4, s=64, hkv=2, g=2, hd=1024, hdv=1024, window=0, cs=32),
+    dict(b=4, s=64, hkv=2, g=3, hd=128, hdv=2048, window=9, cs=32),
+    dict(b=4, s=64, hkv=2, g=1, hd=2048, hdv=128, window=0, cs=32),
+    dict(b=4, s=64, hkv=1, g=7, hd=768, window=0, cs=32),
 ]
 IDS = ["gqa", "single_chunk", "window", "mha", "g3_hdv256", "g7_hdv128",
-       "g12_hd256", "g71"]
+       "g12_hd256", "g71", "hd640_hdv512", "hd1024", "hdv2048", "hd2048",
+       "g7_hd768"]
 # the seed of the first four cases' bf16 inputs (the others take their G)
 SEED = 4
 
@@ -178,13 +187,26 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def _team_cfg(heads, hdv):
+def _team_cfg(heads, hd, hdv):
     """Teams of warps in a block of ``heads`` query heads (its m-tiles:
     ceil(heads / 4)) over V heads of width hdv: a team's warps split the
-    value columns so that a lane keeps at most 64 accumulators."""
+    value columns so that a lane keeps at most 64 accumulators.  The wide
+    path's block is one team of four warps."""
+    if da.wide(hd, hdv):
+        return 1
     mt = (heads + 3) // 4
     vw = mt * hdv // 128
     return 4 // (1 if vw <= 1 else 2 if vw <= 2 else 4)
+
+
+PIECE = 512  # the wide path's K columns of a ring entry, V columns a block
+
+
+def _pieces(w, wide):
+    """The column ranges of a w-wide row the wide path takes in turn
+    (pieces of K, slices of V): at most 512 each; one range otherwise."""
+    step = PIECE if wide else w
+    return [(c, min(c + step, w)) for c in range(0, w, step)]
 
 
 def _emulate(q, kn, vn, kc, vc, ksc, vsc, start, window, scale, rows,
@@ -197,7 +219,9 @@ def _emulate(q, kn, vn, kc, vc, ksc, vsc, start, window, scale, rows,
     g = h // hkv
     q8 = ksc is not None
     heads, _ = da.head_groups(g, hd, hdv)
-    nt = _team_cfg(heads, hdv)
+    nt = _team_cfg(heads, hd, hdv)
+    wide = da.wide(hd, hdv)
+    pieces, slices = _pieces(hd, wide), _pieces(hdv, wide)
     kflat = kc.reshape(b * s, hkv, hd).float()
     vflat = vc.reshape(b * s, hkv, hdv).float()
     if q8:
@@ -216,8 +240,9 @@ def _emulate(q, kn, vn, kc, vc, ksc, vsc, start, window, scale, rows,
         hi_r = min(st, s)
         lo_r = max(0, st - window + 1) if window > 0 else 0
         n_act = -(-(hi_r - lo_r) // rows) if hi_r > lo_r else 0
-        for kvh, h0 in ((k, k * g + i) for k in range(hkv)
-                        for i in range(0, g, heads)):
+        for kvh, h0, (v0, v1) in ((k, k * g + i, sl) for k in range(hkv)
+                                  for i in range(0, g, heads)
+                                  for sl in slices):
             gc = min(heads, (kvh + 1) * g - h0)  # the group's heads
             qs = q[bi, 0, h0:h0 + gc].float() * scale  # (gc, hd)
             qt = _split_terms(qs)
@@ -227,7 +252,7 @@ def _emulate(q, kn, vn, kc, vc, ksc, vsc, start, window, scale, rows,
                 r1 = min(hi_r, r0 + rows)
                 nch = -(-(r1 - r0) // 16) if r1 > r0 else 0
                 teams = [[neg.expand(gc).clone(), torch.zeros(gc, 4),
-                          [torch.zeros(gc, hdv) for _ in range(3)]]
+                          [torch.zeros(gc, v1 - v0) for _ in range(3)]]
                          for _ in range(nt)]
                 for c in range(nch):
                     team = c % nt
@@ -238,12 +263,15 @@ def _emulate(q, kn, vn, kc, vc, ksc, vsc, start, window, scale, rows,
                     kr = torch.where(inside[:, None],
                                      kflat[idx.clamp(max=b * s - 1), kvh], 0)
                     vr = torch.where(inside[:, None],
-                                     vflat[idx.clamp(max=b * s - 1), kvh], 0)
+                                     vflat[idx.clamp(max=b * s - 1), kvh,
+                                           v0:v1], 0)
+                    # the K pieces in column order, each's k-steps in turn
                     sc = [torch.zeros(gc, 16) for _ in range(3)]
-                    for ks in range(hd // 16):
-                        d = slice(16 * ks, 16 * ks + 16)
-                        for t in range(3):
-                            sc[t] = _mma(sc[t], qt[t][:, d], kr[:, d].T)
+                    for k0, k1 in pieces:
+                        for ks in range(k0 // 16, k1 // 16):
+                            d = slice(16 * ks, 16 * ks + 16)
+                            for t in range(3):
+                                sc[t] = _mma(sc[t], qt[t][:, d], kr[:, d].T)
                     score = (sc[0] + sc[2]) + sc[1]
                     valid = (torch.arange(rb, rb + 16) < r1)[None, :]
                     if q8:
@@ -284,8 +312,8 @@ def _emulate(q, kn, vn, kc, vc, ksc, vsc, start, window, scale, rows,
                 state = _merge([splits[i] for i in order])
             else:
                 state = splits[0]
-            out[bi, 0, h0:h0 + gc] = _finish(state, qs, knv[bi, kvh],
-                                             vnv[bi, kvh])
+            out[bi, 0, h0:h0 + gc, v0:v1] = _finish(
+                state, qs, knv[bi, kvh], vnv[bi, kvh, v0:v1])
     return out
 
 
@@ -382,7 +410,10 @@ EMULATED = [
     # groups of 6), G 71 (five groups, 15 heads but the last's 11), and
     # hdv != hd (the teams set by hdv)
     (7, 128, 128, 0), (12, 256, 256, 9), (71, 128, 128, 0), (3, 128, 256, 0),
-    (4, 256, 128, 9)]
+    (4, 256, 128, 9),
+    # the wide path: K in pieces of 512 + 128 (V2-Lite's latent widths),
+    # and G 7 in groups of 4 + 3 over three value slices of 512, 512, 128
+    (4, 640, 512, 0), (7, 768, 1152, 9)]
 
 
 @pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
@@ -412,14 +443,18 @@ def test_kernel_order_emulated_wide_q(q8):
 Q_SPREAD = 5.0
 
 
-@pytest.mark.parametrize("q8,g", [
-    (False, 2), (True, 2), (False, 7), (True, 7), (False, 71), (True, 71)],
-    ids=["bf16", "int8", "bf16-g7", "int8-g7", "bf16-g71", "int8-g71"])
-def test_kernel_merge_is_independent_of_arrival(q8, g):
+@pytest.mark.parametrize("q8,g,hd,hdv", [
+    (False, 2, 128, 128), (True, 2, 128, 128), (False, 7, 128, 128),
+    (True, 7, 128, 128), (False, 71, 128, 128), (True, 71, 128, 128),
+    (False, 3, 640, 1024), (True, 3, 640, 1024)],
+    ids=["bf16", "int8", "bf16-g7", "int8-g7", "bf16-g71", "int8-g71",
+         "bf16-wide", "int8-wide"])
+def test_kernel_merge_is_independent_of_arrival(q8, g, hd, hdv):
     """Whichever split block arrives last, the output is bit-identical: the
-    last block merges the splits' states in split order."""
+    last block merges the splits' states in split order (on the wide path
+    per value slice)."""
     outs = [
-        _emulate_case(q8, g, 128, 0, seed=11, hkv=1 if g > 8 else 2,
+        _emulate_case(q8, g, hd, 0, seed=11, hkv=1 if g > 8 else 2, hdv=hdv,
                       arrival=(lambda b, kvh, n, r=r: list(r.permutation(n))))[0]
         for r in (np.random.default_rng(i) for i in range(3))]
     for o in outs[1:]:
@@ -446,19 +481,25 @@ def test_attn_plan_fills_half_a_wave_at_every_plan_shape():
 PLANNED = [
     (32, 8, 2048, 0, 4), (32, 8, 2048, 512, 4), (1, 8, 552, 0, 4),
     (32, 8, 552, 0, 4), (32, 8, 184, 0, 4), (4, 2, 256, 0, 2), (1, 1, 1, 0, 1),
-    (1, 2, 8192, 0, 7), (16, 1, 2048, 0, 71), (16, 1, 2048, 0, 48)]
+    (1, 2, 8192, 0, 7), (16, 1, 2048, 0, 71), (16, 1, 2048, 0, 48),
+    # the wide path: groups of at most 4 heads, value slices of 512
+    (16, 1, 2048, 0, 16, 640, 512), (4, 2, 1024, 0, 2, 128, 2048),
+    (2, 1, 512, 0, 4, 4096, 4096), (1, 1, 8192, 0, 7, 768, 768)]
 
 
-@pytest.mark.parametrize("b,hkv,s,window,g", PLANNED, ids=[
-    f"{b}-{hkv}-{s}-{window}" + (f"-g{g}" if g > 4 else "")
-    for b, hkv, s, window, g in PLANNED])
-def test_attn_plan_rows(b, hkv, s, window, g):
+@pytest.mark.parametrize("b,hkv,s,window,g,hd,hdv", [
+    (*p, 128, 128)[:7] for p in PLANNED], ids=[
+    f"{p[0]}-{p[1]}-{p[2]}-{p[3]}" + (f"-g{p[4]}" if p[4] > 4 else "")
+    + (f"-hd{p[5]}-{p[6]}" if len(p) > 5 else "") for p in PLANNED])
+def test_attn_plan_rows(b, hkv, s, window, g, hd, hdv):
     """The plan takes the most rows per block that still give a full cache
-    half a wave of blocks (of (slot, KV head, head group)), else the
-    fewest; a window caps the span."""
+    half a wave of blocks (of (slot, KV head, head group, value slice)),
+    else the fewest; a window caps the span."""
     span = da.span(s, window)
-    units = b * hkv * da.head_groups(g, 128, 128)[1]
-    rows = da.attn_plan(b, hkv, span, 132, units // (b * hkv))
+    groups = da.head_groups(g, hd, hdv)[1]
+    slices = da.value_slices(hd, hdv)
+    units = b * hkv * groups * slices
+    rows = da.attn_plan(b, hkv, span, 132, groups, slices)
     assert rows == da.ROWS[0] or 2 * units * -(-span // rows) >= 132
     bigger = [r for r in da.ROWS if r > rows]
     assert all(2 * units * -(-span // r) < 132 for r in bigger)
@@ -482,6 +523,19 @@ def test_head_groups():
             heads, n = da.head_groups(g, hd, hdv)
             assert heads * n >= g > heads * (n - 1)
             assert heads <= 4 * (512 // max(hd, hdv))
+    # the wide path: at most one m-tile of heads, V in slices of 512
+    assert da.head_groups(16, 640, 512) == (4, 4)
+    assert da.head_groups(7, 768, 768) == (4, 2)
+    assert da.head_groups(2, 128, 2048) == (2, 1)
+    assert da.head_groups(5, 2048, 128) == (3, 2)
+    for hd, hdv, n in ((512, 512, 1), (640, 512, 1), (768, 768, 2),
+                       (128, 2048, 4), (2048, 128, 1), (4096, 4096, 8),
+                       (640, 1152, 3)):
+        assert da.value_slices(hd, hdv) == n
+    for g in range(1, 80):
+        for hd, hdv in ((640, 512), (128, 4096)):
+            heads, n = da.head_groups(g, hd, hdv)
+            assert heads * n >= g > heads * (n - 1) and heads <= 4
 
 
 @pytest.mark.parametrize("name", [*sorted(study.ABLATIONS), "timeline"])
@@ -492,3 +546,23 @@ def test_study_edits_match_the_kernel_source(name):
     for old, new in {**study.ABLATIONS, "timeline": study.TIMELINE}[name]:
         assert old in src, old
         src = src.replace(old, new, 1)
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("shape", [(2, 64, 1, 4, 640, 512, 0),
+                                   (2, 1100, 2, 2, 128, 256, 300)])
+def test_study_composed_step_is_the_plain_version(q8, shape):
+    """The study's composed step (the rows written by ``write_rows_pair``,
+    then the model's plain attention; the yardstick timed beside the
+    kernel) writes the plain version's rows and agrees with its output,
+    past ``ATTN_CHUNK`` rows (the chunked online softmax) and with a
+    window too."""
+    b, s, hkv, g, hd, hdv, window = shape
+    gen = torch.Generator().manual_seed(s + hd)
+    case = study.Case(gen, b, s, hkv, g, hd, window, "fill", q8,
+                      rotate=False, hdv=hdv)
+    want, rows = case.want(case.copies[0])
+    got = case.composed()()
+    for a, r in zip(case.copies[0], rows):
+        assert torch.equal(a, r)
+    torch.testing.assert_close(got, want, **TOL)

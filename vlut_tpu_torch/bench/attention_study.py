@@ -3,7 +3,7 @@
 what the plan picks.
 
     python -m vlut_tpu_torch.bench.attention_study [--variant NAME=DIR ...]
-        [--ablate] [--timeline] [--sweep] [--check-only]
+        [--ablate] [--timeline] [--sweep] [--composed] [--check-only]
 
 It builds the checked-out kernel and holds it against its plain versions
 (cache rows, codes and scales bit-exact, the output to rtol and atol 2e-5,
@@ -22,7 +22,10 @@ it fits in it):
   2, hd 128), OuteTTS's cache (B 1, S 8192, 14 heads over 2) at its
   prefill's rows and full, falcon-7b's (71 over 1) and starcoder's (48
   over 1) engines, and the Pallas kernels' wider domain (G 3 at hd 256,
-  hdv != hd, hd 512), for the checked-out kernel and each ``--variant`` in
+  hdv != hd, hd 512, and past 512 the wide path's shapes: DeepSeek-V2-Lite's
+  latent widths 640 / 512 at 16 heads over one, 1024 / 1024, 128 / 2048,
+  2048 / 128, 4096 / 4096 and G 7 at 768), for the checked-out kernel and
+  each ``--variant`` in
   turns (variant, kernel, kernel, variant), beside
   ``scaled_dot_product_attention``; the host's dispatch of a call launched
   one by one from Python with the tensors ``_layer_step`` hands it (bf16 q
@@ -30,20 +33,25 @@ it fits in it):
   too, and the device kernels one such call runs (torch.profiler).  A
   variant is a directory holding another ``decode_attention.cu``, of this
   interface or of the one before head groups (hd = hdv in 128 / 256, G in
-  1, 2, 4, 8; called as its wrapper called it, at the shapes it takes), for
-  instance the parent commit's ``vlut_tpu_torch/csrc`` unpacked by ``git
-  archive``; each row says whether a variant's output is bit-identical to
-  the kernel's (``same_bits``).
+  1, 2, 4, 8; called as its wrapper called it, at the shapes it takes; a
+  source without the wide path takes heads of at most 512), for instance
+  the parent commit's ``vlut_tpu_torch/csrc`` unpacked by ``git archive``;
+  each row says whether a variant's output is bit-identical to the
+  kernel's (``same_bits``).
 * ``--ablate``: text edits of the checked-out source (they fail loudly when
   the kernel's lines change): no cache copies, no score mma, no value mma,
   no merge of the splits, copies only (a landed stage released at once)
   and (int8) no scale copies.  Their outputs are wrong by design and are not
-  checked; each is timed in a graph and eagerly.
+  checked; each is timed in a graph and eagerly.  They edit the first path
+  (heads of at most 512) only.
 * ``--timeline``: the global timer of thread 0 of every block at its entry,
   its first stage landed, its row loop done, its state merged (or, alone,
   finished) and, for the last block of a split slot, its end.
 * ``--sweep``: every rows-per-block choice at every shape, against the
   plan's.
+* ``--composed``: after the checks, only the wide path against the
+  composed step's row write and plain attention (``COMPOSED_SWEEP``),
+  with the decode gate's choice (``fused_pays``) beside each.
 
 The builds go to ``build/study/`` (gitignored).  Needs a CUDA device.
 """
@@ -71,9 +79,12 @@ SOURCE = "decode_attention.cu"
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 # (label, B, S, Hkv, G, hd, hdv, window, starts): "spread" is the
-# flagship engine's 64-1900 over the slots, "batched" 128-183, an int is
-# every slot's start; OuteTTS's prefill holds 586 rows (phase 27's
-# speaker profile), falcon-7b and starcoder serve 16 slots of ctx 2048
+# flagship engine's 64-1900 over the slots, "batched" 128-183, "fill"
+# S / 16 to S - 1, an int is every slot's start; OuteTTS's prefill holds
+# 586 rows (phase 27's speaker profile), falcon-7b and starcoder serve 16
+# slots of ctx 2048; past hd 512 the wide path (K pieces, V slices):
+# DeepSeek-V2-Lite's latent row (kv_lora 512 + rope 64, padded to 640;
+# V the 512 latent columns) as a kernel shape, 16 heads over one
 SHAPES = [
     ("engine", 32, 2048, 8, 4, 128, 128, 0, "spread"),
     ("engine_w512", 32, 2048, 8, 4, 128, 128, 512, "spread"),
@@ -89,7 +100,29 @@ SHAPES = [
     ("hd128_hdv256", 4, 1024, 2, 4, 128, 256, 0, "spread"),
     ("hd256_hdv128", 4, 1024, 2, 4, 256, 128, 0, "spread"),
     ("hd512", 4, 1024, 2, 4, 512, 512, 0, "spread"),
+    ("v2_lite_latent", 16, 2048, 1, 16, 640, 512, 0, "fill"),
+    ("wide_square", 4, 1024, 2, 4, 1024, 1024, 0, "fill"),
+    ("wide_v", 4, 1024, 2, 2, 128, 2048, 0, "fill"),
+    ("wide_k", 4, 1024, 2, 8, 2048, 128, 0, "fill"),
+    ("very_wide", 2, 512, 1, 4, 4096, 4096, 0, "fill"),
+    ("odd_g_wide", 1, 8192, 1, 7, 768, 768, 0, 8191),
 ]
+# (B, S, Hkv, G, hd, hdv) of --composed: the wide path against the composed
+# step over widths, head counts (one and four head groups) and caches,
+# the ground of ops/decode_attention.py:WIDE_SCORE_COLS
+COMPOSED_SWEEP = [
+    (4, 1024, 2, g, hd, hdv) for (hd, hdv) in (
+        (640, 512), (768, 768), (1024, 1024), (1536, 1536), (2048, 2048),
+        (3072, 3072), (4096, 4096), (2048, 128), (4096, 128), (128, 2048),
+        (128, 4096), (4096, 512), (512, 4096), (1024, 4096), (4096, 1024))
+    for g in (1, 4, 16)] + [
+    (1, 8192, 1, 16, 640, 512), (16, 512, 1, 16, 640, 512),
+    (32, 4096, 1, 16, 640, 512), (1, 8192, 1, 4, 4096, 4096),
+    (16, 512, 1, 4, 4096, 4096), (2, 4096, 1, 4, 4096, 4096)]
+# (G, hd, hdv) of the wide path's untimed checks (check): each of the
+# timed shapes' head shapes at a small cache
+WIDE = [(4, 640, 512), (2, 1024, 1024), (3, 128, 2048), (8, 2048, 128),
+        (7, 768, 768), (2, 4096, 4096)]
 
 # the current design: no cache copies (the stages' barriers complete
 # empty), no score mma, no value mma (an XOR in place of each), no merge of
@@ -172,7 +205,10 @@ _INTERFACE = "int hkv, int hd, int hdv, int heads"
 def _build_variants(dirs: dict[str, pathlib.Path]) -> dict[str, ctypes.CDLL]:
     libs = compile_variants(dirs, SOURCE)
     for v, lib in libs.items():
-        if _INTERFACE in (dirs[v] / SOURCE).read_text():
+        src = (dirs[v] / SOURCE).read_text()
+        # a source without the wide path takes heads of at most 512
+        lib.widest = None if "decode_attn_wide" in src else da.MAX_HEAD_WIDTH
+        if _INTERFACE in src:
             da.type_lib(lib)
             lib.parent = False
         else:
@@ -186,8 +222,13 @@ def _build_variants(dirs: dict[str, pathlib.Path]) -> dict[str, ctypes.CDLL]:
 
 
 def takes(lib, case) -> bool:
-    """Whether a variant takes the case's shape: the parent's interface
-    takes hd = hdv in (128, 256) and G in (1, 2, 4, 8)."""
+    """Whether a variant takes the case's shape: ``supports``, with heads
+    of at most 512 in a source without the wide path; the parent's
+    interface takes hd = hdv in (128, 256) and G in (1, 2, 4, 8)."""
+    widest = getattr(lib, "widest", None)
+    if not da.supports(case.h, case.hkv, case.hd, case.hdv) or (
+            widest and max(case.hd, case.hdv) > widest):
+        return False
     return not getattr(lib, "parent", False) or (
         case.hd == case.hdv and case.hd in (128, 256)
         and case.g in (1, 2, 4, 8))
@@ -227,6 +268,9 @@ def _starts(kind, b, s, gen):
         return 128 + torch.randint(0, 56, (b,), generator=gen, device=dev)
     if kind == "tiny":
         return torch.linspace(20, 120, b, device=dev).round().long()
+    if kind == "fill":
+        st = torch.linspace(s // 16, s - 1, b, device=dev).round().long()
+        return st[torch.randperm(b, generator=gen, device=dev)]
     return torch.full((b,), int(kind), device=dev, dtype=torch.long)
 
 
@@ -307,6 +351,28 @@ class Case:
                 self.q, self.kn, self.vn, *ref, self.start, self.window,
                 scale=self.scale)
         return out, ref
+
+    def composed(self):
+        """A function of no arguments running the composed decode step's
+        attention on the next cache copy, as ``_softmax_attention`` runs it
+        where the gate says no: the rows written by one ``write_rows_pair``
+        launch (#5/#6; int8 quantized first), then the plain attention
+        over the cache (``models/transformer.py:_attention``)."""
+        from vlut_tpu_torch.models.transformer import _SlotKV, _attention
+
+        names = ("k", "v", "k_scale", "v_scale") if self.q8 else ("k", "v")
+        k_pos = torch.arange(self.s, device=self.q.device)[None, :].expand(
+            self.b, self.s)
+        q_pos = self.start[:, None]
+
+        def run():
+            kv = _SlotKV({n: [t] for n, t in zip(names, self._next())}, 0,
+                         None)
+            k, v, ks, vs = kv.update(self.kn, self.vn, self.start)
+            return _attention(self.q, k, v, q_pos, k_pos, self.hd,
+                              scale=self.scale, k_scale=ks, v_scale=vs,
+                              window=self.window)
+        return run
 
     def sdpa(self):
         """``scaled_dot_product_attention`` over the same rows (int8:
@@ -404,7 +470,7 @@ def plan(case, sms) -> int:
     """The rows per block the wrapper plans for the case."""
     groups = da.head_groups(case.g, case.hd, case.hdv)[1]
     return da.attn_plan(case.b, case.hkv, da.span(case.s, case.window), sms,
-                        groups)
+                        groups, da.value_slices(case.hd, case.hdv))
 
 
 def check(gen) -> list[dict]:
@@ -441,11 +507,18 @@ def check(gen) -> list[dict]:
             one(f"edges starts 0/S-1/S/-1/17 window={window} q8={q8}", case)
         # head groups (G 71: five of 15, 15, 15, 15, 11) and hdv != hd with
         # large values in the rows a slot does not see
-        for g, hd, hdv in ((71, 128, 128), (7, 256, 128), (3, 128, 512)):
+        for g, hd, hdv in ((71, 128, 128), (7, 256, 128), (3, 128, 512),
+                           *WIDE):
             case = Case(gen, 5, s, 1, g, hd, 37, st, q8, rotate=False,
                         hdv=hdv)
             hide_rows(case)
             one(f"edges G={g} hd={hd} hdv={hdv} window=37 q8={q8}", case)
+        # the wide path over several splits, every rows-per-block choice
+        case = Case(gen, 3, 700, 2, 7, 768, 0, "fill", q8, rotate=False,
+                    hdv=1152)
+        for rows in da.ROWS:
+            one(f"forced wide G=7 hd=768 hdv=1152 q8={q8}", case, rows)
+        del case
         case = Case(gen, 1, 40, 8, 4, 128, 0, 39, q8, rotate=False)
         one(f"B=1 S=40 q8={q8}", case)
         torch.cuda.empty_cache()
@@ -479,6 +552,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--timeline", action="store_true")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--composed", action="store_true",
+                    help="after the checks, only COMPOSED_SWEEP")
     ap.add_argument("--check-only", action="store_true")
     ap.add_argument("--only", default="",
                     help="comma-separated SHAPES labels to time (default: all)")
@@ -516,6 +591,8 @@ def main(argv: list[str] | None = None) -> int:
          max_abs_err=max(r["max_abs_err"] for r in results))
     if bad or args.check_only:
         return 1 if bad else 0
+    if args.composed:
+        return composed_sweep(gen, card)
 
     shapes = [sh for sh in SHAPES
               if not args.only or sh[0] in args.only.split(",")]
@@ -583,14 +660,14 @@ def main(argv: list[str] | None = None) -> int:
                      best=min(us, key=us.get), us=us, card=card)
                 # heads per block (each at the rows the plan gives its
                 # groups): 4 up to the most a block holds, and G
-                most = 4 * (da.MAX_HEAD_WIDTH // max(hd, hdv))
+                most = da.head_groups(64, hd, hdv)[0]
                 if g > 4:
                     hus = {}
                     for heads in sorted({*range(4, min(g, most) + 1, 4),
                                          min(g, most)}):
                         groups = -(-g // heads)
                         rows = da.attn_plan(b, hkv, da.span(s, window), sms,
-                                            groups)
+                                            groups, da.value_slices(hd, hdv))
                         why, _ = check_case(case, rows, heads=heads)
                         hus[heads] = why or graph_us(
                             case.call(rows=rows, heads=heads), 20)
@@ -601,6 +678,27 @@ def main(argv: list[str] | None = None) -> int:
                          best=min(timed, key=timed.get), us=hus, card=card)
                 del case
                 torch.cuda.empty_cache()
+    return 0
+
+
+def composed_sweep(gen, card) -> int:
+    """--composed: the kernel and the composed step (``Case.composed``),
+    each in a CUDA graph, at ``COMPOSED_SWEEP`` (starts spread over S / 16
+    to S - 1), with the gate's choice (``fused_pays``) beside which was
+    faster."""
+    for b, s, hkv, g, hd, hdv in COMPOSED_SWEEP:
+        for q8 in (False, True):
+            case = Case(gen, b, s, hkv, g, hd, 0, "fill", q8, rotate=True,
+                        hdv=hdv)
+            us = graph_us(case.call(), 20)
+            composed_us = graph_us(case.composed(), 20)
+            emit(composed_sweep=[b, s, hkv, g, hd, hdv], q8=q8,
+                 rows=case.rows(), slices=da.value_slices(hd, hdv),
+                 heads_groups=da.head_groups(g, hd, hdv), kernel_us=us,
+                 composed_us=composed_us,
+                 fused_pays=da.fused_pays(hkv * g, hkv, hd, hdv), card=card)
+            del case
+            torch.cuda.empty_cache()
     return 0
 
 

@@ -359,7 +359,8 @@ def expected_kernels(cfg: ModelConfig, model: tt.TransformerLM,
                 and cfg.pos_embed != "alibi"
                 and not cfg.attn_sinks and not cfg.attn_logit_softcap
                 and cfg.swa_type != "chunked"
-                and dattn.supports(cl.n_heads, cl.n_kv_heads, hd_p, hd_p))
+                and dattn.supports(cl.n_heads, cl.n_kv_heads, hd_p, hd_p)
+                and dattn.fused_pays(cl.n_heads, cl.n_kv_heads, hd_p, hd_p))
         found.add("decode_attention" if attn else "write_rows_pair")
     order = ("ternary_gemm_tiled", "ternary_gemm_decode",
              "ternary_gemm_fused_quant", "decode_attention",

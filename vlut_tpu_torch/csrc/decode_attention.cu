@@ -17,9 +17,10 @@
 //     float32 as the JAX kernel does at Precision.HIGHEST.
 //
 // Shapes: any group size G = H / Hkv >= 1, a K head width hd and a V head
-// width hdv each of 128, 256, 384 or 512, in any pair (the Pallas kernels'
-// domain at the 128-lane widths the port pads heads to).  The output is
-// (B, H, hdv).
+// width hdv each any multiple of 128, in any pair (the Pallas kernels'
+// domain at the 128-lane widths the port pads heads to).  Where both are at
+// most 512 the kernel is decode_attn_kernel below; a wider head goes to
+// decode_attn_wide (the last paragraph).  The output is (B, H, hdv).
 //
 // Rows at or past start are never visible, so the order of the write and
 // the reads does not matter.
@@ -91,6 +92,25 @@
 // On the H100 the bf16 call streams within a few percent of its copies
 // alone; the int8 call is bound by its arithmetic and per-block latency
 // (PERF.md, section 6).
+//
+// Wider heads (hd or hdv above 512, decode_attn_wide, instantiated per
+// cache type only): shared memory and registers do not grow with the
+// widths.  A block holds one m-tile (at most four query heads; head_groups
+// deals a KV head's heads into groups of at most four) and one value slice
+// of at most 512 columns (the grid is (slot, KV head, group, slice) x
+// splits).  Its four warps form one team: every warp computes the whole
+// score and the warps split the slice's columns.  A stage's 16 rows come as
+// ring entries of at most 512 columns: the K pieces in column order, whose
+// k-steps accumulate into the score's C fragments in the order
+// decode_attn_kernel sums them, then the slice's V columns (in int8 with
+// the stage's scales).  q's fragments are made per k-step from q in device
+// memory.  Each slice's block computes the same score and softmax state (m,
+// l) and keeps only its slice's numerator; a split state is slice + 2
+// floats, merged per slice in split order.  Every block computes the new
+// token's term from the whole rows (in int8 the scale is max|x| over the
+// whole K row and the whole V row); the finishing block of group 0, slice 0
+// writes them.  So a head's arithmetic is decode_attn_kernel's with one
+// team of four warps.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -110,7 +130,8 @@ constexpr float kNeg = -1e30f;
 constexpr float kRecip127 = 1.0f / 127.0f;  // the float32 reciprocal
 
 // The heads one block holds: 4 x 512 / max(hd, hdv), so that q's
-// fragments and a team's accumulators stay within their budgets.
+// fragments and a team's accumulators stay within their budgets; past 512
+// the wide kernel takes over.
 constexpr int kMaxHeadWidth = 512;
 
 template <int HD, int HDV, int MT, bool Q8>
@@ -859,6 +880,479 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) p.counters[unit] = 0;
 }
 
+// --- heads wider than 512: K in pieces, V in slices -------------------------
+
+constexpr int kPiece = 512;  // K columns of a ring entry; V columns a block
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
+          "r"(smem_addr(bar))
+      : "memory");
+}
+
+template <bool Q8>
+struct Wide {
+  static constexpr int ESZ = Q8 ? 1 : 2;
+  static constexpr int ENTRY = kChunk * kPiece * ESZ;  // 16 rows of a piece
+  static constexpr int D = kRingBytes / ENTRY;  // entries in flight: 4 or 8
+  static constexpr int STW = kPiece + 2;        // a head's state (m, l, slice)
+  static constexpr int RING = D * ENTRY;
+  static constexpr int SCALES = RING;           // Q8: [D][32] floats
+  static constexpr int BARS = SCALES + (Q8 ? D * 128 : 0);
+  static constexpr int FLAG = BARS + (D * 8 + 15) / 16 * 16;
+  static constexpr int SMEM = FLAG + 16 + 1024;  // + slack
+  static constexpr int NTW = kPiece / kWarps / 8;  // a warp's value n-tiles
+  static constexpr int EPLS = kPiece / 32;         // a lane's slice columns
+  static_assert(4 * STW * 4 <= RING, "head states fit the ring");
+};
+
+struct WideParams {
+  Params p;
+  int hd, hdv;
+  int nsl, npk;  // value slices of a KV head, K pieces of a row
+  int stw;       // floats of a split's state: min(hdv, 512) + 2
+};
+
+// The new row's value x as the cache stores it (Q8: code and scale `sc`,
+// `inv` its reciprocal, as new_row computes them)
+template <bool Q8>
+__device__ __forceinline__ float cache_value(float x, float sc, float inv,
+                                             float* code) {
+  if constexpr (Q8) {
+    const float c = fminf(fmaxf(rintf(x * inv), -127.0f), 127.0f);
+    *code = c;
+    return c * sc;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+}
+
+// scale = max|x| * (1/127) over the whole row of n elements, as new_row
+__device__ __forceinline__ void row_scale(const void* src, int n, bool bf16,
+                                          int lane, float& sc, float& inv) {
+  float amax = 0.0f;
+  for (int i = lane; i < n; i += 32)
+    amax = fmaxf(amax, fabsf(load_f(src, i, bf16)));
+  amax = warp_max(amax);
+  sc = amax * kRecip127;
+  inv = sc > 0.0f ? 1.0f / fmaxf(sc, 1e-30f) : 0.0f;
+}
+
+// The whole new row (n wide) into cache row `row` (Q8: codes, and its scale)
+template <bool Q8>
+__device__ __forceinline__ void write_row(const void* src, int n, bool bf16,
+                                          void* cache, float* scales, long row,
+                                          float sc, float inv, int lane) {
+  for (int i = lane; i < n; i += 32) {
+    float c = 0.0f;
+    const float v = cache_value<Q8>(load_f(src, i, bf16), sc, inv, &c);
+    if constexpr (Q8) {
+      static_cast<int8_t*>(cache)[row * n + i] = static_cast<int8_t>(c);
+    } else {
+      static_cast<__nv_bfloat16*>(cache)[row * n + i] = __float2bfloat16_rn(v);
+    }
+  }
+  if (Q8 && lane == 0) scales[row] = sc;
+}
+
+// finish's arithmetic at any width: the new token's term over the whole K
+// row, the output over the slice's columns [vs0, vs0 + vw) (a lane's vw / 32
+// of them), the new rows written whole when `writer`.  q and the new rows
+// are read from device memory.
+template <bool Q8>
+__device__ __forceinline__ void finish_wide(const WideParams& w, int b, int kvh,
+                                            int head, int st, bool writer,
+                                            int lane, float M, float L,
+                                            const float (&acc)[Wide<Q8>::EPLS],
+                                            int vs0, int vw) {
+  const Params& p = w.p;
+  const int h = p.hkv * p.g;
+  const bool write = writer && st >= 0 && st < p.s;
+  const long row =
+      (static_cast<long>(b) * p.s + (write ? st : 0)) * p.hkv + kvh;
+  const int nb = p.new_bf16 ? 2 : 4;
+  const char* kn =
+      static_cast<const char*>(p.k_new) +
+      (static_cast<long>(b) * p.k_ld + static_cast<long>(kvh) * w.hd) * nb;
+  const char* vn =
+      static_cast<const char*>(p.v_new) +
+      (static_cast<long>(b) * p.v_ld + static_cast<long>(kvh) * w.hdv) * nb;
+  float ks = 0.0f, kinv = 0.0f, vs = 0.0f, vinv = 0.0f, c;
+  if constexpr (Q8) {
+    row_scale(kn, w.hd, p.new_bf16, lane, ks, kinv);
+    row_scale(vn, w.hdv, p.new_bf16, lane, vs, vinv);
+  }
+  if (write) {
+    write_row<Q8>(kn, w.hd, p.new_bf16, p.kc, p.ksc, row, ks, kinv, lane);
+    write_row<Q8>(vn, w.hdv, p.new_bf16, p.vc, p.vsc, row, vs, vinv, lane);
+  }
+  const char* qj =
+      static_cast<const char*>(p.q) +
+      (static_cast<long>(b) * p.q_ld + static_cast<long>(head) * w.hd) *
+          (p.q_bf16 ? 2 : 4);
+  const int epl = w.hd / 32;
+  float d = 0.0f;
+  for (int e = 0; e < epl; ++e) {
+    const int i = lane * epl + e;
+    d = fmaf(load_f(qj, i, p.q_bf16) * p.scale,
+             cache_value<Q8>(load_f(kn, i, p.new_bf16), ks, kinv, &c), d);
+  }
+  const float sn = warp_sum(d);
+  const float m_new = fmaxf(M, sn);
+  const float alpha = expf(M - m_new);
+  const float pn = expf(sn - m_new);
+  const float l_new = L * alpha + pn;
+  const int epls = vw / 32;
+  float* o = p.out + (static_cast<long>(b) * h + head) * w.hdv + vs0 +
+             lane * epls;
+#pragma unroll
+  for (int e = 0; e < Wide<Q8>::EPLS; ++e) {
+    if (e < epls) {
+      const float v = cache_value<Q8>(
+          load_f(vn, vs0 + lane * epls + e, p.new_bf16), vs, vinv, &c);
+      o[e] = (acc[e] * alpha + pn * v) / l_new;
+    }
+  }
+}
+
+// One block of four warps per (slot, KV head, head group of at most four
+// heads: one m-tile, value slice of at most 512 columns) x split.  The
+// arithmetic of a head is decode_attn_kernel's with one team: every warp
+// computes the whole score, the warps split the slice's value columns.  A
+// stage's 16 rows come as ring entries: the K pieces of at most 512 columns
+// in column order (the score's C fragments accumulate over them in k-step
+// order), then the V slice (in int8 with the stage's K and V scales).  q's
+// fragments are made per k-step from q in device memory, so neither shared
+// memory nor registers grow with the widths.
+template <bool Q8>
+__global__ void __launch_bounds__(kThreads)
+    decode_attn_wide(const __grid_constant__ CUtensorMap tmk,
+                     const __grid_constant__ CUtensorMap tmv,
+                     const WideParams w) {
+  using W = Wide<Q8>;
+  constexpr int D = W::D, NTW = W::NTW, EPLS = W::EPLS;
+  const Params& p = w.p;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + W::BARS);
+  int* flag = reinterpret_cast<int*>(smem + W::FLAG);
+
+  // block (slot b, KV head kvh, head group grp, value slice sl) x split sp
+  const int vunit = blockIdx.x, sp = blockIdx.y;
+  const int sl = vunit % w.nsl, unit = vunit / w.nsl;
+  const int grp = unit % p.groups, pair = unit / p.groups;
+  const int b = pair / p.hkv, kvh = pair % p.hkv;
+  const int h0 = kvh * p.g + grp * p.gh;
+  const int gc = min(p.gh, p.g - grp * p.gh);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int st = p.start_i64
+                     ? static_cast<int>(static_cast<const int64_t*>(p.start)[b])
+                     : static_cast<const int32_t*>(p.start)[b];
+  const int hi = min(st, p.s);
+  const int lo = p.window > 0 ? max(0, st - p.window + 1) : 0;
+  const int n_act = hi > lo ? (hi - lo + p.rows - 1) / p.rows : 0;
+  if (sp >= max(n_act, 1)) return;
+  const int r0 = lo + sp * p.rows;
+  const int r1 = min(hi, r0 + p.rows);
+  const int nch = r1 > r0 ? (r1 - r0 + kChunk - 1) / kChunk : 0;
+  const int vs0 = sl * kPiece, vw = min(kPiece, w.hdv - vs0);
+  const int ncol = vw / kWarps;  // a warp's value columns: 32 to 128
+  const int ne = w.npk + 1;      // entries of a stage: K pieces, V slice
+  const int nent = nch * ne;
+  const int g = lane >> 2, t = lane & 3, j = g & 3;
+  const bool upper = lane >= 16;
+  const long grow = static_cast<long>(b) * p.s;
+  const int colk = kvh * w.hd * W::ESZ, colv = (kvh * w.hdv + vs0) * W::ESZ;
+
+  if (tid == 0) {
+    for (int i = 0; i < D; ++i) mbar_init(&bars[i], Q8 ? 33 : 1);
+    prefetch_tensormap(&tmk);
+    prefetch_tensormap(&tmv);
+  }
+  __syncthreads();
+
+  // entry n (stage n / ne, part n % ne) into ring slot n % D: warp 0's lane
+  // 0 the boxes; in int8 every lane of warp 0 one scale of a V entry, or
+  // one arrival
+  auto issue = [&](int n) {
+    const int slot = n % D, part = n % ne;
+    uint64_t* bar = &bars[slot];
+    const int rb = r0 + (n / ne) * kChunk;
+    const bool kpart = part < w.npk;
+    if (lane == 0) {
+      const int c0 = kpart ? colk + part * kPiece * W::ESZ : colv;
+      const int nbox =
+          (kpart ? min(kPiece, w.hd - part * kPiece) : vw) * W::ESZ / 128;
+      mbar_arrive_expect(bar, nbox * kBox);
+      const uint32_t dst = smem_addr(smem + slot * W::ENTRY);
+      for (int x = 0; x < nbox; ++x)
+        tma_load_2d(dst + x * kBox, kpart ? &tmk : &tmv, c0 + 128 * x,
+                    static_cast<int>(grow + rb), bar);
+    }
+    if constexpr (Q8) {
+      if (kpart) {
+        mbar_arrive(bar);
+      } else {
+        const int r = rb + (lane & 15);
+        const bool ok = r < r1;
+        const float* src = (lane < 16 ? p.ksc : p.vsc) +
+                           ((grow + (ok ? r : r0)) * p.hkv + kvh);
+        cp_async4(smem_addr(smem + W::SCALES + slot * 128 + lane * 4), src,
+                  ok ? 4 : 0, bar);
+      }
+    }
+  };
+  if (warp == 0) {
+    for (int n = 0; n < min(D, nent); ++n) issue(n);
+  }
+
+  // q * scale as the score product's A fragment of k-step ks, as
+  // decode_attn_kernel's qfrag makes it
+  const char* qrow = static_cast<const char*>(p.q) +
+                     (static_cast<long>(b) * p.q_ld +
+                      static_cast<long>(h0 + min(j, gc - 1)) * w.hd) *
+                         (p.q_bf16 ? 2 : 4);
+  auto qfrag = [&](int ks, uint32_t (&a)[4]) {
+    if (j >= gc) {
+      a[0] = a[1] = a[2] = a[3] = 0u;
+      return;
+    }
+    const int da = 16 * ks + (Q8 ? 4 * t : 2 * t);
+    const int db = da + (Q8 ? 2 : 8);
+    a_frag(load_f(qrow, da, p.q_bf16) * p.scale,
+           load_f(qrow, da + 1, p.q_bf16) * p.scale,
+           load_f(qrow, db, p.q_bf16) * p.scale,
+           load_f(qrow, db + 1, p.q_bf16) * p.scale, upper, a);
+  };
+
+  float m = kNeg, l = 0.0f, acc[NTW][4];
+#pragma unroll
+  for (int n = 0; n < NTW; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  const int mi = lane >> 3;
+  const int krow = (mi >> 1) * 8 + (lane & 7);
+  const int kbyte = (mi & 1) * 16;
+  const int vrow = (mi & 1) * 8 + (lane & 7);
+  const int vbyte = (mi >> 1) * 16;
+
+  int n = 0;
+  for (int ch = 0; ch < nch; ++ch) {
+    const int rb = r0 + ch * kChunk;
+    float s[2][4];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[x][e] = 0.0f;
+    for (int part = 0; part < ne; ++part, ++n) {
+      const int slot = n % D;
+      mbar_wait(&bars[slot], (n / D) & 1);
+      const uint32_t eb = smem_addr(smem + slot * W::ENTRY);
+      if (part < w.npk) {
+        // the piece's k-steps of the scores S = (q * scale) K^T
+        const int ks0 = part * (kPiece / 16);
+        const int nks = min(kPiece, w.hd - part * kPiece) / 16;
+        if constexpr (Q8) {
+          for (int kk = 0; kk < nks / 2; ++kk) {
+            uint32_t r[4], a[2][4];
+            ldmatrix_x4(r, swz(eb, krow, 32 * kk + kbyte));
+            qfrag(ks0 + 2 * kk, a[0]);
+            qfrag(ks0 + 2 * kk + 1, a[1]);
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {  // n-tile x / 2, k-step 2kk + x % 2
+              float f[4];
+              int8x4_to_float(r[x], f);
+              mma_bf16(s[x >> 1], a[x & 1], bf16_pair(f[0], f[1]),
+                       bf16_pair(f[2], f[3]));
+            }
+          }
+        } else {
+          for (int ks = 0; ks < nks; ++ks) {
+            uint32_t r[4], a[4];
+            ldmatrix_x4(r, swz(eb, krow, 32 * ks + kbyte));
+            qfrag(ks0 + ks, a);
+            mma_bf16(s[0], a, r[0], r[1]);
+            mma_bf16(s[1], a, r[2], r[3]);
+          }
+        }
+      } else {
+        // online softmax; p (times the V scale) as the value product's A
+        // fragment; the numerator over the warp's columns of the slice
+        const float* scl =
+            reinterpret_cast<const float*>(smem + W::SCALES + slot * 128);
+        float sc[2][2], pv[2][2];
+        bool ok[2][2];
+        float mx = kNeg;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = x * 8 + 2 * t + e;
+            const float sh = s[x][e] + s[x][e + 2];
+            float v = sh + __shfl_xor_sync(0xffffffffu, sh, 16);
+            if constexpr (Q8) v *= scl[r];
+            ok[x][e] = rb + r < r1;
+            sc[x][e] = ok[x][e] ? v : kNeg;
+            mx = fmaxf(mx, sc[x][e]);
+          }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m, mx);
+        const float alpha = expf(m - m_new);
+        m = m_new;
+        float sum = 0.0f;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float pe = ok[x][e] ? expf(sc[x][e] - m_new) : 0.0f;
+            sum += pe;
+            if constexpr (Q8) {
+              pv[x][e] = ok[x][e] ? pe * scl[16 + x * 8 + 2 * t + e] : 0.0f;
+            } else {
+              pv[x][e] = pe;
+            }
+          }
+        }
+        l = l * alpha + sum;
+#pragma unroll
+        for (int x = 0; x < NTW; ++x)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[x][e] *= alpha;
+        uint32_t pa[4];
+        a_frag(pv[0][0], pv[0][1], pv[1][0], pv[1][1], upper, pa);
+        if constexpr (Q8) {
+#pragma unroll
+          for (int cb = 0; cb < NTW / 4; ++cb) {
+            if (cb < ncol / 32) {
+              uint32_t r[4];
+              ldmatrix_x4_trans(r,
+                                swz(eb, vrow, warp * ncol + 32 * cb + vbyte));
+              float f[4][4];
+#pragma unroll
+              for (int x = 0; x < 4; ++x) int8x4_to_float(r[x], f[x]);
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {  // columns 16 (q / 2) + 2c + q % 2
+                const int hh = q >> 1, par = q & 1;
+                mma_bf16(acc[4 * cb + q], pa,
+                         bf16_pair(f[2 * hh][par], f[2 * hh][2 + par]),
+                         bf16_pair(f[2 * hh + 1][par], f[2 * hh + 1][2 + par]));
+              }
+            }
+          }
+        } else {
+#pragma unroll
+          for (int cb = 0; cb < NTW / 2; ++cb) {
+            if (cb < ncol / 16) {
+              uint32_t r[4];
+              ldmatrix_x4_trans(
+                  r, swz(eb, vrow, 2 * (warp * ncol + 16 * cb) + vbyte));
+              mma_bf16(acc[2 * cb], pa, r[0], r[1]);
+              mma_bf16(acc[2 * cb + 1], pa, r[2], r[3]);
+            }
+          }
+        }
+      }
+      // every warp is done with the entry: the next one goes in
+      __syncthreads();
+      if (warp == 0 && n + D < nent) {
+        if (lane == 0) fence_proxy_async();
+        issue(n + D);
+      }
+    }
+  }
+
+  // the heads' states in shared memory (the ring is free now): [4][STW]
+  __syncthreads();
+  float* tst = reinterpret_cast<float*>(smem);
+  {
+    float lt = l + __shfl_xor_sync(0xffffffffu, l, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    float* dst = tst + j * W::STW;
+    const bool mine = !upper && j < gc;
+#pragma unroll
+    for (int x = 0; x < NTW; ++x) {
+      if (x < ncol / 8) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ah = acc[x][e] + acc[x][e + 2];
+          const float v = ah + __shfl_xor_sync(0xffffffffu, ah, 16);
+          int d;
+          if constexpr (Q8) {
+            d = warp * ncol + 32 * (x >> 2) + 16 * ((x >> 1) & 1) +
+                2 * (2 * t + e) + (x & 1);
+          } else {
+            d = warp * ncol + 8 * x + 2 * t + e;
+          }
+          if (mine) dst[2 + d] = v;
+        }
+      }
+    }
+    if (mine && warp == 0 && t == 0) {
+      dst[0] = m;
+      dst[1] = lt;
+    }
+  }
+  __syncthreads();
+
+  const bool alone = n_act <= 1;
+  const bool writer = warp == 0 && grp == 0 && sl == 0;
+  const int epls = vw / 32;
+  float M, L, o[EPLS];
+  if (warp < gc) {
+    const float* src = tst + warp * W::STW;
+    M = src[0];
+    L = src[1];
+#pragma unroll
+    for (int e = 0; e < EPLS; ++e)
+      o[e] = e < epls ? src[2 + lane * epls + e] : 0.0f;
+    if (alone) {
+      finish_wide<Q8>(w, b, kvh, h0 + warp, st, writer, lane, M, L, o, vs0, vw);
+    } else {
+      float* dst = p.part + ((static_cast<long>(vunit) * p.nsplit + sp) *
+                                 p.gh + warp) * w.stw;
+#pragma unroll
+      for (int e = 0; e < EPLS; ++e)
+        if (e < epls) dst[2 + lane * epls + e] = o[e];
+      if (lane == 0) {
+        dst[0] = M;
+        dst[1] = L;
+      }
+    }
+  }
+  if (alone) return;
+
+  // the last block of the (slot, KV head, group, slice) to arrive merges
+  // the splits in split order
+  __syncthreads();
+  if (tid == 0) *flag = arrive(&p.counters[vunit]) == n_act - 1;
+  __syncthreads();
+  if (!*flag) return;
+  if (warp < gc) {
+    const float* src =
+        p.part + (static_cast<long>(vunit) * p.nsplit * p.gh + warp) * w.stw;
+    const int stride = p.gh * w.stw;
+    M = kNeg;
+    for (int i = 0; i < n_act; ++i) M = fmaxf(M, __ldcg(src + i * stride));
+    L = 0.0f;
+#pragma unroll
+    for (int e = 0; e < EPLS; ++e) o[e] = 0.0f;
+    for (int i = 0; i < n_act; ++i) {
+      const float* sti = src + i * stride;
+      const float f = expf(__ldcg(sti) - M);
+      L += __ldcg(sti + 1) * f;
+#pragma unroll
+      for (int e = 0; e < EPLS; ++e)
+        if (e < epls) o[e] += __ldcg(sti + 2 + lane * epls + e) * f;
+    }
+    finish_wide<Q8>(w, b, kvh, h0 + warp, st, writer, lane, M, L, o, vs0, vw);
+  }
+  if (tid == 0) p.counters[vunit] = 0;
+}
+
 // cuTensorMapEncodeTiled, looked up once through the runtime (the library
 // links only the CUDA runtime).
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -958,6 +1452,27 @@ int launch_hd(int hd, int hdv, int mt, const Params& p, int b,
   }
 }
 
+template <bool Q8>
+int launch_wide(const Params& p, int hd, int hdv, int b, cudaStream_t stream) {
+  using W = Wide<Q8>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_attn_wide<Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      W::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long rows = static_cast<long>(b) * p.s;
+  CUtensorMap tmk, tmv;
+  if (!encode_map(&tmk, p.kc, static_cast<long>(p.hkv) * hd * W::ESZ, rows) ||
+      !encode_map(&tmv, p.vc, static_cast<long>(p.hkv) * hdv * W::ESZ, rows))
+    return static_cast<int>(cudaErrorNotSupported);
+  const int nsl = (hdv + kPiece - 1) / kPiece;
+  const WideParams w{p, hd, hdv, nsl, (hd + kPiece - 1) / kPiece,
+                     (hdv < kPiece ? hdv : kPiece) + 2};
+  decode_attn_wide<Q8>
+      <<<dim3(b * p.hkv * p.groups * nsl, p.nsplit), kThreads, W::SMEM,
+         stream>>>(tmk, tmv, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -968,13 +1483,15 @@ extern "C" {
 // slot's rows 16-byte aligned: they are copied whole); kc: (b, s, hkv, hd)
 // and vc: (b, s, hkv, hdv) bf16 or int8 caches, updated in place, 16-byte
 // aligned; ksc/vsc: (b, s, hkv) float32 scales (int8 form only, else
-// null); start: (b,) int32 or int64 (start_i64); hd and hdv each 128, 256,
-// 384 or 512; heads: query heads per block (a KV head's h / hkv heads in
-// groups = ceil(h / hkv / heads) blocks), at most 4 x 512 / max(hd, hdv);
-// rows: cache rows per block, a multiple of 16, and nsplit >= ceil(visible
-// rows / rows) for every slot; part: b * hkv * groups * nsplit * heads *
-// (hdv + 2) floats; counters: b * hkv * groups ints, zero (and zero again
-// after the call); out: (b, h, hdv) float32.
+// null); start: (b,) int32 or int64 (start_i64); hd and hdv each a
+// multiple of 128; heads: query heads per block (a KV head's h / hkv heads
+// in groups = ceil(h / hkv / heads) blocks), at most 4 x 512 / max(hd, hdv),
+// or 4 where hd or hdv is above 512 (then the V heads go in slices =
+// ceil(hdv / 512) blocks); rows: cache rows per block, a multiple of 16,
+// and nsplit >= ceil(visible rows / rows) for every slot; part: b * hkv *
+// groups * slices * nsplit * heads * (min(hdv, 512) + 2) floats (above 512;
+// else hdv + 2); counters: b * hkv * groups * slices ints, zero (and zero
+// again after the call); out: (b, h, hdv) float32.
 int vlut_decode_attn(const void* q, long q_ld, int q_bf16, const void* k_new,
                      long k_ld, const void* v_new, long v_ld, int new_bf16,
                      void* kc, void* vc, void* ksc, void* vsc,
@@ -982,9 +1499,12 @@ int vlut_decode_attn(const void* q, long q_ld, int q_bf16, const void* k_new,
                      int hkv, int hd, int hdv, int heads, int window,
                      float scale, int quantized, int rows, int nsplit,
                      void* part, void* counters, void* out, void* stream) {
+  const int widest = hd > hdv ? hd : hdv;
+  const bool wide = widest > kMaxHeadWidth;
   if (b <= 0 || s <= 0 || hkv <= 0 || h <= 0 || h % hkv != 0 || rows <= 0 ||
       rows % kChunk != 0 || nsplit <= 0 || heads <= 0 || heads > h / hkv ||
-      (hd > hdv ? hd : hdv) * ((heads + 3) / 4) > kMaxHeadWidth)
+      hd <= 0 || hdv <= 0 || hd % 128 != 0 || hdv % 128 != 0 ||
+      (wide ? heads > 4 : widest * ((heads + 3) / 4) > kMaxHeadWidth))
     return static_cast<int>(cudaErrorInvalidValue);
   const int g = h / hkv;
   Params p{q, k_new, v_new, kc, vc, static_cast<float*>(ksc),
@@ -993,6 +1513,9 @@ int vlut_decode_attn(const void* q, long q_ld, int q_bf16, const void* k_new,
            v_ld, q_bf16, new_bf16, start_i64, s, hkv, window, rows, nsplit,
            g, heads, (g + heads - 1) / heads, scale};
   auto st = static_cast<cudaStream_t>(stream);
+  if (wide)
+    return quantized ? launch_wide<true>(p, hd, hdv, b, st)
+                     : launch_wide<false>(p, hd, hdv, b, st);
   const int mt = (heads + 3) / 4;
   return quantized ? launch_hd<true>(hd, hdv, mt, p, b, st)
                    : launch_hd<false>(hd, hdv, mt, p, b, st);

@@ -479,13 +479,13 @@ def layer_specs(cfg: ModelConfig, i: int = 0, moe: bool | None = None,
     return specs
 
 
-def pack_weight(name: str, trits, scale, cfg: ModelConfig,
-                plan: DimPlan | None = None,
-                device: str | torch.device | None = None) -> TernaryTensor:
-    """Pack one logical (K, N) projection (numpy or a tensor) with the
+def pad_weight(name: str, trits, cfg: ModelConfig,
+               plan: DimPlan | None = None,
+               device: str | torch.device | None = None):
+    """One logical (K, N) projection's trits (numpy or a tensor) with the
     plan's head padding and chunk padding (the JAX package's checkpoint
-    layout).  The padding and the packing run on ``device`` (default: the
-    trits' own; the CPU for numpy)."""
+    layout), as :func:`pack_weight` packs them.  The padding runs on
+    ``device`` (default: the trits' own; the CPU for numpy)."""
     plan = plan or make_plan(cfg)
     if device is not None:
         trits = torch.as_tensor(trits).to(device)
@@ -507,7 +507,20 @@ def pack_weight(name: str, trits, scale, cfg: ModelConfig,
     elif name not in ("w_lin_attn",) + MLA_PROJECTIONS:
         # deci's (D, D) and MLA's projections: plain packing
         raise KeyError(name)
+    return trits
+
+
+def pack_weight(name: str, trits, scale, cfg: ModelConfig,
+                plan: DimPlan | None = None,
+                device: str | torch.device | None = None) -> TernaryTensor:
+    """Pack one logical (K, N) projection (numpy or a tensor) with the
+    plan's head padding and chunk padding (:func:`pad_weight`).  The
+    padding and the packing run on ``device`` (default: the trits' own;
+    the CPU for numpy)."""
+    plan = plan or make_plan(cfg)
+    trits = pad_weight(name, trits, cfg, plan, device)
     t = pack_ternary(trits, scale, cfg.weight_fmt, plan.kb)
+    name = name.removeprefix("vis_")
     if name in ("wq_b", "wq_full") and t.packed.shape[1] != trits.shape[1]:
         # q reshapes per head, so its width must be lane-exact (true of the
         # real models: H * (128 + 64) is a multiple of 128)
@@ -1695,7 +1708,8 @@ def _fused_attn_ok(cfg: ModelConfig, heads: tuple[int, int],
     attention the kernels compute (no ALiBi, sinks, softcap, chunked
     windows or bidirectional attention), and the kernels' head shapes:
     the layer's own (query heads, KV heads) and padded (K, V) head
-    widths."""
+    widths, where the kernels pay (``fused_pays``: the wide path's
+    costliest heads stay composed)."""
     return (
         decode_attn == "fused" and attn_mask is None
         and kvio is not None and kvio.slots is None and t == 1
@@ -1705,6 +1719,7 @@ def _fused_attn_ok(cfg: ModelConfig, heads: tuple[int, int],
         and getattr(cfg, "swa_type", "window") != "chunked"
         and getattr(cfg, "causal_attn", True)
         and dattn.supports(heads[0], heads[1], *widths)
+        and dattn.fused_pays(heads[0], heads[1], *widths)
     )
 
 

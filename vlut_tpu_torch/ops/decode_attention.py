@@ -17,8 +17,10 @@ heads, split of ``attn_plan`` cache rows), the last block of a split
 (slot, KV head, group) merging the splits; it takes q and the new rows as
 the model's layer gives them (bf16 or float32, the new rows strided) and
 the starts as int32 or int64, and never casts or copies them.  It takes hd
-and hdv each of :data:`HEAD_DIMS`; a wider head raises ``ValueError``
-(the one place the port's domain is narrower than the Pallas kernels').
+and hdv each any multiple of 128 (the Pallas kernels' domain at the widths
+the port pads heads to); a head wider than :data:`MAX_HEAD_WIDTH` goes to
+the kernel's wide path, whose blocks also take a value slice of
+:func:`value_slices`.  Another width raises ``ValueError``.
 A CPU tensor goes to the plain PyTorch version below
 (:func:`decode_attention_plain`, :func:`decode_attention_int8_plain`).
 Both skip the write of a slot whose start lies outside [0, S).
@@ -37,25 +39,58 @@ from vlut_tpu_torch.runtime.kv_cache import dequantize_kv, quantize_kv
 
 _P = ctypes.c_void_p
 NEG = -1e30
-HEAD_DIMS = (128, 256, 384, 512)
-MAX_HEAD_WIDTH = 512  # a block holds 4 x 512 / max(hd, hdv) query heads
+LANE = 128  # hd and hdv are multiples of it
+# the widest head of the first path: a block holds 4 x 512 / max(hd, hdv)
+# query heads; past it a block holds one m-tile and a value slice of at
+# most this many columns
+MAX_HEAD_WIDTH = 512
 
 
 def supports(h: int, hkv: int, hd: int, hdv: int) -> bool:
     """Whether the kernels take H query heads over Hkv KV heads, K heads
     of width hd and V heads of width hdv (padded widths: the port pads
     heads to 128 lanes)."""
-    return (hd in HEAD_DIMS and hdv in HEAD_DIMS and hkv > 0
-            and h >= hkv and h % hkv == 0)
+    return (hd > 0 and hdv > 0 and hd % LANE == 0 and hdv % LANE == 0
+            and hkv > 0 and h >= hkv and h % hkv == 0)
+
+
+def wide(hd: int, hdv: int) -> bool:
+    """Whether the heads take the kernel's wide path (K pieces, V
+    slices)."""
+    return max(hd, hdv) > MAX_HEAD_WIDTH
+
+
+def value_slices(hd: int, hdv: int) -> int:
+    """Blocks a (slot, KV head, head group) spreads its V columns over: 1,
+    or on the wide path ceil(hdv / 512)."""
+    return -(-hdv // MAX_HEAD_WIDTH) if wide(hd, hdv) else 1
+
+
+# the wide path recomputes a KV head's whole score in each of its head
+# groups and value slices: past this many score columns a row (groups x
+# slices x hd) the composed step was as fast or faster on the H100
+# (bench/attention_study.py --composed), so the decode gate keeps such
+# heads composed
+WIDE_SCORE_COLS = 4096
+
+
+def fused_pays(h: int, hkv: int, hd: int, hdv: int) -> bool:
+    """Whether a decode step should take the kernels at a head shape they
+    support: always up to 512 wide; on the wide path while its groups x
+    slices x hd is at most :data:`WIDE_SCORE_COLS`."""
+    if not wide(hd, hdv):
+        return True
+    groups = head_groups(h // hkv, hd, hdv)[1]
+    return groups * value_slices(hd, hdv) * hd <= WIDE_SCORE_COLS
 
 
 def head_groups(g: int, hd: int, hdv: int) -> tuple[int, int]:
     """(heads per block, groups per KV head): a KV head's g query heads
     dealt into the fewest groups of at most 4 x 512 / max(hd, hdv) heads
     (16 at 128, the most one block's m-tiles and accumulators hold), of
-    equal size but the last.  The kernel is instantiated per m-tile count,
-    ceil(heads / 4)."""
-    most = 4 * (MAX_HEAD_WIDTH // max(hd, hdv))
+    equal size but the last; on the wide path at most 4 (one m-tile).  The
+    kernel is instantiated per m-tile count, ceil(heads / 4)."""
+    most = 4 if wide(hd, hdv) else 4 * (MAX_HEAD_WIDTH // max(hd, hdv))
     n = -(-g // most)
     heads = -(-g // n)
     return heads, -(-g // heads)
@@ -134,7 +169,8 @@ ROWS = (16, 32, 64, 128, 256, 512)  # cache rows per block, multiples of 16
 # SMs, and where head groups move the plan (OuteTTS's one slot of 2 KV
 # heads at G 7 over 8,192 rows; falcon-7b's 16 slots of one KV head at G
 # 71, five groups, over 2,048); chip_smoke.py, the card tests and
-# bench/attention_study.py check the kernel there
+# bench/attention_study.py check the kernel there (at heads of 128 or 256;
+# the wide path at the widths of attention_study.WIDE)
 PLAN_SHAPES = [(32, 8, 2048, 4), (8, 8, 512, 2), (4, 8, 512, 1),
                (1, 8, 552, 8), (1, 8, 300, 4), (1, 2, 300, 2),
                (1, 2, 8192, 7), (16, 1, 2048, 71)]
@@ -146,17 +182,19 @@ def span(s: int, window: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def attn_plan(b: int, hkv: int, s: int, sms: int, groups: int = 1) -> int:
+def attn_plan(b: int, hkv: int, s: int, sms: int, groups: int = 1,
+              slices: int = 1) -> int:
     """Cache rows per block for B slots of Hkv KV heads of ``groups`` head
-    groups each over at most ``s`` rows each, on a card of ``sms`` SMs:
-    the most (of :data:`ROWS`) that still give a full cache at least half
-    a wave of blocks, else the fewest.  A block's fixed costs (its first
-    copies' latency, the merge of a slot's splits by the last block)
-    outweigh the SMs a short cache leaves idle: on the H100, B 1 at S 552
-    took 8.1 us at 64 rows (72 blocks) and 13.7 us at 16 (280 blocks), and
-    B 32 at S 2048 was fastest at 512 (bench/attention_study.py --sweep)."""
+    groups and ``slices`` value slices each over at most ``s`` rows each,
+    on a card of ``sms`` SMs: the most (of :data:`ROWS`) that still give a
+    full cache at least half a wave of blocks, else the fewest.  A block's
+    fixed costs (its first copies' latency, the merge of a slot's splits
+    by the last block) outweigh the SMs a short cache leaves idle: on the
+    H100, B 1 at S 552 took 8.1 us at 64 rows (72 blocks) and 13.7 us at
+    16 (280 blocks), and B 32 at S 2048 was fastest at 512
+    (bench/attention_study.py --sweep)."""
     for rows in reversed(ROWS):
-        if 2 * b * hkv * groups * -(-s // rows) >= sms:
+        if 2 * b * hkv * groups * slices * -(-s // rows) >= sms:
             return rows
     return ROWS[0]
 
@@ -229,10 +267,9 @@ def _launch(q, k_new, v_new, kc, vc, ksc, vsc, start, window, scale,
     h, hdv = q.shape[2], vc.shape[-1]
     quant = ksc is not None
     if not supports(h, hkv, hd, hdv):
-        raise ValueError(f"decode attention kernel takes hd and hdv in "
-                         f"{HEAD_DIMS} (at most {MAX_HEAD_WIDTH}) and H a "
-                         f"multiple of Hkv; got hd {hd}, hdv {hdv}, H {h}, "
-                         f"Hkv {hkv}")
+        raise ValueError(f"decode attention kernel takes hd and hdv each a "
+                         f"positive multiple of {LANE} and H a multiple of "
+                         f"Hkv; got hd {hd}, hdv {hdv}, H {h}, Hkv {hkv}")
     want = torch.int8 if quant else torch.bfloat16
     for c, w in ((kc, hd), (vc, hdv)):
         if (c.dtype != want or not c.is_contiguous()
@@ -264,11 +301,14 @@ def _launch(q, k_new, v_new, kc, vc, ksc, vsc, start, window, scale,
     g = h // hkv
     heads, groups = ((heads, -(-g // heads)) if heads
                      else head_groups(g, hd, hdv))
+    slices = value_slices(hd, hdv)
     rows = rows or attn_plan(b, hkv, span(s, int(window)),
-                             sm_count(dev.index), groups)
+                             sm_count(dev.index), groups, slices)
     nsplit = -(-span(s, int(window)) // rows)
-    part, cnt = _workspace(dev, b * hkv * groups * nsplit * heads * (hdv + 2),
-                           b * hkv * groups)
+    # a split's state of a head: m, l and its slice's numerator
+    state = (min(hdv, MAX_HEAD_WIDTH) if wide(hd, hdv) else hdv) + 2
+    units = b * hkv * groups * slices
+    part, cnt = _workspace(dev, units * nsplit * heads * state, units)
     out = torch.empty((b, 1, h, hdv), dtype=torch.float32, device=dev)
     err = (lib or _lib()).vlut_decode_attn(
         q.data_ptr(), q_ld, int(q.dtype == torch.bfloat16), k_new.data_ptr(),

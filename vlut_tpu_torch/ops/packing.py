@@ -80,15 +80,16 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def padded_k(k: int, fmt: str, kb: int | None = None) -> int:
+def padded_k(k: int, fmt: str, kb: int | None = None,
+             k_mult: int | None = None) -> int:
     """Packed K for a logical K (pack_ternary's alignment rule)."""
     kb = kb or DEFAULT_BLOCK[fmt]
     k_align = math.lcm(kb, LANES)
-    if fmt == "i1" and k >= 4 * k_align:
+    if k_mult is None and fmt == "i1" and k >= 4 * k_align:
         # large-K i1 weights pad to 4*640 = 2560 multiples, as the JAX
         # converter does, so checkpoints keep the same byte layout
-        k_align *= 4
-    return _round_up(k, k_align)
+        k_mult = 4 * k_align
+    return _round_up(k, max(k_align, k_mult or k_align))
 
 
 def pack_ternary(
@@ -96,23 +97,32 @@ def pack_ternary(
     scale=1.0,
     fmt: Format = "i2",
     kb: int | None = None,
+    k_mult: int | None = None,
+    n_mult: int | None = None,
+    use_native: bool = False,
 ) -> TernaryTensor:
     """Pack a {-1, 0, +1} (K, N) matrix (numpy or torch) into a TernaryTensor.
 
     Byte-identical to the JAX package's ``pack_ternary``; padding trits are
-    zero.  The packed tensor lies on the trits' device (CPU for numpy).
+    zero.  ``k_mult`` / ``n_mult`` pad K / N to multiples of them too (a
+    tensor-parallel split of the packed array: tp * kb, tp * 128).  The
+    packed tensor lies on the trits' device (CPU for numpy).
+    ``use_native`` packs host trits by the C++ library
+    (``convert/native.py``); trits on a GPU raise ``ValueError`` there.
     """
-    t_in = torch.as_tensor(np.asarray(trits) if not torch.is_tensor(trits)
-                           else trits)
-    if t_in.dim() != 2:
-        raise ValueError(f"expected 2-D (K, N) trits, got {tuple(t_in.shape)}")
     r = TRITS_PER_BYTE[fmt]
     kb = kb or DEFAULT_BLOCK[fmt]
     if kb % r:
         raise ValueError(f"kb={kb} must be divisible by {r} for fmt={fmt}")
+    if use_native:
+        return _pack_native(trits, scale, fmt, kb, k_mult, n_mult)
+    t_in = torch.as_tensor(np.asarray(trits) if not torch.is_tensor(trits)
+                           else trits)
+    if t_in.dim() != 2:
+        raise ValueError(f"expected 2-D (K, N) trits, got {tuple(t_in.shape)}")
     k, n = t_in.shape
-    kp = padded_k(k, fmt, kb)
-    npad = _round_up(n, LANES)
+    kp = padded_k(k, fmt, kb, k_mult)
+    npad = _round_up(n, max(LANES, n_mult or LANES))
     t = torch.zeros((kp, npad), dtype=torch.int16, device=t_in.device)
     t[:k, :n] = t_in.to(torch.int16)
     if not bool(((t >= -1) & (t <= 1)).all()):
@@ -128,6 +138,32 @@ def pack_ternary(
                               dtype=torch.float32, device=packed.device)
     return TernaryTensor(packed=packed, scale=scale_t, k=k, n=n, fmt=fmt,
                          kb=kb)
+
+
+def _pack_native(trits, scale, fmt, kb, k_mult, n_mult) -> TernaryTensor:
+    """pack_ternary on the host by the C++ library: numpy padding, then
+    ``native.pack``; CPU tensors out."""
+    from vlut_tpu_torch.convert import native
+
+    if torch.is_tensor(trits):
+        if trits.device.type != "cpu":
+            raise ValueError("use_native packs host trits; got trits on "
+                             f"{trits.device} (pack them there by torch)")
+        trits = trits.numpy()
+    a = np.asarray(trits)
+    if a.ndim != 2:
+        raise ValueError(f"expected 2-D (K, N) trits, got {a.shape}")
+    if not ((a >= -1) & (a <= 1)).all():
+        raise ValueError("trits must be in {-1, 0, +1}")
+    k, n = a.shape
+    t = np.zeros((padded_k(k, fmt, kb, k_mult),
+                  _round_up(n, max(LANES, n_mult or LANES))), np.int8)
+    t[:k, :n] = a
+    scale_t = torch.as_tensor(np.asarray(scale, dtype=np.float32)
+                              if not torch.is_tensor(scale) else scale,
+                              dtype=torch.float32, device="cpu")
+    return TernaryTensor(packed=torch.from_numpy(native.pack(t, fmt, kb)),
+                         scale=scale_t, k=k, n=n, fmt=fmt, kb=kb)
 
 
 def random_packed_bytes(shape, fmt: str, gen: torch.Generator,
